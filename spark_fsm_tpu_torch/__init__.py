@@ -1,0 +1,24 @@
+"""PyTorch/CUDA port of ``spark_fsm_tpu`` (the JAX package is the reference).
+
+The layout mirrors the reference package, so each module has a
+counterpart of the same name there, and each module's docstring names
+the file it ports.  The port imports ``torch`` and numpy, never ``jax``
+and nothing of ``spark_fsm_tpu``: the framework-free modules it needs
+(``data/*``, ``utils/canonical.py``, ``ops/bitops_np.py``,
+``models/oracle.py``) are kept here as copies.
+
+Bitmaps live as ``torch.int32`` tensors holding the same bits as the
+reference's ``uint32`` arrays (``arr.view(np.int32)`` in,
+``.view(np.uint32)`` out).  Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``; without CUDA they raise instead of falling back.
+"""
+
+from spark_fsm_tpu_torch.data.spmf import SequenceDB, load_spmf, parse_spmf
+from spark_fsm_tpu_torch.data.vertical import VerticalDB, abs_minsup, build_vertical
+from spark_fsm_tpu_torch.models.spade import SpadeTorch, mine_spade_torch
+
+__all__ = [
+    "SequenceDB", "load_spmf", "parse_spmf",
+    "VerticalDB", "abs_minsup", "build_vertical",
+    "SpadeTorch", "mine_spade_torch",
+]

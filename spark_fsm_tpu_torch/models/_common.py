@@ -1,0 +1,176 @@
+"""Shared host-side machinery for the batched-DFS engines — port of
+``spark_fsm_tpu/models/_common.py``.
+
+A device-resident bitmap store addressed by slot, a host DFS stack,
+recompute-on-miss, and reclaim-from-stack-bottom when the pool runs dry.
+``FrontierNode``, ``encode_frontier``, ``decode_frontier`` and
+``load_checkpoint`` are byte-for-byte copies of the reference's, so a
+frontier snapshot taken by either package resumes in the other.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from spark_fsm_tpu_torch.ops import pair_support as PS
+
+
+@dataclasses.dataclass
+class FrontierNode:
+    """DFS frontier node — the ONE shape `encode_frontier` serializes.
+    Shared by every SPADE engine (classic, constrained, queue) so their
+    snapshots interchange byte-for-byte: ``steps`` is the extension path
+    in dense item indices, ``slot`` the device bitmap slot (None =
+    rebuild on demand), ``s_list``/``i_list`` the surviving s-/i-
+    extension candidate items."""
+
+    steps: Tuple[Tuple[int, bool], ...]
+    slot: object
+    s_list: list
+    i_list: list
+
+
+def encode_frontier(fingerprint: dict, stack, results,
+                    results_from: int = 0) -> dict:
+    """JSON-able DFS snapshot shared by both SPADE engines (and persisted
+    verbatim by the service's StoreCheckpoint): unexplored nodes by their
+    extension paths — device state is rebuilt by each engine's
+    recompute-on-miss machinery on resume — plus the results emitted since
+    ``results_from`` (results are append-only during a mine, so periodic
+    checkpoints serialize only the delta)."""
+    return {
+        "version": 1,
+        "fingerprint": fingerprint,
+        "stack": [{"steps": [[int(i), int(s)] for i, s in n.steps],
+                   "s": [int(x) for x in n.s_list],
+                   "i": [int(x) for x in n.i_list]} for n in stack],
+        "results_done": int(results_from),
+        "results": [[[list(map(int, s)) for s in pat], int(sup)]
+                    for pat, sup in results[results_from:]],
+    }
+
+
+def decode_frontier(resume: dict, fingerprint: dict, node_cls):
+    """Inverse of encode_frontier; refuses a snapshot whose fingerprint
+    does not match this engine's (node steps hold dense item indices that
+    are only meaningful for the exact same projection + parameters)."""
+    fp = resume.get("fingerprint")
+    if fp != fingerprint:
+        raise ValueError(
+            "frontier checkpoint does not match this engine's (vdb, "
+            f"parameters); checkpointed {fp}, engine {fingerprint}")
+    results = [
+        (tuple(tuple(int(i) for i in s) for s in pat), int(sup))
+        for pat, sup in resume["results"]]
+    nodes = [
+        node_cls(tuple((int(i), bool(s)) for i, s in n["steps"]),
+                 None,  # state rebuilt on demand (recompute-on-miss)
+                 [int(x) for x in n["s"]], [int(x) for x in n["i"]])
+        for n in resume["stack"]]
+    return results, nodes
+
+
+def load_checkpoint(checkpoint, fingerprint: dict):
+    """Wrapper-side plumbing: ``(resume, save_cb, every_s)`` from an
+    optional checkpoint object; a stale/mismatched snapshot is ignored
+    (the mine restarts fresh) rather than refused."""
+    if checkpoint is None:
+        return None, None, 30.0
+    resume = checkpoint.load()
+    if resume is not None and resume.get("fingerprint") != fingerprint:
+        resume = None
+    return resume, checkpoint.save, getattr(checkpoint, "every_s", 30.0)
+
+
+def scatter_build_store(vdb, n_rows: int, n_seq: int, n_words: int,
+                        device: torch.device) -> torch.Tensor:
+    """Scatter-build the flat ``[n_rows, n_seq * n_words]`` int32 bitmap
+    store (word minor) on ``device`` from the vertical DB's token table;
+    the dense store never exists on the host.  Item rows land in slots
+    ``tok_item``; the other rows start zeroed.  The tokens are distinct
+    bits, so the int32 accumulate is an OR — and it wraps through bit 31
+    exactly as the reference's uint32 ``.at[].add`` does."""
+    if len(vdb.tok_item) and (int(vdb.tok_item.max()) >= n_rows
+                              or int(vdb.tok_seq.max()) >= n_seq):
+        raise ValueError("token table reaches past the store's rows/sequences")
+    flat = torch.zeros(n_rows * n_seq * n_words, dtype=torch.int32,
+                       device=device)
+    idx = ((vdb.tok_item.astype(np.int64) * n_seq + vdb.tok_seq) * n_words
+           + vdb.tok_word)
+    mask = np.ascontiguousarray(vdb.tok_mask, dtype=np.uint32).view(np.int32)
+    flat.index_put_((torch.from_numpy(idx).to(device),),
+                    torch.from_numpy(mask).to(device), accumulate=True)
+    return flat.view(n_rows, n_seq * n_words)
+
+
+def next_pow2(n: int) -> int:
+    k = 1
+    while k < n:
+        k *= 2
+    return k
+
+
+def device_axes(n_sequences: int) -> int:
+    """The store's sequence axis: ``n_sequences`` padded to the pair
+    kernel's sequence tile.  Padded sequences are all-zero bitmaps and
+    count nothing; the kernel masks ragged item and parent rows itself."""
+    return -(-int(n_sequences) // PS.SEQ_TILE) * PS.SEQ_TILE
+
+
+def launch_width_cap(pool_bytes: int, slot_bytes: int, floor: int) -> int:
+    """Memory-safety ceiling on per-launch candidate widths: a
+    join/materialize launch builds a ``[width, slot]`` tensor, so the width
+    caps at the slots-worth that fits ~1/8 of the pool budget, floored to
+    a power of two; ``floor`` guards against degenerate zero widths."""
+    return max(int(floor), next_pow2(
+        (int(pool_bytes) // 8) // max(int(slot_bytes), 1) + 1) // 2)
+
+
+def device_hbm_budget(device: torch.device) -> int:
+    """Usable device memory for engine working sets: 95% of the card's
+    memory (``torch.cuda.mem_get_info``), or 4 GiB on the CPU."""
+    if device.type == "cuda":
+        _, total = torch.cuda.mem_get_info(device)
+        return int(total * 0.95)
+    return 4 << 30
+
+
+def auto_pool_bytes(device: torch.device) -> int:
+    """Default engine pool budget: 35% of the device memory budget, so
+    two engine working sets plus kernel temporaries can coexist."""
+    return int(device_hbm_budget(device) * 0.35)
+
+
+class SlotPool:
+    """Free-list allocator over pool slot ids with stack reclaim.
+
+    ``reclaim`` walks nodes bottom-of-stack-first (processed last, cheapest
+    to recompute later), dropping their slots until ``need`` are free; the
+    caller supplies which nodes are reclaimable (e.g. non-root).
+    """
+
+    def __init__(self, slots: range):
+        self._free: List[int] = list(reversed(slots))
+        self.reclaimed = 0
+
+    def __len__(self) -> int:
+        return len(self._free)
+
+    def alloc(self) -> Optional[int]:
+        return self._free.pop() if self._free else None
+
+    def free(self, slot: int) -> None:
+        self._free.append(slot)
+
+    def reclaim(self, stack, need: int, reclaimable: Callable) -> None:
+        for node in stack:
+            if len(self._free) >= need:
+                return
+            if node.slot is not None and reclaimable(node):
+                self._free.append(node.slot)
+                node.slot = None
+                self.reclaimed += 1

@@ -1,0 +1,488 @@
+"""SPADE classic engine on a CUDA device — port of
+``spark_fsm_tpu/models/spade_tpu.py`` (``classic_geometry``, ``SpadeTPU`` as
+:class:`SpadeTorch`, ``mine_spade_tpu`` as :func:`mine_spade_torch`, and
+``_route_spade``).
+
+- The vertical DB and all live pattern bitmaps sit in one device-resident
+  flat ``store[slot, seq*word]`` int32 tensor (word minor).  Slots
+  ``0..n_items-1`` are the item id-lists (never freed); the rest is a pool
+  for pattern bitmaps.
+- The host DFS pops nodes in batches.  Each batch's parent bitmaps are
+  gathered and interleaved with their s-ext transforms once (prep); every
+  candidate's support then comes from the pair-support kernel
+  (``ops/pair_support.batch_supports``); the host applies the minsup prune
+  and materializes only the surviving children into pool slots.
+- ``pipeline_depth`` batches are in flight at once.  Each batch's supports
+  go to a pinned host tensor with a non-blocking copy and a recorded CUDA
+  event; resolving a batch waits on its event only.  Everything runs on
+  one stream, so device work stays in order, and every read of a pool slot
+  happens in prep (which copies the rows into the batch's own tensor) —
+  that is what makes the in-place materialize safe while later batches
+  are in flight.
+- Memory safety is recompute-on-miss: a child that gets no slot (or whose
+  slot was reclaimed) carries its extension path ``steps``, and its bitmap
+  is rebuilt by folding the joins from the item id-lists — bit-exact.
+
+Enumeration is identical to the CPU oracle, so the output pattern set is
+byte-identical by construction.  Not ported: the queue and dense engines,
+meshes, partitioned mining and shape-key registration (ROADMAP Queue A).
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from spark_fsm_tpu_torch.data.spmf import SequenceDB
+from spark_fsm_tpu_torch.data.vertical import VerticalDB, build_vertical
+from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
+from spark_fsm_tpu_torch.models._common import (
+    FrontierNode, SlotPool, auto_pool_bytes, decode_frontier, device_axes,
+    encode_frontier, launch_width_cap, load_checkpoint, scatter_build_store)
+from spark_fsm_tpu_torch.ops import bitops_torch as B
+from spark_fsm_tpu_torch.ops import pair_support as PS
+from spark_fsm_tpu_torch.utils.canonical import Pattern, PatternResult, sort_patterns
+
+Step = Tuple[int, bool]  # (item index, is_s_extension)
+
+_Node = FrontierNode
+
+
+def classic_geometry(n_sequences: int, n_items: int, n_words: int, *,
+                     device: Optional[torch.device] = None,
+                     chunk: int = 2048, node_batch: int = 1024,
+                     pipeline_depth: int = 4, recompute_chunk: int = 256,
+                     pool_bytes: Optional[int] = None) -> dict:
+    """Derived device geometry of a :class:`SpadeTorch`; pure host
+    arithmetic.  ``device`` sizes the default pool budget and may be None
+    only when ``pool_bytes`` is given.
+
+    The budget covers the slot pool plus the in-flight prep tensors, and
+    node_batch is bounded so pipeline_depth in-flight batches can never
+    starve a recompute: slots held in flight <= depth*nb, so
+    free+stack-reclaimable >= pool - (depth+1)*nb >= nb holds whenever
+    nb <= pool // (depth+2)."""
+    n_seq = device_axes(n_sequences)
+    if pool_bytes is None:
+        pool_bytes = auto_pool_bytes(device)
+    slot_bytes = n_seq * n_words * 4
+    # memory-safety ceiling on launch widths; overrides an explicit chunk
+    max_chunk = launch_width_cap(pool_bytes, slot_bytes, 8)
+    chunk = min(int(chunk), max_chunk)
+    recompute_chunk = min(int(recompute_chunk), max(4, max_chunk // 2))
+    budget_slots = max(64, min(int(pool_bytes) // max(slot_bytes, 1), 32768))
+    pipeline_depth = min(max(1, int(pipeline_depth)),
+                         max(1, budget_slots // 8))
+    d = pipeline_depth
+    nb = max(1, min(int(node_batch), budget_slots // (3 * (d + 2))))
+    pool_slots = max(8, budget_slots - 2 * d * nb)
+    return {
+        "n_seq": n_seq, "chunk": chunk, "recompute_chunk": recompute_chunk,
+        "pipeline_depth": pipeline_depth, "node_batch": nb,
+        "pool_slots": pool_slots, "total_rows": n_items + pool_slots,
+    }
+
+
+class SpadeTorch:
+    """Single-device SPADE miner.
+
+    Args:
+      vdb: vertical DB (build with ``min_item_support=minsup_abs``).
+      minsup_abs: absolute minimum sequence support.
+      device: ``None`` (= CUDA, raising without it) or ``"cpu"``.
+      chunk: candidates per materialize launch.
+      node_batch: DFS nodes popped per host iteration.
+      pipeline_depth: node batches in flight at once.
+      recompute_chunk: nodes rebuilt per recompute launch.
+      pool_bytes: device memory budget for the pattern-bitmap pool.
+      max_pattern_itemsets: optional cap on pattern length in itemsets.
+    """
+
+    def __init__(
+        self,
+        vdb: VerticalDB,
+        minsup_abs: int,
+        *,
+        device: DeviceLike = None,
+        chunk: int = 2048,
+        node_batch: int = 1024,
+        pipeline_depth: int = 4,
+        recompute_chunk: int = 256,
+        pool_bytes: Optional[int] = None,
+        max_pattern_itemsets: Optional[int] = None,
+    ):
+        self.device = resolve_device(device)
+        self.vdb = vdb
+        self.minsup = int(minsup_abs)
+        self.max_pattern_itemsets = max_pattern_itemsets
+        n_items, n_words = vdb.n_items, vdb.n_words
+        g = classic_geometry(
+            vdb.n_sequences, n_items, n_words, device=self.device,
+            chunk=chunk, node_batch=node_batch, pipeline_depth=pipeline_depth,
+            recompute_chunk=recompute_chunk, pool_bytes=pool_bytes)
+        self.n_items, self.n_seq, self.n_words = n_items, g["n_seq"], n_words
+        self.chunk = g["chunk"]
+        self.recompute_chunk = g["recompute_chunk"]
+        self.pipeline_depth = g["pipeline_depth"]
+        self.pool_slots = g["pool_slots"]
+        self.node_batch = g["node_batch"]
+        self.store = scatter_build_store(vdb, g["total_rows"], self.n_seq,
+                                         n_words, self.device)
+        self._pool = SlotPool(range(n_items, n_items + self.pool_slots))
+        self.stats = {
+            "candidates": 0, "kernel_launches": 0, "recomputed_nodes": 0,
+            "reclaimed_slots": 0, "patterns": 0,
+        }
+
+    # ------------------------------------------------------------ helpers
+
+    def _idx(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, dtype=np.int64)).to(self.device)
+
+    def _rows3(self, rows2: torch.Tensor) -> torch.Tensor:
+        return rows2.view(rows2.shape[0], self.n_seq, self.n_words)
+
+    def _alloc(self) -> Optional[int]:
+        return self._pool.alloc()
+
+    def _free_slot(self, slot: Optional[int]) -> None:
+        if slot is not None and slot >= self.n_items:  # item rows never free
+            self._pool.free(slot)
+
+    # ------------------------------------------------------------- kernels
+
+    def _prep(self, batch: List[_Node]) -> torch.Tensor:
+        """Gather + s-ext-transform the popped batch's bitmaps, once.
+
+        Returns the interleaved [2*Bn, S*W] plain/transformed tensor, sized
+        to the live batch (the kernel takes any row count): row ``2*b`` is
+        node b's bitmap, row ``2*b+1`` its s-ext transform."""
+        parents = self._rows3(
+            self.store.index_select(0, self._idx([n.slot for n in batch])))
+        pt = torch.stack([parents, B.sext_transform(parents)], dim=1)
+        self.stats["kernel_launches"] += 1
+        return pt.view(2 * len(batch), -1)
+
+    def _supports_dispatch(self, pt: torch.Tensor, ref: np.ndarray,
+                           item: np.ndarray, iss: np.ndarray):
+        """Dispatch the batch's supports through the pair-support kernel;
+        on CUDA, start the copy into a pinned host tensor and record an
+        event behind it.  Returns ``(supports, event_or_None)``."""
+        self.stats["candidates"] += len(ref)
+        sup = PS.batch_supports(pt, self.store, self.n_items,
+                                self._idx(2 * ref + iss), self._idx(item),
+                                n_words=self.n_words)
+        self.stats["kernel_launches"] += 1
+        if self.device.type != "cuda":
+            return sup, None
+        host = torch.empty(sup.shape, dtype=torch.int32, pin_memory=True)
+        host.copy_(sup, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return host, ev
+
+    def _materialize(self, pt: torch.Tensor, ref: np.ndarray, item: np.ndarray,
+                     iss: np.ndarray, out_slot: np.ndarray) -> None:
+        c = self.chunk
+        for lo in range(0, len(ref), c):
+            hi = lo + c
+            rows = (pt.index_select(0, self._idx(2 * ref[lo:hi] + iss[lo:hi]))
+                    & self.store.index_select(0, self._idx(item[lo:hi])))
+            # in place: store[out_slot] = joined (the reference donated the
+            # store buffer to a functional update instead)
+            self.store.index_copy_(0, self._idx(out_slot[lo:hi]), rows)
+            self.stats["kernel_launches"] += 1
+
+    def _recompute(self, items: np.ndarray, iss: np.ndarray,
+                   valid: np.ndarray, slots: List[int]) -> None:
+        """Rebuild bitmaps by folding joins along the K steps ([K, M]
+        arrays, one column per node) and write them to ``slots``."""
+        it = self._idx(items)
+        ss = torch.as_tensor(iss).to(self.device)
+        vv = torch.as_tensor(valid).to(self.device)
+        bmp = self._rows3(self.store.index_select(0, it[0]))
+        for k in range(1, it.shape[0]):
+            nb = B.join(bmp, self._rows3(self.store.index_select(0, it[k])), ss[k])
+            bmp = torch.where(vv[k][:, None, None], nb, bmp)
+        self.store.index_copy_(0, self._idx(slots), bmp.reshape(len(slots), -1))
+        self.stats["kernel_launches"] += 1
+
+    def _ensure_slots(self, batch: List[_Node], stack: List[_Node]) -> None:
+        """Recompute bitmaps for popped nodes that lost (or never had) a slot."""
+        missing = [n for n in batch if n.slot is None]
+        if not missing:
+            return
+        self.stats["recomputed_nodes"] += len(missing)
+        if len(self._pool) < len(missing):
+            self._pool.reclaim(stack, len(missing),
+                               lambda n: n.slot >= self.n_items)
+            self.stats["reclaimed_slots"] = self._pool.reclaimed
+        for lo in range(0, len(missing), self.recompute_chunk):
+            group = missing[lo: lo + self.recompute_chunk]
+            k = max(len(n.steps) for n in group)
+            items = np.zeros((k, len(group)), np.int64)
+            iss = np.zeros((k, len(group)), bool)
+            valid = np.zeros((k, len(group)), bool)
+            slots = []
+            for col, node in enumerate(group):
+                slot = self._alloc()
+                if slot is None:
+                    raise RuntimeError("slot pool exhausted beyond reclaim")
+                node.slot = slot
+                slots.append(slot)
+                for row, (it, s) in enumerate(node.steps):
+                    items[row, col], iss[row, col], valid[row, col] = it, s, True
+            self._recompute(items, iss, valid, slots)
+
+    # ---------------------------------------------------------------- mine
+
+    def _pattern_of(self, steps: Sequence[Step]) -> Pattern:
+        ids = self.vdb.item_ids
+        pat: List[List[int]] = []
+        for it, is_s in steps:
+            if is_s:
+                pat.append([int(ids[it])])
+            else:
+                pat[-1].append(int(ids[it]))
+        return tuple(tuple(s) for s in pat)
+
+    def _dispatch(self, stack: List[_Node]):
+        """Pop a node batch, dispatch its supports, start the host copy.
+        Returns everything the resolve step needs."""
+        batch = [stack.pop() for _ in range(min(self.node_batch, len(stack)))]
+        self._ensure_slots(batch, stack)
+        pt = self._prep(batch)
+
+        # Flat candidate list for the whole batch (ref = index in batch).
+        cand_item: List[int] = []
+        cand_iss: List[bool] = []
+        cand_ref: List[int] = []
+        spans: List[Tuple[int, int, int]] = []  # (s_lo, s_hi == i_lo, i_hi)
+        for b_idx, node in enumerate(batch):
+            n_itemsets = sum(1 for _, s in node.steps if s)
+            allow_s = (self.max_pattern_itemsets is None
+                       or n_itemsets < self.max_pattern_itemsets)
+            s_lo = len(cand_ref)
+            if allow_s:
+                for i in node.s_list:
+                    cand_ref.append(b_idx); cand_item.append(i); cand_iss.append(True)
+            s_hi = len(cand_ref)
+            for i in node.i_list:
+                cand_ref.append(b_idx); cand_item.append(i); cand_iss.append(False)
+            spans.append((s_lo, s_hi, len(cand_ref)))
+
+        sup, ev = (
+            self._supports_dispatch(pt, np.array(cand_ref, np.int64),
+                                    np.array(cand_item, np.int64),
+                                    np.array(cand_iss, np.int64))
+            if cand_ref else (None, None))
+        return batch, pt, cand_item, cand_iss, spans, sup, ev
+
+    def _resolve(self, inflight, stack: List[_Node],
+                 results: List[PatternResult]) -> None:
+        """Wait for a dispatched batch's supports; prune, materialize
+        surviving children, push them on the DFS stack."""
+        batch, pt, cand_item, cand_iss, spans, sup, ev = inflight
+        minsup = self.minsup
+        if sup is None:
+            sups = np.empty(0, np.int32)
+        else:
+            if ev is not None:
+                ev.synchronize()
+            sups = sup.numpy()
+
+        children: List[_Node] = []
+        mat_ref: List[int] = []; mat_item: List[int] = []
+        mat_iss: List[int] = []; mat_child: List[int] = []
+        for b_idx, (node, (s_lo, s_hi, i_hi)) in enumerate(zip(batch, spans)):
+            n_itemsets = sum(1 for _, s in node.steps if s)
+            s_items = [cand_item[k] for k in range(s_lo, s_hi) if sups[k] >= minsup]
+            i_items = [cand_item[k] for k in range(s_hi, i_hi) if sups[k] >= minsup]
+            for k in range(s_lo, i_hi):
+                if sups[k] < minsup:
+                    continue
+                it, is_s = cand_item[k], cand_iss[k]
+                steps = node.steps + ((it, is_s),)
+                results.append((self._pattern_of(steps), int(sups[k])))
+                src = s_items if is_s else i_items
+                child_i = [j for j in src if j > it]
+                child_itemsets = n_itemsets + (1 if is_s else 0)
+                child_allow_s = (self.max_pattern_itemsets is None
+                                 or child_itemsets < self.max_pattern_itemsets)
+                if not ((s_items and child_allow_s) or child_i):
+                    continue  # leaf: no possible extensions
+                child = _Node(steps, None, s_items, child_i)
+                slot = self._alloc()
+                if slot is not None:
+                    child.slot = slot
+                    mat_ref.append(b_idx); mat_item.append(it)
+                    mat_iss.append(int(is_s)); mat_child.append(slot)
+                children.append(child)
+        if mat_child:
+            self._materialize(pt, np.array(mat_ref, np.int64),
+                              np.array(mat_item, np.int64),
+                              np.array(mat_iss, np.int64),
+                              np.array(mat_child, np.int64))
+        stack.extend(reversed(children))
+        for node in batch:
+            self._free_slot(node.slot)
+
+    def frontier_fingerprint(self) -> dict:
+        """Identity of the (vdb, minsup) a frontier checkpoint binds to —
+        the reference engine's exact fields, so snapshots interchange."""
+        ids = self.vdb.item_ids
+        return {
+            "minsup": self.minsup,
+            "n_items": self.n_items,
+            "n_sequences": self.vdb.n_sequences,
+            "max_itemsets": self.max_pattern_itemsets,  # changes enumeration
+            "item_ids_head": [int(i) for i in ids[:8]],
+            "item_ids_sum": int(ids.astype(np.int64).sum()),
+        }
+
+    def frontier_state(self, stack: List[_Node],
+                       results: List[PatternResult],
+                       results_from: int = 0) -> dict:
+        """Snapshot of a paused DFS (see _common.encode_frontier)."""
+        return encode_frontier(self.frontier_fingerprint(), stack, results,
+                               results_from)
+
+    def mine(self, *, resume: Optional[dict] = None,
+             checkpoint_cb=None,
+             checkpoint_every_s: float = 30.0) -> List[PatternResult]:
+        """Run the DFS; optionally resumable.
+
+        Args:
+          resume: a ``frontier_state`` snapshot (from either package) to
+            continue from; its fingerprint must match this engine's.
+          checkpoint_cb: called with a ``frontier_state`` dict at most
+            every ``checkpoint_every_s`` seconds (the in-flight pipeline is
+            drained first so the snapshot is consistent).
+        """
+        minsup = self.minsup
+        stack: List[_Node] = []
+        results: List[PatternResult]
+        if resume is not None:
+            results, stack = decode_frontier(
+                resume, self.frontier_fingerprint(), _Node)
+            self.stats["resumed_nodes"] = len(stack)
+        else:
+            results = []
+            root_items = [i for i in range(self.n_items)
+                          if int(self.vdb.item_supports[i]) >= minsup]
+            for i in reversed(root_items):
+                results.append((self._pattern_of(((i, True),)),
+                                int(self.vdb.item_supports[i])))
+                stack.append(_Node(((i, True),), i, root_items,
+                                   [j for j in root_items if j > i]))
+
+        # Software-pipelined DFS: up to pipeline_depth batches in flight.
+        # Resolving out of strict DFS order only permutes enumeration order;
+        # the pattern SET is unchanged (canonicalized in sort_patterns).
+        ckpt_done = len(results) if resume is not None else 0
+        last_ckpt = time.monotonic()
+        inflight: deque = deque()
+        while stack or inflight:
+            while stack and len(inflight) < self.pipeline_depth:
+                inflight.append(self._dispatch(stack))
+            self._resolve(inflight.popleft(), stack, results)
+            if (checkpoint_cb is not None
+                    and time.monotonic() - last_ckpt >= checkpoint_every_s):
+                while inflight:  # drain for a consistent frontier
+                    self._resolve(inflight.popleft(), stack, results)
+                checkpoint_cb(self.frontier_state(stack, results,
+                                                  results_from=ckpt_done))
+                ckpt_done = len(results)
+                self.stats["checkpoints"] = self.stats.get("checkpoints", 0) + 1
+                last_ckpt = time.monotonic()
+
+        self.stats["patterns"] = len(results)
+        return sort_patterns(results)
+
+
+_FUSED = ("auto", "always", "never", "queue", "dense")
+
+
+def mine_spade_torch(
+    db: SequenceDB,
+    minsup_abs: int,
+    *,
+    device: DeviceLike = None,
+    mesh=None,
+    max_pattern_itemsets: Optional[int] = None,
+    stats_out: Optional[dict] = None,
+    checkpoint=None,
+    fused: str = "auto",
+    partition_parts: int = 0,
+    **kwargs,
+) -> List[PatternResult]:
+    """DB -> vertical build -> device mine, on ``device`` (default CUDA;
+    raises without it).
+
+    ``checkpoint`` (optional): an object with ``load() -> Optional[dict]``,
+    ``save(state)`` and ``every_s``; a saved frontier (from either
+    package) is resumed when its fingerprint still matches.
+
+    ``fused``: "auto" and "never" run the classic engine (routing never
+    changes the pattern set).  "queue", "dense" and "always", a ``mesh``
+    and ``partition_parts > 1`` are not ported yet and raise
+    ``NotImplementedError``.  ``kwargs`` go to :class:`SpadeTorch`.
+    """
+    dev = resolve_device(device)
+    if fused not in _FUSED:
+        raise ValueError(f"fused must be one of {_FUSED}, got {fused!r}")
+    if fused in ("queue", "always"):
+        raise NotImplementedError(
+            f"fused={fused!r}: the queue engine is not ported yet "
+            "(ROADMAP Queue A item 4)")
+    if fused == "dense":
+        raise NotImplementedError(
+            "fused='dense': the dense engine is not ported yet "
+            "(ROADMAP Queue A item 5)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: multi-GPU sequence sharding is not ported yet "
+            "(ROADMAP Queue A item 6)")
+    if partition_parts and int(partition_parts) > 1:
+        raise NotImplementedError(
+            "partition_parts > 1: class-partitioned mining is not ported "
+            "yet (ROADMAP Queue A item 11)")
+    vdb = build_vertical(db, min_item_support=minsup_abs)
+    if vdb.n_items == 0:
+        return []
+    return _route_spade(vdb, minsup_abs, device=dev,
+                        max_pattern_itemsets=max_pattern_itemsets,
+                        stats_out=stats_out, checkpoint=checkpoint,
+                        fused=fused, **kwargs)
+
+
+def _route_spade(
+    vdb: VerticalDB,
+    minsup_abs: int,
+    *,
+    device: DeviceLike = None,
+    max_pattern_itemsets: Optional[int] = None,
+    stats_out: Optional[dict] = None,
+    checkpoint=None,
+    fused: str = "auto",
+    **kwargs,
+) -> List[PatternResult]:
+    """Engine routing.  Only the classic engine is ported, and it is the
+    engine every reference route ends in, so "auto" and "never" both land
+    here; the routing decision is recorded under ``stats_out["fused"]``."""
+    if fused not in ("auto", "never"):
+        raise NotImplementedError(f"fused={fused!r} is not ported yet")
+    eng = SpadeTorch(vdb, minsup_abs, device=device,
+                     max_pattern_itemsets=max_pattern_itemsets, **kwargs)
+    resume, save_cb, every_s = load_checkpoint(
+        checkpoint, eng.frontier_fingerprint())
+    results = eng.mine(resume=resume, checkpoint_cb=save_cb,
+                       checkpoint_every_s=every_s)
+    if stats_out is not None:
+        stats_out.update(eng.stats)
+        stats_out.setdefault("fused", False)
+    return results

@@ -1,0 +1,114 @@
+"""Where the main path's time goes, on one CUDA card.
+
+    python3 -m spark_fsm_tpu_torch.profile_mine
+
+Mines the BMS-WebView-2-shaped database (full size) at minsup 0.1 % with
+the classic engine and prints one JSON line: the host-clock wall of each
+stage (vertical build, store build, DFS; medians of three warm mines), the
+DFS split into host work and waits on the device, the parent rows (P) of
+each pair-support launch, and a ``torch.profiler`` trace of one more warm
+mine — device busy time by kernel and the device's idle share of the
+mine's wall.
+Needs a CUDA card; raises without one.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import time
+
+REPS = 3
+
+
+def main() -> dict:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_fsm_tpu_torch.data.synth import bms_webview2_like
+    from spark_fsm_tpu_torch.data.vertical import abs_minsup, build_vertical
+    from spark_fsm_tpu_torch.device import resolve_device
+    from spark_fsm_tpu_torch.models import spade as SP
+    from spark_fsm_tpu_torch.ops import pair_support as PS
+
+    dev = resolve_device(None)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    db = bms_webview2_like()
+    minsup = abs_minsup(0.001, len(db))
+    PS._kernel()  # build outside the timed stages
+
+    waits, pair_rows = [], []
+
+    class Timed(SP.SpadeTorch):
+        """The engine with its waits on the device's supports timed and the
+        parent rows (P) of each pair-support launch recorded."""
+
+        def _supports_dispatch(self, pt, ref, item, iss):
+            pair_rows.append(pt.shape[0])
+            return super()._supports_dispatch(pt, ref, item, iss)
+
+        def _resolve(self, inflight, stack, results):
+            ev = inflight[-1]
+            if ev is not None:
+                t0 = time.perf_counter()
+                ev.synchronize()
+                waits.append(time.perf_counter() - t0)
+            return super()._resolve(inflight, stack, results)
+
+    def one_mine():
+        waits.clear()
+        pair_rows.clear()
+        t0 = time.perf_counter()
+        vdb = build_vertical(db, min_item_support=minsup)
+        t1 = time.perf_counter()
+        eng = Timed(vdb, minsup, device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        res = eng.mine()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        return res, eng, {"vertical_s": t1 - t0, "store_s": t2 - t1,
+                          "dfs_s": t3 - t2, "wait_s": sum(waits),
+                          "total_s": t3 - t0}
+
+    one_mine()  # warm-up: CUDA context, caching allocator, pinned host pool
+    runs = [one_mine()[2] for _ in range(REPS)]
+    med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res, eng, prof_stages = one_mine()
+        wall = time.perf_counter() - t0
+    kernels = []
+    busy_us = 0.0
+    for e in prof.key_averages():
+        # device-side events only (kernels, copies): their launching CPU
+        # ops report the same time again
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = e.self_device_time_total
+        if dev_us > 0:
+            busy_us += dev_us
+            kernels.append((dev_us, e.key, e.count))
+    kernels.sort(reverse=True)
+    out = {
+        "card": card, "device": torch.cuda.get_device_name(dev),
+        "sequences": len(db), "minsup": minsup, "patterns": len(res),
+        "stats": eng.stats, "pair_launch_rows": list(pair_rows),
+        "reps": len(runs), "median_s": med,
+        "profiled_wall_s": wall, "profiled_stages_s": prof_stages,
+        "device_busy_s": busy_us / 1e6,
+        "device_idle_share": (1 - busy_us / 1e6 / wall) if busy_us else None,
+        "top_device_ops": [{"name": k[:80], "ms": us / 1e3, "count": c}
+                           for us, k, c in kernels[:10]],
+    }
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

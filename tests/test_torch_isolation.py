@@ -1,0 +1,82 @@
+"""The port stands alone: it imports neither ``jax`` nor anything of the
+``spark_fsm_tpu`` package.
+
+The import check runs in a subprocess, because this test process has
+already imported jax (tests/conftest.py).  There a ``sys.meta_path`` finder
+refuses ``jax`` and ``spark_fsm_tpu`` (the exact package and its
+submodules, not the ``spark_fsm_tpu_torch`` prefix), every port module is
+imported, and a tiny mine runs on the CPU."""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import spark_fsm_tpu_torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "spark_fsm_tpu_torch"
+
+_CHILD = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        for banned in ("jax", "spark_fsm_tpu"):
+            if name == banned or name.startswith(banned + "."):
+                raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import spark_fsm_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+from spark_fsm_tpu_torch import mine_spade_torch, parse_spmf
+from spark_fsm_tpu_torch.models.oracle import mine_spade
+from spark_fsm_tpu_torch.utils.canonical import patterns_text
+db = parse_spmf("1 3 -1 2 -1 2 4 -2\n1 -1 2 -2\n3 -1 2 4 -2\n1 3 -1 4 -2\n")
+assert patterns_text(mine_spade_torch(db, 2, device="cpu")) == patterns_text(mine_spade(db, 2))
+try:
+    import jax  # noqa: F401
+except ImportError:
+    pass
+else:
+    raise SystemExit("the blocker let jax through")
+assert not any(m == "jax" or m.startswith(("jax.", "spark_fsm_tpu."))
+               or m == "spark_fsm_tpu" for m in sys.modules), "leaked import"
+print("IMPORTED", len(names))
+"""
+
+
+def _port_modules():
+    return [m.name for m in pkgutil.walk_packages(
+        spark_fsm_tpu_torch.__path__, "spark_fsm_tpu_torch.")]
+
+
+def test_port_imports_and_mines_with_jax_and_reference_blocked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=str(ROOT),
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert f"IMPORTED {len(_port_modules())}" in proc.stdout
+
+
+def _imported_names(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module
+
+
+def test_no_source_line_imports_jax_or_the_reference():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for name in _imported_names(path):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "spark_fsm_tpu"), (path, name)
