@@ -5,7 +5,8 @@
 
 Phases, one printed line each (any failure raises and exits non-zero):
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
-  2. build every kernel of the main path from ``csrc/`` with nvcc (sm_90a);
+  2. build every kernel from ``csrc/`` with nvcc (sm_90a), one nvcc per
+     source, all started together;
   3. the pair-support kernel against its plain PyTorch version on the card,
      exact equality, W in {1, 2, 3} on ragged shapes, plus the candidate
      extraction of ``batch_supports``;
@@ -16,7 +17,19 @@ Phases, one printed line each (any failure raises and exits non-zero):
   5. the main path at full data size: ``mine_spade_torch`` on a
      BMS-WebView-2-shaped database (77,500 sequences) at minsup 0.1 %,
      byte-identical to the CPU oracle, with the kernel's launches counted;
-  6. a multiword mine (W >= 2) against the oracle.
+  6. a multiword mine (W >= 2) against the oracle;
+  7. the rule-support kernel against its plain PyTorch version on the card,
+     exact equality, W in {1, 2, 3} on ragged shapes, every km of the
+     launch planner's ladder, and unused (-1) slots;
+  8. the rule-support kernel and its plain version timed with CUDA events at
+     the headline launch (C=8192, km=2, M=256, S=990,000, W=1) and at km=1,
+     beside the least time the card could take for the same work;
+  9. the TSR path at full data size: ``mine_tsr_torch`` on a Kosarak-shaped
+     database (990,000 sequences) with k=100, minconf=0.5, max_side=2,
+     byte-identical to the same mine through the plain evaluator, every
+     rule's counts recounted on the host, the kernel's launches counted;
+ 10. the TSR path against the copied CPU oracle (``mine_tsr_cpu``) at 1 %
+     of that size, and on a multiword (W >= 2) database.
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 and prints no result.
@@ -26,6 +39,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -45,6 +59,11 @@ INT32_OPS_PER_S = 67e12 / 4
 # plain and s-ext-transformed rows)
 HEADLINE = (2048, 360, 77504, 1)
 MAIN_LAUNCH = (720, 360, 77504, 1)
+# (C, km, M, S, W) of the timed rule-support launches: the TSR path's
+# headline launch (8192 candidates at km = 2 over the top 256 items of the
+# Kosarak-shaped database) and the same launch at km = 1
+RULE_HEADLINE = (8192, 2, 256, 990000, 1)
+RULE_KM1 = (8192, 1, 256, 990000, 1)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -81,6 +100,116 @@ def pair_bound_ms(P: int, NI: int, S: int, W: int):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
+def rule_ops_per_seq(km: int, W: int) -> int:
+    """Fewest int32 operations one candidate needs per sequence.  A
+    three-input LOP3 combines three words (n words take ceil((n-1)/2) of
+    them) and can set the nonzero predicate of its result in the same
+    instruction (the compiled body has LOP3s that write a register and a
+    predicate at once).  One word: the X fold, whose last LOP3 also tests
+    A (a lone test when km = 1); one shift; the Y fold ANDed with the
+    shifted A, km + 1 words, whose last LOP3 tests sup; two predicated
+    adds.  W words: each word's X fold; the W A-words ORed, the last LOP3
+    testing A; a funnel shift a word; the first word's Y fold with the
+    shifted A, and each later word's with the shifted A and the running
+    hit (km + 2 words), the last LOP3 testing sup; two predicated adds."""
+    def lop3s(n: int) -> int:
+        return -(-(n - 1) // 2)
+
+    if W == 1:
+        return max(1, lop3s(km)) + 1 + lop3s(km + 1) + 2
+    x = W * lop3s(km) + lop3s(W)
+    y = lop3s(km + 1) + (W - 1) * lop3s(km + 2)
+    return x + W + y + 2
+
+
+def rule_bound_ms(C: int, km: int, M: int, S: int, W: int):
+    """Least time for one rule-support launch: both prep stores (M + 1 rows
+    each) read once, the candidates read and the [2, C] counts written
+    once, against ``rule_ops_per_seq`` operations per candidate and
+    sequence."""
+    nbytes = 2 * (M + 1) * S * W * 4 + C * 2 * km * 4 + 2 * C * 4
+    ops = C * S * rule_ops_per_seq(km, W)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def rule_operands(dev, seed: int, C: int, km: int, M: int, S: int, W: int):
+    """Seeded device operands of one rule-support launch: prefix/suffix
+    stores [M+1, S*W] with the all-ones pad row M, and [C, 2, km]
+    candidates of 1..km distinct rows a side (-1 in the unused slots)."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def store():
+        w = torch.randint(-2**31, 2**31 - 1, (M + 1, S * W), dtype=torch.int32,
+                          device=dev, generator=g)
+        for _ in range(2):
+            w &= torch.randint(-2**31, 2**31 - 1, w.shape, dtype=torch.int32,
+                               device=dev, generator=g)
+        w[M] = -1
+        return w
+
+    rng = np.random.default_rng(seed)
+    xy = np.full((C, 2, km), -1, np.int32)
+    sizes = rng.integers(1, km + 1, (C, 2))
+    for c in range(C):
+        picks = rng.choice(M, sizes[c].sum(), replace=False)
+        xy[c, 0, :sizes[c, 0]] = picks[:sizes[c, 0]]
+        xy[c, 1, :sizes[c, 1]] = picks[sizes[c, 0]:]
+    return store(), store(), torch.from_numpy(xy).to(dev)
+
+
+def recount_rules(vdb, rules):
+    """Every rule's (sup, supx) recounted on the host from the token table,
+    by first and last positions per sequence: X => Y holds in a sequence
+    iff max over x of first(x) < min over y of last(y).  Independent of
+    the bitmaps, the prep and both evaluators."""
+    S = vdb.n_sequences
+    pos = vdb.tok_word.astype(np.int64) * 32 + np.log2(
+        vdb.tok_mask.astype(np.float64)).astype(np.int64)
+    starts = np.searchsorted(vdb.tok_item, np.arange(vdb.n_items + 1))
+    first, last = {}, {}
+    for item in {i for x, y, _, _ in rules for i in x + y}:
+        k = int(np.searchsorted(vdb.item_ids, item))
+        lo, hi = starts[k], starts[k + 1]
+        seq, p = vdb.tok_seq[lo:hi], pos[lo:hi]   # sorted by (seq, pos)
+        useq, fi = np.unique(seq, return_index=True)
+        li = np.append(fi[1:], len(seq)) - 1      # each run's last token
+        f = np.full(S, np.iinfo(np.int64).max)
+        f[useq] = p[fi]
+        lst = np.full(S, -1)
+        lst[useq] = p[li]
+        first[item], last[item] = f, lst
+    out = []
+    for x, y, _, _ in rules:
+        fx = np.max([first[i] for i in x], axis=0)
+        ly = np.min([last[j] for j in y], axis=0)
+        has_x = fx < np.iinfo(np.int64).max
+        out.append((x, y, int(np.count_nonzero(has_x & (fx < ly))),
+                    int(np.count_nonzero(has_x))))
+    return out
+
+
+def ptxas_usage(log: str) -> list:
+    """One entry per compiled kernel from a ``-Xptxas -v`` build log: its
+    template arguments, registers and spills."""
+    out, name = [], "?"
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)I(\w*?)EEv",
+                      ln)
+        if m:
+            name = f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m.group(2) + 'E'))}>"
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            out.append(f"{name}: {regs} registers, {spill}")
+    return out
+
+
 def time_ms(fn, warmup: int, reps: int) -> float:
     import torch
 
@@ -105,13 +234,20 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
-    from spark_fsm_tpu_torch.data.synth import bms_webview2_like, synthetic_db
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spark_fsm_tpu_torch.data.synth import (
+        bms_webview2_like, kosarak_like, synthetic_db)
     from spark_fsm_tpu_torch.data.vertical import abs_minsup, build_vertical
     from spark_fsm_tpu_torch.models.oracle import mine_spade
     from spark_fsm_tpu_torch.models.spade import mine_spade_torch
+    from spark_fsm_tpu_torch.models.tsr import mine_tsr_cpu, mine_tsr_torch
     from spark_fsm_tpu_torch.ops import _build
     from spark_fsm_tpu_torch.ops import pair_support as PS
-    from spark_fsm_tpu_torch.utils.canonical import diff_patterns, patterns_text
+    from spark_fsm_tpu_torch.ops import ragged_batch as RB
+    from spark_fsm_tpu_torch.ops import rule_support as RS
+    from spark_fsm_tpu_torch.utils.canonical import (
+        diff_patterns, patterns_text, rules_text)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -123,17 +259,20 @@ def main() -> int:
     print(f"[card] nvidia-smi: {card} | torch: {kind} x{count} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    # 2. build (one nvcc per source; this slice has one kernel)
+    # 2. build: one nvcc per source, all started together
+    sources = ("pair_support", "rule_support")
     t0 = time.perf_counter()
-    lib_path = _build.build("pair_support")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(_build.build, sources))
     PS._kernel()
+    RS._kernel()
     build_s = time.perf_counter() - t0
-    usage = [ln.split("ptxas info    :")[-1].strip()
-             for ln in _build.build_log("pair_support").splitlines()
-             if "registers" in ln]
-    check(bool(usage), "the build printed no ptxas register report")
-    print(f"[build] pair_support.cu -> {os.path.basename(lib_path)} in "
-          f"{build_s:.3f} s; ptxas: {usage}", flush=True)
+    for name, lib_path in zip(sources, libs):
+        usage = ptxas_usage(_build.build_log(name))
+        check(bool(usage), f"the {name} build printed no ptxas report")
+        print(f"[build] {name}.cu -> {os.path.basename(lib_path)}; ptxas: "
+              f"{'; '.join(usage)}", flush=True)
+    print(f"[build] {len(sources)} sources in {build_s:.3f} s", flush=True)
 
     # 3. kernel == plain version, exactly, on ragged shapes
     rng = np.random.default_rng(0)
@@ -237,13 +376,140 @@ def main() -> int:
           f"byte-identical to the oracle, pair-support launches {mw_launches}",
           flush=True)
 
-    print(json.dumps({"kernels": [{
+    pair_record = {
         "name": "pair_support", "route": "cuda",
         "source": "spark_fsm_tpu_torch/csrc/pair_support.cu",
         "replaces": "spark_fsm_tpu/ops/pallas_support.py:202",
         "launches": launches, "max_abs_err": worst,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
+    }
+    del db, got, want, vdb
+    torch.cuda.empty_cache()
+
+    # 7. rule-support kernel == plain version, exactly
+    rworst = 0
+    shapes = [(C, km, 24, S, W) for (C, S, W) in ((77, 1001, 1), (130, 517, 2),
+                                                   (257, 4099, 3))
+              for km in RB.KM_LADDER] + [(200, 3, 24, 2500, 1),
+                                         RULE_KM1, RULE_HEADLINE]
+    for i, (C, km, M, S, W) in enumerate(shapes):
+        p1, s1, xy = rule_operands(dev, 100 + i, C, km, M, S, W)
+        if i == 0:
+            xy[: C // 2, 0] = -1        # all of one side unused: the pad row
+        elif i == 1:
+            xy[: C // 2, 1] = -1
+        got_r = RS.rule_supports(p1, s1, xy, n_words=W)
+        want_r = RS.rule_supports_plain(p1, s1, xy, n_words=W)
+        torch.cuda.synchronize()
+        err = int((got_r.long() - want_r.long()).abs().max())
+        check(err == 0, f"rule_supports != plain at C={C} km={km} M={M} "
+              f"S={S} W={W} (max abs err {err})")
+        rworst = max(rworst, err)
+        print(f"[check] rule_supports C={C} km={km} M={M} S={S} W={W}: "
+              f"equal to plain (max abs err {err})", flush=True)
+        del p1, s1, xy, got_r, want_r
+    torch.cuda.empty_cache()
+
+    # 8. timing at the headline launch and at km = 1; the kernels line
+    # reports the headline launch, timed last
+    for i, shape in enumerate((RULE_KM1, RULE_HEADLINE)):
+        C, km, M, S, W = shape
+        p1, s1, xy = rule_operands(dev, 200 + i, C, km, M, S, W)
+        rms = time_ms(lambda: RS.rule_supports(p1, s1, xy, n_words=W), 2, 10)
+        rplain_ms = time_ms(
+            lambda: RS.rule_supports_plain(p1, s1, xy, n_words=W), 1, 3)
+        rbound_ms, rbound_by = rule_bound_ms(C, km, M, S, W)
+        clocks = smi("clocks.sm,power.draw,temperature.gpu")
+        print(f"[time] rule_supports C={C} km={km} M={M} S={S} W={W}: kernel "
+              f"{rms:.4f} ms, plain {rplain_ms:.4f} ms, bound {rbound_ms:.4f} "
+              f"ms ({rbound_by}, {100 * rbound_ms / rms:.1f} % of it "
+              f"reached), library: none (no single PyTorch call folds row "
+              f"ANDs, shifts with a carry and counts 'any' per sequence); "
+              f"after timing nvidia-smi sm clock, power, temp: {clocks}",
+              flush=True)
+        del p1, s1, xy
+    torch.cuda.empty_cache()
+
+    # 9. the TSR path at full data size
+    t0 = time.perf_counter()
+    db = kosarak_like(scale=1.0, fast=True)
+    gen_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    RS.rule_supports.launches = 0
+    tstats: dict = {}
+    t0 = time.perf_counter()
+    rules = mine_tsr_torch(db, 100, 0.5, max_side=2, stats_out=tstats)
+    torch.cuda.synchronize()
+    tcold_s = time.perf_counter() - t0
+    rlaunches = RS.rule_supports.launches
+    tpeak = torch.cuda.max_memory_allocated()
+    check(rlaunches > 0, "the TSR path launched the rule-support kernel 0 times")
+    check(len(rules) >= 100, f"the TSR mine returned {len(rules)} < k rules")
+    t0 = time.perf_counter()
+    rules_warm = mine_tsr_torch(db, 100, 0.5, max_side=2)
+    torch.cuda.synchronize()
+    twarm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pstats: dict = {}
+    rules_plain = mine_tsr_torch(db, 100, 0.5, max_side=2, use_kernel=False,
+                                 stats_out=pstats)
+    torch.cuda.synchronize()
+    tplain_s = time.perf_counter() - t0
+    text = rules_text(rules)
+    check(rules_text(rules_warm) == text, "warm TSR mine differs from cold")
+    check(rules_text(rules_plain) == text,
+          "TSR mine through the kernel differs from the plain evaluator's")
+    t0 = time.perf_counter()
+    vdb = build_vertical(db, min_item_support=1)
+    recount = recount_rules(vdb, rules)
+    recount_s = time.perf_counter() - t0
+    bad = [(r, c) for r, c in zip(rules, recount) if r != c]
+    check(not bad, f"host recount disagrees on {len(bad)} rules, e.g. {bad[:3]}")
+    km_stats = {k: v for k, v in tstats.items()
+                if k.startswith(("launches_km", "evaluated_km", "width_km"))}
+    print(f"[mine] kosarak_like: {len(db)} sequences, {vdb.n_items} items, "
+          f"W={vdb.n_words}, k=100 minconf=0.5 max_side=2: {len(rules)} rules "
+          f"byte-identical to the plain evaluator's mine and to the host "
+          f"recount; cold {tcold_s:.3f} s, warm {twarm_s:.3f} s, plain "
+          f"route {tplain_s:.3f} s; rule-support launches {rlaunches}, "
+          f"evaluated {tstats['evaluated']}, pruned_conf "
+          f"{tstats['pruned_conf']}, deepening_rounds "
+          f"{tstats['deepening_rounds']}, {km_stats}, plain-route launches "
+          f"{pstats['kernel_launches'] - pstats['deepening_rounds']}; "
+          f"max_memory_allocated {tpeak} B; host: generator {gen_s:.1f} s, "
+          f"recount {recount_s:.1f} s", flush=True)
+    del db, rules, rules_warm, rules_plain, vdb
+    torch.cuda.empty_cache()
+
+    # 10. the TSR path against the copied CPU oracle
+    for name, db, k, minconf, side in (
+            ("kosarak_like(scale=0.01)", kosarak_like(scale=0.01, fast=True),
+             100, 0.5, 2),
+            ("multiword synthetic_db(seed=8)",
+             synthetic_db(seed=8, n_sequences=120, n_items=12,
+                          mean_itemsets=40.0, max_itemsets=80), 10, 0.3, 3)):
+        n_words = build_vertical(db, min_item_support=1).n_words
+        before = RS.rule_supports.launches
+        got_t = mine_tsr_torch(db, k, minconf, max_side=side)
+        torch.cuda.synchronize()
+        n_l = RS.rule_supports.launches - before
+        want_t = mine_tsr_cpu(db, k, minconf, max_side=side)
+        check(rules_text(got_t) == rules_text(want_t),
+              f"TSR mine of {name} differs from mine_tsr_cpu")
+        check(n_l > 0, f"the TSR mine of {name} launched the kernel 0 times")
+        print(f"[mine] {name}: W={n_words}, {len(got_t)} rules byte-identical "
+              f"to mine_tsr_cpu, rule-support launches {n_l}", flush=True)
+    check(n_words >= 2, f"the multiword TSR fixture has W={n_words}")
+
+    print(json.dumps({"kernels": [pair_record, {
+        "name": "rule_support", "route": "cuda",
+        "source": "spark_fsm_tpu_torch/csrc/rule_support.cu",
+        "replaces": "spark_fsm_tpu/ops/pallas_tsr.py:145",
+        "launches": rlaunches, "max_abs_err": rworst,
+        "ms": rms, "plain_ms": rplain_ms, "bound_ms": rbound_ms,
+        "bound_by": rbound_by, "library_ms": None,
     }]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -16,9 +16,11 @@ passes ``device="cpu"``; without CUDA they raise instead of falling back.
 from spark_fsm_tpu_torch.data.spmf import SequenceDB, load_spmf, parse_spmf
 from spark_fsm_tpu_torch.data.vertical import VerticalDB, abs_minsup, build_vertical
 from spark_fsm_tpu_torch.models.spade import SpadeTorch, mine_spade_torch
+from spark_fsm_tpu_torch.models.tsr import TsrTorch, mine_tsr_torch
 
 __all__ = [
     "SequenceDB", "load_spmf", "parse_spmf",
     "VerticalDB", "abs_minsup", "build_vertical",
     "SpadeTorch", "mine_spade_torch",
+    "TsrTorch", "mine_tsr_torch",
 ]

@@ -6,8 +6,12 @@ DFS frontier snapshot.
   port keeps the same bits as int32.  :func:`store_from_numpy` and
   :func:`store_to_numpy` convert between the reference's store (as a
   numpy array) and the port's tensor, bit for bit.
+- TSR's prefix/suffix-OR rows: the reference keeps them as ``[m, S, W]``
+  uint32 arrays; the port keeps flat ``[m+1, S*W]`` int32 stores with the
+  all-ones pad row last.  :func:`tsr_prep_from_numpy` converts.
 - The frontier snapshot is a JSON-able dict in the same format in both
-  packages (``models/_common.encode_frontier``), shared as is.
+  packages (``models/_common.encode_frontier`` for SPADE,
+  ``models/tsr.TsrTorch.frontier_state`` for TSR), shared as is.
 """
 
 from __future__ import annotations
@@ -36,3 +40,21 @@ def store_to_numpy(store: torch.Tensor) -> np.ndarray:
     if store.dtype != torch.int32:
         raise ValueError(f"expected an int32 store, got {store.dtype}")
     return store.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def tsr_prep_from_numpy(p: np.ndarray, s: np.ndarray,
+                        device: DeviceLike = None):
+    """The reference's TSR preps (``[m, S, W]`` uint32 prefix- and
+    suffix-OR rows) -> the port's ``(p1, s1)``: flat ``[m+1, S*W]`` int32
+    tensors on ``device`` (default CUDA) with the all-ones pad row
+    appended."""
+    out = []
+    for arr in (p, s):
+        arr = np.asarray(arr)
+        if arr.dtype != np.uint32 or arr.ndim != 3:
+            raise ValueError(f"expected [m, S, W] uint32 rows, got "
+                             f"{arr.dtype} {arr.shape}")
+        pad = np.full((1, arr.shape[1] * arr.shape[2]), 0xFFFFFFFF, np.uint32)
+        out.append(store_from_numpy(
+            np.concatenate([arr.reshape(arr.shape[0], -1), pad]), device))
+    return out[0], out[1]

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from spark_fsm_tpu_torch.ops import pair_support as PS
+from spark_fsm_tpu_torch.ops.ragged_batch import next_pow2
 
 
 @dataclasses.dataclass
@@ -91,27 +92,28 @@ def scatter_build_store(vdb, n_rows: int, n_seq: int, n_words: int,
     """Scatter-build the flat ``[n_rows, n_seq * n_words]`` int32 bitmap
     store (word minor) on ``device`` from the vertical DB's token table;
     the dense store never exists on the host.  Item rows land in slots
-    ``tok_item``; the other rows start zeroed.  The tokens are distinct
-    bits, so the int32 accumulate is an OR — and it wraps through bit 31
-    exactly as the reference's uint32 ``.at[].add`` does."""
-    if len(vdb.tok_item) and (int(vdb.tok_item.max()) >= n_rows
-                              or int(vdb.tok_seq.max()) >= n_seq):
+    ``tok_item``; the other rows start zeroed."""
+    return scatter_tokens(vdb.tok_item, vdb.tok_seq, vdb.tok_word,
+                          vdb.tok_mask, n_rows, n_seq, n_words, device)
+
+
+def scatter_tokens(ti: np.ndarray, ts: np.ndarray, tw: np.ndarray,
+                   tm: np.ndarray, n_rows: int, n_seq: int, n_words: int,
+                   device: torch.device) -> torch.Tensor:
+    """Scatter a token table (row, sequence, word, bit mask) into a zeroed
+    flat ``[n_rows, n_seq * n_words]`` int32 store on ``device``.  The
+    tokens are distinct bits, so the int32 accumulate is an OR — and it
+    wraps through bit 31 exactly as the reference's uint32 ``.at[].add``
+    does."""
+    if len(ti) and (int(ti.max()) >= n_rows or int(ts.max()) >= n_seq):
         raise ValueError("token table reaches past the store's rows/sequences")
     flat = torch.zeros(n_rows * n_seq * n_words, dtype=torch.int32,
                        device=device)
-    idx = ((vdb.tok_item.astype(np.int64) * n_seq + vdb.tok_seq) * n_words
-           + vdb.tok_word)
-    mask = np.ascontiguousarray(vdb.tok_mask, dtype=np.uint32).view(np.int32)
+    idx = (ti.astype(np.int64) * n_seq + ts) * n_words + tw
+    mask = np.ascontiguousarray(tm, dtype=np.uint32).view(np.int32)
     flat.index_put_((torch.from_numpy(idx).to(device),),
                     torch.from_numpy(mask).to(device), accumulate=True)
     return flat.view(n_rows, n_seq * n_words)
-
-
-def next_pow2(n: int) -> int:
-    k = 1
-    while k < n:
-        k *= 2
-    return k
 
 
 def device_axes(n_sequences: int) -> int:

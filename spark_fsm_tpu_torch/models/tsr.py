@@ -1,0 +1,760 @@
+"""TSR — top-k sequential rules (TopSeqRules) on a CUDA device — port of
+``spark_fsm_tpu/models/tsr.py`` (``conf_ok``, ``rule_counts_direct``,
+``brute_force_rules``, ``TsrTPU``'s host-loop route as :class:`TsrTorch`,
+``TsrCPU``, ``mine_tsr_tpu`` as :func:`mine_tsr_torch`, ``mine_tsr_cpu``).
+
+Semantics: a rule X ==> Y (X, Y disjoint itemsets) occurs in a sequence iff
+every item of X occurs strictly before every item of Y, i.e.
+max_x first(x) < min_y last(y).  sup(X=>Y) counts such sequences and
+conf = sup(X=>Y) / sup(X).  The miner returns the top-k rules by support
+among those with conf >= minconf, tie-inclusive, with an internal minsup
+that rises as the top-k fills.
+
+Bitmap form: with A = AND over x in X of prefix_or_incl(id-list(x)) and
+C = AND over y in Y of suffix_or_incl(id-list(y)), the rule holds in a
+sequence iff (shift_up_one(A) & C) != 0, and sup(X) = #sequences with
+A != 0.  Each deepening round scatter-builds the top-m item rows on the
+device, takes their prefix/suffix ORs once, appends the all-ones pad row,
+and evaluates candidate batches with the rule-support kernel
+(``ops/rule_support.py``) in launches planned by ``ops/ragged_batch.py``.
+
+Search (host Python, copied from the reference): best-first
+branch-and-bound over expansions with lazy sibling chains, dynamic-
+threshold (confidence-bound) pruning, up to ``PIPELINE_DEPTH`` dispatches
+in flight, and iterative deepening over the top-m items by support.
+
+Not ported, each raising ``NotImplementedError``: meshes, class-partitioned
+mining, the resident-frontier route (``resident="always"``) and shape
+buckets.  A launch that fails raises: the reference's kernel-to-jnp
+downgrades have no counterpart.
+"""
+
+from __future__ import annotations
+
+import bisect
+import functools
+import heapq
+import itertools
+import time
+from fractions import Fraction
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from spark_fsm_tpu_torch.data.spmf import SequenceDB
+from spark_fsm_tpu_torch.data.vertical import VerticalDB, build_vertical
+from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
+from spark_fsm_tpu_torch.models._common import (
+    device_hbm_budget, load_checkpoint, scatter_tokens)
+from spark_fsm_tpu_torch.ops import bitops_np as Bnp
+from spark_fsm_tpu_torch.ops import bitops_torch as B
+from spark_fsm_tpu_torch.ops import ragged_batch as RB
+from spark_fsm_tpu_torch.ops import rule_support as RS
+from spark_fsm_tpu_torch.utils.canonical import RuleResult, sort_rules
+
+# initial top-m item restriction for the iterative-deepening outer loop
+ITEM_CAP_DEFAULT = 256
+
+# Lane floor of the kernel path's launch plans: the reference kernel's
+# 128-candidate output tile.  This kernel takes any candidate count and
+# launches only a plan's real lanes; the floor keeps the plans equal to
+# the reference's kernel path.
+KERNEL_LANE = 128
+
+
+def conf_ok(sup: int, supx: int, minconf: float) -> bool:
+    """Exact confidence test: sup/supx >= minconf (no float division)."""
+    num, den = _conf_frac(minconf)
+    return supx > 0 and sup * den >= supx * num
+
+
+@functools.lru_cache(maxsize=64)
+def _conf_frac(minconf: float) -> Tuple[int, int]:
+    """minconf as an exact (numerator, denominator) for the hot-loop
+    integer cross-multiply form of ``conf_ok``."""
+    f = Fraction(str(minconf))
+    return f.numerator, f.denominator
+
+
+# ---------------------------------------------------------------------------
+# Brute-force oracle (independent ground truth for tiny DBs)
+# ---------------------------------------------------------------------------
+
+def rule_counts_direct(db: SequenceDB, x_items: Tuple[int, ...],
+                       y_items: Tuple[int, ...]) -> Tuple[int, int]:
+    """(sup(X=>Y), sup(X)) by direct first/last-occurrence scanning."""
+    sup = supx = 0
+    for seq in db:
+        first: dict[int, int] = {}
+        last: dict[int, int] = {}
+        for p, itemset in enumerate(seq):
+            for it in itemset:
+                first.setdefault(it, p)
+                last[it] = p
+        if all(x in first for x in x_items):
+            supx += 1
+            if all(y in last for y in y_items):
+                if max(first[x] for x in x_items) < min(last[y] for y in y_items):
+                    sup += 1
+    return sup, supx
+
+
+def brute_force_rules(db: SequenceDB, k: int, minconf: float,
+                      max_side: int = 2) -> List[RuleResult]:
+    """Enumerate every X, Y (sizes <= max_side, disjoint) directly."""
+    items = sorted({i for seq in db for itemset in seq for i in itemset})
+    qualifying: List[RuleResult] = []
+    for nx in range(1, max_side + 1):
+        for x in itertools.combinations(items, nx):
+            rest = [i for i in items if i not in x]
+            for ny in range(1, max_side + 1):
+                for y in itertools.combinations(rest, ny):
+                    sup, supx = rule_counts_direct(db, x, y)
+                    if sup >= 1 and conf_ok(sup, supx, minconf):
+                        qualifying.append((x, y, sup, supx))
+    if not qualifying:
+        return []
+    sups = sorted((r[2] for r in qualifying), reverse=True)
+    s_k = sups[k - 1] if len(sups) >= k else sups[-1]
+    return sort_rules([r for r in qualifying if r[2] >= s_k])
+
+
+# ---------------------------------------------------------------------------
+# Device engine
+# ---------------------------------------------------------------------------
+
+class TsrTorch:
+    """Batched best-first TopSeqRules over the vertical bitmap DB.
+
+    Args:
+      vdb: vertical DB (min_item_support=1 — TSR's internal minsup starts
+        at 1 and rises as the top-k heap fills).
+      k / minconf: the top-k size and the confidence floor.
+      device: ``None`` (= CUDA, raising without it) or ``"cpu"``.
+      chunk: candidates per dispatch (None = sized per deepening round).
+      item_cap: initial restriction to the top-m items by support for the
+        iterative-deepening outer loop.
+      max_side: optional cap on |X| and |Y|.
+      use_kernel: "auto" = the rule-support kernel on CUDA and the plain
+        evaluator on the CPU; False = the plain evaluator on either; True
+        = the kernel (raises on the CPU: the kernel has no CPU mode).
+      resident: "auto"/"never" (or False) run the host loop; "always"
+        (or True), the resident-frontier route, is not ported.
+    """
+
+    # dispatches kept in flight by the mine loop: each one's readback
+    # overlaps the later dispatches' device work and the host heap work
+    PIPELINE_DEPTH = 3
+
+    def __init__(
+        self,
+        vdb: VerticalDB,
+        k: int,
+        minconf: float,
+        *,
+        device: DeviceLike = None,
+        mesh=None,
+        chunk: Optional[int] = None,
+        item_cap: int = ITEM_CAP_DEFAULT,
+        max_side: Optional[int] = None,
+        use_kernel="auto",
+        shape_buckets: bool = False,
+        resident="auto",
+        partition=None,
+    ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh: multi-GPU sequence sharding is not ported yet "
+                "(ROADMAP Queue A item 6)")
+        if partition is not None:
+            raise NotImplementedError(
+                "partition: class-partitioned TSR is not ported yet "
+                "(ROADMAP Queue A item 11)")
+        if shape_buckets:
+            raise NotImplementedError(
+                "shape_buckets: sequence-axis bucketing is not ported yet "
+                "(ROADMAP Queue A item 9)")
+        if isinstance(resident, bool):
+            resident = "always" if resident else "never"
+        if resident not in ("auto", "always", "never"):
+            raise ValueError(f"resident must be auto/always/never, "
+                             f"got {resident!r}")
+        if resident == "always":
+            raise NotImplementedError(
+                "resident='always': the resident-frontier route is not "
+                "ported yet (ROADMAP Queue A item 7)")
+        self.device = resolve_device(device)
+        if use_kernel == "auto":
+            self.use_kernel = self.device.type == "cuda"
+        elif use_kernel:
+            if self.device.type != "cuda":
+                raise ValueError(
+                    "use_kernel=True needs a CUDA device: the rule-support "
+                    "kernel has no CPU mode (use_kernel='auto' or False "
+                    "runs the plain evaluator)")
+            self.use_kernel = True
+        else:
+            self.use_kernel = False
+        self.vdb = vdb
+        self.k = int(k)
+        self.minconf = float(minconf)
+        self.item_cap = int(item_cap)
+        self.max_side = max_side
+        self.stats = {"evaluated": 0, "kernel_launches": 0,
+                      "deepening_rounds": 0, "pruned_conf": 0,
+                      "traffic_units": 0, "resident": False}
+        self._stager = RB.XYStager()
+        # budget-derived plain-evaluator width before the dispatch-
+        # efficiency clamp (set by _round_chunk_plain; the per-km memory
+        # caps divide this)
+        self._plain_raw = 8192
+        # the dense store of all items is never built: each deepening
+        # round builds only the top-m item rows from the token table
+        self.n_words = vdb.n_words
+        self.n_seq = int(vdb.n_sequences)
+        # chunk <= 0 = adaptive sizing, like None
+        self._chunk_user = None if not chunk or chunk <= 0 else int(chunk)
+        # the plain evaluator's device memory budget, read at first use
+        self._eval_budget = None
+        self.chunk = self._chunk_user or 8192
+        # tok_item is nondecreasing (build_vertical emits tokens sorted by
+        # item), so per-item token ranges are a searchsorted away
+        self._tok_starts = np.searchsorted(
+            vdb.tok_item, np.arange(vdb.n_items + 1))
+        # items sorted by support desc, stable by item id
+        order = np.lexsort((vdb.item_ids, -vdb.item_supports))
+        self._order = order
+        self._sup_sorted = vdb.item_supports[order]
+
+    # ------------------------------------------------------------- kernels
+
+    def _sel_tokens(self, sel: np.ndarray):
+        """Token table restricted to the selected items, rows renumbered to
+        0..len(sel)-1 (selection order)."""
+        starts, vdb = self._tok_starts, self.vdb
+        lens = starts[sel + 1] - starts[sel]
+        if len(sel):
+            # vectorized ragged arange: each selected item's token range
+            ends = np.cumsum(lens)
+            idx = (np.repeat(starts[sel], lens)
+                   + np.arange(int(ends[-1])) - np.repeat(ends - lens, lens))
+        else:
+            idx = np.zeros(0, np.int64)
+        ti = np.repeat(np.arange(len(sel), dtype=np.int32), lens)
+        return ti, vdb.tok_seq[idx], vdb.tok_word[idx], vdb.tok_mask[idx]
+
+    def _prep(self, m: int):
+        """Prefix/suffix-OR rows of the top-m items as flat ``[m+1, S*W]``
+        int32 stores with the all-ones pad row last.  The ``[m, S, W]``
+        rows are scatter-built on the device from the token slice; the
+        dense rows never exist on the host."""
+        ti, ts, tw, tm = self._sel_tokens(self._order[:m])
+        b = scatter_tokens(ti, ts, tw, tm, m, self.n_seq, self.n_words,
+                           self.device).view(m, self.n_seq, self.n_words)
+        p1 = self._with_pad(B.prefix_or_incl(b))
+        s1 = self._with_pad(B.suffix_or_incl(b))
+        self.stats["kernel_launches"] += 1
+        return p1, s1
+
+    def _with_pad(self, rows: torch.Tensor) -> torch.Tensor:
+        m = rows.shape[0]
+        out = torch.empty(m + 1, self.n_seq * self.n_words, dtype=torch.int32,
+                          device=self.device)
+        out[:m] = rows.reshape(m, -1)
+        out[m] = -1
+        return out
+
+    def _round_chunk(self, m: int) -> int:
+        """Launch width for a deepening round over m items.  The kernel
+        holds no ``[chunk, S, W]`` temporaries, so its width is the
+        dispatch-efficiency quantum alone; the plain evaluator's is
+        bounded by the memory budget too."""
+        if self._chunk_user is not None:
+            return self._chunk_user
+        if self.use_kernel:
+            return RB.dispatch_quantum_lanes(self.n_seq, self.n_words)
+        return self._round_chunk_plain(m)
+
+    def _round_chunk_plain(self, m: int) -> int:
+        """Budget-derived width for the plain evaluator (the reference's
+        ``_round_chunk_jnp``): what the budget allows after the round's two
+        ``[m, S, W]`` stores, at four live ``[chunk, S, W]`` temporaries a
+        candidate, floored to a power of two."""
+        if self._chunk_user is not None:
+            return self._chunk_user
+        if self._eval_budget is None:
+            self._eval_budget = device_hbm_budget(self.device)
+        s_local = max(1, self.n_seq)
+        per_cand = max(1, s_local * self.n_words * 4 * 4)
+        prep = 2 * m * s_local * self.n_words * 4
+        budget = max(per_cand, self._eval_budget - prep)
+        # the raw budget width is what the per-km memory caps divide; the
+        # clamp below is dispatch efficiency, not memory
+        self._plain_raw = max(128, RB.next_pow2(budget // per_cand + 1) // 2)
+        return min(RB.dispatch_quantum_lanes(self.n_seq, self.n_words),
+                   self._plain_raw)
+
+    def _dispatch_eval(self, p1, s1,
+                       cands: List[Tuple[Tuple[int, ...], Tuple[int, ...]]]):
+        """Launch (sup, supx) evaluation for candidate rules (local item
+        indices) and start the readback; returns the handle
+        :meth:`_resolve_eval` waits on.
+
+        Per-km pools go through the ragged planner: the kernel path's
+        width cap is flat at the engine chunk; the plain evaluator's
+        budget-derived cap narrows 1/km (its temporaries grow with km),
+        and a pinned chunk is honored as the cap.  Each launch carries
+        only its plan's real lanes."""
+        n = len(cands)
+        kms = np.empty(n, np.int32)
+        for r, (x, y) in enumerate(cands):
+            side = max(len(x), len(y))
+            km = 1
+            while km < side:
+                km *= 2
+            kms[r] = km
+        for km_v, cnt in zip(*np.unique(kms, return_counts=True)):
+            key = f"evaluated_km{int(km_v)}"
+            self.stats[key] = self.stats.get(key, 0) + int(cnt)
+        pools: Dict[int, List[int]] = {}
+        for r in range(n):
+            pools.setdefault(int(kms[r]), []).append(r)
+        overhead = RB.overhead_units(self.n_seq, self.n_words)
+        if self.use_kernel:
+            plan = RB.plan_launches(pools, cap=lambda km: self.chunk,
+                                    lane=KERNEL_LANE, overhead=overhead)
+            evaluate = RS.rule_supports
+        else:
+            cw = self.chunk
+            cap = ((lambda km: cw) if self._chunk_user
+                   else (lambda km: max(32, min(cw, self._plain_raw // km))))
+            plan = RB.plan_launches(pools, cap=cap, lane=32,
+                                    overhead=overhead)
+            evaluate = RS.rule_supports_plain
+        parts = []
+        cols = np.empty(n, np.int64)  # candidate r -> column of `out`
+        base = 0
+        xy_bufs: List[np.ndarray] = []  # recycled at readback
+        cuda = self.device.type == "cuda"
+        for L in plan:
+            xy = self._stager.take(L, cands)
+            xy_bufs.append(xy)
+            xy_t = torch.from_numpy(xy[:len(L.rows)])
+            if cuda:
+                xy_t = xy_t.pin_memory().to(self.device, non_blocking=True)
+            parts.append(evaluate(p1, s1, xy_t, self.n_words))
+            cols[L.rows] = base + np.arange(len(L.rows))
+            base += len(L.rows)
+            self._count_launch(L)
+        self.stats["evaluated"] += n
+        out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        if not cuda:
+            return out, cols, None, xy_bufs
+        host = torch.empty(out.shape, dtype=torch.int32, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return host, cols, ev, xy_bufs
+
+    def _count_launch(self, L) -> None:
+        """Per-launch accounting: geometry-keyed fill counters, the
+        planner's traffic units, super-batch and borrow counts."""
+        self.stats["kernel_launches"] += 1
+        lk, wk = f"launches_km{L.km}", f"width_km{L.km}"
+        self.stats[lk] = self.stats.get(lk, 0) + 1
+        self.stats[wk] = self.stats.get(wk, 0) + L.width
+        self.stats["traffic_units"] = (
+            self.stats.get("traffic_units", 0) + L.traffic_units)
+        borrowed = L.borrowed
+        if borrowed:
+            bk = f"borrowed_km{L.km}"
+            self.stats[bk] = self.stats.get(bk, 0) + borrowed
+        if L.mixed:
+            self.stats["superbatches"] = (
+                self.stats.get("superbatches", 0) + 1)
+
+    def _resolve_eval(self, handle):
+        """Wait for one dispatch's readback (its CUDA event only), recycle
+        its staging buffers and return (sups, supxs) in candidate order."""
+        out, cols, ev, xy_bufs = handle
+        if ev is not None:
+            ev.synchronize()
+        arr = out.numpy()
+        self._stager.release(xy_bufs)
+        return arr[0, cols].astype(np.int64), arr[1, cols].astype(np.int64)
+
+    # --------------------------------------------------------- checkpoints
+
+    def frontier_fingerprint(self) -> dict:
+        """Identity a frontier checkpoint binds to — the reference engine's
+        exact fields, so snapshots interchange: queue entries hold
+        support-order local item indices, which are only meaningful for the
+        exact same (vdb, k, minconf, max_side)."""
+        ids = self.vdb.item_ids
+        return {
+            "algo": "tsr",
+            "stack_format": 3,  # 3 = sibling-chain entries + psupx
+            "k": self.k,
+            "minconf": float(self.minconf),
+            "max_side": self.max_side,
+            "n_items": int(self.vdb.n_items),
+            "n_sequences": int(self.vdb.n_sequences),
+            "item_ids_head": [int(i) for i in ids[:8]],
+            "item_ids_sum": int(ids.astype(np.int64).sum()),
+        }
+
+    def frontier_state(self, queue, results, m: int, minsup: int) -> dict:
+        """JSON-able snapshot of a paused best-first round, field for field
+        the reference's.  A round's accepted-rule set shrinks when the
+        internal minsup rises, so every snapshot carries the full current
+        set (``results_done=0``); bound-pruned queue entries are dropped."""
+        return {
+            "version": 1,
+            "fingerprint": self.frontier_fingerprint(),
+            "m": int(m),
+            "minsup": int(minsup),
+            "stack": [[int(-nb), [int(i) for i in x], [int(j) for j in y],
+                       bool(cr), int(side), int(psup), int(psupx)]
+                      for nb, x, y, cr, side, psup, psupx in queue
+                      if -nb >= minsup],
+            "results_done": 0,
+            "results": [[[int(i) for i in x], [int(j) for j in y],
+                         int(sup), int(supx)]
+                        for sup, supx, x, y in results],
+        }
+
+    # ---------------------------------------------------------------- mine
+
+    def _mine_host_restricted(self, m: int, resume: Optional[dict] = None,
+                              checkpoint_cb=None, every_s: float = 30.0,
+                              ) -> Tuple[List[RuleResult], int]:
+        """One deepening round over the top-m items on the host loop (the
+        only route ported): best-first heap on the host, ragged
+        super-batched eval dispatches on the device.  Returns
+        (results, s_k)."""
+        self.chunk = self._round_chunk(m)
+        sup_it = self._sup_sorted[:m].astype(np.int64)
+        p1, s1 = self._prep(m)
+        ids = self.vdb.item_ids[self._order[:m]]
+
+        results: List[Tuple[int, int, Tuple[int, ...], Tuple[int, ...]]] = []
+        minsup = 1
+        sup_sorted: List[int] = []  # ascending supports of accepted rules
+        # conf test as exact integer cross-multiply: sup/supx >= num/den —
+        # shared by acceptance AND the conf-bound pruning below
+        num, den = _conf_frac(self.minconf)
+
+        def s_k_threshold() -> int:
+            if len(sup_sorted) < self.k:
+                return 1
+            return sup_sorted[-self.k]
+
+        # queue: (-bound, X, Y, can_right, side, psup, psupx); X/Y are
+        # local index tuples.  Entries are totally ordered by the tuples
+        # themselves, and the final rule set is pop-order independent (the
+        # end-of-round s_k filter is exact), so tie order is free to vary.
+        #
+        # Expansion is lazy ("sibling chains"): a popped entry re-pushes
+        # only its next sibling — the same-parent candidate whose variable
+        # item (the last of the `side` tuple, 0 = X, 1 = Y) is the next
+        # admissible index.  Items are support-sorted, so sibling bounds
+        # min(psup, sup[c]) are nonincreasing in c: best-first order is
+        # preserved exactly, and a sibling whose bound drops below minsup
+        # kills the whole remaining chain.
+        #
+        # ``psupx`` is the exact antecedent support sup(X) for side-1
+        # (grow-Y) entries — X is fixed along a right chain — and 0 for
+        # side-0 entries.  It feeds the dynamic-threshold pruning: a
+        # right-expansion candidate with bound*den < supx*num can never
+        # pass the confidence floor, and when its X can never grow again
+        # the whole right-growing subtree is dead and never evaluated.
+        sup_l = sup_it.tolist()
+
+        # sup_it is sorted descending, so "items with sup >= minsup" is the
+        # prefix [0, jcut)
+        def item_cut() -> int:
+            return int(np.searchsorted(-sup_it, -minsup, side="right"))
+
+        jcut = item_cut()
+        queue: list = []
+        push = heapq.heappush
+
+        def chain_push(xf, yf, cr, side, psup, psupx, start):
+            """Push the chain entry whose variable item is the first
+            admissible index >= start (xf/yf are the fixed side contents).
+            Admissible = not already used in the rule and bound >= minsup;
+            bounds are nonincreasing along the chain, so a failing bound
+            ends it for good.  When the antecedent can never grow again, a
+            side-1 chain whose bound drops below the confidence floor is
+            dead in full, so it ends here too."""
+            fixed = set(xf) | set(yf)
+            c = start
+            while True:
+                if c >= jcut:
+                    return
+                if c not in fixed:
+                    s_c = sup_l[c]
+                    b = s_c if s_c < psup else psup
+                    if b < minsup:
+                        return
+                    if (side == 1 and psupx > 0 and b * den < psupx * num
+                            and self.max_side is not None
+                            and len(xf) >= self.max_side):
+                        self.stats["pruned_conf_chains"] = (
+                            self.stats.get("pruned_conf_chains", 0) + 1)
+                        return
+                    break
+                c += 1
+            if side == 0:
+                push(queue, (-b, xf + (c,), yf, cr, 0, psup, 0))
+            else:
+                push(queue, (-b, xf, yf + (c,), cr, 1, psup, psupx))
+
+        if resume is not None:
+            minsup = max(int(resume["minsup"]), 1)
+            results = [(int(sup), int(supx), tuple(x), tuple(y))
+                       for x, y, sup, supx in resume["results"]
+                       if int(sup) >= minsup]
+            sup_sorted = sorted(r[0] for r in results)
+            jcut = item_cut()
+            queue = [(-int(b), tuple(x), tuple(y), bool(cr), int(side),
+                      int(psup), int(psupx))
+                     for b, x, y, cr, side, psup, psupx in resume["stack"]]
+            heapq.heapify(queue)
+            self.stats["resumed_nodes"] = len(queue)
+        else:
+            # roots: one right-side chain per item i over partners j != i;
+            # X = {i} is fixed, so psupx = sup(i) exactly
+            for i in range(m):
+                chain_push((i,), (), True, 1, sup_l[i], sup_l[i], 0)
+
+        def left_viable(x, y):
+            """Can the antecedent still grow into an above-threshold
+            candidate?  Left expansion adds an admissible index > max(X);
+            below jcut every item clears minsup, so viability is just 'an
+            unused index remains'.  When this is False it is False for
+            every right descendant as well, which makes whole-subtree conf
+            pruning sound."""
+            if self.max_side is not None and len(x) >= self.max_side:
+                return False
+            fixed = set(x) | set(y)
+            c = max(x) + 1
+            while c < jcut:
+                if c not in fixed:
+                    return True
+                c += 1
+            return False
+
+        def pop_batch():
+            batch = []
+            while queue and len(batch) < self.chunk:
+                nb, x, y, cr, side, psup, psupx = queue[0]
+                if -nb < minsup:
+                    # every remaining entry is bound-pruned, and chain
+                    # siblings bound even lower (minsup only rises)
+                    queue.clear()
+                    break
+                heapq.heappop(queue)
+                # advance this entry's sibling chain before evaluating it
+                if side == 0:
+                    chain_push(x[:-1], y, cr, 0, psup, 0, x[-1] + 1)
+                else:
+                    chain_push(x, y[:-1], cr, 1, psup, psupx, y[-1] + 1)
+                # dynamic-threshold pruning: side-1 entries carry the exact
+                # antecedent support, so sup <= bound < minconf * supx
+                # proves this rule can never be accepted; if the antecedent
+                # can also never grow again, the whole subtree is dead.  A
+                # conf-dead candidate whose X can still grow is evaluated
+                # normally: its exact sup keeps child bounds tight.
+                if (side == 1 and psupx > 0
+                        and (-nb) * den < psupx * num
+                        and not left_viable(x, y)):
+                    self.stats["pruned_conf"] += 1
+                    continue
+                batch.append((x, y, cr))
+            return batch
+
+        def consume(batch, handle):
+            nonlocal minsup, results, jcut
+            sups, supxs = self._resolve_eval(handle)
+            for (x, y, can_right), sup, supx in zip(
+                    batch, sups.tolist(), supxs.tolist()):
+                if sup < minsup:
+                    continue
+                if supx > 0 and sup * den >= supx * num:
+                    results.append((sup, supx, x, y))
+                    bisect.insort(sup_sorted, sup)
+                    new_t = s_k_threshold()
+                    if new_t > minsup:
+                        minsup = new_t
+                        results = [r for r in results if r[0] >= minsup]
+                        del sup_sorted[: bisect.bisect_left(sup_sorted, minsup)]
+                        jcut = item_cut()
+                # expansions: one left chain (grow X; kills further right
+                # expansion) and one right chain (grow Y), which inherits
+                # this rule's exact supx
+                if self.max_side is None or len(x) < self.max_side:
+                    chain_push(x, y, False, 0, sup, 0, max(x) + 1)
+                if can_right and (self.max_side is None or len(y) < self.max_side):
+                    chain_push(x, y, True, 1, sup, supx, max(y) + 1)
+
+        # Pipeline: keep PIPELINE_DEPTH batches in flight.  Candidates
+        # dispatched with a stale (lower) minsup are wasted work at worst,
+        # never wrong — acceptance and the final s_k filter are exact.
+        inflight: List[Tuple[list, object]] = []
+        last_ckpt = time.monotonic()
+        while True:
+            while queue and len(inflight) < self.PIPELINE_DEPTH:
+                batch = pop_batch()
+                if not batch:
+                    break
+                handle = self._dispatch_eval(
+                    p1, s1, [(x, y) for x, y, _ in batch])
+                inflight.append((batch, handle))
+            if not inflight:
+                break
+            consume(*inflight.pop(0))
+            if (checkpoint_cb is not None
+                    and time.monotonic() - last_ckpt >= every_s):
+                while inflight:  # drain for a consistent frontier
+                    consume(*inflight.pop(0))
+                checkpoint_cb(self.frontier_state(queue, results, m, minsup))
+                self.stats["checkpoints"] = self.stats.get("checkpoints", 0) + 1
+                last_ckpt = time.monotonic()
+
+        s_k = s_k_threshold()
+        # local indices are support-ordered; canonical form sorts by item id
+        out = [
+            (tuple(sorted(int(ids[i]) for i in x)),
+             tuple(sorted(int(ids[i]) for i in y)), sup, supx)
+            for sup, supx, x, y in results
+        ]
+        return sort_rules(out), s_k
+
+    def mine(self, *, resume: Optional[dict] = None, checkpoint_cb=None,
+             checkpoint_every_s: float = 30.0) -> List[RuleResult]:
+        """Run the top-k search; optionally resumable.
+
+        ``resume`` is a ``frontier_state`` snapshot from either package
+        (its fingerprint must match, ValueError otherwise);
+        ``checkpoint_cb`` is called with a snapshot at most every
+        ``checkpoint_every_s`` seconds, after draining the in-flight
+        pipeline.  A resumed mine restarts at the snapshot's deepening
+        round m — earlier (completed) rounds are never replayed.
+        """
+        if resume is not None:
+            fp = resume.get("fingerprint")
+            if fp != self.frontier_fingerprint():
+                raise ValueError(
+                    "frontier checkpoint does not match this engine's "
+                    f"(vdb, k, minconf, max_side); checkpointed {fp}, "
+                    f"engine {self.frontier_fingerprint()}")
+        n_total = self.vdb.n_items
+        if resume is not None:
+            m = max(1, min(int(resume["m"]), n_total))
+        else:
+            m = max(1, min(self.item_cap, n_total))
+        while True:
+            self.stats["deepening_rounds"] += 1
+            results, s_k = self._mine_host_restricted(
+                m, resume=resume, checkpoint_cb=checkpoint_cb,
+                every_s=checkpoint_every_s)
+            resume = None  # only the first (snapshot's) round resumes
+            if m >= n_total:
+                return results
+            next_item_sup = int(self._sup_sorted[m])
+            if len(results) >= self.k and next_item_sup < s_k:
+                return results
+            m = min(m * 2, n_total)
+
+
+class TsrCPU(TsrTorch):
+    """CPU TopSeqRules: the same best-first search and iterative deepening,
+    with the bitmap evaluation in NumPy (``ops/bitops_np``), one candidate
+    at a time.  An oracle independent of torch and of the kernel."""
+
+    PIPELINE_DEPTH = 1  # dispatch is synchronous — nothing to overlap
+
+    def __init__(self, *args, **kwargs):
+        kwargs["device"] = "cpu"
+        kwargs["use_kernel"] = False
+        super().__init__(*args, **kwargs)
+
+    def _round_chunk(self, m: int) -> int:
+        # the batch granularity of the host loop only
+        return self._chunk_user or 8192
+
+    def _prep(self, m: int):
+        ti, ts, tw, tm = self._sel_tokens(self._order[:m])
+        bm = np.zeros((m, self.n_seq, self.n_words), np.uint32)
+        np.add.at(bm, (ti, ts, tw), tm)  # distinct bits: add == OR
+        return Bnp.prefix_or_incl(bm), Bnp.suffix_or_incl(bm)
+
+    def _dispatch_eval(self, p1, s1, cands):
+        n = len(cands)
+        sup = np.empty(n, np.int64)
+        supx = np.empty(n, np.int64)
+        for r, (x, y) in enumerate(cands):
+            a = p1[x[0]]
+            for i in x[1:]:
+                a = a & p1[i]
+            c = s1[y[0]]
+            for j in y[1:]:
+                c = c & s1[j]
+            sup[r] = int(Bnp.support(Bnp.shift_up_one(a) & c))
+            supx[r] = int(Bnp.support(a))
+        self.stats["evaluated"] += n
+        return sup, supx
+
+    def _resolve_eval(self, handle):
+        return handle
+
+
+def mine_tsr_torch(db: SequenceDB, k: int, minconf: float, *,
+                   device: DeviceLike = None, mesh=None,
+                   stats_out: Optional[dict] = None, checkpoint=None,
+                   partition_parts: int = 0,
+                   **kwargs) -> List[RuleResult]:
+    """DB -> vertical build -> device mine, on ``device`` (default CUDA;
+    raises without it).
+
+    ``checkpoint`` (optional): an object with ``load() -> Optional[dict]``,
+    ``save(state)`` and ``every_s``; a saved frontier (from either
+    package) is resumed when its fingerprint still matches.  A ``mesh`` and
+    ``partition_parts > 1`` are not ported yet and raise
+    ``NotImplementedError``.  ``kwargs`` go to :class:`TsrTorch`."""
+    dev = resolve_device(device)
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: multi-GPU sequence sharding is not ported yet "
+            "(ROADMAP Queue A item 6)")
+    if partition_parts and int(partition_parts) > 1:
+        raise NotImplementedError(
+            "partition_parts > 1: class-partitioned TSR is not ported yet "
+            "(ROADMAP Queue A item 11)")
+    vdb = build_vertical(db, min_item_support=1)
+    if vdb.n_items == 0:
+        return []
+    eng = TsrTorch(vdb, k, minconf, device=dev, **kwargs)
+    return _run(eng, stats_out, checkpoint)
+
+
+def mine_tsr_cpu(db: SequenceDB, k: int, minconf: float, *,
+                 stats_out: Optional[dict] = None,
+                 checkpoint=None, **kwargs) -> List[RuleResult]:
+    """The NumPy oracle engine (:class:`TsrCPU`) end to end."""
+    vdb = build_vertical(db, min_item_support=1)
+    if vdb.n_items == 0:
+        return []
+    return _run(TsrCPU(vdb, k, minconf, **kwargs), stats_out, checkpoint)
+
+
+def _run(eng: TsrTorch, stats_out: Optional[dict], checkpoint):
+    resume, save_cb, every_s = load_checkpoint(
+        checkpoint, eng.frontier_fingerprint())
+    results = eng.mine(resume=resume, checkpoint_cb=save_cb,
+                       checkpoint_every_s=every_s)
+    if stats_out is not None:
+        stats_out.update(eng.stats)
+    return results

@@ -1,0 +1,215 @@
+"""Ragged candidate super-batching for TSR's evaluation launches — copy of
+the launch planner in ``spark_fsm_tpu/ops/ragged_batch.py`` (``Launch``,
+``plan_launches``, ``XYStager``, ``overhead_units``,
+``dispatch_quantum_lanes``, ``KM_LADDER`` and the pow2 helpers).
+
+Candidates arrive in per-km pools (km = the pow2 bucket of a rule's
+larger side).  :func:`plan_launches` splits each pool greedily into full
+pow2 launches at its own km, then merges the per-km tails into shared
+launches at the largest participating km when the cost model says the
+padded lanes cost less than the saved dispatch.  A lane of side <= km
+fits any wider geometry: its unused slots are -1, the all-ones pad row.
+
+The cost model counts work in lane x sequence-word units.  The reference
+states its constants as measured times; the planner only ever uses their
+ratios, so they are kept here as those ratios: a launch that is worth one
+dispatch streams :data:`QUANTUM_LANE_SEQWORDS`, and one dispatch's fixed
+cost is worth :data:`DISPATCH_LANE_SEQWORDS` of padded lanes.  Held as
+exact integers and fractions, they give the same plans as the reference's
+floating-point arithmetic (``tests/test_torch_ragged_batch.py``).  They
+shape launches, never results.  Left out of the copy: the planner's
+metric counters and the live drift recalibration (the factor is 1, as
+with ``set_overhead_calibration(False)`` in the reference).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from fractions import Fraction
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+# lane x sequence-words of one launch at the dispatch-efficiency quantum:
+# 8192 lanes over a 990,000-sequence single-word axis
+QUANTUM_LANE_SEQWORDS = 8192 * 990_000
+# one dispatch's fixed cost in the same units: 25/429 of the quantum, the
+# ratio of the reference's dispatch cost to its quantum launch
+DISPATCH_LANE_SEQWORDS = Fraction(25, 429) * QUANTUM_LANE_SEQWORDS
+
+# The km side-size ladder (pow2 buckets of a rule's larger side).
+KM_LADDER = (1, 2, 4, 8)
+
+
+def next_pow2(n: int) -> int:
+    k = 1
+    while k < n:
+        k *= 2
+    return k
+
+
+def floor_pow2(n: int) -> int:
+    return 1 << (int(n).bit_length() - 1) if n >= 1 else 1
+
+
+def overhead_units(n_seq: int, n_words: int) -> int:
+    """Per-launch overhead in traffic units for a sequence axis: how many
+    padded lanes one saved dispatch is worth, clamped to [64, 2**20]."""
+    seqwords = int(n_seq) * max(1, int(n_words))
+    if seqwords <= 0:
+        return 1 << 20
+    return max(64, min(1 << 20, int(DISPATCH_LANE_SEQWORDS / seqwords)))
+
+
+def dispatch_quantum_lanes(n_seq: int, n_words: int, lo: int = 8192,
+                           hi: int = 16384) -> int:
+    """Dispatch-efficiency width ceiling in lanes: the pow2 lane count
+    whose launch streams about one quantum of work.  8192 at the full
+    990,000-sequence axis, growing as the axis shrinks, up to ``hi`` (the
+    bound on best-first staleness: candidates pop with the minsup of
+    dispatch time)."""
+    seqwords = int(n_seq) * max(1, int(n_words))
+    if seqwords <= 0:
+        return hi
+    return max(lo, min(hi, floor_pow2(QUANTUM_LANE_SEQWORDS // seqwords + 1)))
+
+
+@dataclasses.dataclass
+class Launch:
+    """One planned launch.
+
+    ``km``: the launch geometry (xy minor width), the max of its lanes' own
+    km buckets.  ``width``: padded pow2 lane count.  ``rows``: candidate
+    indices in lane order.  ``kms``: each lane's own km bucket (lanes with
+    ``kms[j] < km`` ride a wider geometry)."""
+
+    km: int
+    width: int
+    rows: List[int]
+    kms: List[int]
+
+    @property
+    def traffic_units(self) -> int:
+        """What a launch of the full padded width streams: width x km."""
+        return self.width * self.km
+
+    @property
+    def mixed(self) -> bool:
+        """True when lanes from more than one km bucket share the launch."""
+        return len(set(self.kms)) > 1
+
+    @property
+    def borrowed(self) -> int:
+        """Lanes whose own km is below the launch geometry."""
+        return sum(1 for k in self.kms if k < self.km)
+
+
+def plan_launches(pools: Dict[int, Sequence[int]], cap: Callable[[int], int],
+                  lane: int, overhead: int) -> List[Launch]:
+    """Pack per-km candidate pools into pow2 super-batch launches.
+
+    Args:
+      pools: ``{km: [candidate indices]}``; km keys are pow2.
+      cap: per-geometry width ceiling, floored to ``lane`` and rounded down
+        to pow2.
+      lane: minimum launch width.
+      overhead: per-launch fixed cost in traffic units (lanes x km), as
+        :func:`overhead_units` gives it.
+
+    Returns launches in dispatch order: full same-km launches largest km
+    first, then the merged tails.  Every candidate appears in exactly one
+    launch, once.
+
+    Split rule, per pool: while the remainder exceeds the geometry cap,
+    emit cap-width full launches; once it fits, emit one padded launch if
+    the pad is cheaper than another dispatch (``(width - n) * km <=
+    overhead``), else peel the largest pow2 as a full launch and re-test.
+    At most one non-full piece (the tail) survives per pool; tails then
+    merge across km pools.
+    """
+    launches: List[Launch] = []
+    tails: List[Tuple[int, List[int]]] = []
+    for km in sorted(pools, reverse=True):
+        rows = list(pools[km])
+        if not rows:
+            continue
+        cap_km = max(lane, floor_pow2(max(1, int(cap(km)))))
+        i = 0
+        while True:
+            n = len(rows) - i
+            if n == 0:
+                break
+            width = max(lane, next_pow2(n))
+            if n <= cap_km and (width - n) * km <= overhead:
+                tails.append((km, rows[i:]))
+                break
+            take = min(cap_km, floor_pow2(n))
+            if take < lane:
+                # sub-lane remainder with a tiny overhead budget: a padded
+                # lane-width tail is the only legal shape
+                tails.append((km, rows[i:]))
+                break
+            launches.append(Launch(km, take, rows[i:i + take], [km] * take))
+            i += take
+
+    # cross-km tail merge, largest geometry first: every lane's own km is
+    # bounded by the geometry, so -1 slots (the pad row) absorb the rest
+    cur: Optional[Tuple[int, List[int], List[int]]] = None
+    for km, rows in tails:
+        if cur is not None:
+            km_g, crows, ckms = cur
+            cap_g = max(lane, floor_pow2(max(1, int(cap(km_g)))))
+            merged_n = len(crows) + len(rows)
+            if merged_n <= cap_g:
+                w_cur = max(lane, next_pow2(len(crows)))
+                w_merged = max(lane, next_pow2(merged_n))
+                w_sep = max(lane, next_pow2(len(rows)))
+                if w_merged * km_g <= w_cur * km_g + w_sep * km + overhead:
+                    crows.extend(rows)
+                    ckms.extend([km] * len(rows))
+                    continue
+            launches.append(_emit(cur, lane))
+        cur = (km, list(rows), [km] * len(rows))
+    if cur is not None:
+        launches.append(_emit(cur, lane))
+    return launches
+
+
+def _emit(cur: Tuple[int, List[int], List[int]], lane: int) -> Launch:
+    km_g, rows, kms = cur
+    return Launch(km_g, max(lane, next_pow2(len(rows))), rows, kms)
+
+
+class XYStager:
+    """Per-geometry xy staging with explicit buffer lifetime.
+
+    The dispatch loop packs the next launch's ``[width, 2, km]`` int32
+    candidate array while earlier launches are in flight, so each buffer
+    belongs to its dispatch until the dispatch's readback has resolved:
+    :meth:`take` hands out a free-listed (or fresh) buffer and
+    :meth:`release` returns the dispatch's buffers after the readback.
+    """
+
+    _POOL_CAP = 8  # free buffers kept per geometry
+
+    def __init__(self):
+        self._free: Dict[Tuple[int, int], List[np.ndarray]] = {}
+
+    def take(self, launch: Launch, cands) -> np.ndarray:
+        key = (launch.km, launch.width)
+        pool = self._free.get(key)
+        buf = (pool.pop() if pool
+               else np.empty((launch.width, 2, launch.km), np.int32))
+        buf.fill(-1)
+        for j, r in enumerate(launch.rows):
+            x, y = cands[r]
+            buf[j, 0, :len(x)] = x
+            buf[j, 1, :len(y)] = y
+        return buf
+
+    def release(self, bufs) -> None:
+        for buf in bufs:
+            key = (int(buf.shape[2]), int(buf.shape[0]))
+            pool = self._free.setdefault(key, [])
+            if len(pool) < self._POOL_CAP:
+                pool.append(buf)

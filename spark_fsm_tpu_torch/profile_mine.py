@@ -1,14 +1,19 @@
-"""Where the main path's time goes, on one CUDA card.
+"""Where the main paths' time goes, on one CUDA card.
 
     python3 -m spark_fsm_tpu_torch.profile_mine
 
-Mines the BMS-WebView-2-shaped database (full size) at minsup 0.1 % with
-the classic engine and prints one JSON line: the host-clock wall of each
-stage (vertical build, store build, DFS; medians of three warm mines), the
-DFS split into host work and waits on the device, the parent rows (P) of
-each pair-support launch, and a ``torch.profiler`` trace of one more warm
-mine — device busy time by kernel and the device's idle share of the
-mine's wall.
+Prints one JSON line per path:
+- SPADE: the BMS-WebView-2-shaped database (full size) at minsup 0.1 % with
+  the classic engine: the host-clock wall of each stage (vertical build,
+  store build, DFS; medians of three warm mines), the DFS split into host
+  work and waits on the device, and the parent rows (P) of each
+  pair-support launch;
+- TSR: the Kosarak-shaped database (full size) with k=100, minconf=0.5,
+  max_side=2: the stage walls (vertical build, engine set-up, the prep of
+  each deepening round, the host loop, waits on the device; medians of
+  three warm mines) and each rule-support launch's km and candidate count.
+Each line also carries a ``torch.profiler`` trace of one more warm mine:
+device busy time by kernel and the device's idle share of the mine's wall.
 Needs a CUDA card; raises without one.
 """
 
@@ -22,21 +27,51 @@ import time
 REPS = 3
 
 
-def main() -> dict:
+def _median(runs):
+    return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+
+
+def _profiled(one_mine):
+    """One more warm mine under ``torch.profiler``: its wall, its stages,
+    device busy time and the top device ops."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res, eng, stages = one_mine()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = []
+    busy_us = 0.0
+    for e in prof.key_averages():
+        # device-side events only (kernels, copies): their launching CPU
+        # ops report the same time again
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = e.self_device_time_total
+        if dev_us > 0:
+            busy_us += dev_us
+            kernels.append((dev_us, e.key, e.count))
+    kernels.sort(reverse=True)
+    return res, eng, {
+        "profiled_wall_s": wall, "profiled_stages_s": stages,
+        "device_busy_s": busy_us / 1e6,
+        "device_idle_share": (1 - busy_us / 1e6 / wall) if busy_us else None,
+        "top_device_ops": [{"name": k[:80], "ms": us / 1e3, "count": c}
+                           for us, k, c in kernels[:10]],
+    }
+
+
+def spade(dev, card: str) -> dict:
+    import torch
+
     from spark_fsm_tpu_torch.data.synth import bms_webview2_like
     from spark_fsm_tpu_torch.data.vertical import abs_minsup, build_vertical
-    from spark_fsm_tpu_torch.device import resolve_device
     from spark_fsm_tpu_torch.models import spade as SP
     from spark_fsm_tpu_torch.ops import pair_support as PS
 
-    dev = resolve_device(None)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     db = bms_webview2_like()
     minsup = abs_minsup(0.001, len(db))
     PS._kernel()  # build outside the timed stages
@@ -77,36 +112,89 @@ def main() -> dict:
 
     one_mine()  # warm-up: CUDA context, caching allocator, pinned host pool
     runs = [one_mine()[2] for _ in range(REPS)]
-    med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    res, eng, prof = _profiled(one_mine)
+    return {"path": "spade", "card": card,
+            "device": torch.cuda.get_device_name(dev),
+            "sequences": len(db), "minsup": minsup, "patterns": len(res),
+            "stats": eng.stats, "pair_launch_rows": list(pair_rows),
+            "reps": len(runs), "median_s": _median(runs), **prof}
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+def tsr(dev, card: str) -> dict:
+    import torch
+
+    from spark_fsm_tpu_torch.data.synth import kosarak_like
+    from spark_fsm_tpu_torch.data.vertical import build_vertical
+    from spark_fsm_tpu_torch.models import tsr as TS
+    from spark_fsm_tpu_torch.ops import rule_support as RS
+
+    db = kosarak_like(scale=1.0, fast=True)
+    RS._kernel()  # build outside the timed stages
+
+    preps, waits, launches = [], [], []
+
+    class Timed(TS.TsrTorch):
+        """The engine with each round's prep and its waits on the device's
+        counts timed, and each rule-support launch's (km, candidates)
+        recorded."""
+
+        def _prep(self, m):
+            t0 = time.perf_counter()
+            out = super()._prep(m)
+            torch.cuda.synchronize()
+            preps.append(time.perf_counter() - t0)
+            return out
+
+        def _count_launch(self, L):
+            launches.append((L.km, len(L.rows)))
+            super()._count_launch(L)
+
+        def _resolve_eval(self, handle):
+            t0 = time.perf_counter()
+            handle[2].synchronize()
+            waits.append(time.perf_counter() - t0)
+            return super()._resolve_eval(handle)
+
+    def one_mine():
+        preps.clear()
+        waits.clear()
+        launches.clear()
         t0 = time.perf_counter()
-        res, eng, prof_stages = one_mine()
-        wall = time.perf_counter() - t0
-    kernels = []
-    busy_us = 0.0
-    for e in prof.key_averages():
-        # device-side events only (kernels, copies): their launching CPU
-        # ops report the same time again
-        if e.device_type != DeviceType.CUDA:
-            continue
-        dev_us = e.self_device_time_total
-        if dev_us > 0:
-            busy_us += dev_us
-            kernels.append((dev_us, e.key, e.count))
-    kernels.sort(reverse=True)
-    out = {
-        "card": card, "device": torch.cuda.get_device_name(dev),
-        "sequences": len(db), "minsup": minsup, "patterns": len(res),
-        "stats": eng.stats, "pair_launch_rows": list(pair_rows),
-        "reps": len(runs), "median_s": med,
-        "profiled_wall_s": wall, "profiled_stages_s": prof_stages,
-        "device_busy_s": busy_us / 1e6,
-        "device_idle_share": (1 - busy_us / 1e6 / wall) if busy_us else None,
-        "top_device_ops": [{"name": k[:80], "ms": us / 1e3, "count": c}
-                           for us, k, c in kernels[:10]],
-    }
-    print(json.dumps(out))
+        vdb = build_vertical(db, min_item_support=1)
+        t1 = time.perf_counter()
+        eng = Timed(vdb, 100, 0.5, max_side=2, device=dev)
+        t2 = time.perf_counter()
+        res = eng.mine()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        return res, eng, {
+            "vertical_s": t1 - t0, "engine_s": t2 - t1,
+            "prep_s": sum(preps), "wait_s": sum(waits),
+            "host_loop_s": t3 - t2 - sum(preps) - sum(waits),
+            "total_s": t3 - t0}
+
+    one_mine()  # warm-up
+    runs = [one_mine()[2] for _ in range(REPS)]
+    res, eng, prof = _profiled(one_mine)
+    return {"path": "tsr", "card": card,
+            "device": torch.cuda.get_device_name(dev),
+            "sequences": len(db), "k": 100, "minconf": 0.5, "max_side": 2,
+            "rules": len(res), "stats": eng.stats,
+            "rule_launches_km_candidates": list(launches),
+            "reps": len(runs), "median_s": _median(runs), **prof}
+
+
+def main() -> list:
+    from spark_fsm_tpu_torch.device import resolve_device
+
+    dev = resolve_device(None)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    out = []
+    for path in (spade, tsr):
+        out.append(path(dev, card))
+        print(json.dumps(out[-1]), flush=True)
     return out
 
 

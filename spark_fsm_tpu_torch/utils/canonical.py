@@ -1,6 +1,7 @@
-"""Canonical ordering + serialization of mined patterns (copy of
+"""Canonical ordering + serialization of mined patterns and rules (copy of
 ``spark_fsm_tpu/utils/canonical.py``: ``sort_patterns``, ``patterns_text``,
-``diff_patterns``).
+``diff_patterns``, and for TSR ``RuleResult``, ``sort_rules``,
+``rule_line``, ``rules_text``).
 
 Byte-identical parity between the oracle and the engines is defined over
 this text form::
@@ -13,6 +14,7 @@ one pattern per line, items ascending within an itemset, patterns sorted by
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Iterable, List, Tuple
 
 Pattern = Tuple[Tuple[int, ...], ...]
@@ -34,6 +36,36 @@ def pattern_line(pattern: Pattern, sup: int) -> str:
 
 def patterns_text(results: Iterable[PatternResult]) -> str:
     return "\n".join(pattern_line(p, s) for p, s in sort_patterns(results)) + "\n"
+
+
+# A rule X ==> Y keeps its confidence exact as the integer pair (sup, sup_x),
+# so the canonical text is float-free.  Top-k is tie-inclusive: every rule
+# with conf >= minconf and sup >= s_k (the k-th highest qualifying support).
+RuleResult = Tuple[Tuple[int, ...], Tuple[int, ...], int, int]  # X, Y, sup, sup_x
+
+
+def sort_rules(rules: Iterable[RuleResult]) -> List[RuleResult]:
+    """Support descending, then confidence descending compared exactly
+    (s1/x1 > s2/x2 <=> s1*x2 > s2*x1), then (X, Y) ascending."""
+    def cmp(a: RuleResult, b: RuleResult) -> int:
+        if a[2] != b[2]:
+            return -1 if a[2] > b[2] else 1
+        lhs, rhs = a[2] * b[3], b[2] * a[3]
+        if lhs != rhs:
+            return -1 if lhs > rhs else 1
+        return -1 if (a[0], a[1]) < (b[0], b[1]) else (1 if (a[0], a[1]) > (b[0], b[1]) else 0)
+
+    return sorted(rules, key=functools.cmp_to_key(cmp))
+
+
+def rule_line(rule: RuleResult) -> str:
+    x, y, sup, supx = rule
+    return (f"{' '.join(map(str, x))} ==> {' '.join(map(str, y))} "
+            f"#SUP: {sup} #CONF: {sup}/{supx}")
+
+
+def rules_text(rules: Iterable[RuleResult]) -> str:
+    return "\n".join(rule_line(r) for r in sort_rules(rules)) + "\n"
 
 
 def diff_patterns(a: Iterable[PatternResult], b: Iterable[PatternResult], limit: int = 10) -> str:

@@ -5,8 +5,8 @@ conftest is left out):
 
     python3 -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-The kernel is held against its plain version exactly, and the engine's
-mines against the port's CPU oracle, with the kernel's launches counted.
+Each kernel is held against its plain version exactly, and the engines'
+mines against the port's CPU oracles, with the kernels' launches counted.
 """
 
 import numpy as np
@@ -17,8 +17,11 @@ from spark_fsm_tpu_torch.data.synth import synthetic_db
 from spark_fsm_tpu_torch.data.vertical import abs_minsup
 from spark_fsm_tpu_torch.models.oracle import mine_spade
 from spark_fsm_tpu_torch.models.spade import mine_spade_torch
+from spark_fsm_tpu_torch.models.tsr import mine_tsr_cpu, mine_tsr_torch
 from spark_fsm_tpu_torch.ops import pair_support as PS
-from spark_fsm_tpu_torch.utils.canonical import diff_patterns, patterns_text
+from spark_fsm_tpu_torch.ops import rule_support as RS
+from spark_fsm_tpu_torch.utils.canonical import (
+    diff_patterns, patterns_text, rules_text)
 
 pytestmark = pytest.mark.cuda
 
@@ -67,3 +70,53 @@ def test_engine_on_card_matches_oracle(card, kw, minsup_rel, cap):
     assert PS.pair_supports.launches > before
     want = mine_spade(db, minsup, max_pattern_itemsets=cap)
     assert patterns_text(got) == patterns_text(want), diff_patterns(want, got)
+
+
+def _xy(rng, C, km, rows, empty_side=None):
+    xy = np.full((C, 2, km), -1, np.int32)
+    for c in range(C):
+        for side in (0, 1):
+            if side != empty_side:
+                n = rng.integers(1, km + 1)
+                xy[c, side, :n] = rng.choice(rows, n, replace=False)
+    return torch.from_numpy(xy)
+
+
+@pytest.mark.parametrize("C,km,S,W,empty_side", [
+    (1, 1, 1, 1, None), (64, 1, 2048, 1, None), (77, 2, 1001, 1, None),
+    (130, 4, 4099, 2, None), (257, 8, 517, 3, None), (65, 2, 33, 40, None),
+    (100, 3, 300, 1, None), (70, 2, 2500, 1, 0), (70, 4, 900, 2, 1),
+])
+def test_rule_kernel_equals_plain(card, C, km, S, W, empty_side):
+    rng = np.random.default_rng(C * 31 + S)
+    rows = 9
+    p1 = _words(rng, rows + 1, S * W).to(card)
+    s1 = _words(rng, rows + 1, S * W).to(card)
+    p1[rows] = -1
+    s1[rows] = -1
+    xy = _xy(rng, C, km, rows, empty_side).to(card)
+    before = RS.rule_supports.launches
+    got = RS.rule_supports(p1, s1, xy, n_words=W)
+    torch.cuda.synchronize()
+    assert RS.rule_supports.launches == before + 1
+    assert torch.equal(got, RS.rule_supports_plain(p1, s1, xy, n_words=W))
+
+
+@pytest.mark.parametrize("kw,k,minconf,side,cap", [
+    (dict(seed=21, n_sequences=3000, n_items=60, mean_itemsets=5.0), 20, 0.5,
+     2, 256),
+    (dict(seed=21, n_sequences=3000, n_items=60, mean_itemsets=5.0), 20, 0.5,
+     2, 4),                                     # several deepening rounds
+    (dict(seed=8, n_sequences=120, n_items=12, mean_itemsets=40.0,
+          max_itemsets=80), 10, 0.3, 3, 256),
+])
+def test_tsr_on_card_matches_cpu_engine(card, kw, k, minconf, side, cap):
+    db = synthetic_db(**kw)
+    before = RS.rule_supports.launches
+    stats = {}
+    got = mine_tsr_torch(db, k, minconf, max_side=side, device=card,
+                         item_cap=cap, stats_out=stats)
+    assert RS.rule_supports.launches > before
+    assert (stats["deepening_rounds"] > 1) == (cap < 60)
+    assert rules_text(got) == rules_text(mine_tsr_cpu(db, k, minconf,
+                                                      max_side=side))

@@ -5,7 +5,7 @@ The import check runs in a subprocess, because this test process has
 already imported jax (tests/conftest.py).  There a ``sys.meta_path`` finder
 refuses ``jax`` and ``spark_fsm_tpu`` (the exact package and its
 submodules, not the ``spark_fsm_tpu_torch`` prefix), every port module is
-imported, and a tiny mine runs on the CPU."""
+imported, and a tiny SPADE mine and a tiny TSR mine run on the CPU."""
 
 import ast
 import os
@@ -39,6 +39,10 @@ from spark_fsm_tpu_torch.models.oracle import mine_spade
 from spark_fsm_tpu_torch.utils.canonical import patterns_text
 db = parse_spmf("1 3 -1 2 -1 2 4 -2\n1 -1 2 -2\n3 -1 2 4 -2\n1 3 -1 4 -2\n")
 assert patterns_text(mine_spade_torch(db, 2, device="cpu")) == patterns_text(mine_spade(db, 2))
+from spark_fsm_tpu_torch import mine_tsr_torch
+from spark_fsm_tpu_torch.models.tsr import mine_tsr_cpu
+from spark_fsm_tpu_torch.utils.canonical import rules_text
+assert rules_text(mine_tsr_torch(db, 3, 0.5, device="cpu")) == rules_text(mine_tsr_cpu(db, 3, 0.5))
 try:
     import jax  # noqa: F401
 except ImportError:
