@@ -29,7 +29,26 @@ Phases, one printed line each (any failure raises and exits non-zero):
      byte-identical to the same mine through the plain evaluator, every
      rule's counts recounted on the host, the kernel's launches counted;
  10. the TSR path against the copied CPU oracle (``mine_tsr_cpu``) at 1 %
-     of that size, and on a multiword (W >= 2) database.
+     of that size, and on a multiword (W >= 2) database;
+ 11. the extension-count-prune kernel against its plain PyTorch version on
+     the card, exactly (counts and survivor masks), W in {1, 2, 3}, ragged
+     P and S, all-zero pad item rows, thresholds 1, the median count and
+     one above the largest; at threshold 1 its counts equal the
+     pair-support kernel's;
+ 12. the extension-count-prune kernel and its plain version timed with
+     CUDA events at the SPAM engine's wave on the MSNBC-shaped database
+     (P = 2 x the engine's node batch on this card, NI=64, S=990,016,
+     W=1) and at the BMS-WebView-2-shaped dense wave (P=128, NI=64,
+     S=77,504, W=1), the kernel at threshold 1 and at the median count,
+     beside the least time the card could take;
+ 13. the SPAM path at full data size: ``mine_spam_torch`` on an
+     MSNBC-shaped database (990,000 sequences) at minsup 0.5 %, which the
+     planner routes to SPAM, byte-identical to the CPU oracle and to the
+     classic engine, with one kernel launch per wave;
+ 14. the SPAM path on the hybrid plan: phase 5's database at minsup 0.1 %
+     (dense items as wave lanes, sparse items as pair lanes),
+     byte-identical to phase 5's oracle result, and a multiword SPAM mine
+     against the oracle.
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 and prints no result.
@@ -64,6 +83,10 @@ MAIN_LAUNCH = (720, 360, 77504, 1)
 # Kosarak-shaped database) and the same launch at km = 1
 RULE_HEADLINE = (8192, 2, 256, 990000, 1)
 RULE_KM1 = (8192, 1, 256, 990000, 1)
+# (P, NI, S, W) of the timed extension-count-prune launch at the BMS dense
+# wave (64 nodes, 26 dense items padded to 64); the MSNBC wave's P is twice
+# the engine's node batch on this card, set in main()
+BMS_WAVE = (128, 64, 77504, 1)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -94,6 +117,17 @@ def pair_bound_ms(P: int, NI: int, S: int, W: int):
     (AND folded into the running OR, the last one also setting the nonzero
     predicate) and one predicated add, W + 1 in all."""
     nbytes = (P + NI) * S * W * 4 + P * NI * 4
+    ops = P * NI * S * (W + 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def extend_bound_ms(P: int, NI: int, S: int, W: int):
+    """Least time for one extension-count-prune launch: the pair-support
+    bound (each row read once, W + 1 operations per pair and sequence) with
+    the [P, NI] counts and the [P, NI/32] mask words written once."""
+    nbytes = (P + NI) * S * W * 4 + P * NI * 4 + P * (NI // 32) * 4
     ops = P * NI * S * (W + 1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
@@ -237,15 +271,20 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from spark_fsm_tpu_torch.data.synth import (
-        bms_webview2_like, kosarak_like, synthetic_db)
-    from spark_fsm_tpu_torch.data.vertical import abs_minsup, build_vertical
+        bms_webview2_like, kosarak_like, msnbc_like, synthetic_db)
+    from spark_fsm_tpu_torch.data.vertical import (
+        abs_minsup, build_vertical, dataset_stats)
     from spark_fsm_tpu_torch.models.oracle import mine_spade
     from spark_fsm_tpu_torch.models.spade import mine_spade_torch
+    from spark_fsm_tpu_torch.models.spam_bitmap import (
+        mine_spam_torch, spam_geometry)
     from spark_fsm_tpu_torch.models.tsr import mine_tsr_cpu, mine_tsr_torch
     from spark_fsm_tpu_torch.ops import _build
+    from spark_fsm_tpu_torch.ops import extend_prune as EP
     from spark_fsm_tpu_torch.ops import pair_support as PS
     from spark_fsm_tpu_torch.ops import ragged_batch as RB
     from spark_fsm_tpu_torch.ops import rule_support as RS
+    from spark_fsm_tpu_torch.service.planner import choose_patterns_engine
     from spark_fsm_tpu_torch.utils.canonical import (
         diff_patterns, patterns_text, rules_text)
 
@@ -260,12 +299,13 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # 2. build: one nvcc per source, all started together
-    sources = ("pair_support", "rule_support")
+    sources = ("pair_support", "rule_support", "extend_prune")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(_build.build, sources))
     PS._kernel()
     RS._kernel()
+    EP._kernel()
     build_s = time.perf_counter() - t0
     for name, lib_path in zip(sources, libs):
         usage = ptxas_usage(_build.build_log(name))
@@ -355,7 +395,8 @@ def main() -> int:
           f"{stats['kernel_launches']}, max_memory_allocated {peak} B; "
           f"host: generator {gen_s:.1f} s, oracle {oracle_s:.1f} s",
           flush=True)
-    del db, got, got_warm, want, vdb
+    bms_db, bms_minsup, bms_text = db, minsup, text
+    del got, got_warm, want, vdb
     torch.cuda.empty_cache()
 
     # 6. multiword mine
@@ -503,13 +544,186 @@ def main() -> int:
               f"to mine_tsr_cpu, rule-support launches {n_l}", flush=True)
     check(n_words >= 2, f"the multiword TSR fixture has W={n_words}")
 
-    print(json.dumps({"kernels": [pair_record, {
+    rule_record = {
         "name": "rule_support", "route": "cuda",
         "source": "spark_fsm_tpu_torch/csrc/rule_support.cu",
         "replaces": "spark_fsm_tpu/ops/pallas_tsr.py:145",
         "launches": rlaunches, "max_abs_err": rworst,
         "ms": rms, "plain_ms": rplain_ms, "bound_ms": rbound_ms,
         "bound_by": rbound_by, "library_ms": None,
+    }
+    del db, got_t, want_t
+    torch.cuda.empty_cache()
+
+    # 11. extension-count-prune kernel == plain version, exactly
+    nb = spam_geometry(990000, 17, 1, device=dev)["node_batch"]
+    msnbc_wave = (2 * nb, 64, 990016, 1)
+    eworst = 0
+    ewaves = {}
+    for (P, NI, n_items, S, W) in ((12, 64, 17, 1001, 1), (37, 128, 100, 4099, 2),
+                                   (128, 64, 26, 517, 3), (14, 128, 90, 77503, 1),
+                                   msnbc_wave[:2] + (17,) + msnbc_wave[2:],
+                                   BMS_WAVE[:2] + (26,) + BMS_WAVE[2:]):
+        pt = torch.from_numpy(rand_words(rng, P, S * W).view(np.int32)).to(dev)
+        items = torch.from_numpy(
+            rand_words(rng, NI + 3, S * W).view(np.int32)).to(dev)
+        items[n_items:NI] = 0                   # all-zero pad item rows
+        counts = PS.pair_supports(pt, items, NI, n_words=W)
+        # the median over the live item lanes: pad lanes count 0
+        median = max(1, int(counts[:, :n_items].float().median()))
+        for thr in (1, median, int(counts.max()) + 1):
+            sup, mask = EP.extend_count_prune(pt, items, thr, NI, n_words=W)
+            want_s, want_m = EP.extend_count_prune_plain(
+                pt.view(P, S, W), items[:NI].view(NI, S, W), thr,
+                torch.zeros(P, dtype=torch.bool))
+            torch.cuda.synchronize()
+            err = int((sup.long() - want_s.long()).abs().max())
+            check(err == 0 and torch.equal(mask, want_m),
+                  f"extend_count_prune != plain at P={P} NI={NI} S={S} W={W} "
+                  f"thr={thr} (max abs err {err})")
+            if thr == 1:
+                check(torch.equal(sup, counts), f"extend_count_prune at thr=1 "
+                      f"!= pair_supports at P={P} NI={NI} S={S} W={W}")
+            eworst = max(eworst, err)
+        print(f"[check] extend_count_prune P={P} NI={NI} ({n_items} items, "
+              f"pad rows zero) S={S} W={W}: sup and mask equal to plain at "
+              f"thr 1, median, max+1; equal to pair_supports at thr 1",
+              flush=True)
+        if (P, NI, S, W) in (msnbc_wave, BMS_WAVE):
+            ewaves[(P, NI, S, W)] = (pt, items, median)
+        del pt, items, counts, sup, mask, want_s, want_m
+
+    # 12. timing at the BMS dense wave and at the MSNBC wave, each at
+    # threshold 1 and at the median count (only the epilogue reads it); the
+    # kernels line reports the MSNBC wave (the main path's) at the median,
+    # timed last
+    for shape in (BMS_WAVE, msnbc_wave):
+        pt, items, median = ewaves.pop(shape)
+        P, NI, S, W = shape
+        ebound_ms, ebound_by = extend_bound_ms(P, NI, S, W)
+        for thr in (1, median):
+            ems = time_ms(
+                lambda: EP.extend_count_prune(pt, items, thr, NI, n_words=W),
+                3, 20)
+            print(f"[time] extend_count_prune P={P} NI={NI} S={S} W={W} "
+                  f"thr={thr}: kernel {ems:.4f} ms, bound {ebound_ms:.4f} ms "
+                  f"({ebound_by}, {100 * ebound_ms / ems:.1f} % of it "
+                  f"reached)", flush=True)
+        eplain_ms = time_ms(lambda: EP.extend_count_prune_plain(
+            pt.view(P, S, W), items[:NI].view(NI, S, W), thr,
+            torch.zeros(P, dtype=torch.bool, device=dev)), 1, 5)
+        clocks = smi("clocks.sm,power.draw,temperature.gpu")
+        print(f"[time] extend_count_prune P={P} NI={NI} S={S} W={W} thr={thr}: "
+              f"plain {eplain_ms:.4f} ms, library: none (no single PyTorch "
+              f"call counts 'any' per sequence, thresholds and packs a mask); "
+              f"after timing nvidia-smi sm clock, power, temp: {clocks}",
+              flush=True)
+        del pt, items
+    torch.cuda.empty_cache()
+
+    # 13. the SPAM path at full data size
+    t0 = time.perf_counter()
+    db = msnbc_like(scale=1.0, fast=True)
+    gen_s = time.perf_counter() - t0
+    minsup = abs_minsup(0.005, len(db))
+    decision = choose_patterns_engine(dataset_stats(db, min_item_support=minsup))
+    check(decision.engine == "SPAM_TPU",
+          f"the planner routes the MSNBC-shaped mine to {decision.engine}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    EP.extend_count_prune.launches = 0
+    PS.pair_supports.launches = 0
+    RS.rule_supports.launches = 0
+    sstats: dict = {}
+    t0 = time.perf_counter()
+    got = mine_spam_torch(db, minsup, stats_out=sstats)
+    torch.cuda.synchronize()
+    scold_s = time.perf_counter() - t0
+    elaunches = EP.extend_count_prune.launches
+    speak = torch.cuda.max_memory_allocated()
+    check(elaunches > 0, "the SPAM path launched the extend-prune kernel 0 times")
+    check(elaunches == sstats["waves"],
+          f"{elaunches} extend-prune launches for {sstats['waves']} waves")
+    check(PS.pair_supports.launches == 0 and RS.rule_supports.launches == 0,
+          "the pure-bitmap SPAM path launched another kernel")
+    t0 = time.perf_counter()
+    got_warm = mine_spam_torch(db, minsup)
+    torch.cuda.synchronize()
+    swarm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got_spade = mine_spade_torch(db, minsup)
+    torch.cuda.synchronize()
+    spade_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = mine_spade(db, minsup)
+    oracle_s = time.perf_counter() - t0
+    text = patterns_text(want)
+    check(patterns_text(got) == text, "SPAM mine differs from the oracle:\n"
+          + diff_patterns(want, got))
+    check(patterns_text(got_warm) == text, "warm SPAM mine differs from the oracle")
+    check(patterns_text(got_spade) == text,
+          "SPAM and the classic engine differ on the MSNBC-shaped mine")
+    print(f"[mine] msnbc_like: {len(db)} sequences, {sstats['rep_dense']} "
+          f"frequent items, minsup {minsup}, planner: {decision.engine} "
+          f"({decision.reason}): {len(got)} patterns byte-identical to the "
+          f"oracle and to the classic engine; cold {scold_s:.3f} s, warm "
+          f"{swarm_s:.3f} s, classic engine {spade_s:.3f} s; node_batch {nb}, "
+          f"waves {sstats['waves']}, extend-prune launches {elaunches}, "
+          f"candidates {sstats['candidates']}, evaluated_lanes "
+          f"{sstats['evaluated_lanes']}, wave_survivors "
+          f"{sstats['wave_survivors']}, diffset_nodes {sstats['diffset_nodes']}, "
+          f"engine launches {sstats['kernel_launches']}, recomputed_nodes "
+          f"{sstats['recomputed_nodes']}; max_memory_allocated {speak} B; host: "
+          f"generator {gen_s:.1f} s, oracle {oracle_s:.1f} s", flush=True)
+    del db, got, got_warm, got_spade, want
+    torch.cuda.empty_cache()
+
+    # 14. the SPAM path on the hybrid plan, and a multiword SPAM mine
+    EP.extend_count_prune.launches = 0
+    hstats: dict = {}
+    t0 = time.perf_counter()
+    got = mine_spam_torch(bms_db, bms_minsup, stats_out=hstats)
+    torch.cuda.synchronize()
+    hybrid_s = time.perf_counter() - t0
+    hlaunches = EP.extend_count_prune.launches
+    check(patterns_text(got) == bms_text,
+          "hybrid SPAM mine differs from phase 5's oracle result")
+    check(hstats["rep_dense"] > 0 and hstats["rep_idlist"] > 0,
+          f"the BMS-shaped plan is not hybrid: {hstats['rep_dense']} dense, "
+          f"{hstats['rep_idlist']} id-list items")
+    check(hstats["pair_launches"] > 0, "the hybrid mine made no pair launches")
+    check(hlaunches == hstats["waves"] > 0,
+          f"{hlaunches} extend-prune launches for {hstats['waves']} waves")
+    print(f"[mine] bms_webview2_like hybrid SPAM: rep_dense "
+          f"{hstats['rep_dense']}, rep_idlist {hstats['rep_idlist']}, "
+          f"{len(got)} patterns byte-identical to phase 5's oracle result; "
+          f"{hybrid_s:.3f} s; waves {hstats['waves']}, extend-prune launches "
+          f"{hlaunches}, pair_launches {hstats['pair_launches']}, candidates "
+          f"{hstats['candidates']}, diffset_nodes {hstats['diffset_nodes']}",
+          flush=True)
+    del bms_db, got
+    db = synthetic_db(seed=8, n_sequences=120, n_items=12, mean_itemsets=40.0,
+                      max_itemsets=80)
+    minsup_w = abs_minsup(0.5, len(db))
+    before = EP.extend_count_prune.launches
+    got = mine_spam_torch(db, minsup_w, max_pattern_itemsets=3)
+    torch.cuda.synchronize()
+    n_l = EP.extend_count_prune.launches - before
+    want = mine_spade(db, minsup_w, max_pattern_itemsets=3)
+    check(patterns_text(got) == patterns_text(want),
+          "multiword SPAM mine differs from the oracle:\n" + diff_patterns(want, got))
+    check(n_l > 0, "the multiword SPAM mine launched the kernel 0 times")
+    print(f"[mine] multiword SPAM W={build_vertical(db).n_words}: {len(got)} "
+          f"patterns byte-identical to the oracle, extend-prune launches {n_l}",
+          flush=True)
+
+    print(json.dumps({"kernels": [pair_record, rule_record, {
+        "name": "extend_prune", "route": "cuda",
+        "source": "spark_fsm_tpu_torch/csrc/extend_prune.cu",
+        "replaces": "spark_fsm_tpu/ops/pallas_extend.py:172",
+        "launches": elaunches, "max_abs_err": eworst,
+        "ms": ems, "plain_ms": eplain_ms, "bound_ms": ebound_ms,
+        "bound_by": ebound_by, "library_ms": None,
     }]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

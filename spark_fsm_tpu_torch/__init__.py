@@ -5,7 +5,7 @@ counterpart of the same name there, and each module's docstring names
 the file it ports.  The port imports ``torch`` and numpy, never ``jax``
 and nothing of ``spark_fsm_tpu``: the framework-free modules it needs
 (``data/*``, ``utils/canonical.py``, ``ops/bitops_np.py``,
-``models/oracle.py``) are kept here as copies.
+``models/oracle.py``, ``service/planner.py``) are kept here as copies.
 
 Bitmaps live as ``torch.int32`` tensors holding the same bits as the
 reference's ``uint32`` arrays (``arr.view(np.int32)`` in,
@@ -16,11 +16,13 @@ passes ``device="cpu"``; without CUDA they raise instead of falling back.
 from spark_fsm_tpu_torch.data.spmf import SequenceDB, load_spmf, parse_spmf
 from spark_fsm_tpu_torch.data.vertical import VerticalDB, abs_minsup, build_vertical
 from spark_fsm_tpu_torch.models.spade import SpadeTorch, mine_spade_torch
+from spark_fsm_tpu_torch.models.spam_bitmap import SpamBitmapTorch, mine_spam_torch
 from spark_fsm_tpu_torch.models.tsr import TsrTorch, mine_tsr_torch
 
 __all__ = [
     "SequenceDB", "load_spmf", "parse_spmf",
     "VerticalDB", "abs_minsup", "build_vertical",
     "SpadeTorch", "mine_spade_torch",
+    "SpamBitmapTorch", "mine_spam_torch",
     "TsrTorch", "mine_tsr_torch",
 ]

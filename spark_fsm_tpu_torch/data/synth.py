@@ -1,6 +1,6 @@
 """Deterministic synthetic sequence databases (copy of
 ``spark_fsm_tpu/data/synth.py``: ``synthetic_db``, ``synthetic_db_fast``,
-``bms_webview2_like`` and ``kosarak_like``).
+``bms_webview2_like``, ``msnbc_like`` and ``kosarak_like``).
 
 The copy draws the same numbers from the same seed in the same order, so it
 yields the same database as the reference generator.  Item popularity is
@@ -119,6 +119,14 @@ def bms_webview2_like(seed: int = 2, scale: float = 1.0,
     return _generator(fast)(seed, int(77500 * scale),
                             max(64, int(3300 * scale)),
                             mean_itemsets=4.6, zipf_s=1.15)
+
+
+def msnbc_like(seed: int = 3, scale: float = 1.0,
+               fast: bool = False) -> SequenceDB:
+    """MSNBC shape: 990,000 sequences over 17 page categories, mean 5.7
+    itemsets per sequence, long-tailed lengths (at ``scale=1.0``)."""
+    return _generator(fast)(seed, int(990000 * scale), 17,
+                            mean_itemsets=5.7, zipf_s=0.9, max_itemsets=96)
 
 
 def kosarak_like(seed: int = 4, scale: float = 1.0,

@@ -1,7 +1,9 @@
 """Vertical bitmap sequence database (copy of ``spark_fsm_tpu/data/vertical.py``).
 
-Only ``VerticalDB``, ``build_vertical`` and ``abs_minsup`` are carried over,
-plus the numpy tokenizer ``flatten_numpy`` from
+Carried over: ``VerticalDB`` (with its id-list view), ``build_vertical``,
+``abs_minsup``, the hybrid store's ``idlist_join_support``, ``RepPlan`` and
+``rep_plan``, the planner's ``DatasetStats`` and ``dataset_stats``, and the
+numpy tokenizer ``flatten_numpy`` from
 ``spark_fsm_tpu/data/fasttok.py`` (the reference's always-correct path; its
 native C tokenizer produces the same bytes and is not copied).
 
@@ -79,6 +81,85 @@ class VerticalDB:
 
     def nbytes(self) -> int:
         return self.n_items * self._n_seq * self._n_words * 4
+
+    # The token table is item-major (sorted by (item, seq, pos) through the
+    # dedup key of build_vertical), so each item's id-list is a contiguous
+    # slice: the sparse half of the hybrid store reads these slices and
+    # never builds the item's dense row.
+
+    @property
+    def _tok_ptr(self) -> np.ndarray:
+        """[n_items + 1] row pointer into the item-major token table."""
+        ptr = getattr(self, "_tok_ptr_cache", None)
+        if ptr is None:
+            ptr = np.searchsorted(
+                self.tok_item, np.arange(self.n_items + 1, dtype=np.int64))
+            self._tok_ptr_cache = ptr
+        return ptr
+
+    def idlist(self, i: int):
+        """Item ``i``'s id-list: (tok_seq, tok_word, tok_mask) slices,
+        one entry per (sequence, position) occurrence."""
+        ptr = self._tok_ptr
+        lo, hi = int(ptr[i]), int(ptr[i + 1])
+        return self.tok_seq[lo:hi], self.tok_word[lo:hi], self.tok_mask[lo:hi]
+
+    def idlist_lengths(self) -> np.ndarray:
+        """[n_items] int64 token count per item (id-list sizes)."""
+        return np.diff(self._tok_ptr)
+
+
+def idlist_join_support(prefix_bitmap: np.ndarray, tok_seq: np.ndarray,
+                        tok_word: np.ndarray, tok_mask: np.ndarray) -> int:
+    """Support of ``prefix AND item`` evaluated against the item's id-list
+    (the sparse-representation join): a token survives iff the prefix
+    bitmap (the plain row for an i-extension, the ``sext_transform``-ed row
+    for an s-extension) has its bit set; the support is the count of
+    distinct sequences with a survivor.  Equal to ``support(prefix &
+    bitmaps[i])`` without touching the item's dense row."""
+    hit = (prefix_bitmap[tok_seq, tok_word] & tok_mask) != 0
+    return int(np.unique(tok_seq[hit]).size)
+
+
+@dataclasses.dataclass(frozen=True)
+class RepPlan:
+    """Per-item vertical-representation choice for one mine: ``rep[i]``
+    True holds item ``i`` as a dense bitmap row (a wave lane), False as an
+    id-list (a sparse pair lane).  ``pin`` records whether the split was
+    density-routed ("auto") or pinned ("bitmap"/"idlist").  The plan picks
+    which path computes each support, never the support itself."""
+
+    rep: np.ndarray          # [n_items] bool, True = dense bitmap
+    densities: np.ndarray    # [n_items] float64 item support / n_seq
+    crossover: float
+    pin: str                 # "auto" | "bitmap" | "idlist"
+
+    @property
+    def n_dense(self) -> int:
+        return int(np.count_nonzero(self.rep))
+
+    @property
+    def n_sparse(self) -> int:
+        return int(self.rep.size) - self.n_dense
+
+
+def rep_plan(item_supports: np.ndarray, n_sequences: int, *,
+             crossover: float, pin: str = "auto") -> RepPlan:
+    """Pick a representation per item: density (support over the sequence
+    axis, the fill of its dense row) at or above ``crossover`` routes to
+    the bitmap, below it to the id-list.  ``pin`` forces a uniform store."""
+    sup = np.asarray(item_supports, dtype=np.int64)
+    d = sup / float(max(1, int(n_sequences)))
+    if pin == "bitmap":
+        rep = np.ones(sup.shape, dtype=bool)
+    elif pin == "idlist":
+        rep = np.zeros(sup.shape, dtype=bool)
+    elif pin == "auto":
+        rep = d >= float(crossover)
+    else:
+        raise ValueError(
+            f"representation must be auto|bitmap|idlist, got {pin!r}")
+    return RepPlan(rep=rep, densities=d, crossover=float(crossover), pin=pin)
 
 
 def flatten_numpy(db) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -168,6 +249,56 @@ def build_vertical(
         _n_seq=n_seq_padded,
         _n_words=n_words,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class DatasetStats:
+    """Shape and density summary of a SequenceDB, the engine planner's
+    input (``service/planner.py``).  ``alphabet`` and ``density`` are taken
+    over the frequent-item projection at ``min_item_support`` (1 = the raw
+    alphabet): ``density`` is distinct (item, sequence) pairs over
+    ``alphabet * n_sequences``, the expected fill of the vertical bitmaps."""
+
+    n_sequences: int
+    n_itemsets: int
+    n_tokens: int
+    alphabet: int
+    max_len: int
+    avg_len: float
+    n_words: int
+    density: float
+
+
+def dataset_stats(db: SequenceDB,
+                  min_item_support: int = 1) -> DatasetStats:
+    """One vectorized pass over the horizontal DB; no bitmap is built.
+    ``min_item_support`` applies the projection ``build_vertical`` will."""
+    n_seq = len(db)
+    if n_seq == 0:
+        return DatasetStats(0, 0, 0, 0, 0, 0.0, 1, 0.0)
+    seq_lengths, counts, raw_items = flatten_numpy(db)
+    n_itemsets = int(len(counts))
+    n_tokens = int(len(raw_items))
+    max_len = int(seq_lengths.max())
+    n_words = max(1, -(-max_len // WORD_BITS))
+    alphabet = 0
+    density = 0.0
+    if n_tokens:
+        seq_of_itemset = np.repeat(np.arange(n_seq, dtype=np.int64),
+                                   seq_lengths)
+        tok_seq = np.repeat(seq_of_itemset, counts)
+        uniq_pair = np.unique(raw_items.astype(np.int64) * n_seq
+                              + tok_seq)
+        _, sup_all = np.unique(uniq_pair // n_seq, return_counts=True)
+        kept = sup_all >= max(1, int(min_item_support))
+        alphabet = int(kept.sum())
+        if alphabet:
+            density = int(sup_all[kept].sum()) / float(alphabet * n_seq)
+    return DatasetStats(
+        n_sequences=n_seq, n_itemsets=n_itemsets, n_tokens=n_tokens,
+        alphabet=alphabet, max_len=max_len,
+        avg_len=round(n_itemsets / n_seq, 4), n_words=n_words,
+        density=round(density, 6))
 
 
 def abs_minsup(rel_minsup: float, n_sequences: int) -> int:

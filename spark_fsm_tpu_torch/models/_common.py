@@ -3,6 +3,10 @@
 
 A device-resident bitmap store addressed by slot, a host DFS stack,
 recompute-on-miss, and reclaim-from-stack-bottom when the pool runs dry.
+The device steps both batched-DFS engines (SPADE's classic engine and
+SPAM) share — a batch's parent-row prep, the materialize of surviving
+children and the recompute of evicted bitmaps — live here as functions
+on the store (the reference's ``spade_tpu._spade_fns``).
 ``FrontierNode``, ``encode_frontier``, ``decode_frontier`` and
 ``load_checkpoint`` are byte-for-byte copies of the reference's, so a
 frontier snapshot taken by either package resumes in the other.
@@ -16,6 +20,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from spark_fsm_tpu_torch.ops import bitops_torch as B
 from spark_fsm_tpu_torch.ops import pair_support as PS
 from spark_fsm_tpu_torch.ops.ragged_batch import next_pow2
 
@@ -145,6 +150,112 @@ def auto_pool_bytes(device: torch.device) -> int:
     """Default engine pool budget: 35% of the device memory budget, so
     two engine working sets plus kernel temporaries can coexist."""
     return int(device_hbm_budget(device) * 0.35)
+
+
+def to_index(a, device: torch.device) -> torch.Tensor:
+    """Host indices -> an int64 tensor on ``device``."""
+    return torch.as_tensor(np.asarray(a, dtype=np.int64)).to(device)
+
+
+def to_host(tensors):
+    """Start the copy of each device tensor (None stays None) into a pinned
+    host tensor and record one event behind them; CPU tensors stay as they
+    are.  Returns ``(host_tensors, event_or_None)``."""
+    live = [t for t in tensors if t is not None]
+    if not live or live[0].device.type != "cuda":
+        return list(tensors), None
+    out = []
+    for t in tensors:
+        if t is None:
+            out.append(None)
+            continue
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        out.append(host)
+    ev = torch.cuda.Event()
+    ev.record()
+    return out, ev
+
+
+def prep_rows(store: torch.Tensor, slots, n_seq: int,
+              n_words: int) -> torch.Tensor:
+    """Gather the bitmaps at ``slots`` and interleave each with its s-ext
+    transform, once per batch: row ``2*b`` of the returned
+    ``[2*len(slots), S*W]`` tensor is slot b's bitmap, row ``2*b+1`` its
+    transform.  The rows are copies, so later in-place writes to the
+    store's pool slots cannot reach a batch in flight."""
+    parents = store.index_select(0, to_index(slots, store.device)).view(
+        len(slots), n_seq, n_words)
+    pt = torch.stack([parents, B.sext_transform(parents)], dim=1)
+    return pt.view(2 * len(slots), -1)
+
+
+def materialize_rows(store: torch.Tensor, pt: torch.Tensor, ref: np.ndarray,
+                     item: np.ndarray, iss: np.ndarray, out_slot: np.ndarray,
+                     chunk: int) -> int:
+    """``store[out_slot[k]] = pt[2*ref[k] + iss[k]] & store[item[k]]`` in
+    place (the reference donated the store to a functional update
+    instead), ``chunk`` children a launch; returns the launches."""
+    dev = store.device
+    launches = 0
+    for lo in range(0, len(ref), chunk):
+        hi = lo + chunk
+        rows = (pt.index_select(0, to_index(2 * ref[lo:hi] + iss[lo:hi], dev))
+                & store.index_select(0, to_index(item[lo:hi], dev)))
+        store.index_copy_(0, to_index(out_slot[lo:hi], dev), rows)
+        launches += 1
+    return launches
+
+
+def recompute_rows(store: torch.Tensor, items: np.ndarray, iss: np.ndarray,
+                   valid: np.ndarray, slots: List[int], n_seq: int,
+                   n_words: int) -> None:
+    """Rebuild bitmaps by folding the joins along K steps (``[K, M]``
+    arrays, one column per node) from the item rows, and write them to
+    ``slots``; bit-exact with the bitmaps the mine built."""
+    dev = store.device
+    it = to_index(items, dev)
+    ss = torch.as_tensor(iss).to(dev)
+    vv = torch.as_tensor(valid).to(dev)
+    bmp = store.index_select(0, it[0]).view(-1, n_seq, n_words)
+    for k in range(1, it.shape[0]):
+        nb = B.join(bmp, store.index_select(0, it[k]).view(-1, n_seq, n_words),
+                    ss[k])
+        bmp = torch.where(vv[k][:, None, None], nb, bmp)
+    store.index_copy_(0, to_index(slots, dev), bmp.reshape(len(slots), -1))
+
+
+def ensure_slots(store: torch.Tensor, pool: "SlotPool", batch, stack, *,
+                 first_pool_slot: int, group: int, n_seq: int, n_words: int,
+                 stats: dict) -> None:
+    """Recompute the bitmaps of popped nodes that lost (or never had) a
+    slot, ``group`` nodes a launch, reclaiming slots from the bottom of the
+    stack when the pool is short.  Counts ``recomputed_nodes``,
+    ``reclaimed_slots`` and ``kernel_launches`` in ``stats``."""
+    missing = [n for n in batch if n.slot is None]
+    if not missing:
+        return
+    stats["recomputed_nodes"] += len(missing)
+    if len(pool) < len(missing):
+        pool.reclaim(stack, len(missing), lambda n: n.slot >= first_pool_slot)
+        stats["reclaimed_slots"] = pool.reclaimed
+    for lo in range(0, len(missing), group):
+        nodes = missing[lo: lo + group]
+        k = max(len(n.steps) for n in nodes)
+        items = np.zeros((k, len(nodes)), np.int64)
+        iss = np.zeros((k, len(nodes)), bool)
+        valid = np.zeros((k, len(nodes)), bool)
+        slots = []
+        for col, node in enumerate(nodes):
+            slot = pool.alloc()
+            if slot is None:
+                raise RuntimeError("slot pool exhausted beyond reclaim")
+            node.slot = slot
+            slots.append(slot)
+            for row, (it, s) in enumerate(node.steps):
+                items[row, col], iss[row, col], valid[row, col] = it, s, True
+        recompute_rows(store, items, iss, valid, slots, n_seq, n_words)
+        stats["kernel_launches"] += 1
 
 
 class SlotPool:

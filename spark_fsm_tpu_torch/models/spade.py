@@ -42,8 +42,8 @@ from spark_fsm_tpu_torch.data.vertical import VerticalDB, build_vertical
 from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
 from spark_fsm_tpu_torch.models._common import (
     FrontierNode, SlotPool, auto_pool_bytes, decode_frontier, device_axes,
-    encode_frontier, launch_width_cap, load_checkpoint, scatter_build_store)
-from spark_fsm_tpu_torch.ops import bitops_torch as B
+    encode_frontier, ensure_slots, launch_width_cap, load_checkpoint,
+    materialize_rows, prep_rows, scatter_build_store, to_host, to_index)
 from spark_fsm_tpu_torch.ops import pair_support as PS
 from spark_fsm_tpu_torch.utils.canonical import Pattern, PatternResult, sort_patterns
 
@@ -140,12 +140,6 @@ class SpadeTorch:
 
     # ------------------------------------------------------------ helpers
 
-    def _idx(self, a) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a, dtype=np.int64)).to(self.device)
-
-    def _rows3(self, rows2: torch.Tensor) -> torch.Tensor:
-        return rows2.view(rows2.shape[0], self.n_seq, self.n_words)
-
     def _alloc(self) -> Optional[int]:
         return self._pool.alloc()
 
@@ -156,16 +150,12 @@ class SpadeTorch:
     # ------------------------------------------------------------- kernels
 
     def _prep(self, batch: List[_Node]) -> torch.Tensor:
-        """Gather + s-ext-transform the popped batch's bitmaps, once.
-
-        Returns the interleaved [2*Bn, S*W] plain/transformed tensor, sized
-        to the live batch (the kernel takes any row count): row ``2*b`` is
-        node b's bitmap, row ``2*b+1`` its s-ext transform."""
-        parents = self._rows3(
-            self.store.index_select(0, self._idx([n.slot for n in batch])))
-        pt = torch.stack([parents, B.sext_transform(parents)], dim=1)
+        """The batch's interleaved plain/transformed parent rows, sized to
+        the live batch (the kernel takes any row count)."""
+        pt = prep_rows(self.store, [n.slot for n in batch], self.n_seq,
+                       self.n_words)
         self.stats["kernel_launches"] += 1
-        return pt.view(2 * len(batch), -1)
+        return pt
 
     def _supports_dispatch(self, pt: torch.Tensor, ref: np.ndarray,
                            item: np.ndarray, iss: np.ndarray):
@@ -174,69 +164,12 @@ class SpadeTorch:
         event behind it.  Returns ``(supports, event_or_None)``."""
         self.stats["candidates"] += len(ref)
         sup = PS.batch_supports(pt, self.store, self.n_items,
-                                self._idx(2 * ref + iss), self._idx(item),
+                                to_index(2 * ref + iss, self.device),
+                                to_index(item, self.device),
                                 n_words=self.n_words)
         self.stats["kernel_launches"] += 1
-        if self.device.type != "cuda":
-            return sup, None
-        host = torch.empty(sup.shape, dtype=torch.int32, pin_memory=True)
-        host.copy_(sup, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
+        (host,), ev = to_host([sup])
         return host, ev
-
-    def _materialize(self, pt: torch.Tensor, ref: np.ndarray, item: np.ndarray,
-                     iss: np.ndarray, out_slot: np.ndarray) -> None:
-        c = self.chunk
-        for lo in range(0, len(ref), c):
-            hi = lo + c
-            rows = (pt.index_select(0, self._idx(2 * ref[lo:hi] + iss[lo:hi]))
-                    & self.store.index_select(0, self._idx(item[lo:hi])))
-            # in place: store[out_slot] = joined (the reference donated the
-            # store buffer to a functional update instead)
-            self.store.index_copy_(0, self._idx(out_slot[lo:hi]), rows)
-            self.stats["kernel_launches"] += 1
-
-    def _recompute(self, items: np.ndarray, iss: np.ndarray,
-                   valid: np.ndarray, slots: List[int]) -> None:
-        """Rebuild bitmaps by folding joins along the K steps ([K, M]
-        arrays, one column per node) and write them to ``slots``."""
-        it = self._idx(items)
-        ss = torch.as_tensor(iss).to(self.device)
-        vv = torch.as_tensor(valid).to(self.device)
-        bmp = self._rows3(self.store.index_select(0, it[0]))
-        for k in range(1, it.shape[0]):
-            nb = B.join(bmp, self._rows3(self.store.index_select(0, it[k])), ss[k])
-            bmp = torch.where(vv[k][:, None, None], nb, bmp)
-        self.store.index_copy_(0, self._idx(slots), bmp.reshape(len(slots), -1))
-        self.stats["kernel_launches"] += 1
-
-    def _ensure_slots(self, batch: List[_Node], stack: List[_Node]) -> None:
-        """Recompute bitmaps for popped nodes that lost (or never had) a slot."""
-        missing = [n for n in batch if n.slot is None]
-        if not missing:
-            return
-        self.stats["recomputed_nodes"] += len(missing)
-        if len(self._pool) < len(missing):
-            self._pool.reclaim(stack, len(missing),
-                               lambda n: n.slot >= self.n_items)
-            self.stats["reclaimed_slots"] = self._pool.reclaimed
-        for lo in range(0, len(missing), self.recompute_chunk):
-            group = missing[lo: lo + self.recompute_chunk]
-            k = max(len(n.steps) for n in group)
-            items = np.zeros((k, len(group)), np.int64)
-            iss = np.zeros((k, len(group)), bool)
-            valid = np.zeros((k, len(group)), bool)
-            slots = []
-            for col, node in enumerate(group):
-                slot = self._alloc()
-                if slot is None:
-                    raise RuntimeError("slot pool exhausted beyond reclaim")
-                node.slot = slot
-                slots.append(slot)
-                for row, (it, s) in enumerate(node.steps):
-                    items[row, col], iss[row, col], valid[row, col] = it, s, True
-            self._recompute(items, iss, valid, slots)
 
     # ---------------------------------------------------------------- mine
 
@@ -254,7 +187,9 @@ class SpadeTorch:
         """Pop a node batch, dispatch its supports, start the host copy.
         Returns everything the resolve step needs."""
         batch = [stack.pop() for _ in range(min(self.node_batch, len(stack)))]
-        self._ensure_slots(batch, stack)
+        ensure_slots(self.store, self._pool, batch, stack,
+                     first_pool_slot=self.n_items, group=self.recompute_chunk,
+                     n_seq=self.n_seq, n_words=self.n_words, stats=self.stats)
         pt = self._prep(batch)
 
         # Flat candidate list for the whole batch (ref = index in batch).
@@ -323,10 +258,10 @@ class SpadeTorch:
                     mat_iss.append(int(is_s)); mat_child.append(slot)
                 children.append(child)
         if mat_child:
-            self._materialize(pt, np.array(mat_ref, np.int64),
-                              np.array(mat_item, np.int64),
-                              np.array(mat_iss, np.int64),
-                              np.array(mat_child, np.int64))
+            self.stats["kernel_launches"] += materialize_rows(
+                self.store, pt, np.array(mat_ref, np.int64),
+                np.array(mat_item, np.int64), np.array(mat_iss, np.int64),
+                np.array(mat_child, np.int64), self.chunk)
         stack.extend(reversed(children))
         for node in batch:
             self._free_slot(node.slot)

@@ -46,7 +46,7 @@ from spark_fsm_tpu_torch.data.spmf import SequenceDB
 from spark_fsm_tpu_torch.data.vertical import VerticalDB, build_vertical
 from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
 from spark_fsm_tpu_torch.models._common import (
-    device_hbm_budget, load_checkpoint, scatter_tokens)
+    device_hbm_budget, load_checkpoint, scatter_tokens, to_host)
 from spark_fsm_tpu_torch.ops import bitops_np as Bnp
 from spark_fsm_tpu_torch.ops import bitops_torch as B
 from spark_fsm_tpu_torch.ops import ragged_batch as RB
@@ -349,12 +349,7 @@ class TsrTorch:
             self._count_launch(L)
         self.stats["evaluated"] += n
         out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
-        if not cuda:
-            return out, cols, None, xy_bufs
-        host = torch.empty(out.shape, dtype=torch.int32, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
+        (host,), ev = to_host([out])
         return host, cols, ev, xy_bufs
 
     def _count_launch(self, L) -> None:

@@ -41,8 +41,10 @@ _BLOCKS_PER_SM = 16
 _CHUNK_BYTES = 256 << 20
 
 
-def _check(pt: torch.Tensor, items: torch.Tensor, n_item_rows: int,
-           n_words: int) -> None:
+def check_operands(pt: torch.Tensor, items: torch.Tensor, n_item_rows: int,
+                   n_words: int) -> None:
+    """Raise unless ``pt`` and ``items`` are contiguous flat ``[rows, S*W]``
+    int32 tensors on one device whose first ``n_item_rows`` rows exist."""
     for name, t in (("pt", pt), ("items", items)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
@@ -69,7 +71,7 @@ def pair_supports_plain(pt: torch.Tensor, items: torch.Tensor,
     """The plain PyTorch version: [P, n_item_rows] int32 supports.  Works
     through P in chunks so the [p_chunk, NI, S, W] temporary stays near
     ``_CHUNK_BYTES``."""
-    _check(pt, items, n_item_rows, n_words)
+    check_operands(pt, items, n_item_rows, n_words)
     P, SW = pt.shape
     S = SW // n_words
     it = items[:n_item_rows].reshape(1, n_item_rows, S, n_words)
@@ -108,7 +110,7 @@ def pair_supports(pt: torch.Tensor, items: torch.Tensor, n_item_rows: int,
     kernel (and raise if it cannot be built or launched); CPU tensors take
     :func:`pair_supports_plain`; any other device raises.  Each launch
     adds one to ``pair_supports.launches``."""
-    _check(pt, items, n_item_rows, n_words)
+    check_operands(pt, items, n_item_rows, n_words)
     dev = pt.device
     if dev.type == "cpu":
         return pair_supports_plain(pt, items, n_item_rows, n_words)

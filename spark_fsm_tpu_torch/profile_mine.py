@@ -1,8 +1,8 @@
 """Where the main paths' time goes, on one CUDA card.
 
-    python3 -m spark_fsm_tpu_torch.profile_mine
+    python3 -m spark_fsm_tpu_torch.profile_mine [spade] [tsr] [spam]
 
-Prints one JSON line per path:
+Prints one JSON line per path named (all three when none is):
 - SPADE: the BMS-WebView-2-shaped database (full size) at minsup 0.1 % with
   the classic engine: the host-clock wall of each stage (vertical build,
   store build, DFS; medians of three warm mines), the DFS split into host
@@ -11,7 +11,11 @@ Prints one JSON line per path:
 - TSR: the Kosarak-shaped database (full size) with k=100, minconf=0.5,
   max_side=2: the stage walls (vertical build, engine set-up, the prep of
   each deepening round, the host loop, waits on the device; medians of
-  three warm mines) and each rule-support launch's km and candidate count.
+  three warm mines) and each rule-support launch's km and candidate count;
+- SPAM: the MSNBC-shaped database (full size) at minsup 0.5 %: the stage
+  walls (vertical build, store build, DFS; medians of three warm mines),
+  the DFS split into host work and waits on the device, and the parent
+  rows (P) of each extension-count-prune launch.
 Each line also carries a ``torch.profiler`` trace of one more warm mine:
 device busy time by kernel and the device's idle share of the mine's wall.
 Needs a CUDA card; raises without one.
@@ -22,6 +26,7 @@ from __future__ import annotations
 import json
 import statistics
 import subprocess
+import sys
 import time
 
 REPS = 3
@@ -184,19 +189,84 @@ def tsr(dev, card: str) -> dict:
             "reps": len(runs), "median_s": _median(runs), **prof}
 
 
-def main() -> list:
+def spam(dev, card: str) -> dict:
+    import torch
+
+    from spark_fsm_tpu_torch.data.synth import msnbc_like
+    from spark_fsm_tpu_torch.data.vertical import abs_minsup, build_vertical
+    from spark_fsm_tpu_torch.models import spam_bitmap as SM
+    from spark_fsm_tpu_torch.ops import extend_prune as EP
+
+    db = msnbc_like(scale=1.0, fast=True)
+    minsup = abs_minsup(0.005, len(db))
+    EP._kernel()  # build outside the timed stages
+
+    waits, wave_rows = [], []
+
+    class Timed(SM.SpamBitmapTorch):
+        """The engine with its waits on each wave's outputs timed and the
+        parent rows (P) of each extension-count-prune launch recorded."""
+
+        def _dispatch(self, stack):
+            out = super()._dispatch(stack)
+            wave_rows.append(out[1].shape[0])
+            return out
+
+        def _resolve(self, inflight, stack, results):
+            ev = inflight[-1]
+            if ev is not None:
+                t0 = time.perf_counter()
+                ev.synchronize()
+                waits.append(time.perf_counter() - t0)
+            return super()._resolve(inflight, stack, results)
+
+    def one_mine():
+        waits.clear()
+        wave_rows.clear()
+        t0 = time.perf_counter()
+        vdb = build_vertical(db, min_item_support=minsup)
+        t1 = time.perf_counter()
+        eng = Timed(vdb, minsup, device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        res = eng.mine()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        return res, eng, {"vertical_s": t1 - t0, "store_s": t2 - t1,
+                          "dfs_s": t3 - t2, "wait_s": sum(waits),
+                          "total_s": t3 - t0}
+
+    one_mine()  # warm-up
+    runs = [one_mine()[2] for _ in range(REPS)]
+    res, eng, prof = _profiled(one_mine)
+    return {"path": "spam", "card": card,
+            "device": torch.cuda.get_device_name(dev),
+            "sequences": len(db), "minsup": minsup, "patterns": len(res),
+            "node_batch": eng.node_batch, "stats": eng.stats,
+            "wave_launch_rows": list(wave_rows),
+            "reps": len(runs), "median_s": _median(runs), **prof}
+
+
+PATHS = {"spade": spade, "tsr": tsr, "spam": spam}
+
+
+def main(names=None) -> list:
     from spark_fsm_tpu_torch.device import resolve_device
 
+    names = list(names or PATHS)
+    unknown = [n for n in names if n not in PATHS]
+    if unknown:
+        raise SystemExit(f"unknown path(s) {unknown}; choose from {list(PATHS)}")
     dev = resolve_device(None)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     out = []
-    for path in (spade, tsr):
-        out.append(path(dev, card))
+    for name in names:
+        out.append(PATHS[name](dev, card))
         print(json.dumps(out[-1]), flush=True)
     return out
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

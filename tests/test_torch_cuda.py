@@ -5,8 +5,10 @@ conftest is left out):
 
     python3 -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Each kernel is held against its plain version exactly, and the engines'
-mines against the port's CPU oracles, with the kernels' launches counted.
+Each kernel (B1 pair supports, B2 rule supports, B3 extension count +
+prune) is held against its plain version exactly, and the engines' mines
+(SPADE, TSR, SPAM) against the port's CPU oracles, with the kernels'
+launches counted.
 """
 
 import numpy as np
@@ -17,7 +19,9 @@ from spark_fsm_tpu_torch.data.synth import synthetic_db
 from spark_fsm_tpu_torch.data.vertical import abs_minsup
 from spark_fsm_tpu_torch.models.oracle import mine_spade
 from spark_fsm_tpu_torch.models.spade import mine_spade_torch
+from spark_fsm_tpu_torch.models.spam_bitmap import mine_spam_torch
 from spark_fsm_tpu_torch.models.tsr import mine_tsr_cpu, mine_tsr_torch
+from spark_fsm_tpu_torch.ops import extend_prune as EP
 from spark_fsm_tpu_torch.ops import pair_support as PS
 from spark_fsm_tpu_torch.ops import rule_support as RS
 from spark_fsm_tpu_torch.utils.canonical import (
@@ -120,3 +124,51 @@ def test_tsr_on_card_matches_cpu_engine(card, kw, k, minconf, side, cap):
     assert (stats["deepening_rounds"] > 1) == (cap < 60)
     assert rules_text(got) == rules_text(mine_tsr_cpu(db, k, minconf,
                                                       max_side=side))
+
+
+@pytest.mark.parametrize("P,NI,n_items,S,W", [
+    (1, 32, 1, 1, 1), (12, 64, 17, 1001, 1), (14, 64, 26, 517, 2),
+    (37, 128, 100, 4099, 3), (128, 64, 26, 2500, 1), (33, 96, 90, 70, 40),
+])
+def test_extend_kernel_equals_plain(card, P, NI, n_items, S, W):
+    rng = np.random.default_rng(P * 131 + S)
+    pt = _words(rng, P, S * W).to(card)
+    items = _words(rng, NI + 5, S * W).to(card)
+    items[n_items:NI] = 0                      # all-zero pad rows
+    counts = PS.pair_supports_plain(pt, items, NI, n_words=W)
+    for thr in (1, max(1, int(counts[:, :n_items].float().median())),
+                int(counts.max()) + 1):
+        before = EP.extend_count_prune.launches
+        sup, mask = EP.extend_count_prune(pt, items, thr, NI, n_words=W)
+        torch.cuda.synchronize()
+        assert EP.extend_count_prune.launches == before + 1
+        want = EP.extend_count_prune_plain(
+            pt.view(P, S, W), items[:NI].view(NI, S, W), thr,
+            torch.zeros(P, dtype=torch.bool))
+        assert torch.equal(sup, want[0]) and torch.equal(mask, want[1])
+        if thr == 1:
+            assert torch.equal(sup, counts)     # B3 at thr 1 is B1
+
+
+@pytest.mark.parametrize("kw,minsup_rel,extra", [
+    (dict(seed=3, n_sequences=400, n_items=12, mean_itemsets=4.0,
+          mean_itemset_size=1.4), 0.05, {}),
+    (dict(seed=401, n_sequences=300, n_items=24, mean_itemsets=4.0,
+          mean_itemset_size=1.3, zipf_s=2.2), 0.05,
+     {"density_crossover": 0.3}),                 # hybrid plan
+    (dict(seed=8, n_sequences=120, n_items=12, mean_itemsets=40.0,
+          max_itemsets=80), 0.5, {"max_pattern_itemsets": 3}),
+])
+def test_spam_on_card_matches_oracle(card, kw, minsup_rel, extra):
+    db = synthetic_db(**kw)
+    minsup = abs_minsup(minsup_rel, len(db))
+    before = EP.extend_count_prune.launches
+    stats = {}
+    got = mine_spam_torch(db, minsup, device=card, pool_bytes=1 << 24,
+                          node_batch=8, stats_out=stats, **extra)
+    assert EP.extend_count_prune.launches - before == stats["waves"] > 0
+    if "density_crossover" in extra:
+        assert stats["rep_idlist"] > 0 and stats["pair_launches"] > 0
+    want = mine_spade(db, minsup,
+                      max_pattern_itemsets=extra.get("max_pattern_itemsets"))
+    assert patterns_text(got) == patterns_text(want), diff_patterns(want, got)

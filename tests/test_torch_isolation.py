@@ -5,7 +5,8 @@ The import check runs in a subprocess, because this test process has
 already imported jax (tests/conftest.py).  There a ``sys.meta_path`` finder
 refuses ``jax`` and ``spark_fsm_tpu`` (the exact package and its
 submodules, not the ``spark_fsm_tpu_torch`` prefix), every port module is
-imported, and a tiny SPADE mine and a tiny TSR mine run on the CPU."""
+imported, and a tiny SPADE mine, a tiny TSR mine and tiny SPAM mines (the
+pure-bitmap and the hybrid plan) run on the CPU."""
 
 import ast
 import os
@@ -43,6 +44,13 @@ from spark_fsm_tpu_torch import mine_tsr_torch
 from spark_fsm_tpu_torch.models.tsr import mine_tsr_cpu
 from spark_fsm_tpu_torch.utils.canonical import rules_text
 assert rules_text(mine_tsr_torch(db, 3, 0.5, device="cpu")) == rules_text(mine_tsr_cpu(db, 3, 0.5))
+from spark_fsm_tpu_torch import mine_spam_torch
+from spark_fsm_tpu_torch.models.spam_bitmap import mine_spam_cpu
+for kw in ({}, {"density_crossover": 0.9}):
+    assert patterns_text(mine_spam_torch(db, 2, device="cpu", **kw)) == patterns_text(mine_spade(db, 2))
+    assert patterns_text(mine_spam_cpu(db, 2, **kw)) == patterns_text(mine_spade(db, 2))
+for name in ("ops.extend_prune", "ops.spam_bitops", "models.spam_bitmap", "service.planner"):
+    assert "spark_fsm_tpu_torch." + name in names, name
 try:
     import jax  # noqa: F401
 except ImportError:

@@ -1,6 +1,6 @@
-"""The port's copies for TSR against the reference modules they copy: the
-fast generator and the Kosarak shape, the TSR half of ``bitops_np``, and the
-canonical rule ordering and text."""
+"""The port's copies against the reference modules they copy: the fast
+generator and the Kosarak and MSNBC shapes, the TSR and SPAM halves of
+``bitops_np``, and the canonical rule ordering and text."""
 
 import numpy as np
 import pytest
@@ -34,6 +34,40 @@ def test_bms_webview2_like_fast_flag_equals_reference():
             == JS.bms_webview2_like(scale=0.01, fast=True))
     assert (S.bms_webview2_like(scale=0.01)
             == JS.bms_webview2_like(scale=0.01))
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_msnbc_like_equals_reference(fast):
+    got = S.msnbc_like(scale=0.002, fast=fast)
+    assert len(got) == 1980
+    assert got == JS.msnbc_like(scale=0.002, fast=fast)
+
+
+@pytest.mark.parametrize("W", [1, 3])
+def test_spam_bitops_equal_reference(W):
+    rng = np.random.default_rng(40 + W)
+    b = (rng.integers(0, 2**32, (5, 77, W), dtype=np.uint32)
+         & rng.integers(0, 2**32, (5, 77, W), dtype=np.uint32))
+    b[:, ::7] = 0
+    b[:, 3::11, -1] = np.uint32(1 << 31)
+    item = b[::-1].copy()
+    pairs = [("i_extend", (b, item)), ("s_extend", (b, item)),
+             ("popcount", (b,)), ("support_popcount", (b,)),
+             ("pack_seq_bits", (b[..., 0] != 0,)),
+             ("diffset_count", (b, b & item)),
+             ("support_from_diffset", (np.arange(5), np.arange(5)[::-1]))]
+    for fn, args in pairs:
+        got, want = getattr(BN, fn)(*args), getattr(JBN, fn)(*args)
+        assert got.dtype == want.dtype, fn
+        np.testing.assert_array_equal(got, want, err_msg=fn)
+    for n_valid in (0, 1, 31, 32, 33, 64, 95, 200):
+        np.testing.assert_array_equal(BN.tail_mask(n_valid, 3),
+                                      JBN.tail_mask(n_valid, 3))
+    # the diffset spelling of a join's support is exact
+    np.testing.assert_array_equal(
+        BN.support_from_diffset(BN.support_popcount(b),
+                                BN.diffset_count(b, b & item)),
+        BN.support_popcount(b & item))
 
 
 @pytest.mark.parametrize("fn", ["prefix_or_incl", "suffix_or_incl",
