@@ -20,7 +20,8 @@ Phases, one printed line each (any failure raises and exits non-zero):
   6. a multiword mine (W >= 2) against the oracle;
   7. the rule-support kernel against its plain PyTorch version on the card,
      exact equality, W in {1, 2, 3} on ragged shapes, every km of the
-     launch planner's ladder, and unused (-1) slots;
+     launch planner's ladder, unused (-1) slots, and stores at and one
+     past the largest the staged path holds;
   8. the rule-support kernel and its plain version timed with CUDA events at
      the headline launch (C=8192, km=2, M=256, S=990,000, W=1) and at km=1,
      beside the least time the card could take for the same work;
@@ -33,14 +34,18 @@ Phases, one printed line each (any failure raises and exits non-zero):
  11. the extension-count-prune kernel against its plain PyTorch version on
      the card, exactly (counts and survivor masks), W in {1, 2, 3}, ragged
      P and S, all-zero pad item rows, thresholds 1, the median count and
-     one above the largest; at threshold 1 its counts equal the
-     pair-support kernel's;
+     one above the largest, with the live-row hint (``n_live``) and
+     without; at threshold 1 its counts equal the pair-support kernel's;
  12. the extension-count-prune kernel and its plain version timed with
      CUDA events at the SPAM engine's wave on the MSNBC-shaped database
-     (P = 2 x the engine's node batch on this card, NI=64, S=990,016,
-     W=1) and at the BMS-WebView-2-shaped dense wave (P=128, NI=64,
-     S=77,504, W=1), the kernel at threshold 1 and at the median count,
-     beside the least time the card could take;
+     (P = 2 x the engine's node batch on this card, NI=64 of which 17 rows
+     are live, S=990,016, W=1) and at the BMS-WebView-2-shaped dense wave
+     (P=128, NI=64, 26 live, S=77,504, W=1): without the hint against the
+     bound over all 64 lanes, with it at threshold 1 and at the median
+     count against the bound over the live lanes; the kernel per launch
+     over 50 back-to-back calls (each with its one zero-fill) queued behind
+     a spinning kernel, since a launch is shorter than the wrapper's host
+     work;
  13. the SPAM path at full data size: ``mine_spam_torch`` on an
      MSNBC-shaped database (990,000 sequences) at minsup 0.5 %, which the
      planner routes to SPAM, byte-identical to the CPU oracle and to the
@@ -123,12 +128,15 @@ def pair_bound_ms(P: int, NI: int, S: int, W: int):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def extend_bound_ms(P: int, NI: int, S: int, W: int):
+def extend_bound_ms(P: int, NI: int, S: int, W: int, n_live: int = None):
     """Least time for one extension-count-prune launch: the pair-support
-    bound (each row read once, W + 1 operations per pair and sequence) with
-    the [P, NI] counts and the [P, NI/32] mask words written once."""
-    nbytes = (P + NI) * S * W * 4 + P * NI * 4 + P * (NI // 32) * 4
-    ops = P * NI * S * (W + 1)
+    bound over the live item rows (each read once, W + 1 operations per
+    live pair and sequence) with the [P, NI] counts and the [P, NI/32] mask
+    words written once.  ``n_live`` (default NI) is how many leading item
+    rows can be nonzero; the rest are known zero and need no work."""
+    n_live = NI if n_live is None else n_live
+    nbytes = (P + n_live) * S * W * 4 + P * NI * 4 + P * (NI // 32) * 4
+    ops = P * n_live * S * (W + 1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
@@ -259,6 +267,26 @@ def time_ms(fn, warmup: int, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def launch_ms(fn, warmup: int, n: int) -> float:
+    """Device time per launch of a short kernel: CUDA events around n
+    back-to-back calls queued behind a spinning kernel of about 0.1 s, so
+    the wrapper's host work is done before the first of them runs and
+    no gap between launches is counted."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda._sleep(200_000_000)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def main() -> int:
@@ -432,8 +460,12 @@ def main() -> int:
     rworst = 0
     shapes = [(C, km, 24, S, W) for (C, S, W) in ((77, 1001, 1), (130, 517, 2),
                                                    (257, 4099, 3))
-              for km in RB.KM_LADDER] + [(200, 3, 24, 2500, 1),
-                                         RULE_KM1, RULE_HEADLINE]
+              for km in RB.KM_LADDER] + [
+        (200, 3, 24, 2500, 1),
+        # the staged path at its largest store, and the walk path past it
+        (300, 2, RS.staged_max_rows(2), 2500, 1),
+        (300, 2, RS.staged_max_rows(2) + 1, 2500, 1),
+        RULE_KM1, RULE_HEADLINE]
     for i, (C, km, M, S, W) in enumerate(shapes):
         p1, s1, xy = rule_operands(dev, 100 + i, C, km, M, S, W)
         if i == 0:
@@ -572,43 +604,47 @@ def main() -> int:
         # the median over the live item lanes: pad lanes count 0
         median = max(1, int(counts[:, :n_items].float().median()))
         for thr in (1, median, int(counts.max()) + 1):
-            sup, mask = EP.extend_count_prune(pt, items, thr, NI, n_words=W)
             want_s, want_m = EP.extend_count_prune_plain(
                 pt.view(P, S, W), items[:NI].view(NI, S, W), thr,
                 torch.zeros(P, dtype=torch.bool))
-            torch.cuda.synchronize()
-            err = int((sup.long() - want_s.long()).abs().max())
-            check(err == 0 and torch.equal(mask, want_m),
-                  f"extend_count_prune != plain at P={P} NI={NI} S={S} W={W} "
-                  f"thr={thr} (max abs err {err})")
-            if thr == 1:
-                check(torch.equal(sup, counts), f"extend_count_prune at thr=1 "
-                      f"!= pair_supports at P={P} NI={NI} S={S} W={W}")
-            eworst = max(eworst, err)
+            for hint in (n_items, None):
+                sup, mask = EP.extend_count_prune(pt, items, thr, NI,
+                                                  n_words=W, n_live=hint)
+                torch.cuda.synchronize()
+                err = int((sup.long() - want_s.long()).abs().max())
+                check(err == 0 and torch.equal(mask, want_m),
+                      f"extend_count_prune != plain at P={P} NI={NI} S={S} "
+                      f"W={W} thr={thr} n_live={hint} (max abs err {err})")
+                if thr == 1:
+                    check(torch.equal(sup, counts), f"extend_count_prune at "
+                          f"thr=1 != pair_supports at P={P} NI={NI} S={S} "
+                          f"W={W} n_live={hint}")
+                eworst = max(eworst, err)
         print(f"[check] extend_count_prune P={P} NI={NI} ({n_items} items, "
               f"pad rows zero) S={S} W={W}: sup and mask equal to plain at "
-              f"thr 1, median, max+1; equal to pair_supports at thr 1",
-              flush=True)
+              f"thr 1, median, max+1, with n_live={n_items} and without; "
+              f"equal to pair_supports at thr 1", flush=True)
         if (P, NI, S, W) in (msnbc_wave, BMS_WAVE):
-            ewaves[(P, NI, S, W)] = (pt, items, median)
+            ewaves[(P, NI, S, W)] = (pt, items, median, n_items)
         del pt, items, counts, sup, mask, want_s, want_m
 
-    # 12. timing at the BMS dense wave and at the MSNBC wave, each at
-    # threshold 1 and at the median count (only the epilogue reads it); the
-    # kernels line reports the MSNBC wave (the main path's) at the median,
-    # timed last
+    # 12. timing at the BMS dense wave and at the MSNBC wave: without the
+    # live-row hint at the median count (against the bound over all NI
+    # lanes), then with it at threshold 1 and at the median (against the
+    # bound over the live lanes); the kernels line reports the MSNBC wave
+    # (the main path's) with the hint at the median, timed last
     for shape in (BMS_WAVE, msnbc_wave):
-        pt, items, median = ewaves.pop(shape)
+        pt, items, median, n_live = ewaves.pop(shape)
         P, NI, S, W = shape
-        ebound_ms, ebound_by = extend_bound_ms(P, NI, S, W)
-        for thr in (1, median):
-            ems = time_ms(
-                lambda: EP.extend_count_prune(pt, items, thr, NI, n_words=W),
-                3, 20)
+        for hint, thr in ((None, median), (n_live, 1), (n_live, median)):
+            ebound_ms, ebound_by = extend_bound_ms(P, NI, S, W, hint)
+            ems = launch_ms(
+                lambda: EP.extend_count_prune(pt, items, thr, NI, n_words=W,
+                                              n_live=hint), 3, 50)
             print(f"[time] extend_count_prune P={P} NI={NI} S={S} W={W} "
-                  f"thr={thr}: kernel {ems:.4f} ms, bound {ebound_ms:.4f} ms "
-                  f"({ebound_by}, {100 * ebound_ms / ems:.1f} % of it "
-                  f"reached)", flush=True)
+                  f"n_live={hint or NI} thr={thr}: kernel {ems:.4f} ms, "
+                  f"bound {ebound_ms:.4f} ms ({ebound_by}, "
+                  f"{100 * ebound_ms / ems:.1f} % of it reached)", flush=True)
         eplain_ms = time_ms(lambda: EP.extend_count_prune_plain(
             pt.view(P, S, W), items[:NI].view(NI, S, W), thr,
             torch.zeros(P, dtype=torch.bool, device=dev)), 1, 5)

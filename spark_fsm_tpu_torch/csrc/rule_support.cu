@@ -14,41 +14,55 @@
 // word w-1 into bit 0 of word w.  The stores are the engine's flat
 // [M+1, S*W] layout (word minor), read directly: the reference's
 // (S/128, 128) fold was a Mosaic rule and is not inherited.  A -1 slot
-// reads the all-ones pad row M, the AND identity, so every slot has a row
-// and the inner loop has no branch.  Each sequence counts once for sup and
-// once for supx, whatever its W.
+// stands for the all-ones pad row M, the AND identity.  Each sequence
+// counts once for sup and once for supx, whatever its W.
 //
-// What bounds it on this card: operations.  At the headline launch
-// (C = 8192 candidates, km = 2, M + 1 = 257 rows, S = 990,000, W = 1) the
-// function does at least 5 integer operations per candidate and sequence
-// (a LOP3 that ANDs the X rows and tests A, the shift, a LOP3 that ANDs
-// the shifted A with the Y rows and tests the result, two predicated
-// adds) = 41 G, against 2.04 GB of rows that it must read once.  Naively each candidate streams its 2*km rows from device memory,
-// 130 GB a launch; the rows are only 2 x 257 of them, so the design keeps
-// them in L2 instead.
+// What bounds it on this card.  At the headline launch (C = 8192
+// candidates, km = 2, M + 1 = 257 rows, S = 990,000, W = 1) the function
+// does at least 5 integer operations per candidate and sequence = 41 G
+// (2.4 ms), against 2.04 GB of rows that it must read once (0.6 ms).  The
+// rows are only 2 x 257 of them while 8192 candidates read them: a kernel
+// that streams each candidate's rows through L1 moves 130 GB of lines a
+// launch, and that traffic, not the arithmetic, was what the first design
+// (the walk kernel below) spent its time on.
 //
-// What the design does about it:
-// - The grid is (candidate tiles, sequence chunks) with the candidate tile
-//   fastest, so the blocks resident together share a few sequence chunks.
-//   A chunk of all 2 x 257 rows is 257 x 2 x 2048 x 4 B = 4.2 MB, so the
-//   chunks in flight stay inside the 50 MB L2 and each row is read from
-//   device memory about once per launch.
-// - A block owns 64 candidates and 2048 sequences; each warp owns 256
-//   sequences as 8 groups of 32, lane = sequence, so every load of a row
-//   is one coalesced 128-byte line.  For each candidate the warp folds its
-//   rows for each group, and counts the group with one ballot and one
-//   popcount per count: the counts are warp-uniform, there is no per-thread
-//   reduction.  Lane j keeps the counts of candidate j of each 32-wide pass
-//   in registers; at the end the warps merge them in shared memory and the
-//   block merges them into the zeroed output with integer atomicAdd, which
-//   is exact and order-free.  A warp whose 256 sequences all exist (all but
-//   the last chunk's) takes a single-word path with no bounds test, whose
-//   row pointers are set once per candidate so each group's loads are
-//   immediate offsets.
-// - W > 1 walks a sequence's words low to high with a funnel shift for the
-//   carry, and ORs the words' hits before the one count.
-// - Ragged C and S are masked here; km in {1, 2, 4, 8} has its own
-//   unrolled instance, any other km up to kMaxKm takes a generic one.
+// What the staged design does about it (W = 1, km in {1, 2, 4, 8}, and M
+// small enough that all rows of a 64-sequence chunk fit in shared memory):
+// - A block of 32 warps, one per SM, stages one chunk of 64 sequences of
+//   all 2M rows (plus one row of ones for the -1 slots) into shared memory
+//   with cp.async, 513 x 256 B = 131 KB at the headline, and then runs its
+//   whole slice of candidates (4096 at km <= 2) over it before it moves to
+//   the next chunk.  Device memory and L2 supply each row once per slice,
+//   not once per candidate; a candidate's rows are read as 64 consecutive
+//   words of shared memory, conflict-free.  Persistent blocks walk the
+//   chunks (gridDim.y of them per slice, the slices fastest so that they
+//   share chunks in L2).
+// - Lane = two consecutive sequences of the chunk (one 8-byte load a row),
+//   so a candidate's fixed costs (its decoded slots, the row addresses,
+//   merging its counts) are paid once per 64 sequences; both its counts
+//   come from one warp reduction (__reduce_add_sync) of sup and supx
+//   packed in 16-bit halves.  Warp w owns a run of the slice and lane j
+//   keeps candidate j's counts of each 32-wide pass in registers across
+//   chunks (a block walks at most 1023 chunks, so a half cannot
+//   overflow); at the end each lane merges them into the zeroed `out`
+//   with integer atomicAdd (exact, order-free).
+// - The block decodes its slice once into shared memory: each slot becomes
+//   a byte offset of its staged row (the ones row for -1).  A warp takes
+//   four candidates a step with no branch between them, so their loads
+//   and reductions overlap.  (Reusing a side that consecutive candidates
+//   share, behind a branch, measured slower than reading it again.)
+// - What is left to bound it: the issue slots of the per-candidate work
+//   (about 30 instructions a candidate and 64 sequences: its slots, four
+//   row addresses and loads, the folds, turning hits into counts, the
+//   reduction and the merge) and the staging of each chunk, which one
+//   block per SM cannot overlap with its counting.
+//
+// The walk kernel (the first design, kept as the path for W > 1, for M too
+// large to stage, and for any km outside the ladder): lane = sequence,
+// each candidate's rows read through L1/L2 for 8 groups of 32 sequences a
+// warp, the candidate tile fastest in the grid so blocks share an L2 chunk;
+// W > 1 walks a sequence's words low to high with a funnel shift for the
+// carry and ORs the words' hits before the one count.
 //
 // The launcher allocates nothing and launches on the caller's stream; it
 // returns cudaGetLastError() so a refused launch is reported at once.
@@ -57,6 +71,213 @@
 #include <stdint.h>
 
 namespace {
+
+// ---------------------------------------------------------------- staged
+
+constexpr int kStagedWarps = 32;
+constexpr int kStagedThreads = kStagedWarps * 32;
+constexpr int kSeqChunk = 64;                   // sequences per staged chunk
+constexpr int kChunkBytes = kSeqChunk * 4;      // one staged row of a chunk
+constexpr int kStep = 4;                        // candidates a loop step
+constexpr long long kMaxChunks = 1023;          // a block's chunks: 1023 x 64 < 2^16
+constexpr int kMaxSmem = 232448;                // opt-in shared memory per block
+
+// candidates each lane keeps counts for: the slice is 32 warps x 32 x this
+// (4096 candidates at km <= 2), within the 64 registers a thread of a
+// 1024-thread block may have; its decoded slots take at most 64 KB
+template <int KM>
+__host__ __device__ constexpr int passes() { return KM <= 2 ? 4 : 8 / KM; }
+
+template <int KM>
+__host__ __device__ constexpr int slice() { return kStagedWarps * 32 * passes<KM>(); }
+
+// global -> shared copies of 4 or 16 bytes; a false `pred` fills zeros
+__device__ __forceinline__ void cp_async4(uint32_t dst, const uint32_t* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(pred ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const uint32_t* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(pred ? 16 : 0) : "memory");
+}
+
+template <int KM>
+__device__ __forceinline__ void load_slots(const uint32_t* cid, uint32_t* w) {
+  if constexpr (KM == 1) {
+    const uint2 v = *reinterpret_cast<const uint2*>(cid);
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < KM / 2; ++q) {
+      const uint4 v = reinterpret_cast<const uint4*>(cid)[q];
+      w[4 * q] = v.x;
+      w[4 * q + 1] = v.y;
+      w[4 * q + 2] = v.z;
+      w[4 * q + 3] = v.w;
+    }
+  }
+}
+
+// AND of one side's staged rows at this lane's two words; `lane_rows` is
+// the lane's first word in the staged rows, `w` the side's byte offsets
+template <int KM>
+__device__ __forceinline__ uint2 fold_staged(const char* lane_rows, const uint32_t* w) {
+  uint2 v = *reinterpret_cast<const uint2*>(lane_rows + w[0]);
+#pragma unroll
+  for (int k = 1; k < KM; ++k) {
+    const uint2 u = *reinterpret_cast<const uint2*>(lane_rows + w[k]);
+    v.x &= u.x;
+    v.y &= u.y;
+  }
+  return v;
+}
+
+template <int KM>
+__global__ void __launch_bounds__(kStagedThreads, 1)
+rule_staged_kernel(const uint32_t* __restrict__ p1,
+                   const uint32_t* __restrict__ s1,
+                   const int32_t* __restrict__ xy,
+                   int32_t* __restrict__ out,
+                   int C, long long S, int M, long long n_chunks, bool vec16) {
+  constexpr int K = passes<KM>();
+  constexpr int kSlice = slice<KM>();
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int n_rows = 2 * M + 1;                 // X rows, Y rows, ones row
+  uint32_t* rows = smem;                        // [n_rows][64]
+  uint32_t* slots = smem + n_rows * kSeqChunk;  // [kSlice][2][KM] byte offsets
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c0 = blockIdx.x * kSlice;
+  const int nc = min(kSlice, C - c0);
+
+  // decode the slice once into byte offsets of the staged rows: the ones
+  // row for -1 (or the pad row M), and for the candidates that pad the
+  // slice to a multiple of kStep, whose counts are never written
+  const int nc_pad = (nc + kStep - 1) / kStep * kStep;
+  for (int e = tid; e < nc_pad * 2; e += kStagedThreads) {
+    const int c = e >> 1, side = e & 1;
+    const int32_t* src = xy + ((long long)(c0 + c) * 2 + side) * KM;
+#pragma unroll
+    for (int k = 0; k < KM; ++k) {
+      const int r = c < nc ? src[k] : -1;
+      if (r < -1 || r > M) __trap();            // never read past the store
+      const int row = (r < 0 || r == M) ? 2 * M : side * M + r;
+      slots[e * KM + k] = (uint32_t)row * kChunkBytes;
+    }
+  }
+
+  // lane j's counts of candidate j of each pass: sup in the low 16 bits,
+  // supx in the high (a block walks at most kMaxChunks chunks of 64)
+  unsigned acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = 0u;
+
+  const uint32_t rows_addr = (uint32_t)__cvta_generic_to_shared(rows);
+  const char* lane_rows = reinterpret_cast<const char*>(rows) + 8 * lane;
+  const int wbase = warp * 32 * K;
+  const int n_mine = min(max(nc_pad - wbase, 0), 32 * K);   // this warp's run
+  for (long long ch = blockIdx.y; ch < n_chunks; ch += gridDim.y) {
+    const long long s0 = ch * kSeqChunk;
+    __syncthreads();                            // the last chunk's reads are done
+    // stage: with 16-byte aligned rows (S % 4 == 0) thread t copies words
+    // 4 (t % 16) .. +3 of rows t / 16, t / 16 + 64, ...; else word t % 64
+    // of rows t / 64, t / 64 + 16, ...
+    if (vec16) {
+      const int word = 4 * (tid & 15);
+      const bool valid = s0 + word < S;
+      for (int r = tid >> 4; r < 2 * M; r += kStagedThreads / 16) {
+        const uint32_t* base = r < M ? p1 + (long long)r * S
+                                     : s1 + (long long)(r - M) * S;
+        cp_async16(rows_addr + (r * kSeqChunk + word) * 4,
+                   valid ? base + s0 + word : base, valid);
+      }
+    } else {
+      const int word = tid & (kSeqChunk - 1);
+      const bool valid = s0 + word < S;
+      for (int r = tid >> 6; r < 2 * M; r += kStagedThreads / kSeqChunk) {
+        const uint32_t* base = r < M ? p1 + (long long)r * S
+                                     : s1 + (long long)(r - M) * S;
+        cp_async4(rows_addr + (r * kSeqChunk + word) * 4,
+                  valid ? base + s0 + word : base, valid);
+      }
+    }
+    if (tid < kSeqChunk) rows[2 * M * kSeqChunk + tid] = s0 + tid < S ? ~0u : 0u;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    // kStep independent candidates a step, no branch between them, so
+    // their shared-memory loads and reductions overlap
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int jn = min(32, n_mine - 32 * k);
+      for (int j = 0; j < jn; j += kStep) {
+#pragma unroll
+        for (int u = 0; u < kStep; ++u) {
+          uint32_t w[2 * KM];
+          load_slots<KM>(slots + (wbase + 32 * k + j + u) * 2 * KM, w);
+          const uint2 a = fold_staged<KM>(lane_rows, w);
+          const uint2 y = fold_staged<KM>(lane_rows, w + KM);
+          // this lane's two sequences' hits, sup low and supx high, summed
+          // over the warp in one reduction
+          const unsigned v = (unsigned)(((a.x << 1) & y.x) != 0u)
+                             + (unsigned)(((a.y << 1) & y.y) != 0u)
+                             + (((unsigned)(a.x != 0u) + (unsigned)(a.y != 0u)) << 16);
+          const unsigned t = __reduce_add_sync(0xffffffffu, v);
+          if (lane == j + u) acc[k] += t;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int c = wbase + k * 32 + lane;
+    if (c < nc) {
+      if (acc[k] & 0xffffu) atomicAdd(&out[c0 + c], (int)(acc[k] & 0xffffu));
+      if (acc[k] >> 16) atomicAdd(&out[(long long)C + c0 + c], (int)(acc[k] >> 16));
+    }
+  }
+}
+
+size_t staged_smem(int km, int M) {
+  const int sl = km == 1 ? slice<1>() : km == 2 ? slice<2>()
+               : km == 4 ? slice<4>() : slice<8>();
+  return (size_t)(2 * M + 1) * kChunkBytes + (size_t)sl * 2 * km * 4;
+}
+
+template <int KM>
+cudaError_t launch_staged(const void* p1, const void* s1, const void* xy,
+                          void* out, int C, long long S, int M, cudaStream_t st) {
+  const size_t smem = staged_smem(KM, M);
+  cudaError_t e = cudaFuncSetAttribute(rule_staged_kernel<KM>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, rule_staged_kernel<KM>, kStagedThreads, smem)) != cudaSuccess)
+    return e;
+  if (per_sm < 1) return cudaErrorInvalidValue;
+  const long long slices = (C + slice<KM>() - 1) / slice<KM>();
+  const long long n_chunks = (S + kSeqChunk - 1) / kSeqChunk;
+  long long gy = ((long long)sms * per_sm + slices - 1) / slices;
+  if (gy > n_chunks) gy = n_chunks;
+  const long long least = (n_chunks + kMaxChunks - 1) / kMaxChunks;
+  if (gy < least) gy = least;
+  if (gy > 65535) return cudaErrorInvalidValue;
+  rule_staged_kernel<KM><<<dim3((unsigned)slices, (unsigned)gy), kStagedThreads, smem, st>>>(
+      (const uint32_t*)p1, (const uint32_t*)s1, (const int32_t*)xy, (int32_t*)out,
+      C, S, M, n_chunks,
+      S % 4 == 0 && (uintptr_t)p1 % 16 == 0 && (uintptr_t)s1 % 16 == 0);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ walk
 
 constexpr int kWarps = 8;                       // warps per block
 constexpr int kThreads = kWarps * 32;
@@ -79,16 +300,16 @@ __device__ __forceinline__ uint32_t fold(const uint32_t* const* rows, int km,
 
 template <int KM, bool kOneWord>
 __global__ void __launch_bounds__(kThreads)
-rule_support_kernel(const uint32_t* __restrict__ p1,
-                    const uint32_t* __restrict__ s1,
-                    const int32_t* __restrict__ xy,
-                    int32_t* __restrict__ out,
-                    int C, int km_rt, long long S, int W, int pad) {
+rule_walk_kernel(const uint32_t* __restrict__ p1,
+                 const uint32_t* __restrict__ s1,
+                 const int32_t* __restrict__ xy,
+                 int32_t* __restrict__ out,
+                 int C, int km_rt, long long S, int W, int pad) {
   constexpr int kRegs = KM > 0 ? KM : kMaxKm;
   const int km = KM > 0 ? KM : km_rt;
-  extern __shared__ int32_t smem[];
-  int32_t* rows = smem;                         // [kTileC][2][km] row ids
-  int32_t* cnt = smem + kTileC * 2 * km;        // [2][kTileC] block counts
+  extern __shared__ int32_t smem_w[];
+  int32_t* rows = smem_w;                       // [kTileC][2][km] row ids
+  int32_t* cnt = smem_w + kTileC * 2 * km;      // [2][kTileC] block counts
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c0 = blockIdx.x * kTileC;
@@ -180,16 +401,17 @@ rule_support_kernel(const uint32_t* __restrict__ p1,
 }
 
 template <int KM>
-cudaError_t launch(const void* p1, const void* s1, const void* xy, void* out,
-                   int C, int km, long long S, int W, int pad, cudaStream_t st) {
+cudaError_t launch_walk(const void* p1, const void* s1, const void* xy, void* out,
+                        int C, int km, long long S, int W, int pad, cudaStream_t st) {
+  if ((S + kChunk - 1) / kChunk > 65535) return cudaErrorInvalidValue;
   const dim3 grid((C + kTileC - 1) / kTileC, (unsigned)((S + kChunk - 1) / kChunk));
   const size_t smem = (size_t)(kTileC * 2 * km + 2 * kTileC) * sizeof(int32_t);
   if (W == 1) {
-    rule_support_kernel<KM, true><<<grid, kThreads, smem, st>>>(
+    rule_walk_kernel<KM, true><<<grid, kThreads, smem, st>>>(
         (const uint32_t*)p1, (const uint32_t*)s1, (const int32_t*)xy,
         (int32_t*)out, C, km, S, W, pad);
   } else {
-    rule_support_kernel<KM, false><<<grid, kThreads, smem, st>>>(
+    rule_walk_kernel<KM, false><<<grid, kThreads, smem, st>>>(
         (const uint32_t*)p1, (const uint32_t*)s1, (const int32_t*)xy,
         (int32_t*)out, C, km, S, W, pad);
   }
@@ -200,22 +422,42 @@ cudaError_t launch(const void* p1, const void* s1, const void* xy, void* out,
 
 // out must be zeroed [2, C] int32; p1 and s1 are [rows, S*W] int32 whose
 // last row (rows - 1) is all ones; xy is [C, 2, km] int32 with entries in
-// -1..rows-2, where -1 reads the all-ones row.  Returns
-// cudaErrorInvalidValue for a bad size, a km above kMaxKm, or more
-// sequence chunks than gridDim.y allows (S > 65535 * 2048).
+// -1..rows-1, where -1 (and rows-1) stand for the all-ones row.  W = 1
+// with km in {1, 2, 4, 8} takes the staged kernel when all rows of a chunk
+// fit in shared memory (rule_support_staged_max_rows); anything else takes
+// the walk kernel.  Returns cudaErrorInvalidValue for a bad size, a km
+// above 64, or, on the walk kernel, more sequence chunks than gridDim.y
+// allows (S > 65535 * 2048).
 extern "C" int rule_support_launch(const void* p1, const void* s1,
                                    const void* xy, void* out, int C, int km,
                                    long long S, int W, int rows, void* stream) {
-  if (C <= 0 || km <= 0 || km > kMaxKm || S <= 0 || W <= 0 || rows <= 0 ||
-      (S + kChunk - 1) / kChunk > 65535)
+  if (C <= 0 || km <= 0 || km > kMaxKm || S <= 0 || W <= 0 || rows <= 0)
     return (int)cudaErrorInvalidValue;
-  const int pad = rows - 1;
+  const int M = rows - 1;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (km) {
-    case 1: return (int)launch<1>(p1, s1, xy, out, C, km, S, W, pad, st);
-    case 2: return (int)launch<2>(p1, s1, xy, out, C, km, S, W, pad, st);
-    case 4: return (int)launch<4>(p1, s1, xy, out, C, km, S, W, pad, st);
-    case 8: return (int)launch<8>(p1, s1, xy, out, C, km, S, W, pad, st);
-    default: return (int)launch<0>(p1, s1, xy, out, C, km, S, W, pad, st);
+  const bool ladder = km == 1 || km == 2 || km == 4 || km == 8;
+  if (W == 1 && ladder && staged_smem(km, M) <= (size_t)kMaxSmem) {
+    switch (km) {
+      case 1: return (int)launch_staged<1>(p1, s1, xy, out, C, S, M, st);
+      case 2: return (int)launch_staged<2>(p1, s1, xy, out, C, S, M, st);
+      case 4: return (int)launch_staged<4>(p1, s1, xy, out, C, S, M, st);
+      default: return (int)launch_staged<8>(p1, s1, xy, out, C, S, M, st);
+    }
   }
+  switch (km) {
+    case 1: return (int)launch_walk<1>(p1, s1, xy, out, C, km, S, W, M, st);
+    case 2: return (int)launch_walk<2>(p1, s1, xy, out, C, km, S, W, M, st);
+    case 4: return (int)launch_walk<4>(p1, s1, xy, out, C, km, S, W, M, st);
+    case 8: return (int)launch_walk<8>(p1, s1, xy, out, C, km, S, W, M, st);
+    default: return (int)launch_walk<0>(p1, s1, xy, out, C, km, S, W, M, st);
+  }
+}
+
+// The largest M (rows - 1) for which a W = 1 launch at this km takes the
+// staged kernel; 0 when km has no staged instance.
+extern "C" int rule_support_staged_max_rows(int km) {
+  if (km != 1 && km != 2 && km != 4 && km != 8) return 0;
+  int M = 0;
+  while (staged_smem(km, M + 1) <= (size_t)kMaxSmem) ++M;
+  return M;
 }

@@ -218,9 +218,12 @@ class SpamBitmapTorch:
                 self.stats["diffset_nodes"] += 1
         sup = mask = None
         if self.nd_pad:
+            # the wave's item rows past the real items are all zero: the
+            # store's pad rows (pure bitmap) or the gather's -1 rows (hybrid)
             sup, mask = SB.wave_extend_prune(
                 pt, self._items, self.minsup, torch.from_numpy(ud_rows),
-                n_words=self.n_words, nd_pad=self.nd_pad)
+                n_words=self.n_words, nd_pad=self.nd_pad,
+                n_live=self.n_dense if self._hybrid else self.n_items)
             self.stats["kernel_launches"] += 1
             self.stats["waves"] += 1
             self.stats["evaluated_lanes"] += 2 * self.node_batch * self.nd_pad

@@ -40,22 +40,22 @@ def nvcc_path() -> str:
         "CUDA kernels are built from source at first use")
 
 
-def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    src = csrc / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless this source's library exists;
-    returns the library's path.  Raises ``RuntimeError`` with nvcc's
-    output when the build fails."""
-    out = library_path(name)
+def build(name: str, csrc: Path = CSRC) -> Path:
+    """Compile ``<csrc>/<name>.cu`` (this package's sources by default)
+    unless that source's library exists; returns the library's path.
+    Raises ``RuntimeError`` with nvcc's output when the build fails."""
+    out = library_path(name, csrc)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n"

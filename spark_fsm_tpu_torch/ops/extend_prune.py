@@ -13,7 +13,9 @@ the first ``n_item_rows`` rows of ``items``:
 Two versions of the same function live here:
 - the CUDA kernel ``csrc/extend_prune.cu`` (built for sm_90a at first use,
   see ``_build.py``), which :func:`extend_count_prune` launches for CUDA
-  tensors — it launches the kernel or raises, never falls back;
+  tensors — it launches the kernel or raises, never falls back.  Given
+  ``n_live``, the number of leading item rows that can be nonzero, it
+  reads and counts only those lanes;
 - :func:`extend_count_prune_plain`, plain tensor ops, the counterpart of
   the reference's ``extend_count_prune_jnp``: it computes the direct count
   and the dEclat spelling ``support(parent row) - |diffset|``, selects per
@@ -33,11 +35,10 @@ from spark_fsm_tpu_torch.ops import _build
 from spark_fsm_tpu_torch.ops import bitops_torch as B
 from spark_fsm_tpu_torch.ops.pair_support import check_operands
 
-# the kernel's parent-row tile at its smallest and its item tile
-# (csrc/extend_prune.cu): the arrival counters cover this many tiles
-_MIN_ROW_TILE = 16
-_ITEM_TILE = 64
-# blocks to aim for per SM when the sequence axis is split over gridDim.z
+# arrival counters the kernel may use: one per parent tile (W = 1) or per
+# 16 x 64 output tile (W > 1), both at most P * ceil(NI / 64)
+_ARRIVALS_ITEM_TILE = 64
+# blocks to aim for per SM when the W > 1 path splits the sequence axis
 _BLOCKS_PER_SM = 16
 # the plain version's [p_chunk, NI, S, W] temporary stays near this size
 _CHUNK_BYTES = 256 << 20
@@ -88,43 +89,58 @@ def _kernel():
     fn = lib.extend_prune_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def extend_count_prune(pt: torch.Tensor, items: torch.Tensor, thr: int,
-                       n_item_rows: int, n_words: int = 1):
+                       n_item_rows: int, n_words: int = 1,
+                       n_live: int | None = None):
     """``(sup [P, n_item_rows] int32, mask [P, n_item_rows // 32] int32)``
-    for flat ``[rows, S*W]`` operands.  CUDA tensors launch the kernel
-    (and raise if it cannot be built or launched); CPU tensors take
-    :func:`extend_count_prune_plain` with every row counted directly; any
-    other device raises.  Each launch adds one to
-    ``extend_count_prune.launches``."""
+    for flat ``[rows, S*W]`` operands.  ``n_live`` (default: all of them)
+    is how many leading item rows can be nonzero: the caller vouches that
+    rows ``n_live..n_item_rows-1`` are all zero, so their lanes are written
+    dead without being read or counted, which is what counting them gives.
+    CUDA tensors launch the kernel (and raise if it cannot be built or
+    launched); CPU tensors take :func:`extend_count_prune_plain` over the
+    live rows with every row counted directly; any other device raises.
+    Each launch adds one to ``extend_count_prune.launches``."""
     check_operands(pt, items, n_item_rows, n_words)
     _check_thr_ni(thr, n_item_rows)
+    n_live = n_item_rows if n_live is None else int(n_live)
+    if not 0 <= n_live <= n_item_rows:
+        raise ValueError(f"n_live={n_live} outside 0..n_item_rows="
+                         f"{n_item_rows}")
     dev = pt.device
     P, SW = pt.shape
     S = SW // n_words
     if dev.type == "cpu":
-        return extend_count_prune_plain(
-            pt.view(P, S, n_words),
-            items[:n_item_rows].view(n_item_rows, S, n_words), thr,
-            torch.zeros(P, dtype=torch.bool))
+        sup = torch.zeros(P, n_item_rows, dtype=torch.int32)
+        if n_live:
+            sup[:, :n_live] = extend_count_prune_plain(
+                pt.view(P, S, n_words),
+                items[:n_live].view(n_live, S, n_words), thr,
+                torch.zeros(P, dtype=torch.bool))[0]
+        return sup, B.pack_seq_bits(sup != 0)
     if dev.type != "cuda":
         raise ValueError(f"extend_count_prune runs on cuda (kernel) or cpu "
                          f"(plain version), got {dev}")
-    sup = torch.zeros(P, n_item_rows, dtype=torch.int32, device=dev)
-    mask = torch.zeros(P, n_item_rows // 32, dtype=torch.int32, device=dev)
+    # one zero-fill for the outputs and the arrival counters
+    n_mask = n_item_rows // 32
+    n_arr = P * -(-n_item_rows // _ARRIVALS_ITEM_TILE)
+    buf = torch.zeros(P * (n_item_rows + n_mask) + n_arr, dtype=torch.int32,
+                      device=dev)
+    sup = buf[:P * n_item_rows].view(P, n_item_rows)
+    mask = buf[P * n_item_rows:P * (n_item_rows + n_mask)].view(P, n_mask)
     if P == 0 or S == 0:
         return sup, mask
-    arrivals = torch.zeros((-(-P // _MIN_ROW_TILE)) * (-(-n_item_rows // _ITEM_TILE)),
-                           dtype=torch.int32, device=dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rc = _kernel()(pt.data_ptr(), items.data_ptr(), sup.data_ptr(),
-                   mask.data_ptr(), arrivals.data_ptr(), P, n_item_rows, S,
-                   n_words, int(thr), _BLOCKS_PER_SM * sms,
+                   mask.data_ptr(), buf[P * (n_item_rows + n_mask):].data_ptr(),
+                   P, n_item_rows, n_live, S, n_words, int(thr),
+                   _BLOCKS_PER_SM * sms,
                    torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(

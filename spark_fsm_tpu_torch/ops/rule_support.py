@@ -12,7 +12,10 @@ all ones: the AND identity a -1 slot stands for.
 Two versions of the same function live here:
 - the CUDA kernel ``csrc/rule_support.cu`` (built for sm_90a at first use,
   see ``_build.py``), which :func:`rule_supports` launches for CUDA
-  tensors — it launches the kernel or raises, never falls back;
+  tensors — it launches the kernel or raises, never falls back.  It has
+  two paths, both kernels: a staged one for one-word sequences, km on the
+  ladder and stores small enough to stage (:func:`staged_max_rows`), and
+  a walk through L2 for everything else;
 - :func:`rule_supports_plain`, the gather-and-fold of the reference's jnp
   evaluator (``spark_fsm_tpu/models/tsr.py`` ``_eval_kernel``) chunked over
   candidates, which :func:`rule_supports` uses for CPU tensors, which the
@@ -95,6 +98,17 @@ def _kernel():
     return fn
 
 
+def staged_max_rows(km: int) -> int:
+    """The largest M (store rows less the pad row) for which a one-word
+    launch at this km takes the kernel's staged path (all rows of a
+    32-sequence chunk in shared memory); larger M, W > 1 and a km off the
+    ladder take its walk path.  0 when km has no staged path."""
+    fn = _build.load("rule_support").rule_support_staged_max_rows
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return int(fn(int(km)))
+
+
 def rule_supports(p1: torch.Tensor, s1: torch.Tensor, xy: torch.Tensor,
                   n_words: int = 1) -> torch.Tensor:
     """``[2, C]`` int32 rule supports (row 0 sup(X => Y), row 1 sup(X)).
@@ -122,8 +136,9 @@ def rule_supports(p1: torch.Tensor, s1: torch.Tensor, xy: torch.Tensor,
     if rc != 0:
         raise RuntimeError(
             f"rule_support kernel launch failed: CUDA error {rc} (error 1, "
-            f"invalid value, is also a km={km} above the kernel's 64 or an "
-            f"S={S} past the grid's 65,535 sequence chunks)")
+            f"invalid value, is also a km={km} above the kernel's 64 or, on "
+            f"the walk path, an S={S} past the grid's 65,535 sequence "
+            f"chunks)")
     rule_supports.launches += 1
     return out
 

@@ -46,20 +46,25 @@ def wave_supports(pt: torch.Tensor, store: torch.Tensor, n_words: int,
 
 
 def wave_extend_prune(pt: torch.Tensor, items: torch.Tensor, thr: int,
-                      use_diff: torch.Tensor, *, n_words: int, nd_pad: int):
+                      use_diff: torch.Tensor, *, n_words: int, nd_pad: int,
+                      n_live: int | None = None):
     """The fused wave: ``(sup [2*Bn, nd_pad] int32, mask [2*Bn, nd_pad/32]
     int32)`` for ``pt`` [2*Bn, S*W] and the first ``nd_pad`` rows of
     ``items`` (the store on the pure-bitmap plan, the gathered dense block
     on the hybrid plan).  ``sup`` is the exact count where it is at least
     ``thr`` and exactly 0 elsewhere; ``mask`` holds the survivor bits.
 
-    On a CUDA tensor it launches kernel B3, which counts directly; on the
-    CPU it runs the plain spelling, which counts the rows flagged in
-    ``use_diff`` ([2*Bn] bool) as ``support(parent row) - |diffset|``.
-    The two spellings are an exact identity, so the flag never changes the
-    bytes."""
+    ``n_live`` (default ``nd_pad``) is the number of leading item rows that
+    can be nonzero: the engine's real items, whose pad rows after them are
+    all zero.  On a CUDA tensor it launches kernel B3, which counts directly
+    and only the live lanes; on the CPU it runs the plain spelling over all
+    ``nd_pad`` rows, which counts the rows flagged in ``use_diff`` ([2*Bn]
+    bool) as ``support(parent row) - |diffset|``.  The two spellings are an
+    exact identity and a zero row's lane is dead either way, so neither the
+    flag nor the hint changes the bytes."""
     if pt.device.type != "cpu":
-        return EP.extend_count_prune(pt, items, thr, nd_pad, n_words)
+        return EP.extend_count_prune(pt, items, thr, nd_pad, n_words,
+                                     n_live=n_live)
     P = pt.shape[0]
     S = pt.shape[1] // n_words
     return EP.extend_count_prune_plain(

@@ -11,13 +11,17 @@ Prints one JSON line per path named (all three when none is):
 - TSR: the Kosarak-shaped database (full size) with k=100, minconf=0.5,
   max_side=2: the stage walls (vertical build, engine set-up, the prep of
   each deepening round, the host loop, waits on the device; medians of
-  three warm mines) and each rule-support launch's km and candidate count;
+  three warm mines), each rule-support launch's km and candidate count,
+  and, from the warm-up mine, how its candidates share rows: per launch
+  the distinct X and Y sides and the share of candidates whose X (Y) side
+  equals the previous candidate's, which the kernel's staged path reuses;
 - SPAM: the MSNBC-shaped database (full size) at minsup 0.5 %: the stage
   walls (vertical build, store build, DFS; medians of three warm mines),
   the DFS split into host work and waits on the device, and the parent
   rows (P) of each extension-count-prune launch.
 Each line also carries a ``torch.profiler`` trace of one more warm mine:
-device busy time by kernel and the device's idle share of the mine's wall.
+device busy time by kernel (the ten largest entries, and every launch of
+the port's own kernels) and the device's idle share of the mine's wall.
 Needs a CUDA card; raises without one.
 """
 
@@ -30,6 +34,9 @@ import sys
 import time
 
 REPS = 3
+# the __global__ functions of csrc/*.cu
+PORT_KERNELS = ("pair_support_kernel", "rule_staged_kernel", "rule_walk_kernel",
+                "extend_lane_kernel", "extend_staged_kernel")
 
 
 def _median(runs):
@@ -60,12 +67,16 @@ def _profiled(one_mine):
             busy_us += dev_us
             kernels.append((dev_us, e.key, e.count))
     kernels.sort(reverse=True)
+    # the port's own kernels, however small: a path's kernel time is their sum
+    port = [{"name": k[:80], "ms": us / 1e3, "count": c} for us, k, c in kernels
+            if any(f"::{n}<" in k for n in PORT_KERNELS)]
     return res, eng, {
         "profiled_wall_s": wall, "profiled_stages_s": stages,
         "device_busy_s": busy_us / 1e6,
         "device_idle_share": (1 - busy_us / 1e6 / wall) if busy_us else None,
         "top_device_ops": [{"name": k[:80], "ms": us / 1e3, "count": c}
                            for us, k, c in kernels[:10]],
+        "port_kernels": port,
     }
 
 
@@ -160,7 +171,26 @@ def tsr(dev, card: str) -> dict:
             waits.append(time.perf_counter() - t0)
             return super()._resolve_eval(handle)
 
-    def one_mine():
+    sharing = []
+
+    def record_sharing(take):
+        """Wrap the engine's host staging of each launch's candidates to
+        record how consecutive candidates share a side (warm-up mine only:
+        the counting is host work)."""
+        def spy(L, cands):
+            xy = take(L, cands)
+            h = xy[:len(L.rows)]
+            x, y = h[:, 0], h[:, 1]
+            sharing.append({
+                "km": int(h.shape[2]), "candidates": int(h.shape[0]),
+                "distinct_x": len({r.tobytes() for r in x}),
+                "distinct_y": len({r.tobytes() for r in y}),
+                "same_x_as_prev": float((x[1:] == x[:-1]).all(1).mean()),
+                "same_y_as_prev": float((y[1:] == y[:-1]).all(1).mean())})
+            return xy
+        return spy
+
+    def one_mine(record=False):
         preps.clear()
         waits.clear()
         launches.clear()
@@ -168,6 +198,8 @@ def tsr(dev, card: str) -> dict:
         vdb = build_vertical(db, min_item_support=1)
         t1 = time.perf_counter()
         eng = Timed(vdb, 100, 0.5, max_side=2, device=dev)
+        if record:
+            eng._stager.take = record_sharing(eng._stager.take)
         t2 = time.perf_counter()
         res = eng.mine()
         torch.cuda.synchronize()
@@ -178,7 +210,7 @@ def tsr(dev, card: str) -> dict:
             "host_loop_s": t3 - t2 - sum(preps) - sum(waits),
             "total_s": t3 - t0}
 
-    one_mine()  # warm-up
+    one_mine(record=True)  # warm-up
     runs = [one_mine()[2] for _ in range(REPS)]
     res, eng, prof = _profiled(one_mine)
     return {"path": "tsr", "card": card,
@@ -186,6 +218,7 @@ def tsr(dev, card: str) -> dict:
             "sequences": len(db), "k": 100, "minconf": 0.5, "max_side": 2,
             "rules": len(res), "stats": eng.stats,
             "rule_launches_km_candidates": list(launches),
+            "rule_launch_sharing": sharing,
             "reps": len(runs), "median_s": _median(runs), **prof}
 
 

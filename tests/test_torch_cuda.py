@@ -23,6 +23,7 @@ from spark_fsm_tpu_torch.models.spam_bitmap import mine_spam_torch
 from spark_fsm_tpu_torch.models.tsr import mine_tsr_cpu, mine_tsr_torch
 from spark_fsm_tpu_torch.ops import extend_prune as EP
 from spark_fsm_tpu_torch.ops import pair_support as PS
+from spark_fsm_tpu_torch.ops import ragged_batch as RB
 from spark_fsm_tpu_torch.ops import rule_support as RS
 from spark_fsm_tpu_torch.utils.canonical import (
     diff_patterns, patterns_text, rules_text)
@@ -106,6 +107,63 @@ def test_rule_kernel_equals_plain(card, C, km, S, W, empty_side):
     assert torch.equal(got, RS.rule_supports_plain(p1, s1, xy, n_words=W))
 
 
+def _xy_runs(rng, C, km, M):
+    """Candidates in runs that share one side, as TSR's expansions of one
+    rule do (the staged kernel reuses the side a run shares), with -1 and
+    the pad row M in unused slots and some sides all unused."""
+    xy = np.full((C, 2, km), -1, np.int32)
+
+    def side():
+        n = rng.integers(0, km + 1)
+        out = np.full(km, -1, np.int32)
+        out[:n] = rng.choice(M, n, replace=False)
+        out[rng.random(km) < 0.05] = M           # the pad row itself
+        return out
+
+    c = 0
+    while c < C:
+        n = min(C - c, int(rng.integers(1, 80)))
+        keep = rng.integers(0, 2)
+        fixed = side()
+        for r in range(c, c + n):
+            xy[r, keep] = fixed
+            xy[r, 1 - keep] = side()
+        c += n
+    return torch.from_numpy(xy)
+
+
+def _rule_case(card, seed, C, km, M, S, W):
+    rng = np.random.default_rng(seed)
+    p1 = _words(rng, M + 1, S * W).to(card)
+    s1 = _words(rng, M + 1, S * W).to(card)
+    p1[M] = -1
+    s1[M] = -1
+    xy = _xy_runs(rng, C, km, M).to(card)
+    before = RS.rule_supports.launches
+    got = RS.rule_supports(p1, s1, xy, n_words=W)
+    torch.cuda.synchronize()
+    assert RS.rule_supports.launches == before + 1
+    assert torch.equal(got, RS.rule_supports_plain(p1, s1, xy, n_words=W))
+
+
+@pytest.mark.parametrize("km", RB.KM_LADDER)
+@pytest.mark.parametrize("W,C,S", [(1, 4099, 1001), (1, 2050, 1004),
+                                   (1, 8200, 70),
+                                   (2, 700, 517), (3, 130, 333)])
+def test_rule_kernel_runs_of_shared_sides_equal_plain(card, km, W, C, S):
+    # ragged C past one staged slice (4096 candidates at km = 1), ragged S
+    _rule_case(card, 17 * km + C + W, C, km, 40, S, W)
+
+
+@pytest.mark.parametrize("km", RB.KM_LADDER)
+@pytest.mark.parametrize("extra", [0, 1])
+def test_rule_kernel_at_and_past_the_staged_limit(card, km, extra):
+    # M at the staged path's limit, and one past it (the walk path)
+    M = RS.staged_max_rows(km) + extra
+    assert M > 256
+    _rule_case(card, km + extra, 300, km, M, 161, 1)
+
+
 @pytest.mark.parametrize("kw,k,minconf,side,cap", [
     (dict(seed=21, n_sequences=3000, n_items=60, mean_itemsets=5.0), 20, 0.5,
      2, 256),
@@ -172,3 +230,28 @@ def test_spam_on_card_matches_oracle(card, kw, minsup_rel, extra):
     want = mine_spade(db, minsup,
                       max_pattern_itemsets=extra.get("max_pattern_itemsets"))
     assert patterns_text(got) == patterns_text(want), diff_patterns(want, got)
+
+
+@pytest.mark.parametrize("S", [3001, 3004])     # one word / four a load
+@pytest.mark.parametrize("n_live", [1, 17, 31, 32, 33, 64])
+@pytest.mark.parametrize("P", [1, 12, 16, 17, 33, 128])
+def test_extend_kernel_live_hint_equals_plain(card, P, n_live, S):
+    NI = 64
+    W = 2 if P == 17 else 1                     # the W > 1 path takes it too
+    rng = np.random.default_rng(P * 1009 + n_live + S)
+    pt = _words(rng, P, S * W).to(card)
+    items = _words(rng, NI + 2, S * W).to(card)
+    items[n_live:NI] = 0                        # the hint's contract
+    counts = PS.pair_supports_plain(pt, items, NI, n_words=W)
+    for thr in (1, max(1, int(counts[:, :n_live].float().median())),
+                int(counts.max()) + 1):
+        want = EP.extend_count_prune_plain(
+            pt.view(P, S, W), items[:NI].view(NI, S, W), thr,
+            torch.zeros(P, dtype=torch.bool))
+        for hint in (n_live, None):
+            before = EP.extend_count_prune.launches
+            sup, mask = EP.extend_count_prune(pt, items, thr, NI, n_words=W,
+                                              n_live=hint)
+            torch.cuda.synchronize()
+            assert EP.extend_count_prune.launches == before + 1
+            assert torch.equal(sup, want[0]) and torch.equal(mask, want[1])

@@ -160,3 +160,54 @@ def test_kernel_build_raises_on_a_box_without_nvcc():
     EP._kernel.cache_clear()
     with pytest.raises(RuntimeError, match="nvcc"):
         EP._kernel()
+
+
+@pytest.mark.parametrize("W", [1, 2, 3])
+@pytest.mark.parametrize("NI,n_live", [(21, 21), (21, 33), (33, 33),
+                                       (33, 64), (1, 1)])
+def test_hinted_wrapper_matches_pallas_and_jnp(W, NI, n_live):
+    """The wrapper given ``n_live`` (rows from n_live on are all zero)
+    reads only the live rows on the CPU and gives the Pallas kernel's and
+    the jnp reference's bytes, pad lanes dead."""
+    sb = seq_block(W)
+    P, S = P_TILE, sb
+    p3, items3 = _operands(70 + 10 * W + NI, P, NI, S, W)
+    counts = _direct(p3, items3, NI)
+    items_k = np.zeros((I_TILE, W, S), np.uint32)
+    items_k[:ND_PAD] = items3.transpose(0, 2, 1)
+    pt, items = _t(p3).view(P, -1), _t(items3).view(ND_PAD, -1)
+    n_w = -(-NI // 32)
+    for thr in _thresholds(counts):
+        want_sup, want_mask = (np.asarray(a) for a in PE.extend_count_prune(
+            jnp.asarray(p3.transpose(0, 2, 1)), jnp.asarray(items_k),
+            jnp.int32(thr), NI, s_block=sb, interpret=True))
+        ref_sup, ref_mask = (np.asarray(a) for a in PE.extend_count_prune_jnp(
+            jnp.asarray(p3), jnp.asarray(items3[:NI]), thr,
+            jnp.zeros(P, bool)))
+        sup, mask = EP.extend_count_prune(pt, items, thr, ND_PAD, n_words=W,
+                                          n_live=n_live)
+        np.testing.assert_array_equal(sup.numpy(), want_sup[:, :ND_PAD])
+        np.testing.assert_array_equal(mask.numpy().view(np.uint32),
+                                      want_mask[:, :ND_PAD // 32])
+        np.testing.assert_array_equal(sup.numpy()[:, :NI], ref_sup)
+        np.testing.assert_array_equal(mask.numpy().view(np.uint32)[:, :n_w],
+                                      ref_mask)
+        unhinted = EP.extend_count_prune(pt, items, thr, ND_PAD, n_words=W)
+        assert torch.equal(sup, unhinted[0]) and torch.equal(mask, unhinted[1])
+
+
+def test_hint_of_zero_live_rows_leaves_every_lane_dead():
+    p3, items3 = _operands(5, 7, 0, 40, 1)
+    sup, mask = EP.extend_count_prune(_t(p3).view(7, -1),
+                                      _t(items3).view(ND_PAD, -1), 1, ND_PAD,
+                                      n_live=0)
+    assert tuple(sup.shape) == (7, ND_PAD) and not sup.any()
+    assert tuple(mask.shape) == (7, ND_PAD // 32) and not mask.any()
+
+
+@pytest.mark.parametrize("n_live", [-1, 65])
+def test_hint_outside_the_item_rows_raises(n_live):
+    pt = torch.zeros(4, 64, dtype=torch.int32)
+    with pytest.raises(ValueError, match="n_live"):
+        EP.extend_count_prune(pt, torch.zeros(64, 64, dtype=torch.int32), 2,
+                              64, n_live=n_live)

@@ -88,6 +88,39 @@ def test_hybrid_plan_runs_both_halves_at_default_geometry():
     assert stats["waves"] == ref_stats["waves"]
 
 
+@pytest.mark.parametrize("fixture,sup,kw,hybrid", [
+    (_db_mid, 0.1, {}, False),
+    (_db_mixed, 0.08, {"density_crossover": 0.5}, True),
+])
+def test_wave_hint_names_the_live_item_rows(monkeypatch, fixture, sup, kw,
+                                            hybrid):
+    """Every wave passes ``n_live`` = the real item count (``n_items`` on the
+    pure-bitmap plan, ``n_dense`` on the hybrid one), and the wave's item
+    rows from ``n_live`` to ``nd_pad`` are all zero, so the kernel may skip
+    them."""
+    from spark_fsm_tpu_torch.ops import spam_bitops as SB
+
+    db = fixture()
+    ms = JV.abs_minsup(sup, len(db))
+    seen = []
+    real = SB.wave_extend_prune
+
+    def spy(pt, items, thr, use_diff, *, n_words, nd_pad, n_live=None):
+        seen.append((n_live, nd_pad, bool(items[n_live:nd_pad].any())))
+        return real(pt, items, thr, use_diff, n_words=n_words, nd_pad=nd_pad,
+                    n_live=n_live)
+
+    monkeypatch.setattr(SB, "wave_extend_prune", spy)
+    eng = TS.SpamBitmapTorch(TV.build_vertical(db, min_item_support=ms), ms,
+                             device="cpu", node_batch=4, pool_bytes=POOL, **kw)
+    got = eng.mine()
+    assert patterns_text(got) == patterns_text(mine_spade(db, ms))
+    assert (eng.stats["rep_idlist"] > 0) == hybrid
+    live = eng.n_dense if hybrid else eng.n_items
+    assert 0 < live < eng.nd_pad
+    assert seen and all(s == (live, eng.nd_pad, False) for s in seen)
+
+
 def test_tiny_pool_forces_one_node_waves():
     db = _db_mid()
     ms = JV.abs_minsup(0.1, len(db))

@@ -97,3 +97,23 @@ def test_pair_prune_equals_reference(W):
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
         assert not got[100:].any()
+
+
+@pytest.mark.parametrize("W,nd_pad,n_live", [(1, 64, 50), (2, 64, 17),
+                                             (1, 128, 100), (3, 128, 64)])
+def test_wave_extend_prune_with_live_hint_equals_reference(W, nd_pad, n_live):
+    P, S = 10, 171
+    pt, store = _operands(W * 7 + n_live, P, nd_pad + 3, n_live, S, W)
+    store[n_live:nd_pad] = 0
+    use_diff = np.random.default_rng(n_live).integers(0, 2, P).astype(bool)
+    ref_fn = JSB.wave_extend_prune_fn(None, W, nd_pad)
+    for thr in (1, 30, S + 1):
+        want = ref_fn(jnp.asarray(pt), jnp.asarray(store), jnp.int32(thr),
+                      jnp.asarray(use_diff))
+        sup, mask = SB.wave_extend_prune(_t(pt), _t(store), thr,
+                                         torch.from_numpy(use_diff),
+                                         n_words=W, nd_pad=nd_pad,
+                                         n_live=n_live)
+        np.testing.assert_array_equal(sup.numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(mask.numpy().view(np.uint32),
+                                      np.asarray(want[1]))
