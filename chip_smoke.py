@@ -6,17 +6,29 @@
 Phases, one printed line each (any failure raises and exits non-zero):
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
   2. build every kernel from ``csrc/`` with nvcc (sm_90a), one nvcc per
-     source, all started together;
+     source, and the native tokenizer (``data/_fasttok.c``) with gcc, all
+     started together; print which tokenizer runs;
   3. the pair-support kernel against its plain PyTorch version on the card,
-     exact equality, W in {1, 2, 3} on ragged shapes, plus the candidate
-     extraction of ``batch_supports``;
+     exact equality, W in {1, 2, 3} on ragged shapes and at the main
+     path's launches, plus the candidate extraction of ``batch_supports``;
   4. the kernel and its plain version timed with CUDA events at the
-     headline launch (P=2048, NI=360, S=77,504, W=1) and at the main
-     path's first launch (P=720), beside the least time the card could
-     take for the same work;
+     headline launch (P=2048, NI=360, S=77,504, W=1), at the queue
+     engine's wide and late waves (P=1024 and P=128, NI=384) and at the
+     classic engine's first launch (P=720, NI=360), beside the least time
+     the card could take for the same work;
   5. the main path at full data size: ``mine_spade_torch`` on a
      BMS-WebView-2-shaped database (77,500 sequences) at minsup 0.1 %,
-     byte-identical to the CPU oracle, with the kernel's launches counted;
+     which the router sends to the queue engine, byte-identical to the CPU
+     oracle, with one pair-support launch per wave; then the same mine
+     pinned to the classic engine (``fused="never"``) and to the dense
+     engine (``fused="dense"``, one launch per level), each byte-identical
+     to the oracle; at minsup 50 the dense engine's frontier (and the
+     queue engine's children a wave) overflow and ``fused="dense"`` and
+     ``"auto"`` fall back to the classic engine, byte-identical to the
+     SPAM engine's mine; the mine checkpointed (the queue engine in
+     segments; a
+     mid-mine snapshot resumed in the classic engine), byte-identical; the
+     vertical build timed with the native and the numpy tokenizer;
   6. a multiword mine (W >= 2) against the oracle;
   7. the rule-support kernel against its plain PyTorch version on the card,
      exact equality, W in {1, 2, 3} on ragged shapes, every km of the
@@ -29,6 +41,7 @@ Phases, one printed line each (any failure raises and exits non-zero):
      database (990,000 sequences) with k=100, minconf=0.5, max_side=2,
      byte-identical to the same mine through the plain evaluator, every
      rule's counts recounted on the host, the kernel's launches counted;
+     the vertical build timed with both tokenizers;
  10. the TSR path against the copied CPU oracle (``mine_tsr_cpu``) at 1 %
      of that size, and on a multiword (W >= 2) database;
  11. the extension-count-prune kernel against its plain PyTorch version on
@@ -49,7 +62,8 @@ Phases, one printed line each (any failure raises and exits non-zero):
  13. the SPAM path at full data size: ``mine_spam_torch`` on an
      MSNBC-shaped database (990,000 sequences) at minsup 0.5 %, which the
      planner routes to SPAM, byte-identical to the CPU oracle and to the
-     classic engine, with one kernel launch per wave;
+     queue engine, with one kernel launch per wave; the vertical build
+     timed with both tokenizers;
  14. the SPAM path on the hybrid plan: phase 5's database at minsup 0.1 %
      (dense items as wave lanes, sparse items as pair lanes),
      byte-identical to phase 5's oracle result, and a multiword SPAM mine
@@ -78,11 +92,14 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 
-# (P, NI, S, W) of the timed launches: the headline launch, and the main
-# path's first one (its first batch: the 360 frequent items as parents,
-# plain and s-ext-transformed rows)
+# (P, NI, S, W) of the timed launches: the headline launch; the main path's
+# queue waves, wide (2 x nb = 1024 rows) and late (2 x nb_late = 128 rows)
+# over the item axis padded to 384; and the classic engine's first launch
+# (the 360 frequent items as parents, plain and s-ext-transformed rows)
 HEADLINE = (2048, 360, 77504, 1)
-MAIN_LAUNCH = (720, 360, 77504, 1)
+WIDE_WAVE = (1024, 384, 77504, 1)
+LATE_WAVE = (128, 384, 77504, 1)
+CLASSIC_LAUNCH = (720, 360, 77504, 1)
 # (C, km, M, S, W) of the timed rule-support launches: the TSR path's
 # headline launch (8192 candidates at km = 2 over the top 256 items of the
 # Kosarak-shaped database) and the same launch at km = 1
@@ -252,6 +269,57 @@ def ptxas_usage(log: str) -> list:
     return out
 
 
+class SnapshotStore:
+    """A checkpoint for ``mine_spade_torch``: nothing to resume, a
+    snapshot at every chance (``every_s`` 0), every delta kept."""
+
+    every_s = 0.0
+
+    def __init__(self):
+        self.saved = []
+
+    def load(self):
+        return None
+
+    def save(self, state):
+        self.saved.append(state)
+
+    def merged(self, k: int) -> dict:
+        """Snapshot ``k`` with every earlier delta's results merged in, as
+        a checkpoint store hands it back."""
+        snap = json.loads(json.dumps(self.saved[k]))
+        snap["results"] = [r for s in self.saved[:k + 1] for r in s["results"]]
+        snap["results_done"] = 0
+        return snap
+
+
+def tokenizer_times(name: str, db, minsup: int) -> None:
+    """``build_vertical``'s wall with the native tokenizer and with the
+    numpy flatten, on the same database; both builds must agree."""
+    from spark_fsm_tpu_torch.data import fasttok
+    from spark_fsm_tpu_torch.data import vertical as V
+
+    t0 = time.perf_counter()
+    a = V.build_vertical(db, min_item_support=minsup)
+    first_s = time.perf_counter() - t0
+    saved = V.tokenize
+    V.tokenize = fasttok.flatten_numpy
+    try:
+        t0 = time.perf_counter()
+        b = V.build_vertical(db, min_item_support=minsup)
+        numpy_s = time.perf_counter() - t0
+    finally:
+        V.tokenize = saved
+    for f in ("item_ids", "seq_lengths", "item_supports", "tok_item",
+              "tok_seq", "tok_word", "tok_mask"):
+        check(np.array_equal(getattr(a, f), getattr(b, f)),
+              f"{name}: the two tokenizers' vertical builds differ in {f}")
+    print(f"[tok] {name}: build_vertical with the {fasttok.backend()} "
+          f"tokenizer {first_s:.3f} s, with the numpy flatten {numpy_s:.3f} s "
+          f"({len(db)} sequences, min_item_support {minsup}); equal builds",
+          flush=True)
+
+
 def time_ms(fn, warmup: int, reps: int) -> float:
     import torch
 
@@ -298,12 +366,15 @@ def main() -> int:
         return 1
     from concurrent.futures import ThreadPoolExecutor
 
+    from spark_fsm_tpu_torch.data import fasttok
     from spark_fsm_tpu_torch.data.synth import (
         bms_webview2_like, kosarak_like, msnbc_like, synthetic_db)
     from spark_fsm_tpu_torch.data.vertical import (
         abs_minsup, build_vertical, dataset_stats)
     from spark_fsm_tpu_torch.models.oracle import mine_spade
-    from spark_fsm_tpu_torch.models.spade import mine_spade_torch
+    from spark_fsm_tpu_torch.models.spade import SpadeTorch, mine_spade_torch
+    from spark_fsm_tpu_torch.models.spade_queue import (
+        queue_eligible, queue_geometry)
     from spark_fsm_tpu_torch.models.spam_bitmap import (
         mine_spam_torch, spam_geometry)
     from spark_fsm_tpu_torch.models.tsr import mine_tsr_cpu, mine_tsr_torch
@@ -326,11 +397,14 @@ def main() -> int:
     print(f"[card] nvidia-smi: {card} | torch: {kind} x{count} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    # 2. build: one nvcc per source, all started together
+    # 2. build: one nvcc per source and the tokenizer's gcc, all started
+    # together
     sources = ("pair_support", "rule_support", "extend_prune")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        tok_build = pool.submit(fasttok.build)
         libs = list(pool.map(_build.build, sources))
+        tok_err = tok_build.exception()
     PS._kernel()
     RS._kernel()
     EP._kernel()
@@ -340,14 +414,21 @@ def main() -> int:
         check(bool(usage), f"the {name} build printed no ptxas report")
         print(f"[build] {name}.cu -> {os.path.basename(lib_path)}; ptxas: "
               f"{'; '.join(usage)}", flush=True)
-    print(f"[build] {len(sources)} sources in {build_s:.3f} s", flush=True)
+    print(f"[build] {len(sources)} sources and the tokenizer in "
+          f"{build_s:.3f} s", flush=True)
+    print(f"[tok] tokenizer: {fasttok.backend()}"
+          + ("" if fasttok.backend() == "native"
+             else f" (native build failed: {fasttok.reason() or tok_err})"),
+          flush=True)
 
-    # 3. kernel == plain version, exactly, on ragged shapes
+    # 3. kernel == plain version, exactly, on ragged shapes and at the main
+    # path's launches
     rng = np.random.default_rng(0)
     worst = 0
     timed = {}
     for (P, NI, S, W) in ((130, 77, 1001, 1), (67, 129, 517, 2),
-                          (3, 5, 4099, 3), MAIN_LAUNCH, HEADLINE):
+                          (3, 5, 4099, 3), LATE_WAVE, CLASSIC_LAUNCH,
+                          WIDE_WAVE, HEADLINE):
         pt = torch.from_numpy(rand_words(rng, P, S * W).view(np.int32)).to(dev)
         items = torch.from_numpy(
             rand_words(rng, NI + 7, S * W).view(np.int32)).to(dev)
@@ -365,18 +446,20 @@ def main() -> int:
         worst = max(worst, err)
         print(f"[check] pair_supports P={P} NI={NI} S={S} W={W}: equal to "
               f"plain (max abs err {err}); batch_supports equal", flush=True)
-        if (P, NI, S, W) in (MAIN_LAUNCH, HEADLINE):
+        if (P, NI, S, W) in (LATE_WAVE, CLASSIC_LAUNCH, WIDE_WAVE, HEADLINE):
             timed[(P, NI, S, W)] = (pt, items)
 
-    # 4. timing at the headline launch and at the main path's first one
-    # the kernels line reports the headline launch, timed last
-    for shape in (MAIN_LAUNCH, HEADLINE):
+    # 4. timing at every launch shape above; the kernels line reports the
+    # main path's wide queue wave
+    pair_times = {}
+    for shape in (LATE_WAVE, CLASSIC_LAUNCH, HEADLINE, WIDE_WAVE):
         pt, items = timed.pop(shape)
         P, NI, S, W = shape
         ms = time_ms(lambda: PS.pair_supports(pt, items, NI, n_words=W), 3, 20)
         plain_ms = time_ms(
             lambda: PS.pair_supports_plain(pt, items, NI, n_words=W), 1, 10)
         bound_ms, bound_by = pair_bound_ms(P, NI, S, W)
+        pair_times[shape] = ms
         clocks = smi("clocks.sm,power.draw,temperature.gpu")
         print(f"[time] pair_supports P={P} NI={NI} S={S} W={W}: kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -387,12 +470,19 @@ def main() -> int:
         del pt, items
     torch.cuda.empty_cache()
 
-    # 5. the main path at full data size
+    # 5. the main path at full data size: the router's choice, the queue
+    # engine, with B1 launched once per wave
     t0 = time.perf_counter()
     db = bms_webview2_like()
     gen_s = time.perf_counter() - t0
     minsup = abs_minsup(0.001, len(db))
     vdb = build_vertical(db, min_item_support=minsup)
+    geo = queue_geometry(vdb.n_sequences, vdb.n_items, vdb.n_words,
+                         device=dev)
+    store_bytes = ((geo["ni_pad"] + geo["caps"].ring + 2) * geo["n_seq"]
+                   * vdb.n_words * 4)
+    check(queue_eligible(vdb, dev),
+          "the BMS-shaped mine is not queue-eligible")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     PS.pair_supports.launches = 0
@@ -403,9 +493,15 @@ def main() -> int:
     cold_s = time.perf_counter() - t0
     launches = PS.pair_supports.launches
     peak = torch.cuda.max_memory_allocated()
-    check(launches > 0, "the main path launched the pair-support kernel 0 times")
+    check(stats.get("fused") == "queue",
+          f"the router sent the main path to {stats.get('fused')!r}, not the "
+          f"queue engine")
+    check(not stats.get("fused_overflow"), "the queue engine overflowed")
+    check(launches == stats["waves"] > 0,
+          f"{launches} pair-support launches for {stats['waves']} waves")
+    wstats: dict = {}
     t0 = time.perf_counter()
-    got_warm = mine_spade_torch(db, minsup)
+    got_warm = mine_spade_torch(db, minsup, stats_out=wstats)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -415,16 +511,130 @@ def main() -> int:
     check(patterns_text(got) == text, "main-path mine differs from the oracle:\n"
           + diff_patterns(want, got))
     check(patterns_text(got_warm) == text, "warm mine differs from the oracle")
+    wide = stats["waves"] - stats["late_waves"]
+    main_bound_ms = (wide * pair_bound_ms(*WIDE_WAVE)[0]
+                     + stats["late_waves"] * pair_bound_ms(*LATE_WAVE)[0])
     print(f"[mine] bms_webview2_like: {len(db)} sequences, {vdb.n_items} "
-          f"frequent items, W={vdb.n_words}, minsup {minsup}: {len(got)} "
-          f"patterns byte-identical to the oracle; cold {cold_s:.3f} s, "
-          f"warm {warm_s:.3f} s, pair-support launches {launches}, "
-          f"candidates {stats['candidates']}, engine launches "
-          f"{stats['kernel_launches']}, max_memory_allocated {peak} B; "
-          f"host: generator {gen_s:.1f} s, oracle {oracle_s:.1f} s",
+          f"frequent items, W={vdb.n_words}, minsup {minsup}: route "
+          f"{stats['fused']!r}, {len(got)} patterns byte-identical to the "
+          f"oracle; cold {cold_s:.3f} s, warm {warm_s:.3f} s; waves "
+          f"{stats['waves']} ({wide} wide at nb {geo['caps'].nb}, "
+          f"{stats['late_waves']} late at nb {geo['nb_late']}), pair-support "
+          f"launches {launches} (bound summed over them {main_bound_ms:.3f} "
+          f"ms), candidates {stats['candidates']}, ring {geo['caps'].ring}, "
+          f"store {store_bytes} B, counter waits {stats['wait_s']:.4f} s "
+          f"cold / {wstats['wait_s']:.4f} s warm, max_memory_allocated "
+          f"{peak} B; host: generator {gen_s:.1f} s, oracle {oracle_s:.1f} s",
           flush=True)
+    del got, got_warm, want
+    torch.cuda.empty_cache()
+
+    # the same mine through the classic engine, pinned
+    PS.pair_supports.launches = 0
+    cstats: dict = {}
+    t0 = time.perf_counter()
+    got = mine_spade_torch(db, minsup, fused="never", stats_out=cstats)
+    torch.cuda.synchronize()
+    classic_s = time.perf_counter() - t0
+    c_launches = PS.pair_supports.launches
+    check(cstats["fused"] is False and c_launches > 0,
+          f"the classic route: {cstats['fused']!r}, {c_launches} launches")
+    check(patterns_text(got) == text, "the classic engine differs from the "
+          "oracle:\n" + diff_patterns(mine_spade(db, minsup), got))
+    print(f"[mine] bms_webview2_like fused='never': {len(got)} patterns "
+          f"byte-identical to the oracle; {classic_s:.3f} s, pair-support "
+          f"launches {c_launches}, candidates {cstats['candidates']}",
+          flush=True)
+
+    # pinned to the dense engine: the frontier's widest level (766 nodes)
+    # fits its 1,024 lanes, so it mines with one launch per level
+    PS.pair_supports.launches = 0
+    dstats: dict = {}
+    t0 = time.perf_counter()
+    got = mine_spade_torch(db, minsup, fused="dense", stats_out=dstats)
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    check(dstats["fused"] is True,
+          f"fused='dense' at full size did not run the dense engine: "
+          f"{ {k: v for k, v in dstats.items() if k.startswith('fused')} }")
+    check(PS.pair_supports.launches == dstats["levels"] > 0,
+          f"{PS.pair_supports.launches} launches for {dstats['levels']} "
+          f"levels")
+    check(patterns_text(got) == text, "the dense engine differs from the "
+          "oracle:\n" + diff_patterns(mine_spade(db, minsup), got))
+    print(f"[mine] bms_webview2_like fused='dense': {len(got)} patterns "
+          f"byte-identical to the oracle; {dense_s:.3f} s, levels "
+          f"{dstats['levels']} = pair-support launches, candidates "
+          f"{dstats['candidates']}, counter waits {dstats['wait_s']:.4f} s",
+          flush=True)
+
+    # at minsup 50 the second level (about 1,250 nodes) overflows the dense
+    # frontier (and the queue engine's 1,024 children a wave): the mine
+    # falls back to the classic engine, held against the SPAM engine's
+    low = 50
+    PS.pair_supports.launches = 0
+    ostats: dict = {}
+    t0 = time.perf_counter()
+    got = mine_spade_torch(db, low, fused="dense", stats_out=ostats)
+    torch.cuda.synchronize()
+    over_s = time.perf_counter() - t0
+    check(ostats.get("fused_overflow") and ostats["fused"] is False,
+          f"fused='dense' at minsup {low} did not overflow and fall back: "
+          f"{ {k: v for k, v in ostats.items() if k.startswith('fused')} }")
+    over_launches = PS.pair_supports.launches
+    astats: dict = {}
+    t0 = time.perf_counter()
+    got_auto = mine_spade_torch(db, low, stats_out=astats)
+    torch.cuda.synchronize()
+    auto_s = time.perf_counter() - t0
+    want_low = mine_spam_torch(db, low)
+    check(patterns_text(got) == patterns_text(want_low)
+          and patterns_text(got_auto) == patterns_text(want_low),
+          f"the fallbacks at minsup {low} differ from the SPAM engine's mine")
+    print(f"[mine] bms_webview2_like minsup {low}: fused='dense' overflowed "
+          f"after {ostats['fused_levels']} levels and fell back to the classic "
+          f"engine ({over_s:.3f} s, pair-support launches {over_launches}); "
+          f"fused='auto' routed "
+          f"{ {k: v for k, v in astats.items() if k.startswith('fused')} } "
+          f"({auto_s:.3f} s); both {len(got)} patterns byte-identical to the "
+          f"SPAM engine's", flush=True)
+    del got_auto
+
+    # checkpointed: the queue engine in segments; a mid-mine snapshot
+    # resumes in the classic engine
+    ckpt = SnapshotStore()
+    PS.pair_supports.launches = 0
+    kstats: dict = {}
+    t0 = time.perf_counter()
+    got = mine_spade_torch(db, minsup, checkpoint=ckpt, stats_out=kstats)
+    torch.cuda.synchronize()
+    ckpt_s = time.perf_counter() - t0
+    check(kstats["fused"] == "queue" and kstats.get("checkpoints", 0) > 0,
+          f"the checkpointed mine: route {kstats['fused']!r}, "
+          f"{kstats.get('checkpoints', 0)} snapshots")
+    check(PS.pair_supports.launches == kstats["waves"],
+          f"{PS.pair_supports.launches} launches for {kstats['waves']} waves")
+    check(patterns_text(got) == text, "the checkpointed mine differs")
+    k = len(ckpt.saved) // 2
+    snap = ckpt.merged(k)
+    check(bool(snap["stack"]), "the mid-mine snapshot holds no frontier")
+    t0 = time.perf_counter()
+    resumed = SpadeTorch(vdb, minsup).mine(resume=snap)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    check(patterns_text(resumed) == text,
+          "the classic engine's resume of a queue snapshot differs")
+    print(f"[mine] bms_webview2_like checkpointed: {kstats['checkpoints']} "
+          f"snapshots over {kstats['waves']} waves, byte-identical; "
+          f"{ckpt_s:.3f} s; snapshot {k} ({len(snap['stack'])} live nodes, "
+          f"{len(snap['results'])} results) resumed in the classic engine, "
+          f"byte-identical, {resume_s:.3f} s", flush=True)
+    del got, resumed, snap, ckpt
+    torch.cuda.empty_cache()
+
+    tokenizer_times("bms_webview2_like", db, minsup)
     bms_db, bms_minsup, bms_text = db, minsup, text
-    del got, got_warm, want, vdb
+    del want_low, vdb
     torch.cuda.empty_cache()
 
     # 6. multiword mine
@@ -508,6 +718,7 @@ def main() -> int:
     t0 = time.perf_counter()
     db = kosarak_like(scale=1.0, fast=True)
     gen_s = time.perf_counter() - t0
+    tokenizer_times("kosarak_like", db, 1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     RS.rule_supports.launches = 0
@@ -662,6 +873,7 @@ def main() -> int:
     db = msnbc_like(scale=1.0, fast=True)
     gen_s = time.perf_counter() - t0
     minsup = abs_minsup(0.005, len(db))
+    tokenizer_times("msnbc_like", db, minsup)
     decision = choose_patterns_engine(dataset_stats(db, min_item_support=minsup))
     check(decision.engine == "SPAM_TPU",
           f"the planner routes the MSNBC-shaped mine to {decision.engine}")
@@ -698,12 +910,12 @@ def main() -> int:
           + diff_patterns(want, got))
     check(patterns_text(got_warm) == text, "warm SPAM mine differs from the oracle")
     check(patterns_text(got_spade) == text,
-          "SPAM and the classic engine differ on the MSNBC-shaped mine")
+          "SPAM and the SPADE route differ on the MSNBC-shaped mine")
     print(f"[mine] msnbc_like: {len(db)} sequences, {sstats['rep_dense']} "
           f"frequent items, minsup {minsup}, planner: {decision.engine} "
           f"({decision.reason}): {len(got)} patterns byte-identical to the "
-          f"oracle and to the classic engine; cold {scold_s:.3f} s, warm "
-          f"{swarm_s:.3f} s, classic engine {spade_s:.3f} s; node_batch {nb}, "
+          f"oracle and to the SPADE route's; cold {scold_s:.3f} s, warm "
+          f"{swarm_s:.3f} s, SPADE route {spade_s:.3f} s; node_batch {nb}, "
           f"waves {sstats['waves']}, extend-prune launches {elaunches}, "
           f"candidates {sstats['candidates']}, evaluated_lanes "
           f"{sstats['evaluated_lanes']}, wave_survivors "

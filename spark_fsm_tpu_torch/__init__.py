@@ -16,13 +16,15 @@ passes ``device="cpu"``; without CUDA they raise instead of falling back.
 from spark_fsm_tpu_torch.data.spmf import SequenceDB, load_spmf, parse_spmf
 from spark_fsm_tpu_torch.data.vertical import VerticalDB, abs_minsup, build_vertical
 from spark_fsm_tpu_torch.models.spade import SpadeTorch, mine_spade_torch
+from spark_fsm_tpu_torch.models.spade_fused import FusedSpadeTorch
+from spark_fsm_tpu_torch.models.spade_queue import QueueSpadeTorch
 from spark_fsm_tpu_torch.models.spam_bitmap import SpamBitmapTorch, mine_spam_torch
 from spark_fsm_tpu_torch.models.tsr import TsrTorch, mine_tsr_torch
 
 __all__ = [
     "SequenceDB", "load_spmf", "parse_spmf",
     "VerticalDB", "abs_minsup", "build_vertical",
-    "SpadeTorch", "mine_spade_torch",
+    "SpadeTorch", "QueueSpadeTorch", "FusedSpadeTorch", "mine_spade_torch",
     "SpamBitmapTorch", "mine_spam_torch",
     "TsrTorch", "mine_tsr_torch",
 ]

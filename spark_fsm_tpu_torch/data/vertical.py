@@ -2,10 +2,10 @@
 
 Carried over: ``VerticalDB`` (with its id-list view), ``build_vertical``,
 ``abs_minsup``, the hybrid store's ``idlist_join_support``, ``RepPlan`` and
-``rep_plan``, the planner's ``DatasetStats`` and ``dataset_stats``, and the
-numpy tokenizer ``flatten_numpy`` from
-``spark_fsm_tpu/data/fasttok.py`` (the reference's always-correct path; its
-native C tokenizer produces the same bytes and is not copied).
+``rep_plan``, the planner's ``DatasetStats`` and ``dataset_stats``.
+``build_vertical`` and ``dataset_stats`` tokenize through
+``data/fasttok.py``: the native C tokenizer, or the numpy flatten when it
+cannot be built (the same bytes either way).
 
 For each kept item, a ``[n_seq, n_words]`` uint32 bitmap where bit ``p`` of
 sequence ``s`` (word ``p // 32``, bit ``p % 32``, LSB-first) is set iff the
@@ -16,10 +16,11 @@ itemset indices: the frequent-item projection drops rows, never renumbers.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 
+from spark_fsm_tpu_torch.data.fasttok import tokenize
 from spark_fsm_tpu_torch.data.spmf import SequenceDB
 
 WORD_BITS = 32
@@ -162,16 +163,6 @@ def rep_plan(item_supports: np.ndarray, n_sequences: int, *,
     return RepPlan(rep=rep, densities=d, crossover=float(crossover), pin=pin)
 
 
-def flatten_numpy(db) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(seq_lengths int32, itemset_counts int64, raw_items int64) for a
-    SequenceDB — the one-pass tokenize ``build_vertical`` starts from."""
-    lengths = np.fromiter((len(s) for s in db), np.int32, count=len(db))
-    counts = np.fromiter((len(iset) for s in db for iset in s), np.int64)
-    items = np.fromiter((it for s in db for iset in s for it in iset),
-                        np.int64)
-    return lengths, counts, items
-
-
 def build_vertical(
     db: SequenceDB,
     min_item_support: int = 1,
@@ -189,7 +180,7 @@ def build_vertical(
     if n_seq == 0:
         raise ValueError("empty sequence database")
 
-    seq_lengths, counts, raw_items = flatten_numpy(db)
+    seq_lengths, counts, raw_items = tokenize(db)
     n_itemsets_total = len(counts)
     # position (itemset index within its sequence) per itemset, then per token
     seq_of_itemset = np.repeat(np.arange(n_seq, dtype=np.int64), seq_lengths)
@@ -276,7 +267,7 @@ def dataset_stats(db: SequenceDB,
     n_seq = len(db)
     if n_seq == 0:
         return DatasetStats(0, 0, 0, 0, 0, 0.0, 1, 0.0)
-    seq_lengths, counts, raw_items = flatten_numpy(db)
+    seq_lengths, counts, raw_items = tokenize(db)
     n_itemsets = int(len(counts))
     n_tokens = int(len(raw_items))
     max_len = int(seq_lengths.max())

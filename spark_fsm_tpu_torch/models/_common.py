@@ -6,7 +6,10 @@ recompute-on-miss, and reclaim-from-stack-bottom when the pool runs dry.
 The device steps both batched-DFS engines (SPADE's classic engine and
 SPAM) share — a batch's parent-row prep, the materialize of surviving
 children and the recompute of evicted bitmaps — live here as functions
-on the store (the reference's ``spade_tpu._spade_fns``).
+on the store (the reference's ``spade_tpu._spade_fns``).  The whole-mine
+engines (``spade_queue.py``, ``spade_fused.py``) add the reference's tile
+constants where they decide routing and caps, a sync-free fixed-size
+``nonzero`` and a scatter that drops masked rows into a trash row.
 ``FrontierNode``, ``encode_frontier``, ``decode_frontier`` and
 ``load_checkpoint`` are byte-for-byte copies of the reference's, so a
 frontier snapshot taken by either package resumes in the other.
@@ -15,6 +18,7 @@ frontier snapshot taken by either package resumes in the other.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -38,6 +42,21 @@ class FrontierNode:
     slot: object
     s_list: list
     i_list: list
+
+
+def frontier_fingerprint(vdb, minsup: int, max_itemsets) -> dict:
+    """Identity of the (vdb, minsup) a frontier snapshot binds to: the
+    reference engines' exact fields, shared by the port's classic, queue
+    and SPAM engines, so their snapshots interchange."""
+    ids = vdb.item_ids
+    return {
+        "minsup": int(minsup),
+        "n_items": int(vdb.n_items),
+        "n_sequences": vdb.n_sequences,
+        "max_itemsets": max_itemsets,  # changes enumeration
+        "item_ids_head": [int(i) for i in ids[:8]],
+        "item_ids_sum": int(ids.astype(np.int64).sum()),
+    }
 
 
 def encode_frontier(fingerprint: dict, stack, results,
@@ -121,6 +140,43 @@ def scatter_tokens(ti: np.ndarray, ts: np.ndarray, tw: np.ndarray,
     return flat.view(n_rows, n_seq * n_words)
 
 
+# The reference's pair-kernel tiles (spark_fsm_tpu/ops/pallas_support.py),
+# kept where they decide routing, caps and wave counts so those decisions
+# and the engines' counters match the reference's: P_TILE rounds the
+# whole-mine engines' wave and frontier widths, I_TILE pads their item axis
+# (ni_pad) and sets the 1024-item alphabet bound.  B1 has its own tiles.
+P_TILE = 16
+I_TILE = 128
+
+
+def pad_to_multiple(n: int, k: int) -> int:
+    return -(-int(n) // int(k)) * int(k)
+
+
+def nonzero_static(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
+    """``jnp.nonzero(mask, size=size, fill_value=fill)`` for a 1-D bool
+    tensor without a host sync (``torch.nonzero`` and boolean indexing
+    read the count back): the indices of the first ``size`` set entries in
+    order, then ``fill``.  Each set entry's rank (a cumsum) is its output
+    slot; the rest scatter into one trash slot past the end."""
+    rank = torch.cumsum(mask, 0) - 1
+    dest = torch.where(mask & (rank < size), rank, size)
+    out = torch.full((size + 1,), fill, dtype=torch.int64, device=mask.device)
+    out.scatter_(0, dest, torch.arange(mask.shape[0], device=mask.device))
+    return out[:size]
+
+
+def copy_rows_drop(dst: torch.Tensor, idx: torch.Tensor, keep: torch.Tensor,
+                   src: torch.Tensor) -> None:
+    """``dst[idx[k]] = src[k]`` where ``keep[k]``, in place — the
+    reference's ``.at[idx].set(src, mode="drop")``.  An out-of-range index
+    in a torch index op is a device-side assert that ends the CUDA
+    context, so ``dst``'s last row is a trash row that takes every dropped
+    write; callers size each buffer one row past its live range and never
+    read that row."""
+    dst.index_copy_(0, torch.where(keep, idx, dst.shape[0] - 1), src)
+
+
 def device_axes(n_sequences: int) -> int:
     """The store's sequence axis: ``n_sequences`` padded to the pair
     kernel's sequence tile.  Padded sequences are all-zero bitmaps and
@@ -177,15 +233,39 @@ def to_host(tensors):
     return out, ev
 
 
+class CounterReader:
+    """The host's read of a whole-mine engine's small int64 counter
+    tensor after each wave or level — the reference's ``while_loop``
+    condition.  One pinned buffer and one event are reused; the seconds
+    the host spends waiting on the device are summed in ``wait_s``."""
+
+    def __init__(self, n: int, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.host = torch.empty(n, dtype=torch.int64, pin_memory=self.cuda)
+        self.event = torch.cuda.Event() if self.cuda else None
+        self.wait_s = 0.0
+
+    def read(self, ctr: torch.Tensor) -> List[int]:
+        t0 = time.perf_counter()
+        self.host.copy_(ctr, non_blocking=self.cuda)
+        if self.cuda:
+            self.event.record()
+            self.event.synchronize()
+        self.wait_s += time.perf_counter() - t0
+        return self.host.tolist()
+
+
 def prep_rows(store: torch.Tensor, slots, n_seq: int,
               n_words: int) -> torch.Tensor:
-    """Gather the bitmaps at ``slots`` and interleave each with its s-ext
-    transform, once per batch: row ``2*b`` of the returned
-    ``[2*len(slots), S*W]`` tensor is slot b's bitmap, row ``2*b+1`` its
-    transform.  The rows are copies, so later in-place writes to the
-    store's pool slots cannot reach a batch in flight."""
-    parents = store.index_select(0, to_index(slots, store.device)).view(
-        len(slots), n_seq, n_words)
+    """Gather the bitmaps at ``slots`` (host ints, or an index tensor on
+    the store's device) and interleave each with its s-ext transform, once
+    per batch: row ``2*b`` of the returned ``[2*len(slots), S*W]`` tensor
+    is slot b's bitmap, row ``2*b+1`` its transform.  The rows are copies,
+    so later in-place writes to the store's pool slots cannot reach a
+    batch in flight."""
+    if not isinstance(slots, torch.Tensor):
+        slots = to_index(slots, store.device)
+    parents = store.index_select(0, slots).view(len(slots), n_seq, n_words)
     pt = torch.stack([parents, B.sext_transform(parents)], dim=1)
     return pt.view(2 * len(slots), -1)
 

@@ -1,7 +1,9 @@
-"""SPADE classic engine on a CUDA device — port of
-``spark_fsm_tpu/models/spade_tpu.py`` (``classic_geometry``, ``SpadeTPU`` as
-:class:`SpadeTorch`, ``mine_spade_tpu`` as :func:`mine_spade_torch`, and
-``_route_spade``).
+"""SPADE classic engine on a CUDA device, and the SPADE entry point — port
+of ``spark_fsm_tpu/models/spade_tpu.py`` (``classic_geometry``,
+``SpadeTPU`` as :class:`SpadeTorch`, ``mine_spade_tpu`` as
+:func:`mine_spade_torch`, and ``_route_spade``, which routes a mine to
+the queue engine ``spade_queue.py``, the dense engine ``spade_fused.py``
+or this classic engine as the reference does).
 
 - The vertical DB and all live pattern bitmaps sit in one device-resident
   flat ``store[slot, seq*word]`` int32 tensor (word minor).  Slots
@@ -24,8 +26,8 @@
   is rebuilt by folding the joins from the item id-lists — bit-exact.
 
 Enumeration is identical to the CPU oracle, so the output pattern set is
-byte-identical by construction.  Not ported: the queue and dense engines,
-meshes, partitioned mining and shape-key registration (ROADMAP Queue A).
+byte-identical by construction.  Not ported: meshes, partitioned mining,
+shape buckets and shape-key registration (ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -42,8 +44,13 @@ from spark_fsm_tpu_torch.data.vertical import VerticalDB, build_vertical
 from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
 from spark_fsm_tpu_torch.models._common import (
     FrontierNode, SlotPool, auto_pool_bytes, decode_frontier, device_axes,
-    encode_frontier, ensure_slots, launch_width_cap, load_checkpoint,
-    materialize_rows, prep_rows, scatter_build_store, to_host, to_index)
+    encode_frontier, ensure_slots, frontier_fingerprint, launch_width_cap,
+    load_checkpoint, materialize_rows, prep_rows, scatter_build_store,
+    to_host, to_index)
+from spark_fsm_tpu_torch.models.spade_fused import (
+    FusedSpadeTorch, fused_eligible)
+from spark_fsm_tpu_torch.models.spade_queue import (
+    QueueSpadeTorch, queue_eligible)
 from spark_fsm_tpu_torch.ops import pair_support as PS
 from spark_fsm_tpu_torch.utils.canonical import Pattern, PatternResult, sort_patterns
 
@@ -269,15 +276,8 @@ class SpadeTorch:
     def frontier_fingerprint(self) -> dict:
         """Identity of the (vdb, minsup) a frontier checkpoint binds to —
         the reference engine's exact fields, so snapshots interchange."""
-        ids = self.vdb.item_ids
-        return {
-            "minsup": self.minsup,
-            "n_items": self.n_items,
-            "n_sequences": self.vdb.n_sequences,
-            "max_itemsets": self.max_pattern_itemsets,  # changes enumeration
-            "item_ids_head": [int(i) for i in ids[:8]],
-            "item_ids_sum": int(ids.astype(np.int64).sum()),
-        }
+        return frontier_fingerprint(self.vdb, self.minsup,
+                                    self.max_pattern_itemsets)
 
     def frontier_state(self, stack: List[_Node],
                        results: List[PatternResult],
@@ -353,6 +353,7 @@ def mine_spade_torch(
     checkpoint=None,
     fused: str = "auto",
     partition_parts: int = 0,
+    shape_buckets: bool = False,
     **kwargs,
 ) -> List[PatternResult]:
     """DB -> vertical build -> device mine, on ``device`` (default CUDA;
@@ -360,24 +361,24 @@ def mine_spade_torch(
 
     ``checkpoint`` (optional): an object with ``load() -> Optional[dict]``,
     ``save(state)`` and ``every_s``; a saved frontier (from either
-    package) is resumed when its fingerprint still matches.
+    package, either engine) is resumed when its fingerprint still matches.
 
-    ``fused``: "auto" and "never" run the classic engine (routing never
-    changes the pattern set).  "queue", "dense" and "always", a ``mesh``
-    and ``partition_parts > 1`` are not ported yet and raise
-    ``NotImplementedError``.  ``kwargs`` go to :class:`SpadeTorch`.
+    ``fused`` routes as the reference does: "auto" tries the queue engine
+    when ``queue_eligible`` passes, then the dense engine when
+    ``fused_eligible`` passes, then the classic engine; a cap overflow
+    falls through to the next.  "queue" and "dense" pin one whole-mine
+    engine (still falling back on overflow), "always" tries both
+    regardless of the size tests, "never" pins the classic engine.  A
+    checkpointed mine runs the queue engine (in segments) or the classic
+    one, never the dense engine.  ``stats_out`` gets the engine's stats
+    and the routing keys (``fused``, ``fused_overflow``, ``fused_waves``,
+    ``fused_levels``, ``fused_skipped``).  A ``mesh``,
+    ``partition_parts > 1`` and ``shape_buckets`` are not ported yet and
+    raise ``NotImplementedError``.  ``kwargs`` go to :class:`SpadeTorch`.
     """
     dev = resolve_device(device)
     if fused not in _FUSED:
         raise ValueError(f"fused must be one of {_FUSED}, got {fused!r}")
-    if fused in ("queue", "always"):
-        raise NotImplementedError(
-            f"fused={fused!r}: the queue engine is not ported yet "
-            "(ROADMAP Queue A item 4)")
-    if fused == "dense":
-        raise NotImplementedError(
-            "fused='dense': the dense engine is not ported yet "
-            "(ROADMAP Queue A item 5)")
     if mesh is not None:
         raise NotImplementedError(
             "mesh: multi-GPU sequence sharding is not ported yet "
@@ -386,6 +387,10 @@ def mine_spade_torch(
         raise NotImplementedError(
             "partition_parts > 1: class-partitioned mining is not ported "
             "yet (ROADMAP Queue A item 11)")
+    if shape_buckets:
+        raise NotImplementedError(
+            "shape_buckets: bucketed streaming geometry is not ported yet "
+            "(ROADMAP Queue A item 9)")
     vdb = build_vertical(db, min_item_support=minsup_abs)
     if vdb.n_items == 0:
         return []
@@ -406,18 +411,51 @@ def _route_spade(
     fused: str = "auto",
     **kwargs,
 ) -> List[PatternResult]:
-    """Engine routing.  Only the classic engine is ported, and it is the
-    engine every reference route ends in, so "auto" and "never" both land
-    here; the routing decision is recorded under ``stats_out["fused"]``."""
-    if fused not in ("auto", "never"):
-        raise NotImplementedError(f"fused={fused!r} is not ported yet")
-    eng = SpadeTorch(vdb, minsup_abs, device=device,
-                     max_pattern_itemsets=max_pattern_itemsets, **kwargs)
+    """The reference's engine ladder (``spade_tpu._route_spade``): queue,
+    then dense, then classic."""
+    ekw = dict(device=device, max_pattern_itemsets=max_pattern_itemsets)
+    if fused in ("auto", "always", "queue"):
+        if fused in ("always", "queue") or queue_eligible(vdb, device):
+            qeng = QueueSpadeTorch(vdb, minsup_abs, **ekw)
+            q_resume, q_save, q_every = load_checkpoint(
+                checkpoint, qeng.frontier_fingerprint())
+            res = qeng.mine(resume=q_resume, checkpoint_cb=q_save,
+                            checkpoint_every_s=q_every)
+            if res is not None:
+                if stats_out is not None:
+                    stats_out.update(qeng.stats)
+                return res
+            # cap overflow: fall through, the marker kept visible; a
+            # checkpointed mine's classic fallback resumes the queue
+            # engine's last snapshot (shared format and fingerprint)
+            if stats_out is not None:
+                stats_out["fused_overflow"] = True
+                stats_out["fused_waves"] = qeng.stats.get("waves", 0)
+            del qeng  # frees the queue store before the next engine's
+    if checkpoint is not None and fused in ("always", "dense", "auto"):
+        # the dense engine has no resumable frontier: a checkpointed mine
+        # that would have used it runs the classic engine, flagged
+        if stats_out is not None and (
+                fused in ("always", "dense") or fused_eligible(vdb, device)):
+            stats_out["fused_skipped"] = "checkpoint"
+    if checkpoint is None and fused in ("always", "dense", "auto"):
+        if fused in ("always", "dense") or fused_eligible(vdb, device):
+            feng = FusedSpadeTorch(vdb, minsup_abs, **ekw)
+            res = feng.mine()
+            if res is not None:
+                if stats_out is not None:
+                    stats_out.update(feng.stats)
+                return res
+            if stats_out is not None:
+                stats_out["fused_overflow"] = True
+                stats_out["fused_levels"] = feng.stats.get("levels", 0)
+    eng = SpadeTorch(vdb, minsup_abs, **ekw, **kwargs)
     resume, save_cb, every_s = load_checkpoint(
         checkpoint, eng.frontier_fingerprint())
     results = eng.mine(resume=resume, checkpoint_cb=save_cb,
                        checkpoint_every_s=every_s)
     if stats_out is not None:
         stats_out.update(eng.stats)
+        # the routing decision is always recorded ("routed classic")
         stats_out.setdefault("fused", False)
     return results

@@ -45,8 +45,8 @@ from spark_fsm_tpu_torch.data.vertical import (
 from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
 from spark_fsm_tpu_torch.models._common import (
     FrontierNode, SlotPool, auto_pool_bytes, decode_frontier, device_axes,
-    encode_frontier, ensure_slots, load_checkpoint, materialize_rows,
-    prep_rows, scatter_build_store, to_host, to_index)
+    encode_frontier, ensure_slots, frontier_fingerprint, load_checkpoint,
+    materialize_rows, prep_rows, scatter_build_store, to_host, to_index)
 from spark_fsm_tpu_torch.ops import bitops_np as BN
 from spark_fsm_tpu_torch.ops import spam_bitops as SB
 from spark_fsm_tpu_torch.ops.ragged_batch import next_pow2
@@ -343,15 +343,8 @@ class SpamBitmapTorch:
     def frontier_fingerprint(self) -> dict:
         """Field for field the classic engine's (and the reference
         engines'): the engines' checkpoints resume each other."""
-        ids = self.vdb.item_ids
-        return {
-            "minsup": self.minsup,
-            "n_items": self.n_items,
-            "n_sequences": self.vdb.n_sequences,
-            "max_itemsets": self.max_pattern_itemsets,
-            "item_ids_head": [int(i) for i in ids[:8]],
-            "item_ids_sum": int(ids.astype(np.int64).sum()),
-        }
+        return frontier_fingerprint(self.vdb, self.minsup,
+                                    self.max_pattern_itemsets)
 
     def frontier_state(self, stack: List[_Node],
                        results: List[PatternResult],

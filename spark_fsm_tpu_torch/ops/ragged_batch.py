@@ -1,7 +1,8 @@
 """Ragged candidate super-batching for TSR's evaluation launches — copy of
 the launch planner in ``spark_fsm_tpu/ops/ragged_batch.py`` (``Launch``,
 ``plan_launches``, ``XYStager``, ``overhead_units``,
-``dispatch_quantum_lanes``, ``KM_LADDER`` and the pow2 helpers).
+``dispatch_quantum_lanes``, ``KM_LADDER`` and the pow2 helpers), and the
+queue engine's late-wave geometry ``late_wave_nb``.
 
 Candidates arrive in per-km pools (km = the pow2 bucket of a rule's
 larger side).  :func:`plan_launches` splits each pool greedily into full
@@ -178,6 +179,18 @@ def plan_launches(pools: Dict[int, Sequence[int]], cap: Callable[[int], int],
 def _emit(cur: Tuple[int, List[int], List[int]], lane: int) -> Launch:
     km_g, rows, kms = cur
     return Launch(km_g, max(lane, next_pow2(len(rows))), rows, kms)
+
+
+def late_wave_nb(nb: int, tile: int, ratio: int = 8) -> int:
+    """Late-wave geometry for the queue engine: the narrow wave width the
+    mine switches to once the live frontier drops below it, so many
+    underfilled ``nb``-wide waves merge into well-filled narrow ones.
+    ``tile``-aligned; returns ``nb`` unchanged (ladder off) when the ratio
+    floor reaches it."""
+    nb = int(nb)
+    cand = max(32, nb // int(ratio))
+    cand = -(-cand // int(tile)) * int(tile)
+    return min(nb, cand)
 
 
 class XYStager:

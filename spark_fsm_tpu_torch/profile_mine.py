@@ -3,11 +3,13 @@
     python3 -m spark_fsm_tpu_torch.profile_mine [spade] [tsr] [spam]
 
 Prints one JSON line per path named (all three when none is):
-- SPADE: the BMS-WebView-2-shaped database (full size) at minsup 0.1 % with
-  the classic engine: the host-clock wall of each stage (vertical build,
-  store build, DFS; medians of three warm mines), the DFS split into host
-  work and waits on the device, and the parent rows (P) of each
-  pair-support launch;
+- SPADE: the BMS-WebView-2-shaped database (full size) at minsup 0.1 %
+  through both of its routes, in turns: the queue engine (the ``auto``
+  route's choice) and the classic engine (``fused="never"``).  For each,
+  the host-clock wall of each stage (vertical build, store build, the
+  search; medians of three warm mines), the search split into host work
+  and waits on the device, and the parent rows (P) of each pair-support
+  launch;
 - TSR: the Kosarak-shaped database (full size) with k=100, minconf=0.5,
   max_side=2: the stage walls (vertical build, engine set-up, the prep of
   each deepening round, the host loop, waits on the device; medians of
@@ -19,7 +21,10 @@ Prints one JSON line per path named (all three when none is):
   walls (vertical build, store build, DFS; medians of three warm mines),
   the DFS split into host work and waits on the device, and the parent
   rows (P) of each extension-count-prune launch.
-Each line also carries a ``torch.profiler`` trace of one more warm mine:
+Each line also names the tokenizer that ran (``data/fasttok.backend()``),
+gives the host functions that take the vertical build's time (one more
+build under ``cProfile``: the ten largest by own time), and carries a
+``torch.profiler`` trace of one more warm mine:
 device busy time by kernel (the ten largest entries, and every launch of
 the port's own kernels) and the device's idle share of the mine's wall.
 Needs a CUDA card; raises without one.
@@ -41,6 +46,25 @@ PORT_KERNELS = ("pair_support_kernel", "rule_staged_kernel", "rule_walk_kernel",
 
 def _median(runs):
     return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+
+
+def _vertical_profile(db, min_item_support: int) -> dict:
+    """One ``build_vertical`` under ``cProfile``: its wall and the ten
+    functions with the most own time."""
+    import cProfile
+    import pstats
+
+    from spark_fsm_tpu_torch.data.vertical import build_vertical
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(build_vertical, db, min_item_support=min_item_support)
+    wall = time.perf_counter() - t0
+    st = pstats.Stats(prof).stats
+    top = sorted(st.items(), key=lambda kv: -kv[1][2])[:10]
+    return {"wall_s": wall, "top_own_s": [
+        {"fn": f"{fn[0].rsplit('/', 1)[-1]}:{fn[1]}({fn[2]})",
+         "calls": v[1], "own_s": v[2], "cum_s": v[3]} for fn, v in top]}
 
 
 def _profiled(one_mine):
@@ -86,6 +110,7 @@ def spade(dev, card: str) -> dict:
     from spark_fsm_tpu_torch.data.synth import bms_webview2_like
     from spark_fsm_tpu_torch.data.vertical import abs_minsup, build_vertical
     from spark_fsm_tpu_torch.models import spade as SP
+    from spark_fsm_tpu_torch.models import spade_queue as SQ
     from spark_fsm_tpu_torch.ops import pair_support as PS
 
     db = bms_webview2_like()
@@ -95,8 +120,8 @@ def spade(dev, card: str) -> dict:
     waits, pair_rows = [], []
 
     class Timed(SP.SpadeTorch):
-        """The engine with its waits on the device's supports timed and the
-        parent rows (P) of each pair-support launch recorded."""
+        """The classic engine with its waits on the device's supports timed
+        and the parent rows (P) of each pair-support launch recorded."""
 
         def _supports_dispatch(self, pt, ref, item, iss):
             pair_rows.append(pt.shape[0])
@@ -110,30 +135,61 @@ def spade(dev, card: str) -> dict:
                 waits.append(time.perf_counter() - t0)
             return super()._resolve(inflight, stack, results)
 
-    def one_mine():
-        waits.clear()
-        pair_rows.clear()
-        t0 = time.perf_counter()
-        vdb = build_vertical(db, min_item_support=minsup)
-        t1 = time.perf_counter()
-        eng = Timed(vdb, minsup, device=dev)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        res = eng.mine()
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        return res, eng, {"vertical_s": t1 - t0, "store_s": t2 - t1,
-                          "dfs_s": t3 - t2, "wait_s": sum(waits),
-                          "total_s": t3 - t0}
+    class TimedQueue(SQ.QueueSpadeTorch):
+        """The queue engine with the parent rows (P) of each wave's
+        pair-support launch recorded; it times its own counter waits."""
 
-    one_mine()  # warm-up: CUDA context, caching allocator, pinned host pool
-    runs = [one_mine()[2] for _ in range(REPS)]
-    res, eng, prof = _profiled(one_mine)
-    return {"path": "spade", "card": card,
-            "device": torch.cuda.get_device_name(dev),
-            "sequences": len(db), "minsup": minsup, "patterns": len(res),
-            "stats": eng.stats, "pair_launch_rows": list(pair_rows),
-            "reps": len(runs), "median_s": _median(runs), **prof}
+        def wave(self, c, nb):
+            pair_rows.append(2 * nb)
+            return super().wave(c, nb)
+
+    def one_mine(engine):
+        def run():
+            waits.clear()
+            pair_rows.clear()
+            t0 = time.perf_counter()
+            vdb = build_vertical(db, min_item_support=minsup)
+            t1 = time.perf_counter()
+            eng = engine(vdb, minsup, device=dev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            res = eng.mine()
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            wait = eng.stats.get("wait_s", sum(waits))
+            return res, eng, {"vertical_s": t1 - t0, "store_s": t2 - t1,
+                              "search_s": t3 - t2, "wait_s": wait,
+                              "host_s": t3 - t2 - wait, "total_s": t3 - t0}
+        return run
+
+    vdb = build_vertical(db, min_item_support=minsup)
+    if not SQ.queue_eligible(vdb, dev):
+        raise RuntimeError("the BMS-shaped mine is not queue-eligible")
+    geo = SQ.queue_geometry(vdb.n_sequences, vdb.n_items, vdb.n_words,
+                            device=dev)
+    routes = {"queue": one_mine(TimedQueue), "classic": one_mine(Timed)}
+    for run in routes.values():
+        run()  # warm-up: CUDA context, caching allocator, pinned host pool
+    runs = {name: [] for name in routes}
+    for _ in range(REPS):  # in turns, so both see the same host
+        for name, run in routes.items():
+            runs[name].append(run()[2])
+    out = {"path": "spade", "card": card,
+           "device": torch.cuda.get_device_name(dev),
+           "sequences": len(db), "minsup": minsup,
+           "vertical_profile": _vertical_profile(db, minsup),
+           "queue_geometry": {"nb": geo["caps"].nb, "nb_late": geo["nb_late"],
+                              "ring": geo["caps"].ring,
+                              "ni_pad": geo["ni_pad"]}}
+    for name, run in routes.items():
+        res, eng, prof = _profiled(run)
+        out[name] = {"patterns": len(res), "stats": eng.stats,
+                     "pair_launch_rows": list(pair_rows),
+                     "reps": len(runs[name]),
+                     "median_s": _median(runs[name]), **prof}
+        del res, eng
+        torch.cuda.empty_cache()
+    return out
 
 
 def tsr(dev, card: str) -> dict:
@@ -216,6 +272,7 @@ def tsr(dev, card: str) -> dict:
     return {"path": "tsr", "card": card,
             "device": torch.cuda.get_device_name(dev),
             "sequences": len(db), "k": 100, "minconf": 0.5, "max_side": 2,
+            "vertical_profile": _vertical_profile(db, 1),
             "rules": len(res), "stats": eng.stats,
             "rule_launches_km_candidates": list(launches),
             "rule_launch_sharing": sharing,
@@ -275,6 +332,7 @@ def spam(dev, card: str) -> dict:
     return {"path": "spam", "card": card,
             "device": torch.cuda.get_device_name(dev),
             "sequences": len(db), "minsup": minsup, "patterns": len(res),
+            "vertical_profile": _vertical_profile(db, minsup),
             "node_batch": eng.node_batch, "stats": eng.stats,
             "wave_launch_rows": list(wave_rows),
             "reps": len(runs), "median_s": _median(runs), **prof}
@@ -294,9 +352,12 @@ def main(names=None) -> list:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    from spark_fsm_tpu_torch.data import fasttok
+
     out = []
     for name in names:
         out.append(PATHS[name](dev, card))
+        out[-1]["tokenizer"] = fasttok.backend()
         print(json.dumps(out[-1]), flush=True)
     return out
 

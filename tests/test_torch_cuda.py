@@ -7,8 +7,10 @@ conftest is left out):
 
 Each kernel (B1 pair supports, B2 rule supports, B3 extension count +
 prune) is held against its plain version exactly, and the engines' mines
-(SPADE, TSR, SPAM) against the port's CPU oracles, with the kernels'
-launches counted.
+(SPADE's classic, queue and dense engines, TSR, SPAM) against the port's
+CPU oracles, with the kernels' launches counted.  One queue wave and one
+dense level run under ``torch.cuda.set_sync_debug_mode("error")``: their
+bodies never wait on the host.
 """
 
 import numpy as np
@@ -18,7 +20,10 @@ import torch
 from spark_fsm_tpu_torch.data.synth import synthetic_db
 from spark_fsm_tpu_torch.data.vertical import abs_minsup
 from spark_fsm_tpu_torch.models.oracle import mine_spade
+from spark_fsm_tpu_torch.data.vertical import build_vertical
 from spark_fsm_tpu_torch.models.spade import mine_spade_torch
+from spark_fsm_tpu_torch.models.spade_fused import FusedCaps, FusedSpadeTorch
+from spark_fsm_tpu_torch.models.spade_queue import QueueCaps, QueueSpadeTorch
 from spark_fsm_tpu_torch.models.spam_bitmap import mine_spam_torch
 from spark_fsm_tpu_torch.models.tsr import mine_tsr_cpu, mine_tsr_torch
 from spark_fsm_tpu_torch.ops import extend_prune as EP
@@ -71,10 +76,61 @@ def test_engine_on_card_matches_oracle(card, kw, minsup_rel, cap):
     minsup = abs_minsup(minsup_rel, len(db))
     before = PS.pair_supports.launches
     got = mine_spade_torch(db, minsup, device=card, max_pattern_itemsets=cap,
-                           pool_bytes=1 << 20, node_batch=16)
+                           fused="never", pool_bytes=1 << 20, node_batch=16)
     assert PS.pair_supports.launches > before
     want = mine_spade(db, minsup, max_pattern_itemsets=cap)
     assert patterns_text(got) == patterns_text(want), diff_patterns(want, got)
+
+
+_SYN21 = dict(seed=21, n_sequences=300, n_items=60, mean_itemsets=6.0,
+              mean_itemset_size=1.3)
+
+
+@pytest.mark.parametrize("kw,minsup_rel,cap", [
+    (_SYN21, 0.02, None),
+    (dict(seed=8, n_sequences=120, n_items=12, mean_itemsets=40.0,
+          max_itemsets=80), 0.5, 3),
+])
+@pytest.mark.parametrize("fused,key", [("queue", "waves"), ("dense", "levels")])
+def test_whole_mine_engines_on_card_match_oracle(card, kw, minsup_rel, cap,
+                                                 fused, key):
+    db = synthetic_db(**kw)
+    minsup = abs_minsup(minsup_rel, len(db))
+    before = PS.pair_supports.launches
+    stats = {}
+    got = mine_spade_torch(db, minsup, device=card, max_pattern_itemsets=cap,
+                           fused=fused, stats_out=stats)
+    assert stats["fused"] == ("queue" if fused == "queue" else True)
+    assert PS.pair_supports.launches - before == stats[key] > 0
+    want = mine_spade(db, minsup, max_pattern_itemsets=cap)
+    assert patterns_text(got) == patterns_text(want), diff_patterns(want, got)
+
+
+def test_queue_wave_and_dense_level_make_no_host_sync(card):
+    vdb = build_vertical(synthetic_db(**_SYN21), min_item_support=6)
+    q = QueueSpadeTorch(vdb, 6, device=card,
+                        caps=QueueCaps(nb=32, ring=512, c_cap=2048,
+                                       r_cap=16384))
+    carry = q.start(q.roots())
+    d = FusedSpadeTorch(vdb, 6, device=card,
+                        caps=FusedCaps(f_cap=256, c_cap=2048, r_cap=16384))
+    d.start(q.roots())
+    PS._kernel()   # build and load before the check
+    torch.cuda.synchronize()
+    before = PS.pair_supports.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        q.wave(carry, q.caps.nb)
+        q.wave(carry, q.nb_late)
+        d.level()
+        d.level()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert PS.pair_supports.launches == before + 4
+    head, tail, oflow, wave = carry.ctr.tolist()[:4]
+    assert wave == 2 and not oflow and tail > head
+    assert d.ctr.tolist()[2] == 2
 
 
 def _xy(rng, C, km, rows, empty_side=None):

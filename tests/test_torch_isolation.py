@@ -5,8 +5,10 @@ The import check runs in a subprocess, because this test process has
 already imported jax (tests/conftest.py).  There a ``sys.meta_path`` finder
 refuses ``jax`` and ``spark_fsm_tpu`` (the exact package and its
 submodules, not the ``spark_fsm_tpu_torch`` prefix), every port module is
-imported, and a tiny SPADE mine, a tiny TSR mine and tiny SPAM mines (the
-pure-bitmap and the hybrid plan) run on the CPU."""
+imported, and a tiny SPADE mine (through the router: the queue engine),
+the same mine pinned to the dense and the classic engines, a tiny TSR mine
+and tiny SPAM mines (the pure-bitmap and the hybrid plan) run on the CPU,
+the vertical build through the native tokenizer."""
 
 import ast
 import os
@@ -39,7 +41,10 @@ from spark_fsm_tpu_torch import mine_spade_torch, parse_spmf
 from spark_fsm_tpu_torch.models.oracle import mine_spade
 from spark_fsm_tpu_torch.utils.canonical import patterns_text
 db = parse_spmf("1 3 -1 2 -1 2 4 -2\n1 -1 2 -2\n3 -1 2 4 -2\n1 3 -1 4 -2\n")
-assert patterns_text(mine_spade_torch(db, 2, device="cpu")) == patterns_text(mine_spade(db, 2))
+for fused in ("auto", "dense", "never"):
+    assert patterns_text(mine_spade_torch(db, 2, device="cpu", fused=fused)) == patterns_text(mine_spade(db, 2))
+from spark_fsm_tpu_torch.data import fasttok
+assert fasttok.backend() == "native", fasttok.reason()
 from spark_fsm_tpu_torch import mine_tsr_torch
 from spark_fsm_tpu_torch.models.tsr import mine_tsr_cpu
 from spark_fsm_tpu_torch.utils.canonical import rules_text
@@ -49,7 +54,8 @@ from spark_fsm_tpu_torch.models.spam_bitmap import mine_spam_cpu
 for kw in ({}, {"density_crossover": 0.9}):
     assert patterns_text(mine_spam_torch(db, 2, device="cpu", **kw)) == patterns_text(mine_spade(db, 2))
     assert patterns_text(mine_spam_cpu(db, 2, **kw)) == patterns_text(mine_spade(db, 2))
-for name in ("ops.extend_prune", "ops.spam_bitops", "models.spam_bitmap", "service.planner"):
+for name in ("ops.extend_prune", "ops.spam_bitops", "models.spam_bitmap", "service.planner",
+             "data.fasttok", "models.spade_queue", "models.spade_fused"):
     assert "spark_fsm_tpu_torch." + name in names, name
 try:
     import jax  # noqa: F401

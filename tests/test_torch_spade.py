@@ -1,8 +1,10 @@
 """Port parity for the slice as a whole: ``mine_spade_torch`` on the CPU
 against the reference oracle and the reference classic engine
 (``mine_spade_tpu(..., fused="never")``) on the ``tests/test_spade_tpu.py``
-fixtures, frontier snapshots resumed across the two packages, and the
-entry point's device and routing rules."""
+fixtures, both through the default route (the queue engine) and pinned to
+the classic engine; frontier snapshots resumed across the two packages;
+and the entry point's device and routing rules, its routing keys held
+against ``mine_spade_tpu``'s for every ``fused`` value."""
 
 import json
 
@@ -22,18 +24,26 @@ from tests.test_oracle import ZAKI_DB, random_db
 
 
 def assert_parity(db, minsup, max_pattern_itemsets=None, **kw):
+    """The default route (the queue engine on these small inputs) and the
+    classic engine pinned with ``fused="never"`` both give the oracle's
+    patterns."""
     want = mine_spade(db, minsup, max_pattern_itemsets=max_pattern_itemsets)
     ref = mine_spade_tpu(db, minsup, max_pattern_itemsets=max_pattern_itemsets,
                          fused="never")
-    stats = {}
-    got = mine_spade_torch(db, minsup, device="cpu",
-                           max_pattern_itemsets=max_pattern_itemsets,
-                           stats_out=stats, **kw)
     text = patterns_text(want)
-    assert patterns_text(got) == text, diff_patterns(want, got)
     assert patterns_text(ref) == text
     assert patterns_text(TO.mine_spade(db, minsup, max_pattern_itemsets)) == text
+    qstats, stats = {}, {}
+    routed = mine_spade_torch(db, minsup, device="cpu",
+                              max_pattern_itemsets=max_pattern_itemsets,
+                              stats_out=qstats, **kw)
+    assert patterns_text(routed) == text, diff_patterns(want, routed)
+    got = mine_spade_torch(db, minsup, device="cpu", fused="never",
+                           max_pattern_itemsets=max_pattern_itemsets,
+                           stats_out=stats, **kw)
+    assert patterns_text(got) == text, diff_patterns(want, got)
     if want:
+        assert qstats["fused"] == "queue" and qstats["patterns"] == len(want)
         for key in ("candidates", "kernel_launches", "recomputed_nodes",
                     "reclaimed_slots", "patterns"):
             assert key in stats, key
@@ -175,12 +185,92 @@ def test_default_device_raises_without_cuda():
         SpadeTorch(TV.build_vertical(ZAKI_DB, min_item_support=2), 2)
 
 
-@pytest.mark.parametrize("kw", [{"fused": "queue"}, {"fused": "dense"},
-                                {"fused": "always"}, {"partition_parts": 2},
-                                {"mesh": object()}])
+@pytest.mark.parametrize("kw", [{"partition_parts": 2}, {"mesh": object()}])
 def test_unported_routes_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mine_spade_torch(ZAKI_DB, 2, device="cpu", **kw)
+
+
+def test_shape_buckets_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 9"):
+        mine_spade_torch(ZAKI_DB, 2, device="cpu", shape_buckets=True)
+
+
+# ------------------------------------------------------------- routing
+
+ROUTING = ("fused", "fused_overflow", "fused_waves", "fused_levels",
+           "fused_skipped")
+_SYN7 = dict(seed=7, n_sequences=400, n_items=40, mean_itemsets=4.0,
+             mean_itemset_size=1.6)
+# default caps forced small in both packages: a ring that holds the roots
+# but overflows its per-wave emissions, and a ring below the root count
+# that queue_eligible refuses; the dense engine overflows in both
+_OVERFLOW = {
+    "emissions": (dict(nb=16, ring=64, c_cap=32, r_cap=16384),
+                  dict(f_cap=16, c_cap=32, r_cap=64, l_max=8)),
+    "ring": (dict(nb=16, ring=32, c_cap=32, r_cap=64, i_max=8),
+             dict(f_cap=16, c_cap=32, r_cap=64, l_max=8)),
+}
+
+
+class _Ckpt:
+    """The entry point's checkpoint contract: nothing to resume, every
+    save kept."""
+
+    every_s = 0.0
+
+    def __init__(self):
+        self.saved = []
+
+    def load(self):
+        return None
+
+    def save(self, state):
+        self.saved.append(state)
+
+
+def _pin_default_caps(monkeypatch, qcaps, fcaps):
+    from spark_fsm_tpu.models import spade_fused as JF
+    from spark_fsm_tpu.models import spade_queue as JQ
+    from spark_fsm_tpu_torch.models import spade_fused as TF
+    from spark_fsm_tpu_torch.models import spade_queue as TQ
+
+    for mod in (JQ, TQ):
+        monkeypatch.setattr(mod.QueueCaps, "for_budget", classmethod(
+            lambda cls, *a, **k: cls(**qcaps)))
+    for mod in (JF, TF):
+        monkeypatch.setattr(mod.FusedCaps, "for_mesh", classmethod(
+            lambda cls, *a, **k: cls(**fcaps)))
+
+
+@pytest.mark.parametrize("ckpt", [False, True])
+@pytest.mark.parametrize("fixture", ["zaki", "emissions", "ring"])
+@pytest.mark.parametrize("fused", ["auto", "always", "queue", "dense",
+                                   "never"])
+def test_routing_keys_equal_reference(monkeypatch, fused, fixture, ckpt):
+    if fixture == "zaki":
+        db, minsup = ZAKI_DB, 2
+    else:
+        db, minsup = synthetic_db(**_SYN7), 8
+        _pin_default_caps(monkeypatch, *_OVERFLOW[fixture])
+    ref_stats, stats = {}, {}
+    ref = mine_spade_tpu(db, minsup, fused=fused, stats_out=ref_stats,
+                         checkpoint=_Ckpt() if ckpt else None)
+    ckpt_obj = _Ckpt() if ckpt else None
+    got = mine_spade_torch(db, minsup, device="cpu", fused=fused,
+                           stats_out=stats, checkpoint=ckpt_obj)
+    assert patterns_text(got) == patterns_text(ref)
+    assert ({k: stats[k] for k in ROUTING if k in stats}
+            == {k: ref_stats[k] for k in ROUTING if k in ref_stats})
+    if fixture == "zaki" and fused in ("auto", "always", "queue"):
+        assert stats["fused"] == "queue"
+    if fixture != "zaki" and fused != "never":
+        # every whole-mine engine tried overflowed, or was skipped for the
+        # checkpoint: the classic engine mined
+        assert stats["fused"] is False
+        assert stats.get("fused_overflow") or stats.get("fused_skipped")
+    if ckpt and stats["fused"] == "queue":
+        assert ckpt_obj.saved  # the queue engine ran in segments
 
 
 def test_bad_fused_value_raises():
