@@ -32,10 +32,11 @@ Phases, one printed line each (any failure raises and exits non-zero):
   6. a multiword mine (W >= 2) against the oracle;
   7. the rule-support kernel against its plain PyTorch version on the card,
      exact equality, W in {1, 2, 3} on ragged shapes, every km of the
-     launch planner's ladder, unused (-1) slots, and stores at and one
-     past the largest the staged path holds;
+     launch planner's ladder, unused (-1) slots, stores at and one past the
+     largest the staged path holds, and the resident route's waves;
   8. the rule-support kernel and its plain version timed with CUDA events at
-     the headline launch (C=8192, km=2, M=256, S=990,000, W=1) and at km=1,
+     the headline launch (C=8192, km=2, M=256, S=990,000, W=1), at km=1 and
+     at the resident route's wide and late waves (C=512 and C=64, km=4),
      beside the least time the card could take for the same work;
   9. the TSR path at full data size: ``mine_tsr_torch`` on a Kosarak-shaped
      database (990,000 sequences) with k=100, minconf=0.5, max_side=2,
@@ -67,7 +68,22 @@ Phases, one printed line each (any failure raises and exits non-zero):
  14. the SPAM path on the hybrid plan: phase 5's database at minsup 0.1 %
      (dense items as wave lanes, sparse items as pair lanes),
      byte-identical to phase 5's oracle result, and a multiword SPAM mine
-     against the oracle.
+     against the oracle;
+ 15. TSR's resident-frontier route at full data size: phase 9's
+     Kosarak-shaped vertical DB through ``TsrTorch`` with k=100,
+     minconf=0.5 and no side cap, pinned to the resident route
+     (``resident="always"``) and to the host loop (``"never"``),
+     byte-identical to each other and to the host recount, the
+     rule-support kernel launched once a wave, its bound summed over the
+     rows each launch names; what ``auto`` picks at this size; at 1 % of
+     it, ``mine_tsr_torch``'s ``auto`` takes the resident route,
+     byte-identical to ``mine_tsr_cpu``, and ``auto`` and the host loop
+     are timed warm in turns;
+ 16. constrained SPADE (cSPADE): ``mine_cspade_torch`` on a Gazelle-shaped
+     database (59,000 sequences) with maxgap 2, maxwindow 5 and minsup
+     0.5 %, and at 10 % of that size, each byte-identical to the copied
+     CPU oracle ``mine_cspade``.  The oracles run in two child processes
+     started at the top, so they overlap the card phases.
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 and prints no result.
@@ -105,10 +121,48 @@ CLASSIC_LAUNCH = (720, 360, 77504, 1)
 # Kosarak-shaped database) and the same launch at km = 1
 RULE_HEADLINE = (8192, 2, 256, 990000, 1)
 RULE_KM1 = (8192, 1, 256, 990000, 1)
+# the resident route's waves on the same stores: nb = 512 popped entries
+# (the caps on an 80 GB card) and the late width nb_late = 64, at the
+# ring's km = 4 item slots a side
+RULE_RESIDENT_WIDE = (512, 4, 256, 990000, 1)
+RULE_RESIDENT_LATE = (64, 4, 256, 990000, 1)
 # (P, NI, S, W) of the timed extension-count-prune launch at the BMS dense
 # wave (64 nodes, 26 dense items padded to 64); the MSNBC wave's P is twice
 # the engine's node batch on this card, set in main()
 BMS_WAVE = (128, 64, 77504, 1)
+
+
+# cSPADE's copied CPU oracle on the Gazelle-shaped database at a scale,
+# run in a child process: its wall first, then the canonical text
+CSPADE_ORACLE = r"""
+import sys, time
+from spark_fsm_tpu_torch.data.synth import gazelle_like
+from spark_fsm_tpu_torch.data.vertical import abs_minsup
+from spark_fsm_tpu_torch.models.oracle import mine_cspade
+from spark_fsm_tpu_torch.utils.canonical import patterns_text
+db = gazelle_like(scale=float(sys.argv[1]), fast=True)
+t0 = time.perf_counter()
+res = mine_cspade(db, abs_minsup(0.005, len(db)), maxgap=2, maxwindow=5)
+print(f"{time.perf_counter() - t0:.3f}")
+print(patterns_text(res), end="")
+"""
+GAZELLE_SCALES = (1.0, 0.1)
+
+
+def start_cspade_oracle(scale: float) -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, "-c", CSPADE_ORACLE, str(scale)],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, text=True)
+
+
+def collect_cspade_oracle(proc: subprocess.Popen):
+    """The child's (seconds, patterns text); fails if it failed."""
+    out, _ = proc.communicate(timeout=900)
+    check(proc.returncode == 0,
+          f"the cSPADE oracle process exited with {proc.returncode}")
+    secs, text = out.split("\n", 1)
+    return float(secs), text
 
 
 def check(cond: bool, msg: str) -> None:
@@ -181,12 +235,23 @@ def rule_ops_per_seq(km: int, W: int) -> int:
     return x + W + y + 2
 
 
-def rule_bound_ms(C: int, km: int, M: int, S: int, W: int):
-    """Least time for one rule-support launch: both prep stores (M + 1 rows
-    each) read once, the candidates read and the [2, C] counts written
-    once, against ``rule_ops_per_seq`` operations per candidate and
-    sequence."""
-    nbytes = 2 * (M + 1) * S * W * 4 + C * 2 * km * 4 + 2 * C * 4
+def rule_rows(xy) -> int:
+    """Store rows one rule-support launch must read: the distinct prefix
+    rows its X slots name plus the distinct suffix rows its Y slots name.
+    An unused (-1) slot reads the all-ones pad row, which needs no read."""
+    import torch
+
+    return sum(int(torch.unique(xy[:, side][xy[:, side] >= 0]).numel())
+               for side in (0, 1))
+
+
+def rule_bound_ms(xy, S: int, W: int):
+    """Least time for one rule-support launch on the candidates ``xy``
+    [C, 2, km]: the ``rule_rows`` store rows read once, the candidates
+    read and the [2, C] counts written once, against ``rule_ops_per_seq``
+    operations per candidate and sequence."""
+    C, _, km = xy.shape
+    nbytes = rule_rows(xy) * S * W * 4 + C * 2 * km * 4 + 2 * C * 4
     ops = C * S * rule_ops_per_seq(km, W)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
@@ -364,24 +429,41 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    import spark_fsm_tpu_torch  # noqa: F401  (fails outside a checkout)
+
+    oracles = {scale: start_cspade_oracle(scale) for scale in GAZELLE_SCALES}
+    try:
+        return run(torch, oracles)
+    finally:
+        for proc in oracles.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+
+
+def run(torch, oracles) -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from spark_fsm_tpu_torch.data import fasttok
     from spark_fsm_tpu_torch.data.synth import (
-        bms_webview2_like, kosarak_like, msnbc_like, synthetic_db)
+        bms_webview2_like, gazelle_like, kosarak_like, msnbc_like,
+        synthetic_db)
     from spark_fsm_tpu_torch.data.vertical import (
         abs_minsup, build_vertical, dataset_stats)
     from spark_fsm_tpu_torch.models.oracle import mine_spade
     from spark_fsm_tpu_torch.models.spade import SpadeTorch, mine_spade_torch
+    from spark_fsm_tpu_torch.models.spade_constrained import mine_cspade_torch
     from spark_fsm_tpu_torch.models.spade_queue import (
         queue_eligible, queue_geometry)
     from spark_fsm_tpu_torch.models.spam_bitmap import (
         mine_spam_torch, spam_geometry)
-    from spark_fsm_tpu_torch.models.tsr import mine_tsr_cpu, mine_tsr_torch
+    from spark_fsm_tpu_torch.models.tsr import (
+        TsrTorch, mine_tsr_cpu, mine_tsr_torch)
     from spark_fsm_tpu_torch.ops import _build
     from spark_fsm_tpu_torch.ops import extend_prune as EP
     from spark_fsm_tpu_torch.ops import pair_support as PS
     from spark_fsm_tpu_torch.ops import ragged_batch as RB
+    from spark_fsm_tpu_torch.ops import resident_frontier as RF
     from spark_fsm_tpu_torch.ops import rule_support as RS
     from spark_fsm_tpu_torch.service.planner import choose_patterns_engine
     from spark_fsm_tpu_torch.utils.canonical import (
@@ -675,7 +757,7 @@ def main() -> int:
         # the staged path at its largest store, and the walk path past it
         (300, 2, RS.staged_max_rows(2), 2500, 1),
         (300, 2, RS.staged_max_rows(2) + 1, 2500, 1),
-        RULE_KM1, RULE_HEADLINE]
+        RULE_RESIDENT_LATE, RULE_RESIDENT_WIDE, RULE_KM1, RULE_HEADLINE]
     for i, (C, km, M, S, W) in enumerate(shapes):
         p1, s1, xy = rule_operands(dev, 100 + i, C, km, M, S, W)
         if i == 0:
@@ -694,19 +776,21 @@ def main() -> int:
         del p1, s1, xy, got_r, want_r
     torch.cuda.empty_cache()
 
-    # 8. timing at the headline launch and at km = 1; the kernels line
-    # reports the headline launch, timed last
-    for i, shape in enumerate((RULE_KM1, RULE_HEADLINE)):
+    # 8. timing at the resident waves, at km = 1 and at the headline launch;
+    # the kernels line reports the headline launch, timed last
+    for i, shape in enumerate((RULE_RESIDENT_LATE, RULE_RESIDENT_WIDE,
+                               RULE_KM1, RULE_HEADLINE)):
         C, km, M, S, W = shape
         p1, s1, xy = rule_operands(dev, 200 + i, C, km, M, S, W)
         rms = time_ms(lambda: RS.rule_supports(p1, s1, xy, n_words=W), 2, 10)
         rplain_ms = time_ms(
             lambda: RS.rule_supports_plain(p1, s1, xy, n_words=W), 1, 3)
-        rbound_ms, rbound_by = rule_bound_ms(C, km, M, S, W)
+        rbound_ms, rbound_by = rule_bound_ms(xy, S, W)
         clocks = smi("clocks.sm,power.draw,temperature.gpu")
         print(f"[time] rule_supports C={C} km={km} M={M} S={S} W={W}: kernel "
               f"{rms:.4f} ms, plain {rplain_ms:.4f} ms, bound {rbound_ms:.4f} "
-              f"ms ({rbound_by}, {100 * rbound_ms / rms:.1f} % of it "
+              f"ms ({rbound_by}, {rule_rows(xy)} of {2 * M} store rows "
+              f"named, {100 * rbound_ms / rms:.1f} % of it "
               f"reached), library: none (no single PyTorch call folds row "
               f"ANDs, shifts with a carry and counts 'any' per sequence); "
               f"after timing nvidia-smi sm clock, power, temp: {clocks}",
@@ -764,6 +848,7 @@ def main() -> int:
           f"{pstats['kernel_launches'] - pstats['deepening_rounds']}; "
           f"max_memory_allocated {tpeak} B; host: generator {gen_s:.1f} s, "
           f"recount {recount_s:.1f} s", flush=True)
+    kos_vdb = vdb   # phase 15 mines it again
     del db, rules, rules_warm, rules_plain, vdb
     torch.cuda.empty_cache()
 
@@ -964,6 +1049,197 @@ def main() -> int:
     print(f"[mine] multiword SPAM W={build_vertical(db).n_words}: {len(got)} "
           f"patterns byte-identical to the oracle, extend-prune launches {n_l}",
           flush=True)
+
+    del db, got, want
+    torch.cuda.empty_cache()
+
+    # 15. TSR's resident-frontier route at full data size
+    m0 = min(256, kos_vdb.n_items)   # the first deepening round's top-m
+    probe = TsrTorch(kos_vdb, 100, 0.5, max_side=None)
+    auto_resident = probe._resident_route(m0)
+    caps = RF.caps_for(kos_vdb.n_sequences, kos_vdb.n_words, m0,
+                       probe._ensure_budget())
+    units = RB.overhead_units(kos_vdb.n_sequences, kos_vdb.n_words)
+    check(auto_resident == (units >= caps.nb),
+          f"auto's route {auto_resident} at overhead_units {units}, nb "
+          f"{caps.nb}")
+    del probe
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    RS.rule_supports.launches = 0
+    # each wave's candidates kept on the card (a copy, no host sync), so
+    # the bound can be summed over this run's wave launches afterwards
+    plain_wave, launched = RF.wave, []
+
+    def wave_keeping_candidates(*args):
+        *head, evaluate = args
+
+        def keep(p1, s1, xy, n_words):
+            launched.append(xy.clone())
+            return evaluate(p1, s1, xy, n_words)
+
+        return plain_wave(*head, keep)
+
+    RF.wave = wave_keeping_candidates
+    try:
+        eng = TsrTorch(kos_vdb, 100, 0.5, max_side=None, resident="always")
+        t0 = time.perf_counter()
+        res_rules = eng.mine()
+        torch.cuda.synchronize()
+        rcold_s = time.perf_counter() - t0
+    finally:
+        RF.wave = plain_wave
+    res_launches = RS.rule_supports.launches
+    rpeak = torch.cuda.max_memory_allocated()
+    rstats = eng.stats
+    host_launches = sum(v for key, v in rstats.items()
+                        if key.startswith("launches_km"))
+    check(rstats.get("resident") is True and rstats["resident_waves"] > 0,
+          f"resident='always' did not run the resident route: {rstats}")
+    check(res_launches == rstats["resident_waves"] + host_launches,
+          f"{res_launches} rule-support launches for "
+          f"{rstats['resident_waves']} waves and {host_launches} host-loop "
+          f"launches")
+    n_waves = rstats["resident_waves"]
+    check(len(launched) == n_waves,
+          f"{len(launched)} wave evaluations seen for {n_waves} waves")
+    S_k, W_k = kos_vdb.n_sequences, kos_vdb.n_words
+    wave_rows = [rule_rows(xy) for xy in launched]
+    wave_bound_ms = sum(rule_bound_ms(xy, S_k, W_k)[0] for xy in launched)
+    del launched
+    eng = TsrTorch(kos_vdb, 100, 0.5, max_side=None, resident="always")
+    t0 = time.perf_counter()
+    res_warm = eng.mine()
+    torch.cuda.synchronize()
+    rwarm_s = time.perf_counter() - t0
+    rwstats = eng.stats
+    before = RS.rule_supports.launches
+    eng = TsrTorch(kos_vdb, 100, 0.5, max_side=None, resident="never")
+    t0 = time.perf_counter()
+    host_rules = eng.mine()
+    torch.cuda.synchronize()
+    rhost_s = time.perf_counter() - t0
+    hstats = eng.stats
+    hl = RS.rule_supports.launches - before
+    del eng
+    text = rules_text(res_rules)
+    check(rules_text(res_warm) == text, "warm resident mine differs")
+    check(rules_text(host_rules) == text,
+          "the resident route's rules differ from the host loop's")
+    t0 = time.perf_counter()
+    recount = recount_rules(kos_vdb, res_rules)
+    recount_s = time.perf_counter() - t0
+    bad = [(r, c) for r, c in zip(res_rules, recount) if r != c]
+    check(not bad, f"host recount disagrees on {len(bad)} rules, e.g. {bad[:3]}")
+    route_keys = ("resident_rounds", "resident_segments", "resident_waves",
+                  "resident_deferred", "resident_spills", "resident_handoffs",
+                  "resident_readback_bytes", "evaluated", "pruned_conf",
+                  "kernel_launches", "deepening_rounds")
+    print(f"[mine] kosarak_like max_side=None: {kos_vdb.n_sequences} "
+          f"sequences, k=100 minconf=0.5: auto picks "
+          f"{'the resident route' if auto_resident else 'the host loop'} "
+          f"(overhead_units {units} vs caps.nb {caps.nb}; caps ring "
+          f"{caps.ring}, nb_late {caps.nb_late}); resident='always': "
+          f"{len(res_rules)} rules byte-identical to resident='never' and to "
+          f"the host recount; cold {rcold_s:.3f} s, warm {rwarm_s:.3f} s, "
+          f"host loop {rhost_s:.3f} s; "
+          f"{ {k: rstats.get(k, 0) for k in route_keys} }, rule-support "
+          f"launches {res_launches} ({host_launches} of them host-loop), "
+          f"counter waits {rstats.get('wait_s', 0.0):.4f} s cold / "
+          f"{rwstats.get('wait_s', 0.0):.4f} s warm; host loop: evaluated "
+          f"{hstats['evaluated']}, rule-support launches {hl}; "
+          f"max_memory_allocated {rpeak} B; recount {recount_s:.1f} s",
+          flush=True)
+    print(f"[bound] rule_supports on the resident route: {n_waves} wave "
+          f"launches name {statistics.mean(wave_rows):.1f} store rows each "
+          f"(min {min(wave_rows)}, max {max(wave_rows)}), bound summed over "
+          f"them {wave_bound_ms:.3f} ms", flush=True)
+    del res_rules, res_warm, host_rules, kos_vdb
+    torch.cuda.empty_cache()
+
+    db = kosarak_like(scale=0.01, fast=True)
+    s1: dict = {}
+    before = RS.rule_supports.launches
+    t0 = time.perf_counter()
+    got_t = mine_tsr_torch(db, 100, 0.5, max_side=None, stats_out=s1)
+    torch.cuda.synchronize()
+    small_s = time.perf_counter() - t0
+    n_l = RS.rule_supports.launches - before
+    check(s1.get("resident") is True,
+          f"auto at 1 % size did not take the resident route: {s1}")
+    t0 = time.perf_counter()
+    want_t = mine_tsr_cpu(db, 100, 0.5, max_side=None)
+    cpu_s = time.perf_counter() - t0
+    text = rules_text(want_t)
+    check(rules_text(got_t) == text,
+          "the 1 % resident mine differs from mine_tsr_cpu")
+    # the user's default request at this size on both routes, warm, in
+    # turns on one vertical DB: auto (the resident route) and the host loop
+    small_vdb = build_vertical(db, min_item_support=1)
+    small_walls = {"auto": [], "never": []}
+    for _ in range(3):
+        for resident, walls in small_walls.items():
+            eng = TsrTorch(small_vdb, 100, 0.5, max_side=None,
+                           resident=resident)
+            t0 = time.perf_counter()
+            got_r = eng.mine()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            check(rules_text(got_r) == text,
+                  f"the 1 % mine with resident={resident!r} differs")
+            check((eng.stats.get("resident") is True) == (resident == "auto"),
+                  f"resident={resident!r} took the wrong route at 1 %")
+    del eng, got_r, small_vdb
+    print(f"[mine] kosarak_like(scale=0.01) max_side=None: auto took the "
+          f"resident route; {len(got_t)} rules byte-identical to "
+          f"mine_tsr_cpu; {small_s:.3f} s (mine_tsr_cpu {cpu_s:.1f} s); "
+          f"{ {k: s1.get(k, 0) for k in route_keys} }, rule-support "
+          f"launches {n_l}; warm mines in turns (vertical DB built), auto "
+          f"{[round(w, 4) for w in small_walls['auto']]} s, host loop "
+          f"(resident='never') {[round(w, 4) for w in small_walls['never']]} "
+          f"s, medians {statistics.median(small_walls['auto']):.4f} / "
+          f"{statistics.median(small_walls['never']):.4f} s", flush=True)
+    del db, got_t, want_t
+
+    # 16. constrained SPADE against the copied oracle, full size and 10 %
+    for scale in GAZELLE_SCALES:
+        db = gazelle_like(scale=scale, fast=True)
+        minsup = abs_minsup(0.005, len(db))
+        vdb = build_vertical(db, min_item_support=minsup)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cs: dict = {}
+        t0 = time.perf_counter()
+        got = mine_cspade_torch(db, minsup, maxgap=2, maxwindow=5,
+                                stats_out=cs)
+        torch.cuda.synchronize()
+        ccold_s = time.perf_counter() - t0
+        cpeak = torch.cuda.max_memory_allocated()
+        geo = cs["geometry"]
+        t0 = time.perf_counter()
+        got_warm = mine_cspade_torch(db, minsup, maxgap=2, maxwindow=5)
+        torch.cuda.synchronize()
+        cwarm_s = time.perf_counter() - t0
+        oracle_s, want_text = collect_cspade_oracle(oracles[scale])
+        check(patterns_text(got) == want_text,
+              f"the cSPADE mine at scale {scale} differs from the oracle")
+        check(patterns_text(got_warm) == want_text,
+              f"the warm cSPADE mine at scale {scale} differs")
+        check(len(got) > 0, f"the cSPADE mine at scale {scale} is empty")
+        print(f"[mine] gazelle_like(scale={scale}) maxgap=2 maxwindow=5: "
+              f"{len(db)} sequences, {vdb.n_items} frequent items, "
+              f"W={vdb.n_words}, minsup {minsup}: {len(got)} patterns "
+              f"byte-identical to the oracle; cold {ccold_s:.3f} s, warm "
+              f"{cwarm_s:.3f} s, oracle {oracle_s:.1f} s (child process); "
+              f"geometry dtype {geo['dtype']}, chunk {geo['chunk']}, "
+              f"node_batch {geo['node_batch']}, pool_slots "
+              f"{geo['pool_slots']}; candidates {cs['candidates']} "
+              f"({cs['s_candidates']} s, {cs['i_candidates']} i), engine "
+              f"launches {cs['kernel_launches']}, recomputed_nodes "
+              f"{cs['recomputed_nodes']}; max_memory_allocated {cpeak} B",
+              flush=True)
+        del db, got, got_warm, vdb
+        torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": [pair_record, rule_record, {
         "name": "extend_prune", "route": "cuda",

@@ -5,7 +5,8 @@ counterpart of the same name there, and each module's docstring names
 the file it ports.  The port imports ``torch`` and numpy, never ``jax``
 and nothing of ``spark_fsm_tpu``: the framework-free modules it needs
 (``data/*``, ``utils/canonical.py``, ``ops/bitops_np.py``,
-``models/oracle.py``, ``service/planner.py``) are kept here as copies.
+``models/oracle.py``, ``ops/maxstart_np.py``, ``service/planner.py``) are
+kept here as copies.
 
 Bitmaps live as ``torch.int32`` tensors holding the same bits as the
 reference's ``uint32`` arrays (``arr.view(np.int32)`` in,
@@ -17,6 +18,8 @@ from spark_fsm_tpu_torch.data.spmf import SequenceDB, load_spmf, parse_spmf
 from spark_fsm_tpu_torch.data.vertical import VerticalDB, abs_minsup, build_vertical
 from spark_fsm_tpu_torch.models.spade import SpadeTorch, mine_spade_torch
 from spark_fsm_tpu_torch.models.spade_fused import FusedSpadeTorch
+from spark_fsm_tpu_torch.models.spade_constrained import (
+    ConstrainedSpadeTorch, mine_cspade_torch)
 from spark_fsm_tpu_torch.models.spade_queue import QueueSpadeTorch
 from spark_fsm_tpu_torch.models.spam_bitmap import SpamBitmapTorch, mine_spam_torch
 from spark_fsm_tpu_torch.models.tsr import TsrTorch, mine_tsr_torch
@@ -25,6 +28,7 @@ __all__ = [
     "SequenceDB", "load_spmf", "parse_spmf",
     "VerticalDB", "abs_minsup", "build_vertical",
     "SpadeTorch", "QueueSpadeTorch", "FusedSpadeTorch", "mine_spade_torch",
+    "ConstrainedSpadeTorch", "mine_cspade_torch",
     "SpamBitmapTorch", "mine_spam_torch",
     "TsrTorch", "mine_tsr_torch",
 ]

@@ -1,6 +1,7 @@
 """Deterministic synthetic sequence databases (copy of
 ``spark_fsm_tpu/data/synth.py``: ``synthetic_db``, ``synthetic_db_fast``,
-``bms_webview2_like``, ``msnbc_like`` and ``kosarak_like``).
+``bms_webview2_like``, ``msnbc_like``, ``kosarak_like`` and
+``gazelle_like``).
 
 The copy draws the same numbers from the same seed in the same order, so it
 yields the same database as the reference generator.  Item popularity is
@@ -136,3 +137,9 @@ def kosarak_like(seed: int = 4, scale: float = 1.0,
     return _generator(fast)(seed, int(990000 * scale),
                             max(128, int(41000 * scale)),
                             mean_itemsets=8.1, zipf_s=1.3)
+
+
+def gazelle_like(seed: int = 5, scale: float = 1.0,
+                 fast: bool = False) -> SequenceDB:
+    return _generator(fast)(seed, int(59000 * scale), max(64, int(498 * scale)),
+                            mean_itemsets=2.5, zipf_s=1.1)

@@ -1,10 +1,16 @@
-"""CPU oracle miner (copy of ``mine_spade``/``mine_spade_vertical`` from
+"""CPU oracle miners (copy of ``mine_spade``/``mine_spade_vertical``,
+``contains``, and the constrained ``contains_constrained``,
+``brute_force_mine_constrained`` and ``mine_cspade`` from
 ``spark_fsm_tpu/models/oracle.py``).
 
-SPAM-style DFS over the vertical bitmap DB with numpy bitmaps.  Its
-enumeration (shared S/I candidate lists per equivalence class, ascending
-item order) defines the canonical pattern universe the engines reproduce;
-``chip_smoke.py`` holds the port's GPU mine against it.
+``mine_spade`` is a SPAM-style DFS over the vertical bitmap DB with numpy
+bitmaps.  Its enumeration (shared S/I candidate lists per equivalence
+class, ascending item order) defines the canonical pattern universe the
+engines reproduce; ``chip_smoke.py`` holds the port's GPU mines against
+it.  ``mine_cspade`` is the same DFS over the max-start state
+(``ops/maxstart_np.py``) under maxgap/maxwindow, and
+``brute_force_mine_constrained`` its independent ground truth by direct
+containment checks.
 """
 
 from __future__ import annotations
@@ -13,10 +19,26 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from spark_fsm_tpu_torch.data.spmf import SequenceDB
+from spark_fsm_tpu_torch.data.spmf import Sequence, SequenceDB
 from spark_fsm_tpu_torch.data.vertical import VerticalDB, build_vertical
 from spark_fsm_tpu_torch.ops import bitops_np as B
 from spark_fsm_tpu_torch.utils.canonical import Pattern, PatternResult, sort_patterns
+
+
+def contains(seq: Sequence, pattern: Pattern) -> bool:
+    """True iff ``pattern`` occurs in ``seq`` (ordered itemset-subset match).
+
+    Greedy leftmost matching is correct for plain containment: taking the
+    earliest itemset that covers the next pattern element never removes later
+    options.
+    """
+    p = 0
+    for itemset in seq:
+        if p == len(pattern):
+            return True
+        if set(pattern[p]).issubset(itemset):
+            p += 1
+    return p == len(pattern)
 
 
 def mine_spade_vertical(
@@ -89,3 +111,166 @@ def mine_spade(
     if vdb.n_items == 0:
         return []
     return mine_spade_vertical(vdb, minsup_abs, max_pattern_itemsets)
+
+
+# ---------------------------------------------------------------------------
+# Constrained mining (maxgap / maxwindow)
+# ---------------------------------------------------------------------------
+
+def contains_constrained(
+    seq: Sequence,
+    pattern: Pattern,
+    maxgap: Optional[int] = None,
+    maxwindow: Optional[int] = None,
+) -> bool:
+    """True iff ``pattern`` has an occurrence with consecutive itemset-
+    position gaps <= maxgap and total span <= maxwindow.
+
+    Exhaustive DFS over position assignments (greedy matching is NOT valid
+    under constraints), so only for small fixtures.
+    """
+    sets = [set(s) for s in pattern]
+    n = len(seq)
+
+    def ok_at(p: int, j: int) -> bool:
+        return sets[j].issubset(seq[p])
+
+    def dfs(j: int, prev: int, start: int) -> bool:
+        if j == len(sets):
+            return True
+        hi = n if maxgap is None else min(n, prev + maxgap + 1)
+        for p in range(prev + 1, hi):
+            if maxwindow is not None and p - start > maxwindow:
+                break
+            if ok_at(p, j) and dfs(j + 1, p, start):
+                return True
+        return False
+
+    for p0 in range(n):
+        if ok_at(p0, 0) and dfs(1, p0, p0):
+            return True
+    return False
+
+
+def brute_force_mine_constrained(
+    db: SequenceDB,
+    minsup_abs: int,
+    maxgap: Optional[int] = None,
+    maxwindow: Optional[int] = None,
+    max_pattern_itemsets: int = 5,
+    max_itemset_size: int = 3,
+) -> List[PatternResult]:
+    """Level-wise constrained mining by direct (unpruned) counting.
+
+    Note the candidate frontier must NOT prune on the constrained support:
+    under maxgap a super-pattern can be frequent while a non-contiguous
+    sub-pattern is not, so candidates extend patterns frequent under the
+    UNCONSTRAINED count (apriori-safe superset) and constrained support
+    only decides output membership.
+    """
+    items = sorted({i for seq in db for itemset in seq for i in itemset})
+
+    def csup(pat: Pattern) -> int:
+        return sum(1 for s in db if contains_constrained(s, pat, maxgap, maxwindow))
+
+    def usup(pat: Pattern) -> int:
+        return sum(1 for s in db if contains(s, pat))
+
+    freq_items = [i for i in items if usup(((i,),)) >= minsup_abs]
+    results: List[PatternResult] = []
+    frontier: List[Pattern] = [((i,),) for i in freq_items]
+    for pat in frontier:
+        results.append((pat, csup(pat)))
+    while frontier:
+        nxt: List[Pattern] = []
+        for pat in frontier:
+            cands: List[Pattern] = []
+            if len(pat) < max_pattern_itemsets:
+                cands.extend(pat + ((i,),) for i in freq_items)
+            last = pat[-1]
+            if len(last) < max_itemset_size:
+                cands.extend(
+                    pat[:-1] + (tuple(sorted(last + (i,))),)
+                    for i in freq_items if i > last[-1]
+                )
+            for c in cands:
+                if usup(c) >= minsup_abs:
+                    nxt.append(c)
+                    s = csup(c)
+                    if s >= minsup_abs:
+                        results.append((c, s))
+        frontier = nxt
+    return sort_patterns([(p, s) for p, s in results if s >= minsup_abs])
+
+
+def mine_cspade(
+    db: SequenceDB,
+    minsup_abs: int,
+    maxgap: Optional[int] = None,
+    maxwindow: Optional[int] = None,
+    max_pattern_itemsets: Optional[int] = None,
+) -> List[PatternResult]:
+    """CPU oracle for constrained SPADE using the max-start state
+    (ops/maxstart_np.py).
+
+    Enumeration: under maxgap, s-candidates are ALL frequent root items
+    (sibling S-list pruning is unsound there — cSPADE's F2-join
+    observation); with no gap bound the sibling prune applies as usual.
+    i-candidates always use sibling pruning, which stays valid
+    (i-extension keeps every occurrence's positions).  The DFS prunes on
+    the CONSTRAINED (gap- and window-checked) support: it is anti-monotone
+    under prefix growth — a valid child occurrence contains a valid
+    same-start prefix occurrence — so the prune is exact.
+    """
+    from spark_fsm_tpu_torch.ops import maxstart_np as MS
+
+    vdb = build_vertical(db, min_item_support=minsup_abs)
+    if vdb.n_items == 0:
+        return []
+    bm = vdb.bitmaps
+    ids = vdb.item_ids
+    n_items = vdb.n_items
+    results: List[PatternResult] = []
+
+    root_items = [i for i in range(n_items) if int(vdb.item_supports[i]) >= minsup_abs]
+    stack: List[Tuple[Pattern, np.ndarray, List[int], List[int]]] = []
+    for i in reversed(root_items):
+        pat: Pattern = ((int(ids[i]),),)
+        results.append((pat, int(vdb.item_supports[i])))
+        m0 = MS.root_state(bm[i])
+        stack.append((pat, m0, root_items, [j for j in root_items if j > i]))
+
+    while stack:
+        pat, m, s_list, i_list = stack.pop()
+        allow_s = max_pattern_itemsets is None or len(pat) < max_pattern_itemsets
+        s_ok: List[Tuple[int, np.ndarray, int]] = []
+        if allow_s:
+            pm = MS.prev_max(m, maxgap)
+            for i in s_list:
+                occ = MS.expand_bits(bm[i])
+                nm = np.where(occ & (pm >= 0), pm, MS.NONE16)
+                # windowed support is anti-monotone under prefix growth (a
+                # valid child occurrence contains a valid prefix occurrence
+                # with the same start), so pruning on it is exact
+                csup = int(MS.support(nm, maxwindow))
+                if csup >= minsup_abs:
+                    s_ok.append((i, nm, csup))
+        i_ok: List[Tuple[int, np.ndarray, int]] = []
+        for i in i_list:
+            occ = MS.expand_bits(bm[i])
+            nm = np.where(occ & (m >= 0), m, MS.NONE16)
+            csup = int(MS.support(nm, maxwindow))
+            if csup >= minsup_abs:
+                i_ok.append((i, nm, csup))
+        i_items = [i for i, _, _ in i_ok]
+        s_items = [i for i, _, _ in s_ok]
+        child_s = s_items if maxgap is None else root_items
+        for i, nm, csup in reversed(i_ok):
+            child = pat[:-1] + (pat[-1] + (int(ids[i]),),)
+            results.append((child, csup))
+            stack.append((child, nm, child_s, [j for j in i_items if j > i]))
+        for i, nm, csup in reversed(s_ok):
+            child = pat + ((int(ids[i]),),)
+            results.append((child, csup))
+            stack.append((child, nm, child_s, [j for j in s_items if j > i]))
+    return sort_patterns(results)

@@ -1,7 +1,8 @@
 """TSR — top-k sequential rules (TopSeqRules) on a CUDA device — port of
 ``spark_fsm_tpu/models/tsr.py`` (``conf_ok``, ``rule_counts_direct``,
-``brute_force_rules``, ``TsrTPU``'s host-loop route as :class:`TsrTorch`,
-``TsrCPU``, ``mine_tsr_tpu`` as :func:`mine_tsr_torch`, ``mine_tsr_cpu``).
+``brute_force_rules``, ``TsrTPU`` with its host-loop and resident-frontier
+routes as :class:`TsrTorch`, ``TsrCPU``, ``mine_tsr_tpu`` as
+:func:`mine_tsr_torch`, ``mine_tsr_cpu``, ``resident_counters``).
 
 Semantics: a rule X ==> Y (X, Y disjoint itemsets) occurs in a sequence iff
 every item of X occurs strictly before every item of Y, i.e.
@@ -21,12 +22,17 @@ and evaluates candidate batches with the rule-support kernel
 Search (host Python, copied from the reference): best-first
 branch-and-bound over expansions with lazy sibling chains, dynamic-
 threshold (confidence-bound) pruning, up to ``PIPELINE_DEPTH`` dispatches
-in flight, and iterative deepening over the top-m items by support.
+in flight, and iterative deepening over the top-m items by support.  A
+round routes as the reference routes it (``_resident_route``): deep mines
+whose launches cost more than a wave's padding run the resident-frontier
+route, where the frontier and the top-k threshold stay on the device and
+the host runs waves of ``nb`` popped entries (B2 evaluates each wave); a
+capacity overflow spills the intact frontier back to the host loop.
 
 Not ported, each raising ``NotImplementedError``: meshes, class-partitioned
-mining, the resident-frontier route (``resident="always"``) and shape
-buckets.  A launch that fails raises: the reference's kernel-to-jnp
-downgrades have no counterpart.
+mining and shape buckets.  A launch that fails raises: the reference's
+kernel-to-jnp downgrades and its resident-round fallback
+(``_resident_abandon``) have no counterpart.
 """
 
 from __future__ import annotations
@@ -46,10 +52,12 @@ from spark_fsm_tpu_torch.data.spmf import SequenceDB
 from spark_fsm_tpu_torch.data.vertical import VerticalDB, build_vertical
 from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
 from spark_fsm_tpu_torch.models._common import (
-    device_hbm_budget, load_checkpoint, scatter_tokens, to_host)
+    CounterReader, device_hbm_budget, load_checkpoint, scatter_tokens,
+    to_host)
 from spark_fsm_tpu_torch.ops import bitops_np as Bnp
 from spark_fsm_tpu_torch.ops import bitops_torch as B
 from spark_fsm_tpu_torch.ops import ragged_batch as RB
+from spark_fsm_tpu_torch.ops import resident_frontier as RF
 from spark_fsm_tpu_torch.ops import rule_support as RS
 from spark_fsm_tpu_torch.utils.canonical import RuleResult, sort_rules
 
@@ -61,6 +69,21 @@ ITEM_CAP_DEFAULT = 256
 # launches only a plan's real lanes; the floor keeps the plans equal to
 # the reference's kernel path.
 KERNEL_LANE = 128
+
+# the resident-frontier counters the bench harnesses export (the
+# reference's one spelling)
+RESIDENT_EXPORT_KEYS = (
+    "resident_rounds", "resident_segments", "resident_waves",
+    "resident_deferred", "resident_spills", "resident_handoffs",
+    "resident_fallbacks", "resident_readback_bytes")
+
+
+def resident_counters(stats: dict) -> dict:
+    """Export of the resident-frontier counters: empty unless (part of)
+    the mine ran on the resident route, zero-filled otherwise."""
+    if not stats.get("resident"):
+        return {}
+    return {k: stats.get(k, 0) for k in RESIDENT_EXPORT_KEYS}
 
 
 def conf_ok(sup: int, supx: int, minconf: float) -> bool:
@@ -139,13 +162,18 @@ class TsrTorch:
       use_kernel: "auto" = the rule-support kernel on CUDA and the plain
         evaluator on the CPU; False = the plain evaluator on either; True
         = the kernel (raises on the CPU: the kernel has no CPU mode).
-      resident: "auto"/"never" (or False) run the host loop; "always"
-        (or True), the resident-frontier route, is not ported.
+      resident: "auto" lets each round's ``_resident_route`` pick the
+        resident-frontier route or the host loop as the reference's
+        heuristic does; "always"/"never" (or True/False) pin it (the
+        structural tests still apply to "always").
     """
 
     # dispatches kept in flight by the mine loop: each one's readback
     # overlaps the later dispatches' device work and the host heap work
     PIPELINE_DEPTH = 3
+
+    # resident-frontier route capability; the NumPy TsrCPU opts out
+    _RESIDENT_CAPABLE = True
 
     def __init__(
         self,
@@ -180,10 +208,8 @@ class TsrTorch:
         if resident not in ("auto", "always", "never"):
             raise ValueError(f"resident must be auto/always/never, "
                              f"got {resident!r}")
-        if resident == "always":
-            raise NotImplementedError(
-                "resident='always': the resident-frontier route is not "
-                "ported yet (ROADMAP Queue A item 7)")
+        self.resident = resident
+        self._resident_caps: Optional[RF.ResidentCaps] = None
         self.device = resolve_device(device)
         if use_kernel == "auto":
             self.use_kernel = self.device.type == "cuda"
@@ -203,7 +229,7 @@ class TsrTorch:
         self.max_side = max_side
         self.stats = {"evaluated": 0, "kernel_launches": 0,
                       "deepening_rounds": 0, "pruned_conf": 0,
-                      "traffic_units": 0, "resident": False}
+                      "traffic_units": 0}
         self._stager = RB.XYStager()
         # budget-derived plain-evaluator width before the dispatch-
         # efficiency clamp (set by _round_chunk_plain; the per-km memory
@@ -283,8 +309,7 @@ class TsrTorch:
         candidate, floored to a power of two."""
         if self._chunk_user is not None:
             return self._chunk_user
-        if self._eval_budget is None:
-            self._eval_budget = device_hbm_budget(self.device)
+        self._ensure_budget()
         s_local = max(1, self.n_seq)
         per_cand = max(1, s_local * self.n_words * 4 * 4)
         prep = 2 * m * s_local * self.n_words * 4
@@ -294,6 +319,12 @@ class TsrTorch:
         self._plain_raw = max(128, RB.next_pow2(budget // per_cand + 1) // 2)
         return min(RB.dispatch_quantum_lanes(self.n_seq, self.n_words),
                    self._plain_raw)
+
+    def _ensure_budget(self) -> int:
+        """The device memory budget, read at first use."""
+        if self._eval_budget is None:
+            self._eval_budget = device_hbm_budget(self.device)
+        return self._eval_budget
 
     def _dispatch_eval(self, p1, s1,
                        cands: List[Tuple[Tuple[int, ...], Tuple[int, ...]]]):
@@ -421,16 +452,255 @@ class TsrTorch:
 
     # ---------------------------------------------------------------- mine
 
+    def _mine_restricted(self, m: int, resume: Optional[dict] = None,
+                         checkpoint_cb=None, every_s: float = 30.0,
+                         ) -> Tuple[List[RuleResult], int]:
+        """One deepening round over the top-m items; returns (results,
+        s_k).  Routes the round as the reference does: the resident-
+        frontier route when :meth:`_resident_route` picks it, else the
+        host loop.  The resident route spills back to the host loop on a
+        capacity overflow, so the choice never changes the answer."""
+        self.chunk = self._round_chunk(m)
+        if self._resident_route(m):
+            return self._mine_resident(m, resume=resume,
+                                       checkpoint_cb=checkpoint_cb,
+                                       every_s=every_s)
+        return self._mine_host_restricted(m, resume=resume,
+                                          checkpoint_cb=checkpoint_cb,
+                                          every_s=every_s)
+
+    def _resident_route(self, m: int) -> bool:
+        """Should this round run on the resident-frontier route?  The
+        reference's test as written (its mesh and multiprocess guards
+        aside: the port raises on a mesh).  Structural eligibility, which
+        applies to ``resident="always"`` too: k within the on-device top-k
+        buffer, exact-conf products within int32, and caps that fit the
+        budget.  The ``auto`` heuristic on top: only deep mines (sides
+        unlimited or above 2), and only when one saved dispatch is worth at
+        least a wave of km-ladder padding (``overhead_units >= nb``)."""
+        if not self._RESIDENT_CAPABLE or self.resident == "never":
+            return False
+        if self.k > RF.K_PAD:
+            return False
+        num, den = _conf_frac(self.minconf)
+        if max(num, den) * (self.n_seq + 1) >= 2 ** 31:
+            return False  # the device conf test multiplies in int32
+        if self.resident != "always" and not (
+                self.max_side is None or self.max_side > 2):
+            return False
+        caps = RF.caps_for(self.n_seq, self.n_words, m,
+                           self._ensure_budget())
+        if caps is None or m > caps.ring:
+            return False
+        if (self.resident != "always"
+                and RB.overhead_units(self.n_seq, self.n_words) < caps.nb):
+            return False
+        self._resident_caps = caps
+        return True
+
+    # ------------------------------------------------- resident route
+
+    def _mine_resident(self, m: int, resume: Optional[dict],
+                       checkpoint_cb, every_s: float,
+                       ) -> Tuple[List[RuleResult], int]:
+        """One deepening round on the resident-frontier route: the
+        frontier, the antecedent supports and the top-k threshold stay on
+        the device, and the host runs waves (``RF.wave``) in segments,
+        reading the 10 counters after each wave.  A segment is the
+        reference's one ``while_loop`` dispatch: waves while the frontier
+        is non-empty, nothing overflowed and the segment's wave budget
+        lasts (256, growing x4 to 4,096; 1 when checkpointing).  The
+        wide-to-narrow switch and the checkpoints happen only at segment
+        boundaries, as in the reference, so every counter equals its.
+
+        A capacity overflow commits nothing on the device: the intact
+        frontier spills into the host loop's own resume format.  Deferred
+        over-ladder children that survive the round's final threshold
+        hand off to the host loop the same way."""
+        caps = self._resident_caps
+        num, den = _conf_frac(self.minconf)
+        max_side_t = self.max_side if self.max_side is not None else 1 << 30
+        sup_l = self._sup_sorted[:m].astype(np.int64).tolist()
+        if resume is not None:
+            minsup = max(int(resume["minsup"]), 1)
+            results0 = [(int(sup), int(supx), tuple(x), tuple(y))
+                        for x, y, sup, supx in resume["results"]
+                        if int(sup) >= minsup]
+            entries = [(int(b), tuple(x), tuple(y), bool(cr), int(side),
+                        int(psup), int(psupx))
+                       for b, x, y, cr, side, psup, psupx in resume["stack"]]
+            self.stats["resumed_nodes"] = len(entries)
+        else:
+            minsup = 1
+            results0 = []
+            entries = RF.root_entries(sup_l, minsup, num, den, self.max_side)
+        state = RF.pack_state(entries, results0, caps)
+        if state is None:
+            # the resumed frontier outgrows the caps: the host loop
+            return self._mine_host_restricted(
+                m, resume=resume, checkpoint_cb=checkpoint_cb,
+                every_s=every_s)
+        self.stats["resident"] = True
+        self.stats["resident_rounds"] = (
+            self.stats.get("resident_rounds", 0) + 1)
+        p1, s1 = self._prep(m)
+        sup_items = torch.from_numpy(
+            np.asarray(sup_l, np.int32)).to(self.device)
+        carry = RF.carry_from_state(state, minsup, self.device)
+        evaluate = RS.rule_supports if self.use_kernel else RS.rule_supports_plain
+        reader = CounterReader(len(RF.COUNTERS), self.device)
+        # the counters as the carry starts them (RF.COUNTERS)
+        n_rec, n_def = state["n_results"], state["n_defer"]
+        head, tail, oflow, waves = 0, state["n_entries"], 0, 0
+        evaluated = pruned = 0
+        narrow = caps.nb_late < caps.nb and tail <= caps.nb_late
+        # segment budget: fine-grained when checkpointing (the first
+        # snapshot lands after wave 1), coarse otherwise
+        budget = 1 if checkpoint_cb is not None else 256
+        last_ckpt = time.monotonic()
+        waves_done = ev_done = pr_done = 0
+        while True:
+            nbw = caps.nb_late if narrow else caps.nb
+            wave_end = waves_done + budget
+            while tail > head and not oflow and waves < wave_end:
+                RF.wave(carry, p1, s1, sup_items, num, den, self.k,
+                        max_side_t, nbw, self.n_words, evaluate)
+                (n_rec, oflow, waves, head, tail, minsup, evaluated,
+                 pruned, _n_acc, n_def) = reader.read(carry.ctr)
+            self.stats["kernel_launches"] += 1  # one segment
+            self.stats["resident_segments"] = (
+                self.stats.get("resident_segments", 0) + 1)
+            self.stats["resident_waves"] = (
+                self.stats.get("resident_waves", 0) + waves - waves_done)
+            self.stats["traffic_units"] = (
+                self.stats.get("traffic_units", 0)
+                + (waves - waves_done) * nbw * caps.km)
+            self.stats["evaluated"] += evaluated - ev_done
+            self.stats["pruned_conf"] += pruned - pr_done
+            waves_done, ev_done, pr_done = waves, evaluated, pruned
+            budget = min(4096, budget * 4)
+            pending = tail > head
+            if oflow or (pending and waves >= caps.i_max):
+                self._resident_wait(reader)
+                return self._resident_spill(
+                    m, carry, head, tail, n_rec, n_def, minsup,
+                    checkpoint_cb=checkpoint_cb, every_s=every_s,
+                    prep=(p1, s1))
+            if not pending:
+                break
+            if not narrow and caps.nb_late < caps.nb and (
+                    tail - head) <= caps.nb_late:
+                narrow = True  # the late-wave switch, never switched back
+            if (checkpoint_cb is not None
+                    and time.monotonic() - last_ckpt >= every_s):
+                checkpoint_cb(self._resident_snapshot(
+                    m, carry, head, tail, n_rec, n_def, minsup))
+                self.stats["checkpoints"] = (
+                    self.stats.get("checkpoints", 0) + 1)
+                last_ckpt = time.monotonic()
+        self._resident_wait(reader)
+        # the final readback: the records, and the deferred children when
+        # there are any
+        names = RF.RECORD_FIELDS + (RF.DEFER_FIELDS if n_def else ())
+        arrs = carry.arrays(names)
+        self._count_readback(arrs)
+        results = RF.unpack_results(*arrs[:3], n_rec, minsup)
+        if n_def:
+            # over-ladder children filtered against the final exact top-k
+            # threshold; survivors are deep-side work the host loop
+            # finishes (a handoff: the in-ladder search completed)
+            self.stats["resident_deferred"] = (
+                self.stats.get("resident_deferred", 0) + n_def)
+            deep = RF.unpack_entries(*arrs[3:], 0, n_def, minsup)
+            if deep:
+                self.stats["resident_handoffs"] = (
+                    self.stats.get("resident_handoffs", 0) + 1)
+                return self._mine_host_restricted(
+                    m, resume=_resume_dict(minsup, deep, results),
+                    checkpoint_cb=checkpoint_cb, every_s=every_s,
+                    count_resume=False, prep=(p1, s1))
+        return self._finish_round(m, results)
+
+    def _resident_wait(self, reader: CounterReader) -> None:
+        self.stats["wait_s"] = self.stats.get("wait_s", 0.0) + reader.wait_s
+
+    def _count_readback(self, arrs: List[np.ndarray]) -> None:
+        self.stats["resident_readback_bytes"] = (
+            self.stats.get("resident_readback_bytes", 0)
+            + sum(a.nbytes for a in arrs))
+
+    def _resident_entries(self, carry: RF.Carry, head: int, tail: int,
+                          n_rec: int, n_def: int, minsup: int):
+        """Read the device frontier, records and deferred children back
+        into host tuples (the spill and the snapshot share this path)."""
+        arrs = carry.arrays(RF.RING_FIELDS + RF.RECORD_FIELDS)
+        darrs = carry.arrays(RF.DEFER_FIELDS) if n_def else []
+        self._count_readback(arrs + darrs)
+        entries = RF.unpack_entries(*arrs[:6], head, tail, minsup)
+        if n_def:
+            entries += RF.unpack_entries(*darrs, 0, n_def, minsup)
+        results = RF.unpack_results(*arrs[6:], n_rec, minsup)
+        return entries, results
+
+    def _resident_spill(self, m: int, carry: RF.Carry, head: int, tail: int,
+                        n_rec: int, n_def: int, minsup: int, *,
+                        checkpoint_cb, every_s: float,
+                        prep=None) -> Tuple[List[RuleResult], int]:
+        """Overflow-to-host spill: the intact device frontier becomes the
+        host loop's own resume state, so no candidate is lost or
+        duplicated."""
+        entries, results = self._resident_entries(carry, head, tail,
+                                                  n_rec, n_def, minsup)
+        self.stats["resident_spills"] = (
+            self.stats.get("resident_spills", 0) + 1)
+        return self._mine_host_restricted(
+            m, resume=_resume_dict(minsup, entries, results),
+            checkpoint_cb=checkpoint_cb, every_s=every_s,
+            count_resume=False, prep=prep)
+
+    def _resident_snapshot(self, m: int, carry: RF.Carry, head: int,
+                           tail: int, n_rec: int, n_def: int,
+                           minsup: int) -> dict:
+        """Segment-boundary snapshot in the one checkpoint format
+        (``frontier_state``): it resumes on either route of either
+        package."""
+        entries, results = self._resident_entries(carry, head, tail,
+                                                  n_rec, n_def, minsup)
+        queue = [(-b, x, y, cr, side, psup, psupx)
+                 for b, x, y, cr, side, psup, psupx in entries]
+        return self.frontier_state(queue, results, m, minsup)
+
+    def _finish_round(self, m: int, results: List[tuple],
+                      ) -> Tuple[List[RuleResult], int]:
+        """The exact end-of-round filter: s_k = k-th largest accepted
+        support, results filtered to >= s_k, local indices mapped to
+        canonical item ids."""
+        sups = sorted((r[0] for r in results), reverse=True)
+        s_k = sups[self.k - 1] if len(sups) >= self.k else 1
+        ids = self.vdb.item_ids[self._order[:m]]
+        out = [
+            (tuple(sorted(int(ids[i]) for i in x)),
+             tuple(sorted(int(ids[i]) for i in y)), sup, supx)
+            for sup, supx, x, y in results if sup >= s_k
+        ]
+        return sort_rules(out), s_k
+
+    # ----------------------------------------------------- host route
+
     def _mine_host_restricted(self, m: int, resume: Optional[dict] = None,
                               checkpoint_cb=None, every_s: float = 30.0,
+                              count_resume: bool = True, prep=None,
                               ) -> Tuple[List[RuleResult], int]:
-        """One deepening round over the top-m items on the host loop (the
-        only route ported): best-first heap on the host, ragged
-        super-batched eval dispatches on the device.  Returns
-        (results, s_k)."""
-        self.chunk = self._round_chunk(m)
+        """One deepening round on the host loop: best-first heap on the
+        host, ragged super-batched eval dispatches on the device.  Returns
+        (results, s_k).
+
+        ``count_resume=False``: ``resume`` is an internal continuation (a
+        resident spill or handoff), not a persisted checkpoint, so
+        ``resumed_nodes`` is left as it is.  ``prep``: the resident
+        round's live ``(p1, s1)``, reused instead of built again."""
         sup_it = self._sup_sorted[:m].astype(np.int64)
-        p1, s1 = self._prep(m)
+        p1, s1 = prep if prep is not None else self._prep(m)
         ids = self.vdb.item_ids[self._order[:m]]
 
         results: List[Tuple[int, int, Tuple[int, ...], Tuple[int, ...]]] = []
@@ -517,7 +787,8 @@ class TsrTorch:
                       int(psup), int(psupx))
                      for b, x, y, cr, side, psup, psupx in resume["stack"]]
             heapq.heapify(queue)
-            self.stats["resumed_nodes"] = len(queue)
+            if count_resume:
+                self.stats["resumed_nodes"] = len(queue)
         else:
             # roots: one right-side chain per item i over partners j != i;
             # X = {i} is fixed, so psupx = sup(i) exactly
@@ -652,7 +923,7 @@ class TsrTorch:
             m = max(1, min(self.item_cap, n_total))
         while True:
             self.stats["deepening_rounds"] += 1
-            results, s_k = self._mine_host_restricted(
+            results, s_k = self._mine_restricted(
                 m, resume=resume, checkpoint_cb=checkpoint_cb,
                 every_s=checkpoint_every_s)
             resume = None  # only the first (snapshot's) round resumes
@@ -670,6 +941,7 @@ class TsrCPU(TsrTorch):
     at a time.  An oracle independent of torch and of the kernel."""
 
     PIPELINE_DEPTH = 1  # dispatch is synchronous — nothing to overlap
+    _RESIDENT_CAPABLE = False  # numpy evaluation: no device frontier
 
     def __init__(self, *args, **kwargs):
         kwargs["device"] = "cpu"
@@ -704,6 +976,19 @@ class TsrCPU(TsrTorch):
 
     def _resolve_eval(self, handle):
         return handle
+
+
+def _resume_dict(minsup: int, entries: List[tuple],
+                 results: List[tuple]) -> dict:
+    """A resident round's frontier and records as the host loop's resume
+    state (the checkpoint's ``minsup``/``stack``/``results`` fields)."""
+    return {
+        "minsup": int(minsup),
+        "stack": [[b, list(x), list(y), cr, side, psup, psupx]
+                  for b, x, y, cr, side, psup, psupx in entries],
+        "results": [[list(x), list(y), sup, supx]
+                    for sup, supx, x, y in results],
+    }
 
 
 def mine_tsr_torch(db: SequenceDB, k: int, minconf: float, *,

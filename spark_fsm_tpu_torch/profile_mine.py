@@ -1,8 +1,9 @@
 """Where the main paths' time goes, on one CUDA card.
 
-    python3 -m spark_fsm_tpu_torch.profile_mine [spade] [tsr] [spam]
+    python3 -m spark_fsm_tpu_torch.profile_mine [spade] [tsr] [spam] \
+        [tsr-resident] [cspade]
 
-Prints one JSON line per path named (all three when none is):
+Prints one JSON line per path named (all five when none is):
 - SPADE: the BMS-WebView-2-shaped database (full size) at minsup 0.1 %
   through both of its routes, in turns: the queue engine (the ``auto``
   route's choice) and the classic engine (``fused="never"``).  For each,
@@ -20,7 +21,18 @@ Prints one JSON line per path named (all three when none is):
 - SPAM: the MSNBC-shaped database (full size) at minsup 0.5 %: the stage
   walls (vertical build, store build, DFS; medians of three warm mines),
   the DFS split into host work and waits on the device, and the parent
-  rows (P) of each extension-count-prune launch.
+  rows (P) of each extension-count-prune launch;
+- TSR's resident-frontier route: the Kosarak-shaped database with k=100,
+  minconf=0.5 and no side cap, at full size pinned to the route
+  (``resident="always"``) and to the host loop (``"never"``), and at 1 %
+  of it through ``auto`` (which takes the route) and pinned to the host
+  loop: the vertical build (once a size), then per mine the engine
+  set-up, the round's prep, the rest split into waits on the device and
+  host work (medians of three warm mines, the routes in turns), and the
+  resident waves at each width;
+- cSPADE: the Gazelle-shaped database (full size) with maxgap 2,
+  maxwindow 5, minsup 0.5 %: the stage walls (vertical build, engine
+  set-up, the DFS; medians of three warm mines) and the geometry.
 Each line also names the tokenizer that ran (``data/fasttok.backend()``),
 gives the host functions that take the vertical build's time (one more
 build under ``cProfile``: the ten largest by own time), and carries a
@@ -338,7 +350,126 @@ def spam(dev, card: str) -> dict:
             "reps": len(runs), "median_s": _median(runs), **prof}
 
 
-PATHS = {"spade": spade, "tsr": tsr, "spam": spam}
+def tsr_resident(dev, card: str) -> dict:
+    import torch
+
+    from spark_fsm_tpu_torch.data.synth import kosarak_like
+    from spark_fsm_tpu_torch.data.vertical import build_vertical
+    from spark_fsm_tpu_torch.models import tsr as TS
+    from spark_fsm_tpu_torch.ops import rule_support as RS
+
+    RS._kernel()  # build outside the timed stages
+    preps, widths = [], []
+
+    class Timed(TS.TsrTorch):
+        """The engine with each round's prep timed and the width of each
+        resident wave recorded."""
+
+        def _prep(self, m):
+            t0 = time.perf_counter()
+            out = super()._prep(m)
+            torch.cuda.synchronize()
+            preps.append(time.perf_counter() - t0)
+            return out
+
+    plain_wave = TS.RF.wave
+
+    def wave(c, p1, s1, sup, num, den, k, ms, nb, *rest):
+        widths.append(nb)
+        return plain_wave(c, p1, s1, sup, num, den, k, ms, nb, *rest)
+
+    out = {"path": "tsr-resident", "card": card,
+           "device": torch.cuda.get_device_name(dev), "k": 100,
+           "minconf": 0.5, "max_side": None}
+    for scale, routes in ((1.0, (("full_always", "always"),
+                                 ("full_never", "never"))),
+                          (0.01, (("one_percent_auto", "auto"),
+                                  ("one_percent_never", "never")))):
+        db = kosarak_like(scale=scale, fast=True)
+        t0 = time.perf_counter()
+        vdb = build_vertical(db, min_item_support=1)
+        vertical_s = time.perf_counter() - t0
+
+        def one_mine(resident):
+            preps.clear()
+            widths.clear()
+            t0 = time.perf_counter()
+            eng = Timed(vdb, 100, 0.5, max_side=None, resident=resident,
+                        device=dev)
+            t1 = time.perf_counter()
+            res = eng.mine()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            wait = eng.stats.get("wait_s", 0.0)
+            return res, eng, {
+                "engine_s": t1 - t0, "prep_s": sum(preps), "wait_s": wait,
+                "host_s": t2 - t1 - sum(preps) - wait, "mine_s": t2 - t0}
+
+        TS.RF.wave = wave
+        try:
+            runs = {name: [] for name, _ in routes}
+            for name, resident in routes:
+                one_mine(resident)  # warm-up
+            for _ in range(REPS):
+                for name, resident in routes:
+                    runs[name].append(one_mine(resident)[2])
+            for name, resident in routes:
+                res, eng, prof = _profiled(lambda: one_mine(resident))
+                out[name] = {
+                    "sequences": len(db), "resident_option": resident,
+                    "vertical_s": vertical_s, "rules": len(res),
+                    "stats": eng.stats,
+                    "waves_by_width": {str(w): widths.count(w)
+                                       for w in set(widths)},
+                    "reps": REPS, "median_s": _median(runs[name]), **prof}
+        finally:
+            TS.RF.wave = plain_wave
+        del db, vdb, res, eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def cspade(dev, card: str) -> dict:
+    import torch
+
+    from spark_fsm_tpu_torch.data.synth import gazelle_like
+    from spark_fsm_tpu_torch.data.vertical import abs_minsup, build_vertical
+    from spark_fsm_tpu_torch.models import spade_constrained as SC
+
+    db = gazelle_like(scale=1.0, fast=True)
+    minsup = abs_minsup(0.005, len(db))
+
+    def one_mine():
+        t0 = time.perf_counter()
+        vdb = build_vertical(db, min_item_support=minsup)
+        t1 = time.perf_counter()
+        eng = SC.ConstrainedSpadeTorch(vdb, minsup, maxgap=2, maxwindow=5,
+                                       device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        res = eng.mine()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        return res, eng, {"vertical_s": t1 - t0, "engine_s": t2 - t1,
+                          "dfs_s": t3 - t2, "total_s": t3 - t0}
+
+    one_mine()  # warm-up
+    runs = [one_mine()[2] for _ in range(REPS)]
+    res, eng, prof = _profiled(one_mine)
+    return {"path": "cspade", "card": card,
+            "device": torch.cuda.get_device_name(dev),
+            "sequences": len(db), "minsup": minsup, "maxgap": 2,
+            "maxwindow": 5, "patterns": len(res),
+            "geometry": {"dtype": str(eng.dtype), "chunk": eng.chunk,
+                         "node_batch": eng.node_batch,
+                         "pool_slots": eng.pool_slots,
+                         "pipeline_depth": eng.pipeline_depth},
+            "stats": eng.stats, "reps": len(runs),
+            "median_s": _median(runs), **prof}
+
+
+PATHS = {"spade": spade, "tsr": tsr, "spam": spam,
+         "tsr-resident": tsr_resident, "cspade": cspade}
 
 
 def main(names=None) -> list:

@@ -8,9 +8,11 @@ conftest is left out):
 Each kernel (B1 pair supports, B2 rule supports, B3 extension count +
 prune) is held against its plain version exactly, and the engines' mines
 (SPADE's classic, queue and dense engines, TSR, SPAM) against the port's
-CPU oracles, with the kernels' launches counted.  One queue wave and one
-dense level run under ``torch.cuda.set_sync_debug_mode("error")``: their
-bodies never wait on the host.
+CPU oracles, with the kernels' launches counted.  One queue wave, one
+dense level and TSR's resident waves (wide and narrow) run under
+``torch.cuda.set_sync_debug_mode("error")``: their bodies never wait on the
+host.  TSR's resident-frontier route launches B2 once a wave and equals
+the CPU mine; the constrained SPADE engine on the card equals its CPU run.
 """
 
 import numpy as np
@@ -24,11 +26,14 @@ from spark_fsm_tpu_torch.data.vertical import build_vertical
 from spark_fsm_tpu_torch.models.spade import mine_spade_torch
 from spark_fsm_tpu_torch.models.spade_fused import FusedCaps, FusedSpadeTorch
 from spark_fsm_tpu_torch.models.spade_queue import QueueCaps, QueueSpadeTorch
+from spark_fsm_tpu_torch.models.spade_constrained import mine_cspade_torch
 from spark_fsm_tpu_torch.models.spam_bitmap import mine_spam_torch
-from spark_fsm_tpu_torch.models.tsr import mine_tsr_cpu, mine_tsr_torch
+from spark_fsm_tpu_torch.models.tsr import (
+    TsrTorch, mine_tsr_cpu, mine_tsr_torch, resident_counters)
 from spark_fsm_tpu_torch.ops import extend_prune as EP
 from spark_fsm_tpu_torch.ops import pair_support as PS
 from spark_fsm_tpu_torch.ops import ragged_batch as RB
+from spark_fsm_tpu_torch.ops import resident_frontier as RF
 from spark_fsm_tpu_torch.ops import rule_support as RS
 from spark_fsm_tpu_torch.utils.canonical import (
     diff_patterns, patterns_text, rules_text)
@@ -238,6 +243,97 @@ def test_tsr_on_card_matches_cpu_engine(card, kw, k, minconf, side, cap):
     assert (stats["deepening_rounds"] > 1) == (cap < 60)
     assert rules_text(got) == rules_text(mine_tsr_cpu(db, k, minconf,
                                                       max_side=side))
+
+
+def _deep_db(n_seq=50, run=10, extra=6, seed=7):
+    """Every sequence holds the ordered run 0..run-1 plus noise items, so
+    deep rules stay live: the resident round defers and hands off."""
+    rng = np.random.default_rng(seed)
+    return [[[int(it)] for it in list(range(run)) + rng.integers(
+        run, run + extra, size=3).tolist()] for _ in range(n_seq)]
+
+
+def test_resident_waves_make_no_host_sync(card):
+    db = synthetic_db(seed=21, n_sequences=3000, n_items=60,
+                      mean_itemsets=5.0)
+    eng = TsrTorch(build_vertical(db, min_item_support=1), 20, 0.5,
+                   max_side=None, device=card)
+    m = 60
+    caps = RF.ResidentCaps(nb=64, ring=1024, r_cap=2048, d_cap=256)
+    p1, s1 = eng._prep(m)
+    sup_l = eng._sup_sorted[:m].astype(np.int64).tolist()
+    carry = RF.carry_from_state(
+        RF.pack_state(RF.root_entries(sup_l, 1, 1, 2, None), [], caps), 1,
+        card)
+    sup_t = torch.tensor(sup_l, dtype=torch.int32, device=card)
+    RS._kernel()   # build and load before the check
+    torch.cuda.synchronize()
+    before = RS.rule_supports.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for nb in (caps.nb, caps.nb_late):
+            RF.wave(carry, p1, s1, sup_t, 1, 2, 20, 1 << 30, nb, 1,
+                    RS.rule_supports)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert RS.rule_supports.launches == before + 2
+    rec_count, oflow, waves, head, tail = carry.ctr.tolist()[:5]
+    assert waves == 2 and not oflow and rec_count > 0 and tail > head
+
+
+@pytest.mark.parametrize("case", ["synthetic", "deep_handoff"])
+def test_resident_route_on_card_launches_b2_and_equals_cpu(card, case):
+    if case == "synthetic":
+        db, k, minconf = synthetic_db(seed=21, n_sequences=3000, n_items=60,
+                                      mean_itemsets=5.0), 20, 0.5
+    else:
+        db, k, minconf = _deep_db(), 300, 0.3
+    before = RS.rule_supports.launches
+    got_s, want_s = {}, {}
+    got = mine_tsr_torch(db, k, minconf, max_side=None, resident="always",
+                         device=card, stats_out=got_s)
+    launches = RS.rule_supports.launches - before
+    want = mine_tsr_torch(db, k, minconf, max_side=None, resident="always",
+                          device="cpu", stats_out=want_s)
+    assert rules_text(got) == rules_text(want)
+    assert rules_text(got) == rules_text(mine_tsr_cpu(db, k, minconf,
+                                                      max_side=None))
+    # the resident route is the same program on both devices; a handoff's
+    # host loop plans its launches per device (kernel or plain widths)
+    assert resident_counters(got_s) == resident_counters(want_s)
+    if case == "synthetic":
+        got_s.pop("wait_s")
+        want_s.pop("wait_s")
+        assert got_s == want_s
+    assert got_s["resident"] is True and got_s["resident_waves"] > 0
+    # B2 once a wave; a handoff's host loop launches it too
+    host_launches = sum(v for key, v in got_s.items()
+                        if key.startswith("launches_km"))
+    assert launches == got_s["resident_waves"] + host_launches
+    assert (host_launches > 0) == (case == "deep_handoff")
+
+
+@pytest.mark.parametrize("kw,minsup_rel,gap,win,cap", [
+    (dict(seed=30, n_sequences=3000, n_items=40, mean_itemsets=5.0,
+          mean_itemset_size=1.3), 0.03, 2, 5, None),
+    (dict(seed=31, n_sequences=1500, n_items=20, mean_itemsets=5.0),
+     0.05, None, 4, None),
+    (dict(seed=33, n_sequences=60, n_items=10, mean_itemsets=100.0,
+          max_itemsets=150), 0.5, 1, 3, 3),            # int16 states
+])
+def test_cspade_on_card_equals_cpu(card, kw, minsup_rel, gap, win, cap):
+    db = synthetic_db(**kw)
+    minsup = abs_minsup(minsup_rel, len(db))
+    got_s, want_s = {}, {}
+    got = mine_cspade_torch(db, minsup, maxgap=gap, maxwindow=win,
+                            max_pattern_itemsets=cap, device=card,
+                            pool_bytes=1 << 26, stats_out=got_s)
+    want = mine_cspade_torch(db, minsup, maxgap=gap, maxwindow=win,
+                             max_pattern_itemsets=cap, device="cpu",
+                             pool_bytes=1 << 26, stats_out=want_s)
+    assert patterns_text(got) == patterns_text(want), diff_patterns(want, got)
+    assert got_s == want_s and got_s["patterns"] > 0
 
 
 @pytest.mark.parametrize("P,NI,n_items,S,W", [

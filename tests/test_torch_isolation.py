@@ -7,8 +7,9 @@ refuses ``jax`` and ``spark_fsm_tpu`` (the exact package and its
 submodules, not the ``spark_fsm_tpu_torch`` prefix), every port module is
 imported, and a tiny SPADE mine (through the router: the queue engine),
 the same mine pinned to the dense and the classic engines, a tiny TSR mine
-and tiny SPAM mines (the pure-bitmap and the hybrid plan) run on the CPU,
-the vertical build through the native tokenizer."""
+(on the resident-frontier route), tiny SPAM mines (the pure-bitmap and the
+hybrid plan) and a tiny cSPADE mine run on the CPU, the vertical build
+through the native tokenizer."""
 
 import ast
 import os
@@ -54,8 +55,16 @@ from spark_fsm_tpu_torch.models.spam_bitmap import mine_spam_cpu
 for kw in ({}, {"density_crossover": 0.9}):
     assert patterns_text(mine_spam_torch(db, 2, device="cpu", **kw)) == patterns_text(mine_spade(db, 2))
     assert patterns_text(mine_spam_cpu(db, 2, **kw)) == patterns_text(mine_spade(db, 2))
+from spark_fsm_tpu_torch.models.oracle import mine_cspade
+from spark_fsm_tpu_torch.models.spade_constrained import mine_cspade_torch
+assert patterns_text(mine_cspade_torch(db, 2, maxgap=1, maxwindow=2, device="cpu")) == patterns_text(mine_cspade(db, 2, maxgap=1, maxwindow=2))
+tstats = {}
+mine_tsr_torch(db, 3, 0.5, device="cpu", stats_out=tstats)
+assert tstats["resident"] is True, tstats
 for name in ("ops.extend_prune", "ops.spam_bitops", "models.spam_bitmap", "service.planner",
-             "data.fasttok", "models.spade_queue", "models.spade_fused"):
+             "data.fasttok", "models.spade_queue", "models.spade_fused",
+             "ops.resident_frontier", "ops.maxstart_torch", "ops.maxstart_np",
+             "models.spade_constrained"):
     assert "spark_fsm_tpu_torch." + name in names, name
 try:
     import jax  # noqa: F401

@@ -96,7 +96,7 @@ def test_search_counters_match_reference(chunk, cap):
     a = mine_tsr_torch(db, 10, 0.5, device="cpu", stats_out=got, **mine)
     b = JT.mine_tsr_tpu(db, 10, 0.5, stats_out=want, **mine)
     assert rules_text(a) == j_rules_text(b)
-    assert got["resident"] is False
+    assert got.get("resident") is not True
     for key in ("evaluated", "pruned_conf", "deepening_rounds",
                 "kernel_launches", "traffic_units"):
         assert got[key] == want[key], key
@@ -180,8 +180,6 @@ def test_frontier_state_matches_reference_field_for_field():
 @pytest.mark.parametrize("kw,what", [
     (dict(mesh=object()), "mesh"),
     (dict(partition_parts=2), "partition"),
-    (dict(resident="always"), "resident"),
-    (dict(resident=True), "resident"),
     (dict(shape_buckets=True), "shape_buckets"),
 ])
 def test_unported_options_raise(kw, what):
@@ -189,12 +187,26 @@ def test_unported_options_raise(kw, what):
         mine_tsr_torch(ZAKI_DB, 5, 0.5, device="cpu", **kw)
 
 
+@pytest.mark.parametrize("resident", ["always", True])
+def test_resident_always_runs_the_resident_route(resident):
+    # the route is pinned even where auto's heuristic picks the host loop
+    stats, want = {}, {}
+    got = mine_tsr_torch(ZAKI_DB, 5, 0.5, max_side=2, device="cpu",
+                         resident=resident, stats_out=stats)
+    ref = JT.mine_tsr_tpu(ZAKI_DB, 5, 0.5, max_side=2, resident=resident,
+                          stats_out=want)
+    assert stats["resident"] is True and want["resident"] is True
+    assert stats["resident_rounds"] == want["resident_rounds"] == 1
+    assert rules_text(got) == j_rules_text(ref) == j_rules_text(
+        JT.brute_force_rules(ZAKI_DB, 5, 0.5, max_side=2))
+
+
 @pytest.mark.parametrize("resident", ["auto", "never", False])
 def test_host_loop_runs_for_resident_auto_and_never(resident):
     stats = {}
     got = mine_tsr_torch(ZAKI_DB, 5, 0.5, max_side=2, device="cpu",
                          resident=resident, stats_out=stats)
-    assert stats["resident"] is False
+    assert stats.get("resident") is not True
     assert rules_text(got) == j_rules_text(
         JT.brute_force_rules(ZAKI_DB, 5, 0.5, max_side=2))
 
