@@ -13,9 +13,10 @@ Phases, one printed line each (any failure raises and exits non-zero):
      path's launches, plus the candidate extraction of ``batch_supports``;
   4. the kernel and its plain version timed with CUDA events at the
      headline launch (P=2048, NI=360, S=77,504, W=1), at the queue
-     engine's wide and late waves (P=1024 and P=128, NI=384) and at the
-     classic engine's first launch (P=720, NI=360), beside the least time
-     the card could take for the same work;
+     engine's wide and late waves (P=1024 and P=128, NI=384), at the
+     classic engine's first launch (P=720, NI=360) and at the stream
+     sweep's widest level (P=2048, NI=128, S=131,072), beside the least
+     time the card could take for the same work;
   5. the main path at full data size: ``mine_spade_torch`` on a
      BMS-WebView-2-shaped database (77,500 sequences) at minsup 0.1 %,
      which the router sends to the queue engine, byte-identical to the CPU
@@ -83,7 +84,27 @@ Phases, one printed line each (any failure raises and exits non-zero):
      database (59,000 sequences) with maxgap 2, maxwindow 5 and minsup
      0.5 %, and at 10 % of that size, each byte-identical to the copied
      CPU oracle ``mine_cspade``.  The oracles run in two child processes
-     started at the top, so they overlap the card phases.
+     started at the top, so they overlap the card phases;
+ 17. streaming windows at full size: the MSNBC-shaped database cut into
+     ten micro-batches of 99,000 sequences, a window of five, minsup
+     0.5 %, pushed through ``IncrementalWindowMiner`` (the pair-support
+     kernel once a swept level) and through the re-mine ``WindowMiner``
+     (``mine_spade_torch(..., shape_buckets=True)``): after every push the
+     two pattern texts are byte-identical, and after pushes 1, 5 and 10
+     they equal the copied oracle's mine of the window (three more child
+     processes started at the top); per push and route the wall, the
+     incremental miner's stage split and counters, the kernel's launches
+     and the peak device memory;
+ 18. the repair fold and multiword batches on the card: a stream of small
+     two-word batches at an absolute minsup that moves patterns across
+     the border both ways, every push byte-identical to the oracle and to
+     the gather-join branch (``use_kernel=False``), with nodes repaired
+     after the first push;
+ 19. ``shape_buckets=True`` on the card: SPADE's ``auto`` route on phase
+     5's database, SPAM on phase 17's first batch (10 % of phase 13's
+     size), TSR on phase 15's 1 % database and cSPADE on phase 16's 10 %
+     database, each against the oracle text an earlier phase holds, with
+     the route each took.
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 and prints no result.
@@ -116,6 +137,10 @@ HEADLINE = (2048, 360, 77504, 1)
 WIDE_WAVE = (1024, 384, 77504, 1)
 LATE_WAVE = (128, 384, 77504, 1)
 CLASSIC_LAUNCH = (720, 360, 77504, 1)
+# the stream's widest sweep level: 2 x the level's pow2 width (phase 17
+# checks it) over the batch store's 128 item rows (17 live items padded to
+# the reference's I_TILE) and its bucketed 131,072 sequences
+STREAM_SWEEP = (2048, 128, 131072, 1)
 # (C, km, M, S, W) of the timed rule-support launches: the TSR path's
 # headline launch (8192 candidates at km = 2 over the top 256 items of the
 # Kosarak-shaped database) and the same launch at km = 1
@@ -130,6 +155,41 @@ RULE_RESIDENT_LATE = (64, 4, 256, 990000, 1)
 # wave (64 nodes, 26 dense items padded to 64); the MSNBC wave's P is twice
 # the engine's node batch on this card, set in main()
 BMS_WAVE = (128, 64, 77504, 1)
+
+
+# the stream of phase 17: MSNBC-shaped micro-batches, a window of five,
+# minsup 0.5 % of the window; the copied oracle mines the window after
+# pushes 1, 5 and 10 in child processes (the wall first, then the text)
+STREAM_PUSHES, STREAM_KEEP, STREAM_MINSUP = 10, 5, 0.005
+STREAM_ORACLE_PUSHES = (1, 5, 10)
+STREAM_ORACLE = r"""
+import sys, time
+from spark_fsm_tpu_torch.data.synth import msnbc_like
+from spark_fsm_tpu_torch.data.vertical import abs_minsup
+from spark_fsm_tpu_torch.models.oracle import mine_spade
+from spark_fsm_tpu_torch.utils.canonical import patterns_text
+push, n_push, keep, rel = (int(sys.argv[1]), int(sys.argv[2]),
+                           int(sys.argv[3]), float(sys.argv[4]))
+db = msnbc_like(scale=1.0, fast=True)
+per = len(db) // n_push
+lo = max(0, push - keep) * per
+hi = push * per if push < n_push else len(db)
+window = db[lo:hi]
+t0 = time.perf_counter()
+res = mine_spade(window, abs_minsup(rel, len(window)))
+print(f"{time.perf_counter() - t0:.3f}")
+print(patterns_text(res), end="")
+"""
+# phase 18's multiword stream: batches of 40 sequences of about 40
+# itemsets (two words), a window of two, an absolute minsup
+MW_STREAM = dict(seed=8, batches=5, per_batch=40, minsup=70)
+
+
+def start_child(script: str, *args) -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, "-c", script, *map(str, args)],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, text=True)
 
 
 # cSPADE's copied CPU oracle on the Gazelle-shaped database at a scale,
@@ -149,18 +209,11 @@ print(patterns_text(res), end="")
 GAZELLE_SCALES = (1.0, 0.1)
 
 
-def start_cspade_oracle(scale: float) -> subprocess.Popen:
-    return subprocess.Popen(
-        [sys.executable, "-c", CSPADE_ORACLE, str(scale)],
-        cwd=os.path.dirname(os.path.abspath(__file__)),
-        stdout=subprocess.PIPE, text=True)
-
-
-def collect_cspade_oracle(proc: subprocess.Popen):
-    """The child's (seconds, patterns text); fails if it failed."""
+def collect_oracle(proc: subprocess.Popen, what: str):
+    """An oracle child's (seconds, patterns text); fails if it failed."""
     out, _ = proc.communicate(timeout=900)
     check(proc.returncode == 0,
-          f"the cSPADE oracle process exited with {proc.returncode}")
+          f"the {what} oracle process exited with {proc.returncode}")
     secs, text = out.split("\n", 1)
     return float(secs), text
 
@@ -431,7 +484,11 @@ def main() -> int:
         return 1
     import spark_fsm_tpu_torch  # noqa: F401  (fails outside a checkout)
 
-    oracles = {scale: start_cspade_oracle(scale) for scale in GAZELLE_SCALES}
+    oracles = {scale: start_child(CSPADE_ORACLE, scale)
+               for scale in GAZELLE_SCALES}
+    oracles.update({("stream", push): start_child(
+        STREAM_ORACLE, push, STREAM_PUSHES, STREAM_KEEP, STREAM_MINSUP)
+        for push in STREAM_ORACLE_PUSHES})
     try:
         return run(torch, oracles)
     finally:
@@ -457,6 +514,7 @@ def run(torch, oracles) -> int:
         queue_eligible, queue_geometry)
     from spark_fsm_tpu_torch.models.spam_bitmap import (
         mine_spam_torch, spam_geometry)
+    from spark_fsm_tpu_torch.models._common import device_hbm_budget
     from spark_fsm_tpu_torch.models.tsr import (
         TsrTorch, mine_tsr_cpu, mine_tsr_torch)
     from spark_fsm_tpu_torch.ops import _build
@@ -465,7 +523,10 @@ def run(torch, oracles) -> int:
     from spark_fsm_tpu_torch.ops import ragged_batch as RB
     from spark_fsm_tpu_torch.ops import resident_frontier as RF
     from spark_fsm_tpu_torch.ops import rule_support as RS
+    from spark_fsm_tpu_torch.ops.ragged_batch import next_pow2
     from spark_fsm_tpu_torch.service.planner import choose_patterns_engine
+    from spark_fsm_tpu_torch.streaming import (
+        IncrementalWindowMiner, WindowMiner)
     from spark_fsm_tpu_torch.utils.canonical import (
         diff_patterns, patterns_text, rules_text)
 
@@ -510,7 +571,7 @@ def run(torch, oracles) -> int:
     timed = {}
     for (P, NI, S, W) in ((130, 77, 1001, 1), (67, 129, 517, 2),
                           (3, 5, 4099, 3), LATE_WAVE, CLASSIC_LAUNCH,
-                          WIDE_WAVE, HEADLINE):
+                          WIDE_WAVE, HEADLINE, STREAM_SWEEP):
         pt = torch.from_numpy(rand_words(rng, P, S * W).view(np.int32)).to(dev)
         items = torch.from_numpy(
             rand_words(rng, NI + 7, S * W).view(np.int32)).to(dev)
@@ -528,13 +589,15 @@ def run(torch, oracles) -> int:
         worst = max(worst, err)
         print(f"[check] pair_supports P={P} NI={NI} S={S} W={W}: equal to "
               f"plain (max abs err {err}); batch_supports equal", flush=True)
-        if (P, NI, S, W) in (LATE_WAVE, CLASSIC_LAUNCH, WIDE_WAVE, HEADLINE):
+        if (P, NI, S, W) in (LATE_WAVE, CLASSIC_LAUNCH, WIDE_WAVE, HEADLINE,
+                             STREAM_SWEEP):
             timed[(P, NI, S, W)] = (pt, items)
 
     # 4. timing at every launch shape above; the kernels line reports the
     # main path's wide queue wave
     pair_times = {}
-    for shape in (LATE_WAVE, CLASSIC_LAUNCH, HEADLINE, WIDE_WAVE):
+    for shape in (LATE_WAVE, CLASSIC_LAUNCH, HEADLINE, STREAM_SWEEP,
+                  WIDE_WAVE):
         pt, items = timed.pop(shape)
         P, NI, S, W = shape
         ms = time_ms(lambda: PS.pair_supports(pt, items, NI, n_words=W), 3, 20)
@@ -1034,7 +1097,7 @@ def run(torch, oracles) -> int:
           f"{hlaunches}, pair_launches {hstats['pair_launches']}, candidates "
           f"{hstats['candidates']}, diffset_nodes {hstats['diffset_nodes']}",
           flush=True)
-    del bms_db, got
+    del got
     db = synthetic_db(seed=8, n_sequences=120, n_items=12, mean_itemsets=40.0,
                       max_itemsets=80)
     minsup_w = abs_minsup(0.5, len(db))
@@ -1199,6 +1262,7 @@ def run(torch, oracles) -> int:
           f"(resident='never') {[round(w, 4) for w in small_walls['never']]} "
           f"s, medians {statistics.median(small_walls['auto']):.4f} / "
           f"{statistics.median(small_walls['never']):.4f} s", flush=True)
+    tsr_small_db, tsr_small_text = db, text   # phase 19 mines it again
     del db, got_t, want_t
 
     # 16. constrained SPADE against the copied oracle, full size and 10 %
@@ -1220,12 +1284,13 @@ def run(torch, oracles) -> int:
         got_warm = mine_cspade_torch(db, minsup, maxgap=2, maxwindow=5)
         torch.cuda.synchronize()
         cwarm_s = time.perf_counter() - t0
-        oracle_s, want_text = collect_cspade_oracle(oracles[scale])
+        oracle_s, want_text = collect_oracle(oracles[scale], "cSPADE")
         check(patterns_text(got) == want_text,
               f"the cSPADE mine at scale {scale} differs from the oracle")
         check(patterns_text(got_warm) == want_text,
               f"the warm cSPADE mine at scale {scale} differs")
         check(len(got) > 0, f"the cSPADE mine at scale {scale} is empty")
+        cspade_small = (db, minsup, want_text)   # phase 19: the last scale
         print(f"[mine] gazelle_like(scale={scale}) maxgap=2 maxwindow=5: "
               f"{len(db)} sequences, {vdb.n_items} frequent items, "
               f"W={vdb.n_words}, minsup {minsup}: {len(got)} patterns "
@@ -1240,6 +1305,198 @@ def run(torch, oracles) -> int:
               flush=True)
         del db, got, got_warm, vdb
         torch.cuda.empty_cache()
+
+    # 17. streaming windows at full size: the incremental miner (B1 once
+    # a swept level) and the re-mine miner, byte-identical after every push
+    t0 = time.perf_counter()
+    db = msnbc_like(scale=1.0, fast=True)
+    per = len(db) // STREAM_PUSHES
+    batches = [db[i * per:(i + 1) * per if i < STREAM_PUSHES - 1 else len(db)]
+               for i in range(STREAM_PUSHES)]
+    del db
+    gen_s = time.perf_counter() - t0
+    inc = IncrementalWindowMiner(STREAM_MINSUP, max_batches=STREAM_KEEP)
+    check(inc.use_kernel, "the incremental miner on the card does not use B1")
+    remine_routes = []
+
+    def remine(seqs, minsup):
+        # WindowMiner's own default mine, with the route recorded
+        st: dict = {}
+        res = mine_spade_torch(seqs, minsup, shape_buckets=True, stats_out=st)
+        remine_routes.append(st.get("fused"))
+        return res
+
+    rem = WindowMiner(STREAM_MINSUP, max_batches=STREAM_KEEP, mine=remine)
+    stream_texts, widest, swept_levels, stream_b1 = {}, 0, 0, 0
+    stream_bound_ms = 0.0
+    counters = ("repaired_nodes", "sweep_candidates", "kernel_launches")
+    for push, batch in enumerate(batches, 1):
+        # the levels this push's sweep walks: tracked nodes with children
+        widths, lv = [], [n for n in inc._root.values() if n.children]
+        while lv:
+            widths.append(len(lv))
+            lv = [c for n in lv for c in n.children.values() if c.children]
+        widest = max([widest] + widths)
+        before = {k: inc.stats[k] for k in counters}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        PS.pair_supports.launches = 0
+        t0 = time.perf_counter()
+        got = inc.push(batch)
+        torch.cuda.synchronize()
+        inc_s = time.perf_counter() - t0
+        b1 = PS.pair_supports.launches
+        ipeak = torch.cuda.max_memory_allocated()
+        check(b1 >= 1 or not widths,
+              f"push {push}: the sweep walked {len(widths)} levels but B1 "
+              f"launched {b1} times")
+        swept_levels += len(widths)
+        stream_b1 += b1
+        # B1's bound over this push's launches: a level's parents, plain
+        # and transformed, against the new batch store's item rows
+        st = list(inc._states.values())[-1]
+        push_bound_ms = sum(pair_bound_ms(2 * w, st.ni_rows, st.n_seq,
+                                          st.n_words)[0] for w in widths)
+        stream_bound_ms += push_bound_ms
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        PS.pair_supports.launches = 0
+        t0 = time.perf_counter()
+        want = rem.push(batch)
+        torch.cuda.synchronize()
+        rem_s = time.perf_counter() - t0
+        rb1 = PS.pair_supports.launches
+        rpeak = torch.cuda.max_memory_allocated()
+        text = patterns_text(got)
+        check(text == patterns_text(want),
+              f"push {push}: the incremental and re-mine routes differ:\n"
+              + diff_patterns(want, got))
+        if push in STREAM_ORACLE_PUSHES:
+            stream_texts[push] = text
+        delta = {k: inc.stats[k] - before[k] for k in counters}
+        print(f"[stream] push {push}: window {inc.stats['window_sequences']} "
+              f"sequences, minsup {inc.minsup_abs()}, {len(got)} patterns "
+              f"byte-identical across the routes; incremental "
+              f"{inc_s:.3f} s (phase_s {inc.stats['phase_s']}), swept level "
+              f"widths {widths}, B1 launches {b1} (bound summed over them "
+              f"{push_bound_ms:.3f} ms), {delta}, tracked_nodes "
+              f"{inc.stats['tracked_nodes']}, store_cache_bytes "
+              f"{inc.stats['store_cache_bytes']}, max_memory_allocated "
+              f"{ipeak} B; re-mine {rem_s:.3f} s (route "
+              f"{remine_routes[-1]!r}), B1 launches {rb1}, "
+              f"max_memory_allocated {rpeak} B", flush=True)
+    for push in STREAM_ORACLE_PUSHES:
+        oracle_s, want_text = collect_oracle(oracles[("stream", push)],
+                                             f"stream push {push}")
+        check(stream_texts[push] == want_text,
+              f"push {push}: the stream differs from the oracle's mine of "
+              "the window")
+        print(f"[stream] push {push}: byte-identical to the oracle's mine of "
+              f"the window (oracle {oracle_s:.1f} s, child process)",
+              flush=True)
+    kept = sum(st.store is not None for st in inc._states.values())
+    budget = 0.2 * device_hbm_budget(dev)
+    sweep_p = 2 * next_pow2(widest)
+    check(sweep_p == STREAM_SWEEP[0],
+          f"the widest sweep level ({widest} parents) makes P={sweep_p}, not "
+          f"phase 4's {STREAM_SWEEP[0]}")
+    print(f"[stream] msnbc_like: {STREAM_PUSHES} pushes of {per} sequences, "
+          f"window {STREAM_KEEP}, generator {gen_s:.1f} s; B1 launched "
+          f"{stream_b1} times over {swept_levels} swept levels (bound summed "
+          f"over them {stream_bound_ms:.3f} ms); widest level "
+          f"{widest} parents (P = {sweep_p} at the reference's pow2 width); "
+          f"warm batch stores kept {kept} of {len(inc._states)} "
+          f"({inc.stats['store_cache_bytes']} B against the 0.2 x budget "
+          f"{budget:.0f} B); re-mine routes {remine_routes}", flush=True)
+    stream_first = batches[0]   # phase 19 mines it again
+    del batches, inc, rem, got, want
+    torch.cuda.empty_cache()
+
+    # 18. the repair fold and multiword batches on the card
+    rng = np.random.default_rng(MW_STREAM["seed"])
+    mw_batches = [synthetic_db(seed=int(rng.integers(1 << 30)),
+                               n_sequences=MW_STREAM["per_batch"], n_items=6,
+                               mean_itemsets=40.0, mean_itemset_size=1.1)
+                  for _ in range(MW_STREAM["batches"])]
+    n_words = build_vertical(mw_batches[0]).n_words
+    check(n_words >= 2, f"the multiword stream has W={n_words}")
+    kern = IncrementalWindowMiner(MW_STREAM["minsup"], max_batches=2)
+    gath = IncrementalWindowMiner(MW_STREAM["minsup"], max_batches=2,
+                                  use_kernel=False)
+    prev, entered, left, repaired_after_first = None, 0, 0, 0
+    for push, batch in enumerate(mw_batches, 1):
+        r0 = kern.stats["repaired_nodes"]
+        PS.pair_supports.launches = 0
+        got = kern.push(batch)
+        torch.cuda.synchronize()
+        b1 = PS.pair_supports.launches
+        g_got = gath.push(batch)
+        torch.cuda.synchronize()
+        check(PS.pair_supports.launches == b1,
+              "the gather-join branch launched B1")
+        text = patterns_text(got)
+        check(text == patterns_text(g_got),
+              f"multiword push {push}: B1 and the gather-join differ")
+        want = mine_spade(kern.window.sequences(), kern.minsup_abs())
+        check(text == patterns_text(want),
+              f"multiword push {push} differs from the oracle:\n"
+              + diff_patterns(want, got))
+        cur = {p for p, _ in got}
+        if prev is not None:
+            entered += len(cur - prev)
+            left += len(prev - cur)
+            repaired_after_first += kern.stats["repaired_nodes"] - r0
+        prev = cur
+        print(f"[stream] multiword W={n_words} push {push}: {len(got)} "
+              f"patterns byte-identical to the oracle and to the gather-join "
+              f"branch; repaired_nodes +{kern.stats['repaired_nodes'] - r0}, "
+              f"B1 launches {b1}, engine launches "
+              f"{kern.stats['kernel_launches']} (gather-join "
+              f"{gath.stats['kernel_launches']})", flush=True)
+    check(repaired_after_first > 0, "no node repaired after the first push")
+    check(entered > 0 and left > 0,
+          f"patterns crossed the border {entered} times in, {left} out")
+    print(f"[stream] multiword: {repaired_after_first} nodes repaired after "
+          f"the first push on the card; {entered} patterns entered and {left} "
+          f"left the frequent set", flush=True)
+    del kern, gath, mw_batches
+
+    # 19. shape_buckets=True on the card, against the oracle texts above
+    bstats: dict = {}
+    got = mine_spade_torch(bms_db, bms_minsup, shape_buckets=True,
+                           stats_out=bstats)
+    check(patterns_text(got) == bms_text,
+          "SPADE with shape_buckets differs from phase 5's oracle result")
+    print(f"[buckets] SPADE bms_webview2_like auto: route "
+          f"{bstats.get('fused')!r}, {len(got)} patterns byte-identical to "
+          f"phase 5's oracle result", flush=True)
+    bstats = {}
+    first_minsup = abs_minsup(STREAM_MINSUP, len(stream_first))
+    got = mine_spam_torch(stream_first, first_minsup, shape_buckets=True,
+                          stats_out=bstats)
+    check(patterns_text(got) == stream_texts[1],
+          "SPAM with shape_buckets differs from the first window's oracle")
+    print(f"[buckets] SPAM on phase 17's first batch ({len(stream_first)} "
+          f"sequences): {len(got)} patterns byte-identical to the oracle's "
+          f"mine of push 1; waves {bstats['waves']}", flush=True)
+    bstats = {}
+    got_t = mine_tsr_torch(tsr_small_db, 100, 0.5, max_side=None,
+                           shape_buckets=True, stats_out=bstats)
+    check(rules_text(got_t) == tsr_small_text,
+          "TSR with shape_buckets differs from mine_tsr_cpu")
+    print(f"[buckets] TSR kosarak_like(scale=0.01) max_side=None: "
+          f"{'the resident route' if bstats.get('resident') else 'the host loop'}"
+          f", {len(got_t)} rules byte-identical to mine_tsr_cpu", flush=True)
+    c_db, c_minsup, c_text = cspade_small
+    bstats = {}
+    got = mine_cspade_torch(c_db, c_minsup, maxgap=2, maxwindow=5,
+                            shape_buckets=True, stats_out=bstats)
+    check(patterns_text(got) == c_text,
+          "cSPADE with shape_buckets differs from the oracle")
+    print(f"[buckets] cSPADE gazelle_like(scale={GAZELLE_SCALES[-1]}): "
+          f"{len(got)} patterns byte-identical to the oracle; geometry "
+          f"{bstats['geometry']}", flush=True)
+    del got, got_t, bms_db, stream_first, tsr_small_db, cspade_small
 
     print(json.dumps({"kernels": [pair_record, rule_record, {
         "name": "extend_prune", "route": "cuda",

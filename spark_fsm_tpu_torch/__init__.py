@@ -23,6 +23,8 @@ from spark_fsm_tpu_torch.models.spade_constrained import (
 from spark_fsm_tpu_torch.models.spade_queue import QueueSpadeTorch
 from spark_fsm_tpu_torch.models.spam_bitmap import SpamBitmapTorch, mine_spam_torch
 from spark_fsm_tpu_torch.models.tsr import TsrTorch, mine_tsr_torch
+from spark_fsm_tpu_torch.streaming import (
+    IncrementalWindowMiner, SlidingWindow, WindowMiner)
 
 __all__ = [
     "SequenceDB", "load_spmf", "parse_spmf",
@@ -31,4 +33,5 @@ __all__ = [
     "ConstrainedSpadeTorch", "mine_cspade_torch",
     "SpamBitmapTorch", "mine_spam_torch",
     "TsrTorch", "mine_tsr_torch",
+    "IncrementalWindowMiner", "SlidingWindow", "WindowMiner",
 ]

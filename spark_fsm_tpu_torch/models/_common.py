@@ -140,6 +140,28 @@ def scatter_tokens(ti: np.ndarray, ts: np.ndarray, tw: np.ndarray,
     return flat.view(n_rows, n_seq * n_words)
 
 
+def scatter_tokens_remap(ti: torch.Tensor, ts: torch.Tensor, tw: torch.Tensor,
+                         tm: torch.Tensor, remap: torch.Tensor, n_rows: int,
+                         n_seq: int, n_words: int) -> torch.Tensor:
+    """The remap form of the token scatter, for tokens already on the
+    device (the reference's ``_store_builder(flat=True, remap=True)``):
+    token k lands in store row ``remap[ti[k]]``.  The reference drops a
+    token whose row is out of range (``mode="drop"``: unneeded items and
+    the remap's pad entries point past the store).  Here an out-of-range
+    index would be a device assert that ends the CUDA context, and a
+    boolean filter would read the count back to the host, so such a
+    token's mask is zeroed and its row clamped: an add of 0 is a no-op.
+    ``ti`` and ``remap`` are int64, ``tm`` int32 bit masks."""
+    row = remap[ti]
+    ok = row < n_rows
+    row = torch.clamp(row, max=n_rows - 1)
+    mask = torch.where(ok, tm, torch.zeros_like(tm))
+    flat = torch.zeros(n_rows * n_seq * n_words, dtype=torch.int32,
+                       device=ti.device)
+    flat.index_add_(0, (row * n_seq + ts) * n_words + tw, mask)
+    return flat.view(n_rows, n_seq * n_words)
+
+
 # The reference's pair-kernel tiles (spark_fsm_tpu/ops/pallas_support.py),
 # kept where they decide routing, caps and wave counts so those decisions
 # and the engines' counters match the reference's: P_TILE rounds the
@@ -177,11 +199,52 @@ def copy_rows_drop(dst: torch.Tensor, idx: torch.Tensor, keep: torch.Tensor,
     dst.index_copy_(0, torch.where(keep, idx, dst.shape[0] - 1), src)
 
 
-def device_axes(n_sequences: int) -> int:
-    """The store's sequence axis: ``n_sequences`` padded to the pair
+def bucket_seq(n_seq: int) -> int:
+    """The ``shape_buckets`` sequence-axis bucket shared by every engine:
+    a power of two with a 128 floor (the reference's one definition, so
+    streaming windows that mix engines land on one geometry)."""
+    return max(128, next_pow2(n_seq))
+
+
+def pad_tokens_pow2(ti, ts, tw, tm):
+    """Pad the four parallel token arrays to a power-of-two length.  Pad
+    tokens carry mask 0, so scattering them adds 0 to row 0: a no-op.
+    The reference pads so that XLA compiles one scatter per bucket; TSR's
+    bucketed round prep pads as it does."""
+    cap = next_pow2(max(1, len(ti)))
+    pad = cap - len(ti)
+    if pad:
+        z = ((0, pad),)
+        ti, ts, tw, tm = (np.pad(a, z) for a in (ti, ts, tw, tm))
+    return ti, ts, tw, tm
+
+
+def device_axes(n_sequences: int, shape_buckets: bool = False) -> int:
+    """The store's sequence axis: ``n_sequences`` (its
+    :func:`bucket_seq` bucket when ``shape_buckets``) padded to the pair
     kernel's sequence tile.  Padded sequences are all-zero bitmaps and
     count nothing; the kernel masks ragged item and parent rows itself."""
-    return -(-int(n_sequences) // PS.SEQ_TILE) * PS.SEQ_TILE
+    n = bucket_seq(n_sequences) if shape_buckets else int(n_sequences)
+    return -(-n // PS.SEQ_TILE) * PS.SEQ_TILE
+
+
+def bucket_store_rows(total: int, n_fixed: int, budget_slots: int,
+                      node_batch: int, depth: int) -> Tuple[int, int, int]:
+    """The reference's ``shape_buckets`` store rounding
+    (``spade_tpu.classic_geometry``, ``spam_bitmap.spam_geometry``):
+    ``total`` = ``n_fixed`` fixed rows + pool + one scratch row is rounded
+    up to a power of two, or down when rounding up overshoots the pool
+    budget and the half still holds the fixed rows and a minimal pool of
+    8.  The spare rows go to the pool and ``node_batch`` is clamped again
+    so in-flight batches cannot starve a recompute.  Returns ``(total,
+    pool_slots, node_batch)``."""
+    floor_rows = n_fixed + 8 + 1
+    total = next_pow2(total)
+    if total > n_fixed + 1 + budget_slots and total // 2 >= floor_rows:
+        total //= 2
+    pool_slots = total - n_fixed - 1
+    nb = max(1, min(node_batch, pool_slots // (3 * (depth + 2))))
+    return total, pool_slots, nb
 
 
 def launch_width_cap(pool_bytes: int, slot_bytes: int, floor: int) -> int:
@@ -209,8 +272,20 @@ def auto_pool_bytes(device: torch.device) -> int:
 
 
 def to_index(a, device: torch.device) -> torch.Tensor:
-    """Host indices -> an int64 tensor on ``device``."""
-    return torch.as_tensor(np.asarray(a, dtype=np.int64)).to(device)
+    """Host indices -> an int64 tensor on ``device``.  On CUDA the copy
+    goes through pinned memory without blocking the host (a pageable
+    upload waits for the stream)."""
+    return to_device(np.asarray(a, dtype=np.int64), device)
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array -> a tensor on ``device``; on CUDA through pinned
+    memory, without a host sync (the caching host allocator keeps the
+    pinned buffer until the copy has run)."""
+    t = torch.as_tensor(a)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def to_host(tensors):
@@ -287,22 +362,32 @@ def materialize_rows(store: torch.Tensor, pt: torch.Tensor, ref: np.ndarray,
     return launches
 
 
-def recompute_rows(store: torch.Tensor, items: np.ndarray, iss: np.ndarray,
-                   valid: np.ndarray, slots: List[int], n_seq: int,
-                   n_words: int) -> None:
-    """Rebuild bitmaps by folding the joins along K steps (``[K, M]``
-    arrays, one column per node) from the item rows, and write them to
-    ``slots``; bit-exact with the bitmaps the mine built."""
+def fold_rows(store: torch.Tensor, items: np.ndarray, iss: np.ndarray,
+              valid: np.ndarray, n_seq: int, n_words: int) -> torch.Tensor:
+    """Fold the joins along K steps (``[K, M]`` arrays, one column per
+    node; a column's invalid steps leave its carry as it is) from the item
+    rows: the ``[M, n_seq, n_words]`` bitmaps, bit-exact with the ones a
+    mine builds step by step."""
     dev = store.device
     it = to_index(items, dev)
-    ss = torch.as_tensor(iss).to(dev)
-    vv = torch.as_tensor(valid).to(dev)
+    ss = to_device(np.asarray(iss, bool), dev)
+    vv = to_device(np.asarray(valid, bool), dev)
     bmp = store.index_select(0, it[0]).view(-1, n_seq, n_words)
     for k in range(1, it.shape[0]):
         nb = B.join(bmp, store.index_select(0, it[k]).view(-1, n_seq, n_words),
                     ss[k])
         bmp = torch.where(vv[k][:, None, None], nb, bmp)
-    store.index_copy_(0, to_index(slots, dev), bmp.reshape(len(slots), -1))
+    return bmp
+
+
+def recompute_rows(store: torch.Tensor, items: np.ndarray, iss: np.ndarray,
+                   valid: np.ndarray, slots: List[int], n_seq: int,
+                   n_words: int) -> None:
+    """Rebuild bitmaps with :func:`fold_rows` and write them to
+    ``slots``."""
+    bmp = fold_rows(store, items, iss, valid, n_seq, n_words)
+    store.index_copy_(0, to_index(slots, store.device),
+                      bmp.reshape(len(slots), -1))
 
 
 def ensure_slots(store: torch.Tensor, pool: "SlotPool", batch, stack, *,

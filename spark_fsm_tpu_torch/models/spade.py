@@ -26,8 +26,12 @@ or this classic engine as the reference does).
   is rebuilt by folding the joins from the item id-lists — bit-exact.
 
 Enumeration is identical to the CPU oracle, so the output pattern set is
-byte-identical by construction.  Not ported: meshes, partitioned mining,
-shape buckets and shape-key registration (ROADMAP Queue A).
+byte-identical by construction.  ``shape_buckets`` rounds the sequence
+axis and the store's rows to powers of two as the reference does (its
+streaming windows set it); the port launches at live sizes either way, so
+the buckets only keep the geometry, the routes and the counters equal to
+the reference's.  Not ported: meshes, partitioned mining and shape-key
+registration (ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -43,7 +47,8 @@ from spark_fsm_tpu_torch.data.spmf import SequenceDB
 from spark_fsm_tpu_torch.data.vertical import VerticalDB, build_vertical
 from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
 from spark_fsm_tpu_torch.models._common import (
-    FrontierNode, SlotPool, auto_pool_bytes, decode_frontier, device_axes,
+    FrontierNode, SlotPool, auto_pool_bytes, bucket_store_rows,
+    decode_frontier, device_axes,
     encode_frontier, ensure_slots, frontier_fingerprint, launch_width_cap,
     load_checkpoint, materialize_rows, prep_rows, scatter_build_store,
     to_host, to_index)
@@ -63,7 +68,8 @@ def classic_geometry(n_sequences: int, n_items: int, n_words: int, *,
                      device: Optional[torch.device] = None,
                      chunk: int = 2048, node_batch: int = 1024,
                      pipeline_depth: int = 4, recompute_chunk: int = 256,
-                     pool_bytes: Optional[int] = None) -> dict:
+                     pool_bytes: Optional[int] = None,
+                     shape_buckets: bool = False) -> dict:
     """Derived device geometry of a :class:`SpadeTorch`; pure host
     arithmetic.  ``device`` sizes the default pool budget and may be None
     only when ``pool_bytes`` is given.
@@ -72,8 +78,14 @@ def classic_geometry(n_sequences: int, n_items: int, n_words: int, *,
     node_batch is bounded so pipeline_depth in-flight batches can never
     starve a recompute: slots held in flight <= depth*nb, so
     free+stack-reclaimable >= pool - (depth+1)*nb >= nb holds whenever
-    nb <= pool // (depth+2)."""
-    n_seq = device_axes(n_sequences)
+    nb <= pool // (depth+2).
+
+    ``shape_buckets`` buckets the sequence axis (``_common.bucket_seq``)
+    and rounds the store's rows (items, pool and the reference's scratch
+    row, which stays unused here) to a power of two as the reference
+    does without its Pallas kernel (``_common.bucket_store_rows``), so
+    ``node_batch`` and ``pool_slots`` equal its."""
+    n_seq = device_axes(n_sequences, shape_buckets)
     if pool_bytes is None:
         pool_bytes = auto_pool_bytes(device)
     slot_bytes = n_seq * n_words * 4
@@ -87,10 +99,14 @@ def classic_geometry(n_sequences: int, n_items: int, n_words: int, *,
     d = pipeline_depth
     nb = max(1, min(int(node_batch), budget_slots // (3 * (d + 2))))
     pool_slots = max(8, budget_slots - 2 * d * nb)
+    total = n_items + pool_slots
+    if shape_buckets:
+        total, pool_slots, nb = bucket_store_rows(
+            total + 1, n_items, budget_slots, nb, d)
     return {
         "n_seq": n_seq, "chunk": chunk, "recompute_chunk": recompute_chunk,
         "pipeline_depth": pipeline_depth, "node_batch": nb,
-        "pool_slots": pool_slots, "total_rows": n_items + pool_slots,
+        "pool_slots": pool_slots, "total_rows": total,
     }
 
 
@@ -107,6 +123,7 @@ class SpadeTorch:
       recompute_chunk: nodes rebuilt per recompute launch.
       pool_bytes: device memory budget for the pattern-bitmap pool.
       max_pattern_itemsets: optional cap on pattern length in itemsets.
+      shape_buckets: bucketed geometry (:func:`classic_geometry`).
     """
 
     def __init__(
@@ -121,6 +138,7 @@ class SpadeTorch:
         recompute_chunk: int = 256,
         pool_bytes: Optional[int] = None,
         max_pattern_itemsets: Optional[int] = None,
+        shape_buckets: bool = False,
     ):
         self.device = resolve_device(device)
         self.vdb = vdb
@@ -130,7 +148,8 @@ class SpadeTorch:
         g = classic_geometry(
             vdb.n_sequences, n_items, n_words, device=self.device,
             chunk=chunk, node_batch=node_batch, pipeline_depth=pipeline_depth,
-            recompute_chunk=recompute_chunk, pool_bytes=pool_bytes)
+            recompute_chunk=recompute_chunk, pool_bytes=pool_bytes,
+            shape_buckets=shape_buckets)
         self.n_items, self.n_seq, self.n_words = n_items, g["n_seq"], n_words
         self.chunk = g["chunk"]
         self.recompute_chunk = g["recompute_chunk"]
@@ -372,9 +391,10 @@ def mine_spade_torch(
     checkpointed mine runs the queue engine (in segments) or the classic
     one, never the dense engine.  ``stats_out`` gets the engine's stats
     and the routing keys (``fused``, ``fused_overflow``, ``fused_waves``,
-    ``fused_levels``, ``fused_skipped``).  A ``mesh``,
-    ``partition_parts > 1`` and ``shape_buckets`` are not ported yet and
-    raise ``NotImplementedError``.  ``kwargs`` go to :class:`SpadeTorch`.
+    ``fused_levels``, ``fused_skipped``).  ``shape_buckets`` reaches
+    every engine and the routing tests, as in the reference.  A ``mesh``
+    and ``partition_parts > 1`` are not ported yet and raise
+    ``NotImplementedError``.  ``kwargs`` go to :class:`SpadeTorch`.
     """
     dev = resolve_device(device)
     if fused not in _FUSED:
@@ -387,17 +407,13 @@ def mine_spade_torch(
         raise NotImplementedError(
             "partition_parts > 1: class-partitioned mining is not ported "
             "yet (ROADMAP Queue A item 11)")
-    if shape_buckets:
-        raise NotImplementedError(
-            "shape_buckets: bucketed streaming geometry is not ported yet "
-            "(ROADMAP Queue A item 9)")
     vdb = build_vertical(db, min_item_support=minsup_abs)
     if vdb.n_items == 0:
         return []
     return _route_spade(vdb, minsup_abs, device=dev,
                         max_pattern_itemsets=max_pattern_itemsets,
                         stats_out=stats_out, checkpoint=checkpoint,
-                        fused=fused, **kwargs)
+                        fused=fused, shape_buckets=shape_buckets, **kwargs)
 
 
 def _route_spade(
@@ -409,13 +425,17 @@ def _route_spade(
     stats_out: Optional[dict] = None,
     checkpoint=None,
     fused: str = "auto",
+    shape_buckets: bool = False,
     **kwargs,
 ) -> List[PatternResult]:
     """The reference's engine ladder (``spade_tpu._route_spade``): queue,
-    then dense, then classic."""
-    ekw = dict(device=device, max_pattern_itemsets=max_pattern_itemsets)
+    then dense, then classic, each engine and routing test judging the
+    bucketed sequence axis when ``shape_buckets``."""
+    ekw = dict(device=device, max_pattern_itemsets=max_pattern_itemsets,
+               shape_buckets=shape_buckets)
     if fused in ("auto", "always", "queue"):
-        if fused in ("always", "queue") or queue_eligible(vdb, device):
+        if fused in ("always", "queue") or queue_eligible(
+                vdb, device, shape_buckets=shape_buckets):
             qeng = QueueSpadeTorch(vdb, minsup_abs, **ekw)
             q_resume, q_save, q_every = load_checkpoint(
                 checkpoint, qeng.frontier_fingerprint())
@@ -436,10 +456,12 @@ def _route_spade(
         # the dense engine has no resumable frontier: a checkpointed mine
         # that would have used it runs the classic engine, flagged
         if stats_out is not None and (
-                fused in ("always", "dense") or fused_eligible(vdb, device)):
+                fused in ("always", "dense") or fused_eligible(
+                    vdb, device, shape_buckets=shape_buckets)):
             stats_out["fused_skipped"] = "checkpoint"
     if checkpoint is None and fused in ("always", "dense", "auto"):
-        if fused in ("always", "dense") or fused_eligible(vdb, device):
+        if fused in ("always", "dense") or fused_eligible(
+                vdb, device, shape_buckets=shape_buckets):
             feng = FusedSpadeTorch(vdb, minsup_abs, **ekw)
             res = feng.mine()
             if res is not None:

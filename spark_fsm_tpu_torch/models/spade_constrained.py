@@ -28,8 +28,10 @@ pinned geometry the stats equal the reference's.  The slot reclaim works
 on max-start states, not on bitmap joins, so the engine keeps its own
 ``_ensure_slots`` over ``_common.SlotPool``.
 
-Not ported, each raising ``NotImplementedError``: meshes (ROADMAP Queue A
-item 6), class-partitioned mining (item 11) and shape buckets (item 9).
+``shape_buckets`` buckets the sequence axis and the item rows as the
+reference does (:func:`cspade_geometry`).  Not ported, each raising
+``NotImplementedError``: meshes (ROADMAP Queue A item 6) and
+class-partitioned mining (item 11).
 """
 
 from __future__ import annotations
@@ -45,8 +47,10 @@ from spark_fsm_tpu_torch.data.spmf import SequenceDB
 from spark_fsm_tpu_torch.data.vertical import VerticalDB, build_vertical
 from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
 from spark_fsm_tpu_torch.models._common import (
-    FrontierNode, SlotPool, auto_pool_bytes, decode_frontier, encode_frontier,
-    launch_width_cap, load_checkpoint, scatter_build_store, to_host, to_index)
+    FrontierNode, SlotPool, auto_pool_bytes, bucket_seq, decode_frontier,
+    encode_frontier, launch_width_cap, load_checkpoint, scatter_build_store,
+    to_host, to_index)
+from spark_fsm_tpu_torch.ops.ragged_batch import next_pow2
 from spark_fsm_tpu_torch.ops import maxstart_torch as MS
 from spark_fsm_tpu_torch.utils.canonical import (
     Pattern, PatternResult, sort_patterns)
@@ -56,7 +60,7 @@ from spark_fsm_tpu_torch.utils.canonical import (
 _Node = FrontierNode
 
 
-def _refuse(mesh, partition, shape_buckets) -> None:
+def _refuse(mesh, partition) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "mesh: multi-GPU sequence sharding is not ported yet "
@@ -65,24 +69,27 @@ def _refuse(mesh, partition, shape_buckets) -> None:
         raise NotImplementedError(
             "partition: class-partitioned cSPADE is not ported yet "
             "(ROADMAP Queue A item 11)")
-    if shape_buckets:
-        raise NotImplementedError(
-            "shape_buckets: bucketed streaming geometry is not ported yet "
-            "(ROADMAP Queue A item 9)")
 
 
 def cspade_geometry(n_sequences: int, n_items: int, n_words: int, *,
                     device: DeviceLike = None, chunk: int = 256,
                     node_batch: int = 32, pipeline_depth: int = 4,
                     recompute_chunk: int = 32,
-                    pool_bytes: Optional[int] = None) -> dict:
+                    pool_bytes: Optional[int] = None,
+                    shape_buckets: bool = False) -> dict:
     """Derived device geometry of a :class:`ConstrainedSpadeTorch`; pure
     host arithmetic, the reference's formulas.  The pool shares the
     budget with ``pipeline_depth`` in-flight (m, pm) preps, and
     ``node_batch`` is bounded so in-flight batches can never starve a
     recompute.  ``device`` sizes the default pool budget and may be None
-    only when ``pool_bytes`` is given."""
+    only when ``pool_bytes`` is given.  ``shape_buckets`` buckets the
+    sequence axis (``_common.bucket_seq``) and rounds the item rows up to
+    a power of two of at least 16; the extra rows stay all-zero."""
     n_seq = int(n_sequences)
+    item_rows = n_items
+    if shape_buckets:
+        n_seq = bucket_seq(n_seq)
+        item_rows = max(16, next_pow2(n_items))
     n_pos = n_words * 32
     dtype = MS.state_dtype(n_pos)
     state_bits = 8 if dtype == torch.int8 else 16
@@ -100,7 +107,7 @@ def cspade_geometry(n_sequences: int, n_items: int, n_words: int, *,
     nb = max(1, min(int(node_batch), budget_slots // (3 * (d + 2))))
     pool_slots = max(8, budget_slots - 2 * d * nb)
     return {
-        "n_seq": n_seq, "item_rows": n_items, "n_pos": n_pos,
+        "n_seq": n_seq, "item_rows": item_rows, "n_pos": n_pos,
         "dtype": dtype, "state_bits": state_bits, "chunk": chunk,
         "recompute_chunk": recompute_chunk,
         "pipeline_depth": pipeline_depth, "node_batch": nb,
@@ -117,8 +124,8 @@ class ConstrainedSpadeTorch:
         support).
       maxgap / maxwindow: the cSPADE constraints (None = unbounded).
       device: ``None`` (= CUDA, raising without it) or ``"cpu"``.
-      chunk, node_batch, pipeline_depth, recompute_chunk, pool_bytes:
-        the geometry (:func:`cspade_geometry`).
+      chunk, node_batch, pipeline_depth, recompute_chunk, pool_bytes,
+        shape_buckets: the geometry (:func:`cspade_geometry`).
       max_pattern_itemsets: optional cap on pattern length in itemsets.
     """
 
@@ -140,7 +147,7 @@ class ConstrainedSpadeTorch:
         shape_buckets: bool = False,
         partition=None,
     ):
-        _refuse(mesh, partition, shape_buckets)
+        _refuse(mesh, partition)
         self.device = resolve_device(device)
         self.vdb = vdb
         self.minsup = int(minsup_abs)
@@ -152,8 +159,9 @@ class ConstrainedSpadeTorch:
             vdb.n_sequences, n_items, n_words, device=self.device,
             chunk=chunk, node_batch=node_batch,
             pipeline_depth=pipeline_depth, recompute_chunk=recompute_chunk,
-            pool_bytes=pool_bytes)
+            pool_bytes=pool_bytes, shape_buckets=shape_buckets)
         self.n_items, self.n_seq, self.n_words = n_items, g["n_seq"], n_words
+        self.item_rows = g["item_rows"]
         self.n_pos = g["n_pos"]
         self.dtype = g["dtype"]
         self.chunk = g["chunk"]
@@ -161,11 +169,12 @@ class ConstrainedSpadeTorch:
         self.pipeline_depth = g["pipeline_depth"]
         self.node_batch = g["node_batch"]
         self.pool_slots = g["pool_slots"]
-        # the item bitmaps scatter-built on the device, viewed as words,
-        # and the state pool
+        # the item bitmaps scatter-built on the device, viewed as words
+        # (rows past n_items, under shape_buckets, stay all-zero and are
+        # never indexed), and the state pool
         self._words = scatter_build_store(
-            vdb, n_items, self.n_seq, n_words, self.device).view(
-                n_items, self.n_seq, n_words)
+            vdb, self.item_rows, self.n_seq, n_words, self.device).view(
+                self.item_rows, self.n_seq, n_words)
         self.pool = torch.zeros((self.pool_slots, self.n_seq, self.n_pos),
                                 dtype=self.dtype, device=self.device)
         self._pool_alloc = SlotPool(range(self.pool_slots))
@@ -458,9 +467,8 @@ def mine_cspade_torch(
     """DB -> vertical build -> constrained mine, on ``device`` (default
     CUDA; raises without it).  ``checkpoint`` follows ``mine_spade_torch``'s
     load/save/every_s contract (a stale snapshot is ignored and the mine
-    restarts fresh).  A ``mesh``, ``partition_parts > 1`` and
-    ``shape_buckets`` are not ported yet and raise
-    ``NotImplementedError``.  ``kwargs`` go to
+    restarts fresh).  A ``mesh`` and ``partition_parts > 1`` are not
+    ported yet and raise ``NotImplementedError``.  ``kwargs`` go to
     :class:`ConstrainedSpadeTorch`.  ``stats_out`` gets the engine's stats
     and, under ``geometry``, the dtype, chunk, node batch, pool slots,
     recompute chunk and pipeline depth the mine ran with."""
@@ -469,7 +477,7 @@ def mine_cspade_torch(
         raise NotImplementedError(
             "partition_parts > 1: class-partitioned cSPADE is not ported "
             "yet (ROADMAP Queue A item 11)")
-    _refuse(mesh, None, kwargs.get("shape_buckets"))
+    _refuse(mesh, None)
     vdb = build_vertical(db, min_item_support=minsup_abs)
     if vdb.n_items == 0:
         return []

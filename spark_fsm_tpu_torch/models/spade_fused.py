@@ -43,7 +43,7 @@ import torch
 from spark_fsm_tpu_torch.data.vertical import VerticalDB
 from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
 from spark_fsm_tpu_torch.models._common import (
-    I_TILE, P_TILE, CounterReader, copy_rows_drop, device_axes,
+    I_TILE, P_TILE, CounterReader, bucket_seq, copy_rows_drop, device_axes,
     device_hbm_budget, nonzero_static, pad_to_multiple, prep_rows,
     scatter_build_store)
 from spark_fsm_tpu_torch.ops import pair_support as PS
@@ -51,15 +51,18 @@ from spark_fsm_tpu_torch.utils.canonical import PatternResult, sort_patterns
 
 
 def fused_geometry(n_sequences: int, n_items: int, n_words: int, *,
+                   shape_buckets: bool = False,
                    caps: Optional["FusedCaps"] = None) -> dict:
-    """Derived device geometry of a :class:`FusedSpadeTorch`."""
-    return {"n_seq": device_axes(n_sequences),
+    """Derived device geometry of a :class:`FusedSpadeTorch`;
+    ``shape_buckets`` buckets the sequence axis (``_common.bucket_seq``)."""
+    return {"n_seq": device_axes(n_sequences, shape_buckets),
             "ni_pad": pad_to_multiple(max(n_items, 1), I_TILE),
             "caps": caps or FusedCaps.for_mesh()}
 
 
 def fused_eligible(vdb: VerticalDB, device: DeviceLike = None,
-                   caps: Optional["FusedCaps"] = None) -> bool:
+                   caps: Optional["FusedCaps"] = None,
+                   shape_buckets: bool = False) -> bool:
     """The reference's size heuristic for ``fused="auto"``, two ceilings:
 
     - traffic: each level computes the dense ``[2*f_cap, ni_pad]`` pair
@@ -67,12 +70,16 @@ def fused_eligible(vdb: VerticalDB, device: DeviceLike = None,
       ni_pad * (1/I_TILE + 1/P_TILE)`` bytes; above 24 GiB the classic
       engine's exact candidate lists win;
     - allocation: the store plus four ``[2*f_cap]``-row prep stacks must
-      fit 45 % of the device budget."""
+      fit 45 % of the device budget.
+
+    Under ``shape_buckets`` both judge the bucketed sequence axis."""
     caps = caps or FusedCaps.for_mesh()
     ni_pad = pad_to_multiple(max(vdb.n_items, 1), I_TILE)
     if ni_pad > 1024:
         return False
-    row_bytes = vdb.n_sequences * vdb.n_words * 4
+    n_seq = (bucket_seq(vdb.n_sequences) if shape_buckets
+             else vdb.n_sequences)
+    row_bytes = n_seq * vdb.n_words * 4
     est = (row_bytes * 2 * caps.f_cap * ni_pad
            * (1 / I_TILE + 1 / P_TILE))
     if est > 24 << 30:
@@ -216,13 +223,14 @@ class FusedSpadeTorch:
     def __init__(self, vdb: VerticalDB, minsup_abs: int, *,
                  device: DeviceLike = None,
                  max_pattern_itemsets: Optional[int] = None,
-                 caps: Optional[FusedCaps] = None):
+                 caps: Optional[FusedCaps] = None,
+                 shape_buckets: bool = False):
         self.device = resolve_device(device)
         self.vdb = vdb
         self.minsup = int(minsup_abs)
         self.max_its = max_pattern_itemsets
         g = fused_geometry(vdb.n_sequences, vdb.n_items, vdb.n_words,
-                           caps=caps)
+                           shape_buckets=shape_buckets, caps=caps)
         self.caps = g["caps"]
         self.n_seq, self.n_words = g["n_seq"], vdb.n_words
         self.ni_pad = g["ni_pad"]

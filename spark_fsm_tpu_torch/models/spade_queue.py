@@ -51,7 +51,7 @@ import torch
 from spark_fsm_tpu_torch.data.vertical import VerticalDB
 from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
 from spark_fsm_tpu_torch.models._common import (
-    I_TILE, P_TILE, CounterReader, FrontierNode, copy_rows_drop,
+    I_TILE, P_TILE, CounterReader, FrontierNode, bucket_seq, copy_rows_drop,
     decode_frontier, device_axes, device_hbm_budget, encode_frontier,
     frontier_fingerprint, nonzero_static, pad_to_multiple, prep_rows,
     recompute_rows, scatter_build_store)
@@ -66,11 +66,13 @@ _REFILL_GROUP = 256
 
 
 def queue_geometry(n_sequences: int, n_items: int, n_words: int, *,
-                   device: DeviceLike = None,
+                   device: DeviceLike = None, shape_buckets: bool = False,
                    caps: Optional["QueueCaps"] = None) -> dict:
     """Derived device geometry of a :class:`QueueSpadeTorch`; pure host
-    arithmetic (the budget probe reads device metadata only)."""
-    n_seq = device_axes(n_sequences)
+    arithmetic (the budget probe reads device metadata only).
+    ``shape_buckets`` buckets the sequence axis (``_common.bucket_seq``),
+    which the caps are sized on."""
+    n_seq = device_axes(n_sequences, shape_buckets)
     ni_pad = pad_to_multiple(max(n_items, 1), I_TILE)
     if caps is None:
         caps = QueueCaps.for_budget(
@@ -136,16 +138,19 @@ def working_set_bytes(caps: QueueCaps, per_dev_row: int,
 
 
 def queue_eligible(vdb: VerticalDB, device: DeviceLike = None,
-                   caps: Optional[QueueCaps] = None) -> bool:
+                   caps: Optional[QueueCaps] = None,
+                   shape_buckets: bool = False) -> bool:
     """The reference's routing test for ``fused="auto"``: the padded
     alphabet is at most 1024 items (the pair matrix spans every item
     row), the ring holds the whole root level, and the working set fits
-    45 % of the device budget.  It judges the unpadded sequence count,
-    as the reference does."""
+    45 % of the device budget.  It judges the unpadded sequence count, or
+    its bucket under ``shape_buckets``, as the reference does."""
     ni_pad = pad_to_multiple(max(vdb.n_items, 1), I_TILE)
     if ni_pad > 1024:
         return False
-    row_bytes = vdb.n_sequences * vdb.n_words * 4
+    n_seq = (bucket_seq(vdb.n_sequences) if shape_buckets
+             else vdb.n_sequences)
+    row_bytes = n_seq * vdb.n_words * 4
     budget = 0.45 * device_hbm_budget(resolve_device(device))
     if caps is None:
         caps = QueueCaps.for_budget(row_bytes, ni_pad, int(budget))
@@ -181,13 +186,15 @@ class QueueSpadeTorch:
     def __init__(self, vdb: VerticalDB, minsup_abs: int, *,
                  device: DeviceLike = None,
                  max_pattern_itemsets: Optional[int] = None,
-                 caps: Optional[QueueCaps] = None):
+                 caps: Optional[QueueCaps] = None,
+                 shape_buckets: bool = False):
         self.device = resolve_device(device)
         self.vdb = vdb
         self.minsup = int(minsup_abs)
         self.max_its = max_pattern_itemsets
         g = queue_geometry(vdb.n_sequences, vdb.n_items, vdb.n_words,
-                           device=self.device, caps=caps)
+                           device=self.device, shape_buckets=shape_buckets,
+                           caps=caps)
         self.n_seq, self.n_words = g["n_seq"], vdb.n_words
         self.ni_pad = g["ni_pad"]
         self.n_items = vdb.n_items

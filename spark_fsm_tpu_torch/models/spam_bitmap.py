@@ -24,8 +24,10 @@ exact identity).
 - ``pipeline_depth`` waves are in flight; each wave's outputs go to pinned
   host tensors with non-blocking copies behind one recorded CUDA event.
 
-Not ported: meshes (ROADMAP Queue A item 6), shape buckets (item 9),
-class-partitioned mining (item 11), and the service planes the
+``shape_buckets`` buckets the sequence axis and the store's rows as the
+reference does (:func:`spam_geometry`).  Not ported: meshes (ROADMAP
+Queue A item 6), class-partitioned mining (item 11), and the service
+planes the
 reference's dispatch calls (fusion, usage, cost-model observation, job
 control, shape records: item 13).
 """
@@ -44,8 +46,8 @@ from spark_fsm_tpu_torch.data.vertical import (
     VerticalDB, build_vertical, idlist_join_support)
 from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
 from spark_fsm_tpu_torch.models._common import (
-    FrontierNode, SlotPool, auto_pool_bytes, decode_frontier, device_axes,
-    encode_frontier, ensure_slots, frontier_fingerprint, load_checkpoint,
+    FrontierNode, SlotPool, auto_pool_bytes, bucket_store_rows,
+    decode_frontier, device_axes, encode_frontier, ensure_slots, frontier_fingerprint, load_checkpoint,
     materialize_rows, prep_rows, scatter_build_store, to_host, to_index)
 from spark_fsm_tpu_torch.ops import bitops_np as BN
 from spark_fsm_tpu_torch.ops import spam_bitops as SB
@@ -60,15 +62,19 @@ _Node = FrontierNode
 def spam_geometry(n_sequences: int, n_items: int, n_words: int, *,
                   device: Optional[torch.device] = None, node_batch: int = 64,
                   pipeline_depth: int = 2,
-                  pool_bytes: Optional[int] = None) -> dict:
+                  pool_bytes: Optional[int] = None,
+                  shape_buckets: bool = False) -> dict:
     """Derived device geometry of a :class:`SpamBitmapTorch`; pure host
     arithmetic, the reference's formula.  ``device`` sizes the default
     pool budget and may be None only when ``pool_bytes`` is given.
 
     Beyond the classic engine's slot arithmetic, the node batch is bounded
     so that the in-flight waves' ``[2*nb, ITEM_TILE, S, W]`` temporaries
-    (the plain spelling's) fit a quarter of the pool budget."""
-    n_seq = device_axes(n_sequences)
+    (the plain spelling's) fit a quarter of the pool budget.
+    ``shape_buckets`` buckets the sequence axis and rounds the store's
+    rows (padded items, pool and the reference's unused scratch row) to a
+    power of two (``_common.bucket_store_rows``)."""
+    n_seq = device_axes(n_sequences, shape_buckets)
     if pool_bytes is None:
         pool_bytes = auto_pool_bytes(device)
     ni_pad = SB.pad_items(n_items)
@@ -79,10 +85,14 @@ def spam_geometry(n_sequences: int, n_items: int, n_words: int, *,
                   // max(1, 2 * SB.ITEM_TILE * slot_bytes * d))
     nb = max(1, min(int(node_batch), nb_wave, budget_slots // (3 * (d + 2))))
     pool_slots = max(8, budget_slots - 2 * d * nb)
+    total = ni_pad + pool_slots
+    if shape_buckets:
+        total, pool_slots, nb = bucket_store_rows(
+            total + 1, ni_pad, budget_slots, nb, d)
     return {
         "n_seq": n_seq, "ni_pad": ni_pad, "node_batch": nb,
         "pipeline_depth": d, "pool_slots": pool_slots,
-        "total_rows": ni_pad + pool_slots,
+        "total_rows": total,
         # sparse-candidate pair-launch width (hybrid store)
         "chunk": min(2048, max(64, next_pow2(2 * nb))),
     }
@@ -103,6 +113,7 @@ class SpamBitmapTorch:
         ``"idlist"``; None takes the planner's default.
       density_crossover, diffset_depth: the planner's knobs; None takes
         its defaults (0 disables the diffset spelling).
+      shape_buckets: bucketed geometry (:func:`spam_geometry`).
     """
 
     def __init__(
@@ -118,6 +129,7 @@ class SpamBitmapTorch:
         representation: Optional[str] = None,
         density_crossover: Optional[float] = None,
         diffset_depth: Optional[int] = None,
+        shape_buckets: bool = False,
     ):
         self.device = resolve_device(device)
         self.vdb = vdb
@@ -133,7 +145,7 @@ class SpamBitmapTorch:
         g = spam_geometry(
             vdb.n_sequences, n_items, n_words, device=self.device,
             node_batch=node_batch, pipeline_depth=pipeline_depth,
-            pool_bytes=pool_bytes)
+            pool_bytes=pool_bytes, shape_buckets=shape_buckets)
         self.n_items, self.n_seq, self.n_words = n_items, g["n_seq"], n_words
         self.ni_pad = g["ni_pad"]
         self.node_batch = g["node_batch"]
@@ -542,9 +554,8 @@ def mine_spam_torch(
     ``checkpoint`` (optional): an object with ``load() -> Optional[dict]``,
     ``save(state)`` and ``every_s``; a saved frontier (from either package,
     SPAM or SPADE) is resumed when its fingerprint still matches.  A
-    ``mesh``, ``partition_parts > 1`` and ``shape_buckets=True`` are not
-    ported yet and raise ``NotImplementedError``.  ``kwargs`` go to
-    :class:`SpamBitmapTorch`."""
+    ``mesh`` and ``partition_parts > 1`` are not ported yet and raise
+    ``NotImplementedError``.  ``kwargs`` go to :class:`SpamBitmapTorch`."""
     dev = resolve_device(device)
     if mesh is not None:
         raise NotImplementedError(
@@ -554,15 +565,12 @@ def mine_spam_torch(
         raise NotImplementedError(
             "partition_parts > 1: class-partitioned mining is not ported "
             "yet (ROADMAP Queue A item 11)")
-    if shape_buckets:
-        raise NotImplementedError(
-            "shape_buckets: shape-key buckets are not ported yet "
-            "(ROADMAP Queue A item 9)")
     vdb = build_vertical(db, min_item_support=minsup_abs)
     if vdb.n_items == 0:
         return []
     eng = SpamBitmapTorch(vdb, minsup_abs, device=dev,
-                          max_pattern_itemsets=max_pattern_itemsets, **kwargs)
+                          max_pattern_itemsets=max_pattern_itemsets,
+                          shape_buckets=shape_buckets, **kwargs)
     resume, save_cb, every_s = load_checkpoint(
         checkpoint, eng.frontier_fingerprint())
     results = eng.mine(resume=resume, checkpoint_cb=save_cb,

@@ -29,8 +29,10 @@ route, where the frontier and the top-k threshold stay on the device and
 the host runs waves of ``nb`` popped entries (B2 evaluates each wave); a
 capacity overflow spills the intact frontier back to the host loop.
 
-Not ported, each raising ``NotImplementedError``: meshes, class-partitioned
-mining and shape buckets.  A launch that fails raises: the reference's
+``shape_buckets`` buckets the sequence axis (:func:`tsr_geometry`) and
+pads each round's token slice to a power of two, as the reference does.
+Not ported, each raising ``NotImplementedError``: meshes and
+class-partitioned mining.  A launch that fails raises: the reference's
 kernel-to-jnp downgrades and its resident-round fallback
 (``_resident_abandon``) have no counterpart.
 """
@@ -52,8 +54,8 @@ from spark_fsm_tpu_torch.data.spmf import SequenceDB
 from spark_fsm_tpu_torch.data.vertical import VerticalDB, build_vertical
 from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
 from spark_fsm_tpu_torch.models._common import (
-    CounterReader, device_hbm_budget, load_checkpoint, scatter_tokens,
-    to_host)
+    CounterReader, bucket_seq, device_hbm_budget, load_checkpoint,
+    pad_tokens_pow2, scatter_tokens, to_host)
 from spark_fsm_tpu_torch.ops import bitops_np as Bnp
 from spark_fsm_tpu_torch.ops import bitops_torch as B
 from spark_fsm_tpu_torch.ops import ragged_batch as RB
@@ -84,6 +86,19 @@ def resident_counters(stats: dict) -> dict:
     if not stats.get("resident"):
         return {}
     return {k: stats.get(k, 0) for k in RESIDENT_EXPORT_KEYS}
+
+
+def tsr_geometry(n_sequences: int, *, shape_buckets: bool = False) -> dict:
+    """Static device geometry of a :class:`TsrTorch`: the sequence axis,
+    bucketed by ``_common.bucket_seq`` under ``shape_buckets``; padded
+    sequences hold all-zero item bitmaps and support nothing.  The
+    reference's Pallas sequence block (``sb``, and ``_bucket_seq_block``,
+    which halves it per km so the rows fit TPU VMEM) has no counterpart:
+    B2 takes any sequence count."""
+    n_seq = int(n_sequences)
+    if shape_buckets:
+        n_seq = bucket_seq(n_seq)
+    return {"n_seq": n_seq}
 
 
 def conf_ok(sup: int, supx: int, minconf: float) -> bool:
@@ -199,10 +214,6 @@ class TsrTorch:
             raise NotImplementedError(
                 "partition: class-partitioned TSR is not ported yet "
                 "(ROADMAP Queue A item 11)")
-        if shape_buckets:
-            raise NotImplementedError(
-                "shape_buckets: sequence-axis bucketing is not ported yet "
-                "(ROADMAP Queue A item 9)")
         if isinstance(resident, bool):
             resident = "always" if resident else "never"
         if resident not in ("auto", "always", "never"):
@@ -238,7 +249,9 @@ class TsrTorch:
         # the dense store of all items is never built: each deepening
         # round builds only the top-m item rows from the token table
         self.n_words = vdb.n_words
-        self.n_seq = int(vdb.n_sequences)
+        self._shape_buckets = bool(shape_buckets)
+        self.n_seq = tsr_geometry(vdb.n_sequences,
+                                  shape_buckets=self._shape_buckets)["n_seq"]
         # chunk <= 0 = adaptive sizing, like None
         self._chunk_user = None if not chunk or chunk <= 0 else int(chunk)
         # the plain evaluator's device memory budget, read at first use
@@ -270,12 +283,18 @@ class TsrTorch:
         ti = np.repeat(np.arange(len(sel), dtype=np.int32), lens)
         return ti, vdb.tok_seq[idx], vdb.tok_word[idx], vdb.tok_mask[idx]
 
+    def _round_tokens(self, m: int):
+        """The token slice of a round's top-m items, pow2-padded with
+        mask-0 tokens under ``shape_buckets`` as the reference pads it."""
+        toks = self._sel_tokens(self._order[:m])
+        return pad_tokens_pow2(*toks) if self._shape_buckets else toks
+
     def _prep(self, m: int):
         """Prefix/suffix-OR rows of the top-m items as flat ``[m+1, S*W]``
         int32 stores with the all-ones pad row last.  The ``[m, S, W]``
         rows are scatter-built on the device from the token slice; the
         dense rows never exist on the host."""
-        ti, ts, tw, tm = self._sel_tokens(self._order[:m])
+        ti, ts, tw, tm = self._round_tokens(m)
         b = scatter_tokens(ti, ts, tw, tm, m, self.n_seq, self.n_words,
                            self.device).view(m, self.n_seq, self.n_words)
         p1 = self._with_pad(B.prefix_or_incl(b))
@@ -953,7 +972,7 @@ class TsrCPU(TsrTorch):
         return self._chunk_user or 8192
 
     def _prep(self, m: int):
-        ti, ts, tw, tm = self._sel_tokens(self._order[:m])
+        ti, ts, tw, tm = self._round_tokens(m)
         bm = np.zeros((m, self.n_seq, self.n_words), np.uint32)
         np.add.at(bm, (ti, ts, tw), tm)  # distinct bits: add == OR
         return Bnp.prefix_or_incl(bm), Bnp.suffix_or_incl(bm)

@@ -1,9 +1,9 @@
 """Where the main paths' time goes, on one CUDA card.
 
     python3 -m spark_fsm_tpu_torch.profile_mine [spade] [tsr] [spam] \
-        [tsr-resident] [cspade]
+        [tsr-resident] [cspade] [stream]
 
-Prints one JSON line per path named (all five when none is):
+Prints one JSON line per path named (all six when none is):
 - SPADE: the BMS-WebView-2-shaped database (full size) at minsup 0.1 %
   through both of its routes, in turns: the queue engine (the ``auto``
   route's choice) and the classic engine (``fused="never"``).  For each,
@@ -32,7 +32,15 @@ Prints one JSON line per path named (all five when none is):
   resident waves at each width;
 - cSPADE: the Gazelle-shaped database (full size) with maxgap 2,
   maxwindow 5, minsup 0.5 %: the stage walls (vertical build, engine
-  set-up, the DFS; medians of three warm mines) and the geometry.
+  set-up, the DFS; medians of three warm mines) and the geometry;
+- streaming windows: the MSNBC-shaped database (full size) cut into ten
+  micro-batches of 99,000 sequences, a window of five, minsup 0.5 %,
+  pushed through the incremental miner and the re-mine miner in turns:
+  per push and route the wall, the incremental miner's ``phase_s`` and
+  counters, the re-mine's engine route; then the same stream again with
+  each push under ``torch.profiler``: per push and route the device's
+  busy time and idle share, and the pair-support kernel's device time
+  and launches.
 Each line also names the tokenizer that ran (``data/fasttok.backend()``),
 gives the host functions that take the vertical build's time (one more
 build under ``cProfile``: the ten largest by own time), and carries a
@@ -468,8 +476,102 @@ def cspade(dev, card: str) -> dict:
             "median_s": _median(runs), **prof}
 
 
+def _traced_call(fn):
+    """``fn()`` under ``torch.profiler``: its result, its wall, the
+    device's busy time and idle share over it, and the pair-support
+    kernel's device time and launch count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = b1_us = 0.0
+    b1_n = 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        busy_us += e.self_device_time_total
+        if "::pair_support_kernel<" in e.key:
+            b1_us += e.self_device_time_total
+            b1_n += e.count
+    return res, {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+                 "device_idle_share": 1 - busy_us / 1e6 / wall,
+                 "pair_support_ms": b1_us / 1e3,
+                 "pair_support_launches": b1_n}
+
+
+def stream(dev, card: str) -> dict:
+    import torch
+
+    from spark_fsm_tpu_torch.data.synth import msnbc_like
+    from spark_fsm_tpu_torch.models.spade import mine_spade_torch
+    from spark_fsm_tpu_torch.ops import pair_support as PS
+    from spark_fsm_tpu_torch.streaming import (
+        IncrementalWindowMiner, WindowMiner)
+    from spark_fsm_tpu_torch.utils.canonical import patterns_text
+
+    n_push, keep, rel = 10, 5, 0.005
+    db = msnbc_like(scale=1.0, fast=True)
+    per = len(db) // n_push
+    batches = [db[i * per:(i + 1) * per if i < n_push - 1 else len(db)]
+               for i in range(n_push)]
+    del db
+    PS._kernel()  # build outside the timed pushes
+
+    def miners(routes):
+        def remine(seqs, minsup):
+            st = {}
+            res = mine_spade_torch(seqs, minsup, shape_buckets=True,
+                                   device=dev, stats_out=st)
+            routes.append(st.get("fused"))
+            return res
+
+        return (IncrementalWindowMiner(rel, max_batches=keep, device=dev),
+                WindowMiner(rel, max_batches=keep, mine=remine, device=dev))
+
+    counters = ("repaired_nodes", "sweep_candidates", "kernel_launches",
+                "tracked_nodes", "patterns")
+    routes: list = []
+    inc, rem = miners(routes)
+    pushes = []
+    for batch in batches:  # the two routes in turns, unprofiled
+        before = {k: inc.stats[k] for k in counters}
+        t0 = time.perf_counter()
+        got = inc.push(batch)
+        torch.cuda.synchronize()
+        inc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = rem.push(batch)
+        torch.cuda.synchronize()
+        rem_s = time.perf_counter() - t0
+        if patterns_text(got) != patterns_text(want):
+            raise RuntimeError(f"push {len(pushes) + 1}: the routes differ")
+        pushes.append({
+            "incremental_s": inc_s, "remine_s": rem_s,
+            "phase_s": inc.stats["phase_s"],
+            "delta": {k: inc.stats[k] - before[k] for k in counters[:3]},
+            "tracked_nodes": inc.stats["tracked_nodes"],
+            "patterns": inc.stats["patterns"],
+            "store_cache_bytes": inc.stats["store_cache_bytes"],
+            "remine_route": routes[-1]})
+    traced_routes: list = []
+    inc, rem = miners(traced_routes)
+    for rec, batch in zip(pushes, batches):  # again, each push traced
+        _, rec["incremental_trace"] = _traced_call(lambda: inc.push(batch))
+        _, rec["remine_trace"] = _traced_call(lambda: rem.push(batch))
+    return {"path": "stream", "card": card,
+            "device": torch.cuda.get_device_name(dev),
+            "pushes": n_push, "keep": keep, "batch_sequences": per,
+            "min_support": rel, "push": pushes}
+
+
 PATHS = {"spade": spade, "tsr": tsr, "spam": spam,
-         "tsr-resident": tsr_resident, "cspade": cspade}
+         "tsr-resident": tsr_resident, "cspade": cspade, "stream": stream}
 
 
 def main(names=None) -> list:

@@ -13,6 +13,9 @@ dense level and TSR's resident waves (wide and narrow) run under
 ``torch.cuda.set_sync_debug_mode("error")``: their bodies never wait on the
 host.  TSR's resident-frontier route launches B2 once a wave and equals
 the CPU mine; the constrained SPADE engine on the card equals its CPU run.
+The incremental window miner launches B1 once a swept level and equals
+the same stream on the CPU, the oracle and the re-mine miner after every
+push; its sweep's dispatch runs under sync-debug "error" too.
 """
 
 import numpy as np
@@ -407,3 +410,94 @@ def test_extend_kernel_live_hint_equals_plain(card, P, n_live, S):
             torch.cuda.synchronize()
             assert EP.extend_count_prune.launches == before + 1
             assert torch.equal(sup, want[0]) and torch.equal(mask, want[1])
+
+
+# ------------------------------------------------------- streaming windows
+
+
+def _stream(seed, n_batches, per_batch, **kw):
+    rng = np.random.default_rng(seed)
+    return [synthetic_db(seed=int(rng.integers(1 << 30)),
+                         n_sequences=per_batch, **kw)
+            for _ in range(n_batches)]
+
+
+@pytest.mark.parametrize("min_support,kw", [
+    (0.2, dict(n_items=12, mean_itemsets=3.0)),
+    # > 32 itemsets a sequence: 2-word stores; patterns cross the border
+    (0.85, dict(n_items=6, mean_itemsets=40.0, mean_itemset_size=1.1)),
+])
+def test_incremental_miner_on_card_equals_cpu(card, min_support, kw):
+    """Every push on the card (B1 a level) equals the same stream on the
+    CPU (B1's plain version: the same stats), the oracle and the re-mine
+    miner on the card."""
+    from spark_fsm_tpu_torch.streaming import (
+        IncrementalWindowMiner, WindowMiner)
+
+    gpu = IncrementalWindowMiner(min_support, max_batches=2, device=card)
+    # the same branch on the CPU: B1's plain version
+    cpu = IncrementalWindowMiner(min_support, max_batches=2, device="cpu",
+                                 use_kernel=True)
+    rem = WindowMiner(min_support, max_batches=2, device=card)
+    assert gpu.use_kernel
+    swept = 0
+    for batch in _stream(8, 4, 40, **kw):
+        # the sweep walks a level (one B1 launch) per tracked parent level
+        levels = any(n.children for n in gpu._root.values())
+        before = PS.pair_supports.launches
+        got = gpu.push(batch)
+        assert (PS.pair_supports.launches > before) == levels
+        swept += levels
+        assert patterns_text(got) == patterns_text(cpu.push(batch))
+        assert patterns_text(got) == patterns_text(rem.push(batch))
+        want = mine_spade(gpu.window.sequences(), gpu.minsup_abs())
+        assert patterns_text(got) == patterns_text(want)
+        skip = ("phase_s", "push_wall_s")
+        assert ({k: v for k, v in gpu.stats.items() if k not in skip}
+                == {k: v for k, v in cpu.stats.items() if k not in skip})
+    assert gpu.stats["repaired_nodes"] > 0 and swept >= 2
+
+
+def test_sweep_dispatch_makes_no_host_sync(card):
+    """The sweep's dispatch (store build, every level's prep, B1 and
+    materialize, each supports copy started) runs under sync-debug
+    "error"; its resolve then waits once."""
+    from spark_fsm_tpu_torch.streaming import IncrementalWindowMiner
+
+    batches = _stream(3, 2, 200, n_items=12, mean_itemsets=4.0)
+    miner = IncrementalWindowMiner(0.1, max_batches=2, device=card)
+    miner.push(batches[0])              # grows the tree to sweep
+    ref = IncrementalWindowMiner(0.1, max_batches=2, device="cpu")
+    ref.push(batches[0])
+    ref.push(batches[1])
+    from spark_fsm_tpu_torch.streaming.incremental import _BatchTokens
+    st = _BatchTokens(7, batches[1], card)   # the next batch, by hand
+    f1 = sorted(g for g, _ in miner._root)
+    PS._kernel()
+    torch.cuda.synchronize()
+    before = PS.pair_supports.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pend, event = miner._sweep_dispatch(st, f1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert event is not None and pend
+    assert PS.pair_supports.launches > before
+    miner._resolve(st.bid, pend, event)
+    # each tracked node got this batch's exact support
+    by_steps = {}
+    stack = list(ref._root.values())
+    while stack:
+        n = stack.pop()
+        by_steps[n.steps] = n
+        stack.extend(n.children.values())
+    stack = list(miner._root.values())
+    checked = 0
+    while stack:
+        n = stack.pop()
+        stack.extend(n.children.values())
+        r = by_steps.get(n.steps)
+        if r is not None and 1 in r.sup:
+            assert n.sup[7] == r.sup[1], n.steps
+            checked += 1
+    assert checked > 10

@@ -8,8 +8,9 @@ submodules, not the ``spark_fsm_tpu_torch`` prefix), every port module is
 imported, and a tiny SPADE mine (through the router: the queue engine),
 the same mine pinned to the dense and the classic engines, a tiny TSR mine
 (on the resident-frontier route), tiny SPAM mines (the pure-bitmap and the
-hybrid plan) and a tiny cSPADE mine run on the CPU, the vertical build
-through the native tokenizer."""
+hybrid plan), a tiny cSPADE mine and a two-push stream through both
+window miners (``streaming.*``) run on the CPU, the vertical build through
+the native tokenizer."""
 
 import ast
 import os
@@ -58,13 +59,20 @@ for kw in ({}, {"density_crossover": 0.9}):
 from spark_fsm_tpu_torch.models.oracle import mine_cspade
 from spark_fsm_tpu_torch.models.spade_constrained import mine_cspade_torch
 assert patterns_text(mine_cspade_torch(db, 2, maxgap=1, maxwindow=2, device="cpu")) == patterns_text(mine_cspade(db, 2, maxgap=1, maxwindow=2))
+from spark_fsm_tpu_torch.streaming import IncrementalWindowMiner, WindowMiner
+inc = IncrementalWindowMiner(2, max_batches=2, device="cpu")
+rem = WindowMiner(2, max_batches=2, device="cpu")
+for b in (db[:2], db[2:], db[1:3]):
+    assert patterns_text(inc.push(b)) == patterns_text(rem.push(b)) == patterns_text(mine_spade(inc.window.sequences(), 2))
+assert inc.stats["swept_batches"] == 3 and inc.window.evicted_batches == 1
 tstats = {}
 mine_tsr_torch(db, 3, 0.5, device="cpu", stats_out=tstats)
 assert tstats["resident"] is True, tstats
 for name in ("ops.extend_prune", "ops.spam_bitops", "models.spam_bitmap", "service.planner",
              "data.fasttok", "models.spade_queue", "models.spade_fused",
              "ops.resident_frontier", "ops.maxstart_torch", "ops.maxstart_np",
-             "models.spade_constrained"):
+             "models.spade_constrained", "streaming.window",
+             "streaming.incremental"):
     assert "spark_fsm_tpu_torch." + name in names, name
 try:
     import jax  # noqa: F401
