@@ -104,7 +104,22 @@ Phases, one printed line each (any failure raises and exits non-zero):
      5's database, SPAM on phase 17's first batch (10 % of phase 13's
      size), TSR on phase 15's 1 % database and cSPADE on phase 16's 10 %
      database, each against the oracle text an earlier phase holds, with
-     the route each took.
+     the route each took;
+ 20. prediction scoring at the service's ``[predict]`` defaults over three
+     rule sets that earlier phases hold: phase 9's Kosarak-shaped TSR
+     rules and, through ``rules_from_patterns``, phase 5's
+     BMS-WebView-2-shaped SPADE patterns and phase 13's MSNBC-shaped SPAM
+     patterns.  Each is serialized, built through the artifact cache at
+     the depth each request needs, and 2,050 prefixes drawn from its
+     database (the empty one and an absent item among them) are scored in
+     waves of 1, 16 and 64 rows at m = 8 through ``score_wave``, every row
+     byte-identical to ``predict_host`` as sorted JSON; per wave width the
+     wave's device time (CUDA events) and wall, median and p99, beside
+     the host's pack, scoring (upload, launches, readback wait) and
+     decode; the widest wave's peak device
+     memory; then 16 threads send 512 requests through the broker with
+     its window on (fused share, waves).  No hand kernel runs on this
+     path (the scorer is torch code): B1, B2 and B3 launch 0 times.
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 and prints no result.
@@ -118,6 +133,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -180,6 +196,9 @@ res = mine_spade(window, abs_minsup(rel, len(window)))
 print(f"{time.perf_counter() - t0:.3f}")
 print(patterns_text(res), end="")
 """
+# phase 20: prediction scoring; the broker run's requests and client threads
+PREDICT_REQUESTS = 512
+PREDICT_THREADS = 16
 # phase 18's multiword stream: batches of 40 sequences of about 40
 # itemsets (two words), a window of two, an absolute minsup
 MW_STREAM = dict(seed=8, batches=5, per_batch=40, minsup=70)
@@ -475,6 +494,139 @@ def launch_ms(fn, warmup: int, n: int) -> float:
     return a.elapsed_time(b) / n
 
 
+def predict_phase(torch, dev, rule_sets) -> None:
+    """Phase 20: each rule set through the artifact cache at the
+    ``[predict]`` defaults, its prefixes scored in waves of each width
+    against ``predict_host``, timed, and sent through the broker."""
+    from spark_fsm_tpu_torch.ops import extend_prune as EP
+    from spark_fsm_tpu_torch.ops import pair_support as PS
+    from spark_fsm_tpu_torch.ops import rule_support as RS
+    from spark_fsm_tpu_torch.ops import rule_trie as RT
+    from spark_fsm_tpu_torch.profile_mine import (
+        PREDICT_M, PREDICT_WAVES, depth_groups, timed_wave, wave_summary)
+    from spark_fsm_tpu_torch.service import model as SM
+    from spark_fsm_tpu_torch.service import predictor as PR
+
+    PR.configure({})   # the [predict] defaults
+    cfg = dict(PR._cfg)
+    t_phase = time.perf_counter()
+    PS.pair_supports.launches = 0
+    RS.rule_supports.launches = 0
+    EP.extend_count_prune.launches = 0
+    for name, kind, payload, prefixes in rule_sets:
+        rules = (RT.rules_from_patterns(SM.deserialize_patterns(payload))
+                 if kind == "patterns" else SM.deserialize_rules(payload))
+        digest = RT.rules_digest(payload)
+        want = [json.dumps(RT.predict_host(rules, p, PREDICT_M),
+                           sort_keys=True) for p in prefixes]
+        groups = depth_groups(prefixes, cfg["depth_floor"])
+        tries = {d: PR._cache(dev).get_or_build(digest, d, lambda: rules,
+                                                cfg["lanes_floor"])
+                 for d in groups}
+
+        def same(part, rows):
+            return [prefixes[i] for i, r in zip(part, rows)
+                    if json.dumps(r, sort_keys=True) != want[i]]
+
+        # every row through score_wave, in waves of each width
+        for W in PREDICT_WAVES:
+            for d, idx in groups.items():
+                for k in range(0, len(idx), W):
+                    part = idx[k:k + W]
+                    bad = same(part, RT.score_wave(
+                        tries[d], [prefixes[i] for i in part], PREDICT_M))
+                    check(not bad, f"{name}: score_wave at W={W} D={d} "
+                          f"differs from predict_host at prefix {bad[:1]}")
+        # the stages timed at the depth floor's artifact (the bulk)
+        depth, idx = next(iter(groups.items()))
+        trie = tries[depth]
+        timing = {}
+        for W in PREDICT_WAVES:
+            timed_wave(trie, [prefixes[i] for i in idx[:W]], PREDICT_M)
+            recs = []
+            for k in range(0, len(idx), W):
+                part = idx[k:k + W]
+                rows, rec = timed_wave(trie, [prefixes[i] for i in part],
+                                       PREDICT_M)
+                check(not same(part, rows), f"{name}: the timed wave differs")
+                recs.append(rec)
+            timing[W] = wave_summary(recs)
+        # the widest wave's peak on the deepest artifact
+        deep_d = max(tries)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        RT.score_wave(tries[deep_d], [prefixes[i] for i in groups[deep_d][:64]],
+                      PREDICT_M, wave_pad=64)
+        torch.cuda.synchronize()
+        wave_peak = torch.cuda.max_memory_allocated() - base
+        stages = "; ".join(
+            f"W={W}: device {t['device_ms']['median']:.4f} / "
+            f"{t['device_ms']['p99']:.4f} ms, wall "
+            f"{1e3 * t['wall_s']['median']:.4f} / "
+            f"{1e3 * t['wall_s']['p99']:.4f} ms (pack "
+            f"{1e3 * t['pack_s']['median']:.4f}, score "
+            f"{1e3 * t['score_s']['median']:.4f}, decode "
+            f"{1e3 * t['decode_s']['median']:.4f} ms)"
+            for W, t in timing.items())
+        print(f"[predict] {name}: {len(rules)} rules, lanes {trie.lanes}, F "
+              f"{trie.F}, D {sorted(tries)} (prefixes a depth "
+              f"{ {d: len(v) for d, v in groups.items()} }), nbytes "
+              f"{ {d: t.nbytes() for d, t in tries.items()} }; "
+              f"{len(prefixes)} prefixes byte-identical to predict_host at "
+              f"W = {', '.join(map(str, PREDICT_WAVES))}, m = {PREDICT_M}; "
+              f"at D={depth}, median / p99: {stages}; widest wave (W=64, "
+              f"D={deep_d}) peak {wave_peak} B over {base} B allocated",
+              flush=True)
+
+        # the broker: clients in threads, the window on
+        broker = PR.PredictBroker()
+        before = dict(PR._stats)
+        reqs = [idx[r % len(idx)] for r in range(PREDICT_REQUESTS)]
+        tickets, errors = [None] * len(reqs), []
+
+        def client(c):
+            try:
+                for r in range(c, len(reqs), PREDICT_THREADS):
+                    tickets[r] = broker.submit(trie, prefixes[reqs[r]],
+                                               PREDICT_M, "normal",
+                                               tag=f"client{c}")
+            except Exception as exc:   # reported by the check below
+                errors.append(repr(exc))
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(PREDICT_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        broker_s = time.perf_counter() - t0
+        broker.shutdown()
+        check(not errors, f"{name}: broker clients failed: {errors[:2]}")
+        check(all(json.dumps(t.entries, sort_keys=True) == want[i]
+                  for t, i in zip(tickets, reqs)),
+              f"{name}: a broker answer differs from predict_host")
+        d = {k: PR._stats[k] - before[k]
+             for k in ("waves", "fused_waves", "fused_jobs", "solo_jobs")}
+        share = d["fused_jobs"] / (d["fused_jobs"] + d["solo_jobs"])
+        check(share > 0, f"{name}: no request rode a fused wave: {d}")
+        waits = sorted(1e3 * (t.dispatch_t - t.submit_t) for t in tickets)
+        print(f"[predict] {name} broker: {len(reqs)} requests from "
+              f"{PREDICT_THREADS} threads, window {cfg['window_ms']} ms, "
+              f"max_wave {cfg['max_wave']}: {d['waves']} waves "
+              f"({d['fused_waves']} fused), fused share {share:.4f}, "
+              f"{broker_s:.4f} s ({len(reqs) / broker_s:.1f} requests/s), "
+              f"window wait median {statistics.median(waits):.4f} ms, "
+              f"answers equal predict_host", flush=True)
+    launched = (PS.pair_supports.launches, RS.rule_supports.launches,
+                EP.extend_count_prune.launches)
+    check(launched == (0, 0, 0),
+          f"the prediction path launched a hand kernel: {launched}")
+    print(f"[predict] B1, B2, B3 launches on the path {launched}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -524,6 +676,8 @@ def run(torch, oracles) -> int:
     from spark_fsm_tpu_torch.ops import resident_frontier as RF
     from spark_fsm_tpu_torch.ops import rule_support as RS
     from spark_fsm_tpu_torch.ops.ragged_batch import next_pow2
+    from spark_fsm_tpu_torch.profile_mine import predict_prefixes
+    from spark_fsm_tpu_torch.service import model as SM
     from spark_fsm_tpu_torch.service.planner import choose_patterns_engine
     from spark_fsm_tpu_torch.streaming import (
         IncrementalWindowMiner, WindowMiner)
@@ -671,6 +825,10 @@ def run(torch, oracles) -> int:
           f"cold / {wstats['wait_s']:.4f} s warm, max_memory_allocated "
           f"{peak} B; host: generator {gen_s:.1f} s, oracle {oracle_s:.1f} s",
           flush=True)
+    # phase 20 serves predictions from each path's output
+    predict_sets = {"spade": ("bms_webview2_like SPADE minsup 0.1 %",
+                              "patterns", SM.serialize_patterns(got),
+                              predict_prefixes(db, 2))}
     del got, got_warm, want
     torch.cuda.empty_cache()
 
@@ -912,6 +1070,8 @@ def run(torch, oracles) -> int:
           f"max_memory_allocated {tpeak} B; host: generator {gen_s:.1f} s, "
           f"recount {recount_s:.1f} s", flush=True)
     kos_vdb = vdb   # phase 15 mines it again
+    predict_sets["tsr"] = ("kosarak_like TSR k=100", "rules",
+                           SM.serialize_rules(rules), predict_prefixes(db, 1))
     del db, rules, rules_warm, rules_plain, vdb
     torch.cuda.empty_cache()
 
@@ -1071,6 +1231,9 @@ def run(torch, oracles) -> int:
           f"engine launches {sstats['kernel_launches']}, recomputed_nodes "
           f"{sstats['recomputed_nodes']}; max_memory_allocated {speak} B; host: "
           f"generator {gen_s:.1f} s, oracle {oracle_s:.1f} s", flush=True)
+    predict_sets["spam"] = ("msnbc_like SPAM minsup 0.5 %", "patterns",
+                            SM.serialize_patterns(got),
+                            predict_prefixes(db, 3))
     del db, got, got_warm, got_spade, want
     torch.cuda.empty_cache()
 
@@ -1497,6 +1660,10 @@ def run(torch, oracles) -> int:
           f"{len(got)} patterns byte-identical to the oracle; geometry "
           f"{bstats['geometry']}", flush=True)
     del got, got_t, bms_db, stream_first, tsr_small_db, cspade_small
+
+    # 20. prediction scoring over the rule sets of phases 9, 5 and 13
+    predict_phase(torch, dev, [predict_sets[k] for k in ("tsr", "spade",
+                                                         "spam")])
 
     print(json.dumps({"kernels": [pair_record, rule_record, {
         "name": "extend_prune", "route": "cuda",

@@ -5,8 +5,8 @@ counterpart of the same name there, and each module's docstring names
 the file it ports.  The port imports ``torch`` and numpy, never ``jax``
 and nothing of ``spark_fsm_tpu``: the framework-free modules it needs
 (``data/*``, ``utils/canonical.py``, ``ops/bitops_np.py``,
-``models/oracle.py``, ``ops/maxstart_np.py``, ``service/planner.py``) are
-kept here as copies.
+``models/oracle.py``, ``ops/maxstart_np.py``, ``service/planner.py``,
+``service/model.py``'s serializers) are kept here as copies.
 
 Bitmaps live as ``torch.int32`` tensors holding the same bits as the
 reference's ``uint32`` arrays (``arr.view(np.int32)`` in,
@@ -23,6 +23,8 @@ from spark_fsm_tpu_torch.models.spade_constrained import (
 from spark_fsm_tpu_torch.models.spade_queue import QueueSpadeTorch
 from spark_fsm_tpu_torch.models.spam_bitmap import SpamBitmapTorch, mine_spam_torch
 from spark_fsm_tpu_torch.models.tsr import TsrTorch, mine_tsr_torch
+from spark_fsm_tpu_torch.ops.rule_trie import (
+    build_trie, predict_host, rules_from_patterns, score_wave)
 from spark_fsm_tpu_torch.streaming import (
     IncrementalWindowMiner, SlidingWindow, WindowMiner)
 
@@ -34,4 +36,5 @@ __all__ = [
     "SpamBitmapTorch", "mine_spam_torch",
     "TsrTorch", "mine_tsr_torch",
     "IncrementalWindowMiner", "SlidingWindow", "WindowMiner",
+    "build_trie", "score_wave", "predict_host", "rules_from_patterns",
 ]

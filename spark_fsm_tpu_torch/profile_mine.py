@@ -1,9 +1,9 @@
 """Where the main paths' time goes, on one CUDA card.
 
     python3 -m spark_fsm_tpu_torch.profile_mine [spade] [tsr] [spam] \
-        [tsr-resident] [cspade] [stream]
+        [tsr-resident] [cspade] [stream] [predict]
 
-Prints one JSON line per path named (all six when none is):
+Prints one JSON line per path named (all seven when none is):
 - SPADE: the BMS-WebView-2-shaped database (full size) at minsup 0.1 %
   through both of its routes, in turns: the queue engine (the ``auto``
   route's choice) and the classic engine (``fused="never"``).  For each,
@@ -40,11 +40,22 @@ Prints one JSON line per path named (all six when none is):
   counters, the re-mine's engine route; then the same stream again with
   each push under ``torch.profiler``: per push and route the device's
   busy time and idle share, and the pair-support kernel's device time
-  and launches.
-Each line also names the tokenizer that ran (``data/fasttok.backend()``),
-gives the host functions that take the vertical build's time (one more
-build under ``cProfile``: the ten largest by own time), and carries a
-``torch.profiler`` trace of one more warm mine:
+  and launches;
+- prediction scoring: three full-size rule sets (the Kosarak-shaped TSR
+  mine's rules, k=100, minconf=0.5, max_side=2; the BMS-WebView-2-shaped
+  SPADE mine's patterns at minsup 0.1 % and the MSNBC-shaped SPAM mine's
+  at 0.5 %, both through ``rules_from_patterns``), each built through the
+  artifact cache at the ``[predict]`` defaults and scored over 2,050
+  prefixes drawn from its database (``predict_prefixes``) in waves of W =
+  1, 16 and 64 at m = 8: per W the wave wall split into pack, scoring
+  (upload, the scorer's launches, the readback wait; its device part by
+  CUDA events) and decode (medians and p99), then the same waves under
+  ``torch.profiler``: the device's busy time and idle share and the
+  scorer's device ops by time.
+Each line also names the tokenizer that ran (``data/fasttok.backend()``);
+each mining path's line gives the host functions that take the vertical
+build's time (one more build under ``cProfile``: the ten largest by own
+time), and carries a ``torch.profiler`` trace of one more warm mine:
 device busy time by kernel (the ten largest entries, and every launch of
 the port's own kernels) and the device's idle share of the mine's wall.
 Needs a CUDA card; raises without one.
@@ -58,7 +69,14 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 REPS = 3
+# prediction scoring: the [predict] section's top-m, the waves timed, and
+# the prefixes drawn a rule set
+PREDICT_M = 8
+PREDICT_WAVES = (1, 16, 64)
+PREDICT_PREFIXES = 2048
 # the __global__ functions of csrc/*.cu
 PORT_KERNELS = ("pair_support_kernel", "rule_staged_kernel", "rule_walk_kernel",
                 "extend_lane_kernel", "extend_staged_kernel")
@@ -570,8 +588,163 @@ def stream(dev, card: str) -> dict:
             "min_support": rel, "push": pushes}
 
 
+def predict_prefixes(db, seed: int, n: int = PREDICT_PREFIXES) -> list:
+    """``n`` observed prefixes drawn from the database's own sequences
+    (the distinct items of the first j itemsets of a random sequence, j
+    random), then the empty prefix and one item absent from the
+    database."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for s in rng.integers(0, len(db), n):
+        seq = db[int(s)]
+        j = int(rng.integers(1, len(seq) + 1))
+        out.append(sorted({i for st in seq[:j] for i in st}))
+    absent = 1 + max(max(max(st) for st in seq) for seq in db)
+    return out + [[], [absent]]
+
+
+def depth_groups(prefixes, depth_floor: int) -> dict:
+    """Prefix indices by the artifact depth the service builds for them
+    (``predictor.predict_rules``' ``depth_need``)."""
+    from spark_fsm_tpu_torch.ops.rule_trie import _next_pow2
+
+    groups: dict = {}
+    for i, p in enumerate(prefixes):
+        d = max(depth_floor, _next_pow2(max(1, len(p))))
+        groups.setdefault(d, []).append(i)
+    return dict(sorted(groups.items()))
+
+
+def timed_wave(trie, wave, m: int):
+    """One wave through ``score_wave``'s stages: its rows and the times
+    of the pack (s), the scoring (s: the prefix upload, the scorer's
+    launches and the wait for the readback), the device's part of it
+    (ms, CUDA events around the upload and the scorer) and the decode
+    (s)."""
+    import torch
+
+    from spark_fsm_tpu_torch.models._common import to_device, to_host
+    from spark_fsm_tpu_torch.ops import rule_trie as RT
+
+    dev = trie.ante_tok.device
+    M = RT._next_pow2(max(int(m), 1))
+    t0 = time.perf_counter()
+    q = RT.pack_wave(trie, wave)
+    t1 = time.perf_counter()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    outs = RT.score_device(trie, to_device(q, dev), M)
+    b.record()
+    host, ev = to_host(outs)
+    if ev is not None:
+        ev.synchronize()
+    t2 = time.perf_counter()
+    rows = RT.decode_wave(trie, len(wave), m, M, *(h.numpy() for h in host))
+    t3 = time.perf_counter()
+    return rows, {"pack_s": t1 - t0, "device_ms": a.elapsed_time(b),
+                  "score_s": t2 - t1, "decode_s": t3 - t2,
+                  "wall_s": t3 - t0}
+
+
+def wave_summary(recs) -> dict:
+    """Median and p99 of each stage over a list of ``timed_wave`` times."""
+    out = {}
+    for k in recs[0]:
+        v = np.asarray([r[k] for r in recs])
+        out[k] = {"median": float(np.median(v)),
+                  "p99": float(np.percentile(v, 99))}
+    return out
+
+
+def predict_rule_sets(dev) -> list:
+    """The three full-size mines whose output prediction serves:
+    ``(name, kind, payload, prefixes)`` each."""
+    from spark_fsm_tpu_torch.data.synth import (
+        bms_webview2_like, kosarak_like, msnbc_like)
+    from spark_fsm_tpu_torch.data.vertical import abs_minsup
+    from spark_fsm_tpu_torch.models.spade import mine_spade_torch
+    from spark_fsm_tpu_torch.models.spam_bitmap import mine_spam_torch
+    from spark_fsm_tpu_torch.models.tsr import mine_tsr_torch
+    from spark_fsm_tpu_torch.service import model
+
+    sets = []
+    db = kosarak_like(scale=1.0, fast=True)
+    rules = mine_tsr_torch(db, 100, 0.5, max_side=2, device=dev)
+    sets.append(("kosarak_like TSR k=100", "rules",
+                 model.serialize_rules(rules), predict_prefixes(db, 1)))
+    db = bms_webview2_like()
+    pats = mine_spade_torch(db, abs_minsup(0.001, len(db)), device=dev)
+    sets.append(("bms_webview2_like SPADE minsup 0.1 %", "patterns",
+                 model.serialize_patterns(pats), predict_prefixes(db, 2)))
+    db = msnbc_like(scale=1.0, fast=True)
+    pats = mine_spam_torch(db, abs_minsup(0.005, len(db)), device=dev)
+    sets.append(("msnbc_like SPAM minsup 0.5 %", "patterns",
+                 model.serialize_patterns(pats), predict_prefixes(db, 3)))
+    return sets
+
+
+def predict(dev, card: str) -> dict:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from spark_fsm_tpu_torch.ops import rule_trie as RT
+    from spark_fsm_tpu_torch.service import model
+    from spark_fsm_tpu_torch.service import predictor as PR
+
+    PR.configure({})   # the [predict] defaults
+    cfg = dict(PR._cfg)
+    out = []
+    for name, kind, payload, prefixes in predict_rule_sets(dev):
+        rules = (RT.rules_from_patterns(model.deserialize_patterns(payload))
+                 if kind == "patterns" else model.deserialize_rules(payload))
+        groups = depth_groups(prefixes, cfg["depth_floor"])
+        depth, idx = next(iter(groups.items()))  # the floor's, the bulk
+        trie = PR._cache(dev).get_or_build(
+            RT.rules_digest(payload), depth, lambda: rules,
+            cfg["lanes_floor"])
+        rec = {"rule_set": name, "rules": len(rules), "lanes": trie.lanes,
+               "F": trie.F, "D": trie.D, "nbytes": trie.nbytes(),
+               "prefixes": len(idx),
+               "prefixes_by_depth": {d: len(v) for d, v in groups.items()},
+               "waves": {}}
+        for W in PREDICT_WAVES:
+            waves = [[prefixes[i] for i in idx[k:k + W]]
+                     for k in range(0, len(idx), W)]
+            timed_wave(trie, waves[0], PREDICT_M)   # warm the allocators
+            recs = [timed_wave(trie, w, PREDICT_M)[1] for w in waves]
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for w in waves:
+                    RT.score_wave(trie, w, PREDICT_M)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            ops, busy_us = [], 0.0
+            for e in prof.key_averages():
+                if e.device_type != DeviceType.CUDA:
+                    continue
+                busy_us += e.self_device_time_total
+                if e.self_device_time_total > 0:
+                    ops.append((e.self_device_time_total, e.key, e.count))
+            ops.sort(reverse=True)
+            rec["waves"][W] = {
+                "count": len(waves), "stages": wave_summary(recs),
+                "traced_wall_s": wall, "device_busy_s": busy_us / 1e6,
+                "device_busy_share": busy_us / 1e6 / wall,
+                "device_idle_share": 1 - busy_us / 1e6 / wall,
+                "device_ops": [{"name": k[:80], "ms": us / 1e3, "count": c}
+                               for us, k, c in ops[:12]]}
+        out.append(rec)
+    return {"path": "predict", "card": card,
+            "device": torch.cuda.get_device_name(dev), "m": PREDICT_M,
+            "config": cfg, "sets": out}
+
+
 PATHS = {"spade": spade, "tsr": tsr, "spam": spam,
-         "tsr-resident": tsr_resident, "cspade": cspade, "stream": stream}
+         "tsr-resident": tsr_resident, "cspade": cspade, "stream": stream,
+         "predict": predict}
 
 
 def main(names=None) -> list:

@@ -15,7 +15,9 @@ host.  TSR's resident-frontier route launches B2 once a wave and equals
 the CPU mine; the constrained SPADE engine on the card equals its CPU run.
 The incremental window miner launches B1 once a swept level and equals
 the same stream on the CPU, the oracle and the re-mine miner after every
-push; its sweep's dispatch runs under sync-debug "error" too.
+push; its sweep's dispatch runs under sync-debug "error" too.  The rule
+trie's scorer on the card equals its CPU run, its wave up to the one
+readback makes no host sync, and broker threads keep the trie's device.
 """
 
 import numpy as np
@@ -501,3 +503,114 @@ def test_sweep_dispatch_makes_no_host_sync(card):
             assert n.sup[7] == r.sup[1], n.steps
             checked += 1
     assert checked > 10
+
+
+def _predict_fixture(seed, n_rules=300, n_items=40, n_prefixes=40):
+    """A random rule set with planted (conf, sup) ties and seeded
+    prefixes, as ``tests/test_torch_rule_trie.random_rules`` draws them."""
+    import random
+
+    rng = random.Random(seed)
+    rules = []
+    for _ in range(n_rules):
+        x = tuple(sorted(rng.sample(range(n_items), rng.randint(0, 3))))
+        rest = [i for i in range(n_items) if i not in x]
+        y = tuple(sorted(rng.sample(rest, rng.randint(1, 2))))
+        supx = rng.randint(1, 12)
+        rules.append((x, y, rng.randint(1, supx), supx))
+    rules[1] = (rules[0][0], (n_items + 1,), rules[0][2], rules[0][3])
+    prefixes = [sorted(rng.sample(range(n_items + 2), rng.randint(0, 12)))
+                for _ in range(n_prefixes)]
+    return rules, prefixes
+
+
+@pytest.mark.parametrize("m", [1, 8, 2000])
+@pytest.mark.parametrize("W", [1, 16, 64])
+def test_scorer_on_card_equals_cpu(card, W, m):
+    """``score_wave`` on a trie on the card equals the same trie on the
+    CPU and ``predict_host``, row for row, as JSON; the planes and
+    ``nbytes`` are the CPU build's."""
+    import json
+
+    from spark_fsm_tpu_torch.ops import rule_trie as RT
+
+    rules, prefixes = _predict_fixture(W + m)
+    gpu = RT.build_trie(rules, lanes_floor=1024, depth_floor=16, device=card)
+    cpu = RT.build_trie(rules, lanes_floor=1024, depth_floor=16, device="cpu")
+    assert gpu.ante_tok.device == card and gpu.nbytes() == cpu.nbytes()
+    for f in RT.PLANES:
+        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+    for i in range(0, len(prefixes), W):
+        wave = prefixes[i:i + W]
+        got = RT.score_wave(gpu, wave, m)
+        assert got == RT.score_wave(cpu, wave, m)
+        for p, row in zip(wave, got):
+            assert (json.dumps(row, sort_keys=True)
+                    == json.dumps(RT.predict_host(rules, p, m), sort_keys=True))
+
+
+def test_scorer_body_makes_no_host_sync(card):
+    """The wave up to its one readback — the pinned upload of the prefix
+    rows, the scorer and the start of the three copies back — runs under
+    sync-debug "error"; one event wait then lands the rows."""
+    from spark_fsm_tpu_torch.models._common import to_device, to_host
+    from spark_fsm_tpu_torch.ops import rule_trie as RT
+
+    rules, prefixes = _predict_fixture(5)
+    trie = RT.build_trie(rules, lanes_floor=1024, depth_floor=16, device=card)
+    q = RT.pack_wave(trie, prefixes[:16])
+    RT.score_wave(trie, prefixes[:1], 8)      # warm the allocators
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = RT.score_device(trie, to_device(q, card), 8)
+        host, event = to_host(outs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert event is not None and all(t.device == card for t in outs)
+    event.synchronize()
+    got = RT.decode_wave(trie, 16, 8, 8, *(h.numpy() for h in host))
+    assert got == [RT.predict_host(rules, p, 8) for p in prefixes[:16]]
+
+
+def test_broker_threads_keep_the_trie_device(card, monkeypatch):
+    """Sixteen threads submit through the broker with its window on: every
+    wave's tensors sit on the trie's card (whatever a thread's current
+    device), at least one wave fuses, and every row equals the CPU's."""
+    import threading
+
+    from spark_fsm_tpu_torch.ops import rule_trie as RT
+    from spark_fsm_tpu_torch.service import predictor as PR
+
+    rules, prefixes = _predict_fixture(9, n_prefixes=64)
+    trie = RT.build_trie(rules, lanes_floor=1024, depth_floor=16, device=card)
+    cpu = RT.build_trie(rules, lanes_floor=1024, depth_floor=16, device="cpu")
+    devices = set()
+    score = RT.score_device
+
+    def spy(t, q, M):
+        outs = score(t, q, M)
+        devices.update(o.device for o in (q,) + outs)
+        return outs
+
+    monkeypatch.setattr(RT, "score_device", spy)
+    monkeypatch.setitem(PR._cfg, "window_ms", 20.0)
+    monkeypatch.setitem(PR._cfg, "max_wave", 8)
+    broker = PR.PredictBroker()
+    tickets = [None] * len(prefixes)
+
+    def go(k):
+        for i in range(k, len(prefixes), 16):
+            tickets[i] = broker.submit(trie, prefixes[i], 8, "normal",
+                                       tag=str(i))
+
+    threads = [threading.Thread(target=go, args=(k,)) for k in range(16)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    broker.shutdown()
+    assert devices == {card}
+    assert max(t.wave_jobs for t in tickets) >= 2
+    for p, t in zip(prefixes, tickets):
+        assert t.entries == RT.score_wave(cpu, [p], 8)[0]

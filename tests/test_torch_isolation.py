@@ -10,7 +10,8 @@ the same mine pinned to the dense and the classic engines, a tiny TSR mine
 (on the resident-frontier route), tiny SPAM mines (the pure-bitmap and the
 hybrid plan), a tiny cSPADE mine and a two-push stream through both
 window miners (``streaming.*``) run on the CPU, the vertical build through
-the native tokenizer."""
+the native tokenizer, and a rule trie is built from TSR and SPADE output
+and scored (``ops.rule_trie``, ``service.predictor``)."""
 
 import ast
 import os
@@ -68,11 +69,19 @@ assert inc.stats["swept_batches"] == 3 and inc.window.evicted_batches == 1
 tstats = {}
 mine_tsr_torch(db, 3, 0.5, device="cpu", stats_out=tstats)
 assert tstats["resident"] is True, tstats
+from spark_fsm_tpu_torch import build_trie, predict_host, rules_from_patterns, score_wave
+from spark_fsm_tpu_torch.service import model, predictor
+rules = mine_tsr_torch(db, 3, 0.5, device="cpu") + rules_from_patterns(mine_spade(db, 2))
+trie = build_trie(rules, depth_floor=4, device="cpu")
+waves = score_wave(trie, [[], [1], [1, 3], [2, 4]], 3)
+assert waves == [predict_host(rules, p, 3) for p in ([], [1], [1, 3], [2, 4])] and waves[1], waves
+assert predictor.predict_rules(model.serialize_rules(rules), "rules", [3, 1], 3, device="cpu") == waves[2]
 for name in ("ops.extend_prune", "ops.spam_bitops", "models.spam_bitmap", "service.planner",
              "data.fasttok", "models.spade_queue", "models.spade_fused",
              "ops.resident_frontier", "ops.maxstart_torch", "ops.maxstart_np",
              "models.spade_constrained", "streaming.window",
-             "streaming.incremental"):
+             "streaming.incremental", "ops.rule_trie", "service.model",
+             "service.predictor"):
     assert "spark_fsm_tpu_torch." + name in names, name
 try:
     import jax  # noqa: F401
