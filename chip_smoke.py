@@ -119,7 +119,24 @@ Phases, one printed line each (any failure raises and exits non-zero):
      decode; the widest wave's peak device
      memory; then 16 threads send 512 requests through the broker with
      its window on (fused share, waves).  No hand kernel runs on this
-     path (the scorer is torch code): B1, B2 and B3 launch 0 times.
+     path (the scorer is torch code): B1, B2 and B3 launch 0 times;
+ 21. sequence meshes on the card (``parallel.launch.spawn_world``): a
+     1-rank NCCL world and a 2-rank gloo world whose ranks share the
+     card.  Every rank mines, through the entry points with ``mesh=``:
+     phase 5's BMS-WebView-2-shaped SPADE through ``auto`` (the queue
+     engine) and ``fused="never"``, phase 13's MSNBC-shaped SPAM (B1 on
+     the shard, the all-reduce, the threshold; B3 never), phase 9's
+     Kosarak-shaped TSR (B2; the host loop, never the resident route),
+     phase 16's full-size Gazelle-shaped cSPADE and the first five pushes
+     of phase 17's stream through ``IncrementalWindowMiner(mesh=)``; each
+     answer must equal the earlier phase's text (SHA-256 of the canonical
+     text) on every rank.  Co-located ranks take the one-device pool
+     budget divided by the ranks on the card, and the sum of their peaks
+     must fit the card.  ``[mesh]`` lines print per world and mine the
+     route, each rank's B1/B2 launches and kernel time (CUDA events
+     around each launch), the all-reduces' count and time, each rank's
+     wall beside the one-device wall of the earlier phase, and each
+     rank's peak memory, with the card's name and power limit.
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 and prints no result.
@@ -127,6 +144,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -202,6 +220,216 @@ PREDICT_THREADS = 16
 # phase 18's multiword stream: batches of 40 sequences of about 40
 # itemsets (two words), a window of two, an absolute minsup
 MW_STREAM = dict(seed=8, batches=5, per_batch=40, minsup=70)
+
+
+# phase 21: the mesh worlds, both on the one card: (backend, ranks)
+MESH_WORLDS = (("nccl", 1), ("gloo", 2))
+MESH_STREAM_PUSHES = 5
+
+
+def digest(text: str) -> str:
+    return hashlib.sha256(text.encode()).hexdigest()
+
+
+def _timed_kernel(torch, fn, sink: list):
+    """``fn`` (a kernel's wrapper) with CUDA events recorded around each
+    call on the current stream; the wrapper's own launch count moves to
+    this function's ``launches``, which the wrapper increments."""
+    def timed(*args, **kwargs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn(*args, **kwargs)
+        b.record()
+        sink.append((a, b))
+        return out
+    timed.launches = 0
+    return timed
+
+
+def mesh_rank(mesh, plan: dict) -> dict:
+    """Phase 21's mines on one mesh rank (run by ``spawn_world``): each
+    answer's digest, route, B1/B2/B3 launches and kernel ms, all-reduces
+    and their time, and wall; the rank's peak memory."""
+    import torch
+
+    from spark_fsm_tpu_torch.data.synth import (
+        gazelle_like, kosarak_like, msnbc_like)
+    from spark_fsm_tpu_torch.data.vertical import abs_minsup
+    from spark_fsm_tpu_torch.models._common import auto_pool_bytes
+    from spark_fsm_tpu_torch.models.spade import mine_spade_torch
+    from spark_fsm_tpu_torch.models.spade_constrained import mine_cspade_torch
+    from spark_fsm_tpu_torch.models.spam_bitmap import mine_spam_torch
+    from spark_fsm_tpu_torch.models.tsr import mine_tsr_torch
+    from spark_fsm_tpu_torch.ops import extend_prune as EP
+    from spark_fsm_tpu_torch.ops import pair_support as PS
+    from spark_fsm_tpu_torch.ops import rule_support as RS
+    from spark_fsm_tpu_torch.parallel.mesh import all_reduce_sum
+    from spark_fsm_tpu_torch.streaming import IncrementalWindowMiner
+    from spark_fsm_tpu_torch.utils.canonical import patterns_text, rules_text
+
+    kernels = (("b1", PS, "pair_supports"), ("b2", RS, "rule_supports"),
+               ("b3", EP, "extend_count_prune"))
+    sinks = {key: [] for key, _, _ in kernels}
+    for key, mod, name in kernels:
+        setattr(mod, name, _timed_kernel(torch, getattr(mod, name),
+                                         sinks[key]))
+    # co-located ranks split the one-device pool budget
+    pool = auto_pool_bytes(mesh.device) // plan["ranks_on_card"]
+    out = {"rank": mesh.rank, "gen_s": {}, "mines": {}}
+    # the first collective sets the communicator up: not a mine's
+    all_reduce_sum(torch.zeros(1, dtype=torch.int32, device=mesh.device),
+                   mesh)
+
+    def run(label, fn):
+        for key, mod, name in kernels:
+            sinks[key].clear()
+            getattr(mod, name).launches = 0
+        mesh.reset_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        t0 = time.perf_counter()
+        text, stats = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        red = mesh.reduce_stats()
+        out["mines"][label] = {
+            "digest": digest(text), "wall_s": wall,
+            "fused": stats.get("fused"), "resident": stats.get("resident"),
+            "route": (f"fused={stats['fused']!r}" if "fused" in stats else
+                      f"resident={bool(stats.get('resident'))}"
+                      if label == "tsr" else stats.get("route", "-")),
+            "launches": {key: getattr(mod, name).launches
+                         for key, mod, name in kernels},
+            "kernel_ms": {key: sum(a.elapsed_time(b) for a, b in sinks[key])
+                          for key in sinks},
+            "all_reduces": red["all_reduces"],
+            "all_reduce_ms": red["all_reduce_ms"],
+            "waves": stats.get("waves"), "evaluated": stats.get("evaluated"),
+            "peak": torch.cuda.max_memory_allocated(mesh.device),
+        }
+
+    def gen(name, make):
+        t0 = time.perf_counter()
+        db = make()
+        out["gen_s"][name] = time.perf_counter() - t0
+        return db
+
+    db = plan["bms_db"]   # phase 5's database (its generator is slow)
+    minsup = abs_minsup(0.001, len(db))
+    for fused in ("auto", "never"):
+        def spade(fused=fused):
+            st: dict = {}
+            extra = {"pool_bytes": pool} if fused == "never" else {}
+            res = mine_spade_torch(db, minsup, mesh=mesh, fused=fused,
+                                   stats_out=st, **extra)
+            return patterns_text(res), st
+        run(f"spade {fused}", spade)
+    db = gen("msnbc", lambda: msnbc_like(scale=1.0, fast=True))
+    minsup = abs_minsup(0.005, len(db))
+
+    def spam():
+        st: dict = {}
+        res = mine_spam_torch(db, minsup, mesh=mesh, pool_bytes=pool,
+                              stats_out=st)
+        return patterns_text(res), st
+    run("spam", spam)
+    per = len(db) // plan["stream_pushes"]
+    inc = IncrementalWindowMiner(plan["stream_minsup"],
+                                 max_batches=plan["stream_keep"], mesh=mesh)
+    for push in range(1, MESH_STREAM_PUSHES + 1):
+        batch = db[(push - 1) * per:push * per]
+        run(f"stream push {push}",
+            lambda batch=batch: (patterns_text(inc.push(batch)), inc.stats))
+    del inc, db
+    db = gen("kosarak", lambda: kosarak_like(scale=1.0, fast=True))
+
+    def tsr():
+        st: dict = {}
+        res = mine_tsr_torch(db, 100, 0.5, max_side=2, mesh=mesh,
+                             stats_out=st)
+        return rules_text(res), st
+    run("tsr", tsr)
+    db = gen("gazelle", lambda: gazelle_like(scale=1.0, fast=True))
+    minsup = abs_minsup(0.005, len(db))
+
+    def cspade():
+        st: dict = {}
+        res = mine_cspade_torch(db, minsup, maxgap=2, maxwindow=5,
+                                mesh=mesh, pool_bytes=pool, stats_out=st)
+        return patterns_text(res), st
+    run("cspade", cspade)
+    out["peak"] = max(rec["peak"] for rec in out["mines"].values())
+    return out
+
+
+def mesh_phase(torch, want: dict, single_walls: dict, card: str,
+               bms_db) -> dict:
+    """Phase 21: both mesh worlds on the card, every rank's answers held
+    against the earlier phases' digests ``want``; the ranks get phase 5's
+    database ``bms_db`` and make the others.  Returns the mesh path's B1
+    and B2 launches (rank 0 of each world)."""
+    from spark_fsm_tpu_torch.parallel.launch import spawn_world
+
+    t_phase = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.empty_cache()
+    launched = {}
+    for backend, ranks in MESH_WORLDS:
+        plan = {"ranks_on_card": ranks, "stream_pushes": STREAM_PUSHES,
+                "stream_keep": STREAM_KEEP, "stream_minsup": STREAM_MINSUP,
+                "bms_db": bms_db}
+        t0 = time.perf_counter()
+        res = spawn_world(mesh_rank, ranks, backend, "cuda:0", (plan,),
+                          timeout_s=900,
+                          threads=max(1, (os.cpu_count() or 1) // ranks))
+        world_s = time.perf_counter() - t0
+        for r in res:
+            for label, rec in r["mines"].items():
+                check(rec["digest"] == want[label],
+                      f"{backend} x{ranks} rank {r['rank']}: {label} "
+                      f"differs from the one-device oracle text")
+                check(rec["all_reduces"] > 0,
+                      f"{backend} x{ranks}: {label} made no all-reduce")
+            m = r["mines"]
+            check(m["spade auto"]["fused"] == "queue",
+                  f"{backend} x{ranks}: auto routed to "
+                  f"{m['spade auto']['fused']!r}")
+            check(m["spade never"]["fused"] is False,
+                  f"{backend} x{ranks}: never did not route classic")
+            check(m["spam"]["launches"]["b1"] > 0
+                  and m["spam"]["launches"]["b3"] == 0,
+                  f"{backend} x{ranks}: SPAM launches {m['spam']['launches']}")
+            check(m["tsr"]["launches"]["b2"] > 0 and not m["tsr"]["resident"],
+                  f"{backend} x{ranks}: TSR launches {m['tsr']['launches']}, "
+                  f"resident {m['tsr']['resident']}")
+        peaks = [r["peak"] for r in res]
+        check(sum(peaks) <= total, f"{backend} x{ranks}: the ranks' peaks "
+              f"{peaks} exceed the card's {total} B")
+        for label in res[0]["mines"]:
+            recs = [r["mines"][label] for r in res]
+            one = single_walls.get(label)
+            launches = [(rec["launches"]["b1"], rec["launches"]["b2"])
+                        for rec in recs]
+            print(f"[mesh] {backend} x{ranks} {label}: byte-identical to the "
+                  f"one-device text on every rank; route {recs[0]['route']}; "
+                  f"per rank (B1, B2) launches {launches}, B1 ms "
+                  f"{[round(rec['kernel_ms']['b1'], 3) for rec in recs]}, "
+                  f"B2 ms {[round(rec['kernel_ms']['b2'], 3) for rec in recs]}, "
+                  f"all-reduces {[rec['all_reduces'] for rec in recs]} taking "
+                  f"{[round(rec['all_reduce_ms'], 3) for rec in recs]} ms; "
+                  f"wall {[round(rec['wall_s'], 3) for rec in recs]} s "
+                  f"against one device {one} s; peak "
+                  f"{[rec['peak'] for rec in recs]} B", flush=True)
+        launched[(backend, ranks)] = {
+            label: res[0]["mines"][label]["launches"]
+            for label in res[0]["mines"]}
+        print(f"[mesh] {backend} x{ranks} world: {world_s:.1f} s with spawn "
+              f"and data; generators {res[0]['gen_s']}; largest peak per "
+              f"rank {peaks} B (sum {sum(peaks)} of {total} B); card {card}",
+              flush=True)
+    print(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launched
 
 
 def start_child(script: str, *args) -> subprocess.Popen:
@@ -825,6 +1053,9 @@ def run(torch, oracles) -> int:
           f"cold / {wstats['wait_s']:.4f} s warm, max_memory_allocated "
           f"{peak} B; host: generator {gen_s:.1f} s, oracle {oracle_s:.1f} s",
           flush=True)
+    # phase 21 holds the mesh mines against this phase's text and walls
+    mesh_want = {"spade auto": digest(text), "spade never": digest(text)}
+    single_walls = {"spade auto": (round(cold_s, 3), round(warm_s, 3))}
     # phase 20 serves predictions from each path's output
     predict_sets = {"spade": ("bms_webview2_like SPADE minsup 0.1 %",
                               "patterns", SM.serialize_patterns(got),
@@ -844,6 +1075,7 @@ def run(torch, oracles) -> int:
           f"the classic route: {cstats['fused']!r}, {c_launches} launches")
     check(patterns_text(got) == text, "the classic engine differs from the "
           "oracle:\n" + diff_patterns(mine_spade(db, minsup), got))
+    single_walls["spade never"] = (round(classic_s, 3),)
     print(f"[mine] bms_webview2_like fused='never': {len(got)} patterns "
           f"byte-identical to the oracle; {classic_s:.3f} s, pair-support "
           f"launches {c_launches}, candidates {cstats['candidates']}",
@@ -1070,6 +1302,8 @@ def run(torch, oracles) -> int:
           f"max_memory_allocated {tpeak} B; host: generator {gen_s:.1f} s, "
           f"recount {recount_s:.1f} s", flush=True)
     kos_vdb = vdb   # phase 15 mines it again
+    mesh_want["tsr"] = digest(text)
+    single_walls["tsr"] = (round(tcold_s, 3), round(twarm_s, 3))
     predict_sets["tsr"] = ("kosarak_like TSR k=100", "rules",
                            SM.serialize_rules(rules), predict_prefixes(db, 1))
     del db, rules, rules_warm, rules_plain, vdb
@@ -1231,6 +1465,8 @@ def run(torch, oracles) -> int:
           f"engine launches {sstats['kernel_launches']}, recomputed_nodes "
           f"{sstats['recomputed_nodes']}; max_memory_allocated {speak} B; host: "
           f"generator {gen_s:.1f} s, oracle {oracle_s:.1f} s", flush=True)
+    mesh_want["spam"] = digest(text)
+    single_walls["spam"] = (round(scold_s, 3), round(swarm_s, 3))
     predict_sets["spam"] = ("msnbc_like SPAM minsup 0.5 %", "patterns",
                             SM.serialize_patterns(got),
                             predict_prefixes(db, 3))
@@ -1454,6 +1690,9 @@ def run(torch, oracles) -> int:
               f"the warm cSPADE mine at scale {scale} differs")
         check(len(got) > 0, f"the cSPADE mine at scale {scale} is empty")
         cspade_small = (db, minsup, want_text)   # phase 19: the last scale
+        if scale == 1.0:
+            mesh_want["cspade"] = digest(want_text)
+            single_walls["cspade"] = (round(ccold_s, 3), round(cwarm_s, 3))
         print(f"[mine] gazelle_like(scale={scale}) maxgap=2 maxwindow=5: "
               f"{len(db)} sequences, {vdb.n_items} frequent items, "
               f"W={vdb.n_words}, minsup {minsup}: {len(got)} patterns "
@@ -1536,6 +1775,9 @@ def run(torch, oracles) -> int:
               + diff_patterns(want, got))
         if push in STREAM_ORACLE_PUSHES:
             stream_texts[push] = text
+        if push <= MESH_STREAM_PUSHES:
+            mesh_want[f"stream push {push}"] = digest(text)
+            single_walls[f"stream push {push}"] = (round(inc_s, 3),)
         delta = {k: inc.stats[k] - before[k] for k in counters}
         print(f"[stream] push {push}: window {inc.stats['window_sequences']} "
               f"sequences, minsup {inc.minsup_abs()}, {len(got)} patterns "
@@ -1659,11 +1901,16 @@ def run(torch, oracles) -> int:
     print(f"[buckets] cSPADE gazelle_like(scale={GAZELLE_SCALES[-1]}): "
           f"{len(got)} patterns byte-identical to the oracle; geometry "
           f"{bstats['geometry']}", flush=True)
+    mesh_bms = bms_db   # phase 21 mines it again
     del got, got_t, bms_db, stream_first, tsr_small_db, cspade_small
 
     # 20. prediction scoring over the rule sets of phases 9, 5 and 13
     predict_phase(torch, dev, [predict_sets[k] for k in ("tsr", "spade",
                                                          "spam")])
+
+    # 21. sequence meshes on the card
+    mesh_phase(torch, mesh_want, single_walls, card, mesh_bms)
+    del mesh_bms
 
     print(json.dumps({"kernels": [pair_record, rule_record, {
         "name": "extend_prune", "route": "cuda",

@@ -11,7 +11,12 @@ DFS frontier snapshot.
   all-ones pad row last.  :func:`tsr_prep_from_numpy` converts.
 - The frontier snapshot is a JSON-able dict in the same format in both
   packages (``models/_common.encode_frontier`` for SPADE,
-  ``models/tsr.TsrTorch.frontier_state`` for TSR), shared as is.
+  ``models/tsr.TsrTorch.frontier_state`` for TSR), shared as is.  It is
+  host data, so a snapshot taken by a mesh mine of either package resumes
+  in the other's mesh mine of the same size, or on one device.
+- A sharded store: :func:`shard_store_from_numpy` gives a mesh rank its
+  block of a reference store's sequence axis, as the engines' sharded
+  store builders lay it out.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 
 from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
+from spark_fsm_tpu_torch.parallel.mesh import shard_bounds
 
 
 def store_from_numpy(arr: np.ndarray, device: DeviceLike = None) -> torch.Tensor:
@@ -33,6 +39,25 @@ def store_from_numpy(arr: np.ndarray, device: DeviceLike = None) -> torch.Tensor
     # read-only numpy memory)
     words = np.require(arr, requirements=["C", "W"]).view(np.int32)
     return torch.from_numpy(words).to(resolve_device(device))
+
+
+def shard_store_from_numpy(arr: np.ndarray, mesh, n_words: int = 1,
+                           width: int = None) -> torch.Tensor:
+    """The rank's block of a flat ``[rows, S*W]`` uint32 reference store
+    (``S`` the global sequence axis, a multiple of the mesh size): the
+    sequences of ``parallel.mesh.shard_bounds(S, mesh)`` as an int32
+    tensor on the mesh's device, zero-padded to ``width`` sequences when
+    given (the engines pad each block to B1's tile,
+    ``models._common.shard_width``)."""
+    arr = np.asarray(arr)
+    if arr.dtype != np.uint32 or arr.ndim != 2 or arr.shape[1] % n_words:
+        raise ValueError(f"expected a 2-D uint32 store of W={n_words} "
+                         f"words a sequence, got {arr.dtype} {arr.shape}")
+    lo, hi = shard_bounds(arr.shape[1] // n_words, mesh)
+    block = arr[:, lo * n_words:hi * n_words]
+    if width is not None and width > hi - lo:
+        block = np.pad(block, ((0, 0), (0, (width - (hi - lo)) * n_words)))
+    return store_from_numpy(np.ascontiguousarray(block), mesh.device)
 
 
 def store_to_numpy(store: torch.Tensor) -> np.ndarray:

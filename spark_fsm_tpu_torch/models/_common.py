@@ -13,6 +13,14 @@ constants where they decide routing and caps, a sync-free fixed-size
 ``FrontierNode``, ``encode_frontier``, ``decode_frontier`` and
 ``load_checkpoint`` are byte-for-byte copies of the reference's, so a
 frontier snapshot taken by either package resumes in the other.
+
+The mesh half (a ``parallel.mesh.SeqMesh``): :func:`device_axes` sizes
+the GLOBAL sequence axis exactly as the reference sizes it for the same
+number of shards, so every cap, route and counter derived from it
+matches; each rank then keeps only its block of that axis
+(:func:`shard_bounds`), padded inside the rank to B1's sequence tile
+(:func:`shard_width`), and the store builders scatter only the tokens of
+that block.
 """
 
 from __future__ import annotations
@@ -27,6 +35,9 @@ import torch
 from spark_fsm_tpu_torch.ops import bitops_torch as B
 from spark_fsm_tpu_torch.ops import pair_support as PS
 from spark_fsm_tpu_torch.ops.ragged_batch import next_pow2
+from spark_fsm_tpu_torch.device import resolve_device
+from spark_fsm_tpu_torch.parallel.mesh import (  # noqa: F401 (re-export)
+    mesh_size, pad_to_multiple, rank0_decides, shard_bounds)
 
 
 @dataclasses.dataclass
@@ -112,13 +123,39 @@ def load_checkpoint(checkpoint, fingerprint: dict):
 
 
 def scatter_build_store(vdb, n_rows: int, n_seq: int, n_words: int,
-                        device: torch.device) -> torch.Tensor:
+                        device: torch.device, mesh=None) -> torch.Tensor:
     """Scatter-build the flat ``[n_rows, n_seq * n_words]`` int32 bitmap
     store (word minor) on ``device`` from the vertical DB's token table;
     the dense store never exists on the host.  Item rows land in slots
-    ``tok_item``; the other rows start zeroed."""
-    return scatter_tokens(vdb.tok_item, vdb.tok_seq, vdb.tok_word,
-                          vdb.tok_mask, n_rows, n_seq, n_words, device)
+    ``tok_item``; the other rows start zeroed.  With a ``mesh`` (``n_seq``
+    the global axis, padded to the mesh size) the rank builds only its
+    block: ``[n_rows, shard_width(n_seq, mesh) * n_words]`` from the
+    tokens whose sequence lies in :func:`shard_bounds` (the reference's
+    ``_store_builder`` shard scatter)."""
+    toks = (vdb.tok_item, vdb.tok_seq, vdb.tok_word, vdb.tok_mask)
+    if mesh is not None:
+        toks = shard_tokens(*toks, n_seq, mesh)
+        n_seq = shard_width(n_seq, mesh)
+    return scatter_tokens(*toks, n_rows, n_seq, n_words, device)
+
+
+def shard_tokens(ti: np.ndarray, ts: np.ndarray, tw: np.ndarray,
+                 tm: np.ndarray, n_seq: int, mesh):
+    """The tokens of the rank's block of a ``n_seq``-long sequence axis,
+    their sequence ids made local to the block."""
+    lo, hi = shard_bounds(n_seq, mesh)
+    keep = (ts >= lo) & (ts < hi)
+    return ti[keep], ts[keep] - lo, tw[keep], tm[keep]
+
+
+def shard_width(n_seq: int, mesh, tile: int = PS.SEQ_TILE) -> int:
+    """Width of the rank's local sequence axis: its block of the global
+    axis padded to ``tile`` (B1's sequence tile; pad sequences are
+    all-zero and count nothing).  ``n_seq`` itself without a mesh."""
+    if mesh is None:
+        return int(n_seq)
+    lo, hi = shard_bounds(n_seq, mesh)
+    return pad_to_multiple(hi - lo, tile)
 
 
 def scatter_tokens(ti: np.ndarray, ts: np.ndarray, tw: np.ndarray,
@@ -171,10 +208,6 @@ P_TILE = 16
 I_TILE = 128
 
 
-def pad_to_multiple(n: int, k: int) -> int:
-    return -(-int(n) // int(k)) * int(k)
-
-
 def nonzero_static(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
     """``jnp.nonzero(mask, size=size, fill_value=fill)`` for a 1-D bool
     tensor without a host sync (``torch.nonzero`` and boolean indexing
@@ -219,12 +252,20 @@ def pad_tokens_pow2(ti, ts, tw, tm):
     return ti, ts, tw, tm
 
 
-def device_axes(n_sequences: int, shape_buckets: bool = False) -> int:
+def device_axes(n_sequences: int, shape_buckets: bool = False,
+                mesh=None) -> int:
     """The store's sequence axis: ``n_sequences`` (its
     :func:`bucket_seq` bucket when ``shape_buckets``) padded to the pair
     kernel's sequence tile.  Padded sequences are all-zero bitmaps and
-    count nothing; the kernel masks ragged item and parent rows itself."""
+    count nothing; the kernel masks ragged item and parent rows itself.
+
+    With a ``mesh`` of N ranks it is the reference's global axis for N
+    shards (``_common.device_axes(mesh=make_mesh(N))`` with its XLA path;
+    B1 needs no Pallas sequence block): padded to a multiple of N.  Each
+    rank pads its own block to the tile (:func:`shard_width`)."""
     n = bucket_seq(n_sequences) if shape_buckets else int(n_sequences)
+    if mesh is not None:
+        return pad_to_multiple(n, mesh_size(mesh))
     return -(-n // PS.SEQ_TILE) * PS.SEQ_TILE
 
 
@@ -254,6 +295,28 @@ def launch_width_cap(pool_bytes: int, slot_bytes: int, floor: int) -> int:
     a power of two; ``floor`` guards against degenerate zero widths."""
     return max(int(floor), next_pow2(
         (int(pool_bytes) // 8) // max(int(slot_bytes), 1) + 1) // 2)
+
+
+def engine_device(device, mesh) -> torch.device:
+    """An engine's device: the caller's (:func:`resolve_device`), or the
+    mesh rank's own when a ``mesh`` is given (a different explicit
+    ``device`` is refused)."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"device {device} differs from the mesh rank's "
+                         f"device {mesh.device}")
+    return mesh.device
+
+
+def checkpoint_due(checkpoint_cb, last_ckpt: float, every_s: float,
+                   mesh) -> bool:
+    """The host loops' time-based checkpoint trigger.  Under a mesh it is
+    rank 0's clock that decides, for every rank: the drain before a
+    snapshot runs collectives, so all ranks must take the same branch."""
+    if checkpoint_cb is None:
+        return False
+    return rank0_decides(time.monotonic() - last_ckpt >= every_s, mesh)
 
 
 def device_hbm_budget(device: torch.device) -> int:

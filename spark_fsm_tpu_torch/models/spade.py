@@ -30,8 +30,15 @@ byte-identical by construction.  ``shape_buckets`` rounds the sequence
 axis and the store's rows to powers of two as the reference does (its
 streaming windows set it); the port launches at live sizes either way, so
 the buckets only keep the geometry, the routes and the counters equal to
-the reference's.  Not ported: meshes, partitioned mining and shape-key
-registration (ROADMAP Queue A).
+the reference's.
+
+With a ``mesh`` (``parallel.mesh.SeqMesh``) every rank runs this host
+loop over its block of the sequence axis (the reference's ``shard_map``
+over ``SEQ_AXIS``): prep, materialize and recompute are per-sequence and
+stay local, and each batch's extracted supports are all-reduced (SUM)
+before the prune (the reference's ``psum``), so every rank prunes alike.
+Not ported: partitioned mining and shape-key registration (ROADMAP
+Queue A).
 """
 
 from __future__ import annotations
@@ -45,18 +52,19 @@ import torch
 
 from spark_fsm_tpu_torch.data.spmf import SequenceDB
 from spark_fsm_tpu_torch.data.vertical import VerticalDB, build_vertical
-from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
+from spark_fsm_tpu_torch.device import DeviceLike
 from spark_fsm_tpu_torch.models._common import (
     FrontierNode, SlotPool, auto_pool_bytes, bucket_store_rows,
-    decode_frontier, device_axes,
-    encode_frontier, ensure_slots, frontier_fingerprint, launch_width_cap,
+    checkpoint_due, decode_frontier, device_axes, encode_frontier,
+    engine_device, ensure_slots, frontier_fingerprint, launch_width_cap,
     load_checkpoint, materialize_rows, prep_rows, scatter_build_store,
-    to_host, to_index)
+    shard_width, to_host, to_index)
 from spark_fsm_tpu_torch.models.spade_fused import (
     FusedSpadeTorch, fused_eligible)
 from spark_fsm_tpu_torch.models.spade_queue import (
     QueueSpadeTorch, queue_eligible)
 from spark_fsm_tpu_torch.ops import pair_support as PS
+from spark_fsm_tpu_torch.parallel.mesh import all_reduce_sum, mesh_size
 from spark_fsm_tpu_torch.utils.canonical import Pattern, PatternResult, sort_patterns
 
 Step = Tuple[int, bool]  # (item index, is_s_extension)
@@ -66,7 +74,7 @@ _Node = FrontierNode
 
 def classic_geometry(n_sequences: int, n_items: int, n_words: int, *,
                      device: Optional[torch.device] = None,
-                     chunk: int = 2048, node_batch: int = 1024,
+                     mesh=None, chunk: int = 2048, node_batch: int = 1024,
                      pipeline_depth: int = 4, recompute_chunk: int = 256,
                      pool_bytes: Optional[int] = None,
                      shape_buckets: bool = False) -> dict:
@@ -84,13 +92,18 @@ def classic_geometry(n_sequences: int, n_items: int, n_words: int, *,
     and rounds the store's rows (items, pool and the reference's scratch
     row, which stays unused here) to a power of two as the reference
     does without its Pallas kernel (``_common.bucket_store_rows``), so
-    ``node_batch`` and ``pool_slots`` equal its."""
-    n_seq = device_axes(n_sequences, shape_buckets)
+    ``node_batch`` and ``pool_slots`` equal its.
+
+    With a ``mesh`` the sequence axis is the reference's for that many
+    shards (``_common.device_axes``), and the launch-width cap judges one
+    shard's bytes of a row, as the reference's does."""
+    n_seq = device_axes(n_sequences, shape_buckets, mesh)
     if pool_bytes is None:
         pool_bytes = auto_pool_bytes(device)
     slot_bytes = n_seq * n_words * 4
     # memory-safety ceiling on launch widths; overrides an explicit chunk
-    max_chunk = launch_width_cap(pool_bytes, slot_bytes, 8)
+    max_chunk = launch_width_cap(pool_bytes,
+                                 -(-slot_bytes // mesh_size(mesh)), 8)
     chunk = min(int(chunk), max_chunk)
     recompute_chunk = min(int(recompute_chunk), max(4, max_chunk // 2))
     budget_slots = max(64, min(int(pool_bytes) // max(slot_bytes, 1), 32768))
@@ -111,12 +124,14 @@ def classic_geometry(n_sequences: int, n_items: int, n_words: int, *,
 
 
 class SpadeTorch:
-    """Single-device SPADE miner.
+    """Single-device or sequence-sharded SPADE miner.
 
     Args:
       vdb: vertical DB (build with ``min_item_support=minsup_abs``).
       minsup_abs: absolute minimum sequence support.
       device: ``None`` (= CUDA, raising without it) or ``"cpu"``.
+      mesh: optional ``parallel.mesh.SeqMesh``; this rank mines its block
+        of the sequence axis on the mesh's device.
       chunk: candidates per materialize launch.
       node_batch: DFS nodes popped per host iteration.
       pipeline_depth: node batches in flight at once.
@@ -132,6 +147,7 @@ class SpadeTorch:
         minsup_abs: int,
         *,
         device: DeviceLike = None,
+        mesh=None,
         chunk: int = 2048,
         node_batch: int = 1024,
         pipeline_depth: int = 4,
@@ -140,24 +156,27 @@ class SpadeTorch:
         max_pattern_itemsets: Optional[int] = None,
         shape_buckets: bool = False,
     ):
-        self.device = resolve_device(device)
+        self.device = engine_device(device, mesh)
+        self.mesh = mesh
         self.vdb = vdb
         self.minsup = int(minsup_abs)
         self.max_pattern_itemsets = max_pattern_itemsets
         n_items, n_words = vdb.n_items, vdb.n_words
         g = classic_geometry(
-            vdb.n_sequences, n_items, n_words, device=self.device,
+            vdb.n_sequences, n_items, n_words, device=self.device, mesh=mesh,
             chunk=chunk, node_batch=node_batch, pipeline_depth=pipeline_depth,
             recompute_chunk=recompute_chunk, pool_bytes=pool_bytes,
             shape_buckets=shape_buckets)
         self.n_items, self.n_seq, self.n_words = n_items, g["n_seq"], n_words
+        # the width of this rank's store rows (n_seq without a mesh)
+        self.s_local = shard_width(self.n_seq, mesh)
         self.chunk = g["chunk"]
         self.recompute_chunk = g["recompute_chunk"]
         self.pipeline_depth = g["pipeline_depth"]
         self.pool_slots = g["pool_slots"]
         self.node_batch = g["node_batch"]
         self.store = scatter_build_store(vdb, g["total_rows"], self.n_seq,
-                                         n_words, self.device)
+                                         n_words, self.device, mesh)
         self._pool = SlotPool(range(n_items, n_items + self.pool_slots))
         self.stats = {
             "candidates": 0, "kernel_launches": 0, "recomputed_nodes": 0,
@@ -178,21 +197,23 @@ class SpadeTorch:
     def _prep(self, batch: List[_Node]) -> torch.Tensor:
         """The batch's interleaved plain/transformed parent rows, sized to
         the live batch (the kernel takes any row count)."""
-        pt = prep_rows(self.store, [n.slot for n in batch], self.n_seq,
+        pt = prep_rows(self.store, [n.slot for n in batch], self.s_local,
                        self.n_words)
         self.stats["kernel_launches"] += 1
         return pt
 
     def _supports_dispatch(self, pt: torch.Tensor, ref: np.ndarray,
                            item: np.ndarray, iss: np.ndarray):
-        """Dispatch the batch's supports through the pair-support kernel;
-        on CUDA, start the copy into a pinned host tensor and record an
-        event behind it.  Returns ``(supports, event_or_None)``."""
+        """Dispatch the batch's supports through the pair-support kernel
+        (on a mesh: this shard's, then the all-reduce); on CUDA, start the
+        copy into a pinned host tensor and record an event behind it.
+        Returns ``(supports, event_or_None)``."""
         self.stats["candidates"] += len(ref)
         sup = PS.batch_supports(pt, self.store, self.n_items,
                                 to_index(2 * ref + iss, self.device),
                                 to_index(item, self.device),
                                 n_words=self.n_words)
+        all_reduce_sum(sup, self.mesh)
         self.stats["kernel_launches"] += 1
         (host,), ev = to_host([sup])
         return host, ev
@@ -215,7 +236,8 @@ class SpadeTorch:
         batch = [stack.pop() for _ in range(min(self.node_batch, len(stack)))]
         ensure_slots(self.store, self._pool, batch, stack,
                      first_pool_slot=self.n_items, group=self.recompute_chunk,
-                     n_seq=self.n_seq, n_words=self.n_words, stats=self.stats)
+                     n_seq=self.s_local, n_words=self.n_words,
+                     stats=self.stats)
         pt = self._prep(batch)
 
         # Flat candidate list for the whole batch (ref = index in batch).
@@ -344,8 +366,8 @@ class SpadeTorch:
             while stack and len(inflight) < self.pipeline_depth:
                 inflight.append(self._dispatch(stack))
             self._resolve(inflight.popleft(), stack, results)
-            if (checkpoint_cb is not None
-                    and time.monotonic() - last_ckpt >= checkpoint_every_s):
+            if checkpoint_due(checkpoint_cb, last_ckpt, checkpoint_every_s,
+                              self.mesh):
                 while inflight:  # drain for a consistent frontier
                     self._resolve(inflight.popleft(), stack, results)
                 checkpoint_cb(self.frontier_state(stack, results,
@@ -392,17 +414,16 @@ def mine_spade_torch(
     one, never the dense engine.  ``stats_out`` gets the engine's stats
     and the routing keys (``fused``, ``fused_overflow``, ``fused_waves``,
     ``fused_levels``, ``fused_skipped``).  ``shape_buckets`` reaches
-    every engine and the routing tests, as in the reference.  A ``mesh``
-    and ``partition_parts > 1`` are not ported yet and raise
+    every engine and the routing tests, as in the reference.  ``mesh``
+    (a ``parallel.mesh.SeqMesh``) shards the sequence axis over its ranks:
+    every rank calls this with the same arguments and gets the same
+    result, and the routing tests judge one shard's bytes as the
+    reference's do.  ``partition_parts > 1`` is not ported yet and raises
     ``NotImplementedError``.  ``kwargs`` go to :class:`SpadeTorch`.
     """
-    dev = resolve_device(device)
+    dev = engine_device(device, mesh)
     if fused not in _FUSED:
         raise ValueError(f"fused must be one of {_FUSED}, got {fused!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: multi-GPU sequence sharding is not ported yet "
-            "(ROADMAP Queue A item 6)")
     if partition_parts and int(partition_parts) > 1:
         raise NotImplementedError(
             "partition_parts > 1: class-partitioned mining is not ported "
@@ -410,7 +431,7 @@ def mine_spade_torch(
     vdb = build_vertical(db, min_item_support=minsup_abs)
     if vdb.n_items == 0:
         return []
-    return _route_spade(vdb, minsup_abs, device=dev,
+    return _route_spade(vdb, minsup_abs, device=dev, mesh=mesh,
                         max_pattern_itemsets=max_pattern_itemsets,
                         stats_out=stats_out, checkpoint=checkpoint,
                         fused=fused, shape_buckets=shape_buckets, **kwargs)
@@ -421,6 +442,7 @@ def _route_spade(
     minsup_abs: int,
     *,
     device: DeviceLike = None,
+    mesh=None,
     max_pattern_itemsets: Optional[int] = None,
     stats_out: Optional[dict] = None,
     checkpoint=None,
@@ -430,12 +452,14 @@ def _route_spade(
 ) -> List[PatternResult]:
     """The reference's engine ladder (``spade_tpu._route_spade``): queue,
     then dense, then classic, each engine and routing test judging the
-    bucketed sequence axis when ``shape_buckets``."""
-    ekw = dict(device=device, max_pattern_itemsets=max_pattern_itemsets,
+    bucketed sequence axis when ``shape_buckets``, and one shard of it
+    under a ``mesh``."""
+    ekw = dict(device=device, mesh=mesh,
+               max_pattern_itemsets=max_pattern_itemsets,
                shape_buckets=shape_buckets)
     if fused in ("auto", "always", "queue"):
         if fused in ("always", "queue") or queue_eligible(
-                vdb, device, shape_buckets=shape_buckets):
+                vdb, device, shape_buckets=shape_buckets, mesh=mesh):
             qeng = QueueSpadeTorch(vdb, minsup_abs, **ekw)
             q_resume, q_save, q_every = load_checkpoint(
                 checkpoint, qeng.frontier_fingerprint())
@@ -457,11 +481,11 @@ def _route_spade(
         # that would have used it runs the classic engine, flagged
         if stats_out is not None and (
                 fused in ("always", "dense") or fused_eligible(
-                    vdb, device, shape_buckets=shape_buckets)):
+                    vdb, device, shape_buckets=shape_buckets, mesh=mesh)):
             stats_out["fused_skipped"] = "checkpoint"
     if checkpoint is None and fused in ("always", "dense", "auto"):
         if fused in ("always", "dense") or fused_eligible(
-                vdb, device, shape_buckets=shape_buckets):
+                vdb, device, shape_buckets=shape_buckets, mesh=mesh):
             feng = FusedSpadeTorch(vdb, minsup_abs, **ekw)
             res = feng.mine()
             if res is not None:

@@ -29,9 +29,12 @@ on max-start states, not on bitmap joins, so the engine keeps its own
 ``_ensure_slots`` over ``_common.SlotPool``.
 
 ``shape_buckets`` buckets the sequence axis and the item rows as the
-reference does (:func:`cspade_geometry`).  Not ported, each raising
-``NotImplementedError``: meshes (ROADMAP Queue A item 6) and
-class-partitioned mining (item 11).
+reference does (:func:`cspade_geometry`).  With a ``mesh`` every rank
+keeps its block of the sequence axis (item bitmaps and state pool), the
+device steps are per-sequence and stay local, and each batch's windowed
+supports are all-reduced (SUM) before the prune (the reference's
+``psum``).  Not ported, raising ``NotImplementedError``: class-partitioned
+mining (ROADMAP Queue A item 11).
 """
 
 from __future__ import annotations
@@ -45,13 +48,15 @@ import torch
 
 from spark_fsm_tpu_torch.data.spmf import SequenceDB
 from spark_fsm_tpu_torch.data.vertical import VerticalDB, build_vertical
-from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
+from spark_fsm_tpu_torch.device import DeviceLike
 from spark_fsm_tpu_torch.models._common import (
-    FrontierNode, SlotPool, auto_pool_bytes, bucket_seq, decode_frontier,
-    encode_frontier, launch_width_cap, load_checkpoint, scatter_build_store,
-    to_host, to_index)
+    FrontierNode, SlotPool, auto_pool_bytes, bucket_seq, checkpoint_due,
+    decode_frontier, encode_frontier, engine_device, launch_width_cap,
+    load_checkpoint, scatter_build_store, shard_width, to_host, to_index)
 from spark_fsm_tpu_torch.ops.ragged_batch import next_pow2
 from spark_fsm_tpu_torch.ops import maxstart_torch as MS
+from spark_fsm_tpu_torch.parallel.mesh import (
+    all_reduce_sum, mesh_size, pad_to_multiple)
 from spark_fsm_tpu_torch.utils.canonical import (
     Pattern, PatternResult, sort_patterns)
 
@@ -60,11 +65,7 @@ from spark_fsm_tpu_torch.utils.canonical import (
 _Node = FrontierNode
 
 
-def _refuse(mesh, partition) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: multi-GPU sequence sharding is not ported yet "
-            "(ROADMAP Queue A item 6)")
+def _refuse(partition) -> None:
     if partition is not None:
         raise NotImplementedError(
             "partition: class-partitioned cSPADE is not ported yet "
@@ -72,7 +73,7 @@ def _refuse(mesh, partition) -> None:
 
 
 def cspade_geometry(n_sequences: int, n_items: int, n_words: int, *,
-                    device: DeviceLike = None, chunk: int = 256,
+                    device: DeviceLike = None, mesh=None, chunk: int = 256,
                     node_batch: int = 32, pipeline_depth: int = 4,
                     recompute_chunk: int = 32,
                     pool_bytes: Optional[int] = None,
@@ -84,20 +85,25 @@ def cspade_geometry(n_sequences: int, n_items: int, n_words: int, *,
     recompute.  ``device`` sizes the default pool budget and may be None
     only when ``pool_bytes`` is given.  ``shape_buckets`` buckets the
     sequence axis (``_common.bucket_seq``) and rounds the item rows up to
-    a power of two of at least 16; the extra rows stay all-zero."""
+    a power of two of at least 16; the extra rows stay all-zero.  A
+    ``mesh`` pads the sequence axis to a multiple of its rank count and
+    caps the launch width on one shard's bytes, as the reference does."""
     n_seq = int(n_sequences)
     item_rows = n_items
     if shape_buckets:
         n_seq = bucket_seq(n_seq)
         item_rows = max(16, next_pow2(n_items))
+    if mesh is not None:
+        n_seq = pad_to_multiple(n_seq, mesh_size(mesh))
     n_pos = n_words * 32
     dtype = MS.state_dtype(n_pos)
     state_bits = 8 if dtype == torch.int8 else 16
     if pool_bytes is None:
-        pool_bytes = auto_pool_bytes(resolve_device(device))
+        pool_bytes = auto_pool_bytes(engine_device(device, mesh))
     slot_bytes = n_seq * n_pos * (state_bits // 8)
     # memory-safety ceiling on per-launch [chunk, S, n_pos] temporaries
-    max_chunk = launch_width_cap(pool_bytes, slot_bytes, 4)
+    max_chunk = launch_width_cap(pool_bytes,
+                                 -(-slot_bytes // mesh_size(mesh)), 4)
     chunk = min(int(chunk), max_chunk)
     recompute_chunk = min(int(recompute_chunk), max(2, max_chunk // 2))
     budget_slots = max(32, min(int(pool_bytes) // max(slot_bytes, 1), 8192))
@@ -147,8 +153,9 @@ class ConstrainedSpadeTorch:
         shape_buckets: bool = False,
         partition=None,
     ):
-        _refuse(mesh, partition)
-        self.device = resolve_device(device)
+        _refuse(partition)
+        self.device = engine_device(device, mesh)
+        self.mesh = mesh
         self.vdb = vdb
         self.minsup = int(minsup_abs)
         self.maxgap = maxgap
@@ -156,7 +163,7 @@ class ConstrainedSpadeTorch:
         self.max_pattern_itemsets = max_pattern_itemsets
         n_items, n_words = vdb.n_items, vdb.n_words
         g = cspade_geometry(
-            vdb.n_sequences, n_items, n_words, device=self.device,
+            vdb.n_sequences, n_items, n_words, device=self.device, mesh=mesh,
             chunk=chunk, node_batch=node_batch,
             pipeline_depth=pipeline_depth, recompute_chunk=recompute_chunk,
             pool_bytes=pool_bytes, shape_buckets=shape_buckets)
@@ -172,10 +179,12 @@ class ConstrainedSpadeTorch:
         # the item bitmaps scatter-built on the device, viewed as words
         # (rows past n_items, under shape_buckets, stay all-zero and are
         # never indexed), and the state pool
+        # this rank's block of the sequence axis (all of it without a mesh)
+        self.s_local = shard_width(self.n_seq, mesh)
         self._words = scatter_build_store(
-            vdb, self.item_rows, self.n_seq, n_words, self.device).view(
-                self.item_rows, self.n_seq, n_words)
-        self.pool = torch.zeros((self.pool_slots, self.n_seq, self.n_pos),
+            vdb, self.item_rows, self.n_seq, n_words, self.device,
+            mesh).view(self.item_rows, self.s_local, n_words)
+        self.pool = torch.zeros((self.pool_slots, self.s_local, self.n_pos),
                                 dtype=self.dtype, device=self.device)
         self._pool_alloc = SlotPool(range(self.pool_slots))
         # s_candidates vs i_candidates: under maxgap the s-side is all
@@ -229,11 +238,12 @@ class ConstrainedSpadeTorch:
                                       torch.from_numpy(iss[lo:hi]).to(dev))
 
     def _supports(self, m, pm, ref, item, iss):
-        """Windowed supports of the candidates with the host copy started;
-        returns ``(supports, event_or_None)``."""
-        (host,), ev = to_host([torch.cat([
+        """Windowed supports of the candidates (all-reduced on a mesh) with
+        the host copy started; returns ``(supports, event_or_None)``."""
+        (host,), ev = to_host([all_reduce_sum(torch.cat([
             MS.support(c, self.maxwindow)
-            for _, _, c in self._children(m, pm, ref, item, iss)])])
+            for _, _, c in self._children(m, pm, ref, item, iss)]),
+            self.mesh)])
         return host, ev
 
     def _materialize(self, m, pm, ref, item, iss, out_slot) -> None:
@@ -436,8 +446,8 @@ class ConstrainedSpadeTorch:
             while stack and len(inflight) < self.pipeline_depth:
                 inflight.append(dispatch())
             resolve(inflight.popleft())
-            if (checkpoint_cb is not None
-                    and time.monotonic() - last_ckpt >= checkpoint_every_s):
+            if checkpoint_due(checkpoint_cb, last_ckpt, checkpoint_every_s,
+                              self.mesh):
                 while inflight:  # drain for a consistent frontier
                     resolve(inflight.popleft())
                 checkpoint_cb(self.frontier_state(stack, results,
@@ -467,22 +477,23 @@ def mine_cspade_torch(
     """DB -> vertical build -> constrained mine, on ``device`` (default
     CUDA; raises without it).  ``checkpoint`` follows ``mine_spade_torch``'s
     load/save/every_s contract (a stale snapshot is ignored and the mine
-    restarts fresh).  A ``mesh`` and ``partition_parts > 1`` are not
-    ported yet and raise ``NotImplementedError``.  ``kwargs`` go to
+    restarts fresh).  A ``mesh`` shards the sequence axis over its ranks
+    (every rank calls this alike and gets the same result);
+    ``partition_parts > 1`` is not ported yet and raises
+    ``NotImplementedError``.  ``kwargs`` go to
     :class:`ConstrainedSpadeTorch`.  ``stats_out`` gets the engine's stats
     and, under ``geometry``, the dtype, chunk, node batch, pool slots,
     recompute chunk and pipeline depth the mine ran with."""
-    dev = resolve_device(device)
+    dev = engine_device(device, mesh)
     if partition_parts and int(partition_parts) > 1:
         raise NotImplementedError(
             "partition_parts > 1: class-partitioned cSPADE is not ported "
             "yet (ROADMAP Queue A item 11)")
-    _refuse(mesh, None)
     vdb = build_vertical(db, min_item_support=minsup_abs)
     if vdb.n_items == 0:
         return []
     eng = ConstrainedSpadeTorch(vdb, minsup_abs, maxgap=maxgap,
-                                maxwindow=maxwindow, device=dev,
+                                maxwindow=maxwindow, device=dev, mesh=mesh,
                                 max_pattern_itemsets=max_pattern_itemsets,
                                 **kwargs)
     resume, save_cb, every_s = load_checkpoint(

@@ -25,6 +25,11 @@ the host: every shape is a cap, ``nonzero`` is
 (``_common.copy_rows_drop``), so the scratch row that inactive lanes
 read stays all-zero.
 
+With a ``mesh`` each rank runs the levels over its block of the sequence
+axis and all-reduces (SUM) the level's pair matrix after B1 (the
+reference's ``psum``), so every rank's frontier is the same; the default
+frontier cap grows with the mesh (``FusedCaps.for_mesh``).
+
 Any cap overflow makes :meth:`FusedSpadeTorch.mine` return None and the
 caller falls back to the classic engine: capacity never costs
 correctness.  The masks implement the oracle's candidate-list rules, so
@@ -41,28 +46,30 @@ import numpy as np
 import torch
 
 from spark_fsm_tpu_torch.data.vertical import VerticalDB
-from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
+from spark_fsm_tpu_torch.device import DeviceLike
 from spark_fsm_tpu_torch.models._common import (
     I_TILE, P_TILE, CounterReader, bucket_seq, copy_rows_drop, device_axes,
-    device_hbm_budget, nonzero_static, pad_to_multiple, prep_rows,
-    scatter_build_store)
+    device_hbm_budget, engine_device, nonzero_static, pad_to_multiple,
+    prep_rows, scatter_build_store, shard_width)
 from spark_fsm_tpu_torch.ops import pair_support as PS
+from spark_fsm_tpu_torch.parallel.mesh import all_reduce_sum, mesh_size
 from spark_fsm_tpu_torch.utils.canonical import PatternResult, sort_patterns
 
 
 def fused_geometry(n_sequences: int, n_items: int, n_words: int, *,
                    shape_buckets: bool = False,
-                   caps: Optional["FusedCaps"] = None) -> dict:
+                   caps: Optional["FusedCaps"] = None, mesh=None) -> dict:
     """Derived device geometry of a :class:`FusedSpadeTorch`;
-    ``shape_buckets`` buckets the sequence axis (``_common.bucket_seq``)."""
-    return {"n_seq": device_axes(n_sequences, shape_buckets),
+    ``shape_buckets`` buckets the sequence axis (``_common.bucket_seq``),
+    and a ``mesh`` sizes it and the default caps for its shards."""
+    return {"n_seq": device_axes(n_sequences, shape_buckets, mesh),
             "ni_pad": pad_to_multiple(max(n_items, 1), I_TILE),
-            "caps": caps or FusedCaps.for_mesh()}
+            "caps": caps or FusedCaps.for_mesh(mesh)}
 
 
 def fused_eligible(vdb: VerticalDB, device: DeviceLike = None,
                    caps: Optional["FusedCaps"] = None,
-                   shape_buckets: bool = False) -> bool:
+                   shape_buckets: bool = False, mesh=None) -> bool:
     """The reference's size heuristic for ``fused="auto"``, two ceilings:
 
     - traffic: each level computes the dense ``[2*f_cap, ni_pad]`` pair
@@ -72,21 +79,23 @@ def fused_eligible(vdb: VerticalDB, device: DeviceLike = None,
     - allocation: the store plus four ``[2*f_cap]``-row prep stacks must
       fit 45 % of the device budget.
 
-    Under ``shape_buckets`` both judge the bucketed sequence axis."""
-    caps = caps or FusedCaps.for_mesh()
+    Under ``shape_buckets`` both judge the bucketed sequence axis, under
+    a ``mesh`` one device's share of it (``ceil(n_seq / N)``), with the
+    mesh's default caps."""
+    caps = caps or FusedCaps.for_mesh(mesh)
     ni_pad = pad_to_multiple(max(vdb.n_items, 1), I_TILE)
     if ni_pad > 1024:
         return False
     n_seq = (bucket_seq(vdb.n_sequences) if shape_buckets
              else vdb.n_sequences)
-    row_bytes = n_seq * vdb.n_words * 4
+    row_bytes = -(-n_seq // mesh_size(mesh)) * vdb.n_words * 4
     est = (row_bytes * 2 * caps.f_cap * ni_pad
            * (1 / I_TILE + 1 / P_TILE))
     if est > 24 << 30:
         return False
     store_bytes = (ni_pad + 2 * caps.f_cap + 1) * row_bytes
     prep_bytes = 2 * caps.f_cap * row_bytes
-    budget = device_hbm_budget(resolve_device(device))
+    budget = device_hbm_budget(engine_device(device, mesh))
     return store_bytes + 4 * prep_bytes <= 0.45 * budget
 
 
@@ -104,13 +113,10 @@ class FusedCaps:
 
     @classmethod
     def for_mesh(cls, mesh=None) -> "FusedCaps":
-        """The default caps for one device.  The reference widens the
-        frontier with a mesh's device count; meshes are not ported."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-GPU sequence sharding is not ported yet "
-                "(ROADMAP Queue A item 6)")
-        return cls(f_cap=1024)
+        """The default caps scaled to the mesh: the pair matrix's sequence
+        axis shards over the ranks, so the frontier cap grows with the
+        rank count at constant per-rank traffic, up to 8192."""
+        return cls(f_cap=min(8192, 1024 * mesh_size(mesh)))
 
 
 def expand(sup_s: torch.Tensor, sup_i: torch.Tensor, cand_s: torch.Tensor,
@@ -221,18 +227,20 @@ class FusedSpadeTorch:
     engine, which has no capacity limits."""
 
     def __init__(self, vdb: VerticalDB, minsup_abs: int, *,
-                 device: DeviceLike = None,
+                 device: DeviceLike = None, mesh=None,
                  max_pattern_itemsets: Optional[int] = None,
                  caps: Optional[FusedCaps] = None,
                  shape_buckets: bool = False):
-        self.device = resolve_device(device)
+        self.device = engine_device(device, mesh)
+        self.mesh = mesh
         self.vdb = vdb
         self.minsup = int(minsup_abs)
         self.max_its = max_pattern_itemsets
         g = fused_geometry(vdb.n_sequences, vdb.n_items, vdb.n_words,
-                           shape_buckets=shape_buckets, caps=caps)
+                           shape_buckets=shape_buckets, caps=caps, mesh=mesh)
         self.caps = g["caps"]
         self.n_seq, self.n_words = g["n_seq"], vdb.n_words
+        self.s_local = shard_width(self.n_seq, mesh)
         self.ni_pad = g["ni_pad"]
         self.n_items = vdb.n_items
         self.stats = {"patterns": 0, "levels": 0, "fused": True}
@@ -277,7 +285,7 @@ class FusedSpadeTorch:
         ni, f = self.ni_pad, cap.f_cap
         self._scratch = ni + 2 * f
         self.store = scatter_build_store(self.vdb, ni + 2 * f + 2, self.n_seq,
-                                         self.n_words, dev)
+                                         self.n_words, dev, self.mesh)
         root_mask = np.zeros(ni, bool)
         root_mask[roots] = True
         (self.slots, self.s_mask, self.i_mask, self.nits, self.records,
@@ -298,9 +306,10 @@ class FusedSpadeTorch:
         active = lane < n_nodes
         pt = prep_rows(self.store, torch.where(active, self.slots,
                                                self._scratch),
-                       self.n_seq, self.n_words)
-        pair = PS.pair_supports(pt, self.store, ni,
-                                n_words=self.n_words).view(f, 2, ni)
+                       self.s_local, self.n_words)
+        pair = all_reduce_sum(PS.pair_supports(pt, self.store, ni,
+                                               n_words=self.n_words),
+                              self.mesh).view(f, 2, ni)
         # row 2f: plain & item = i-ext; row 2f+1: transform & item = s-ext
         sup_i, sup_s = pair[:, 0], pair[:, 1]
         allow_s = active

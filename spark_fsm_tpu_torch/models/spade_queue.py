@@ -32,6 +32,12 @@ buffer's trash row (``_common.copy_rows_drop``) — the store's is one row
 past the scratch row, so scratch stays all-zero.  The host's waits on
 the counters are summed in ``stats["wait_s"]``.
 
+With a ``mesh`` every rank runs the waves over its block of the sequence
+axis: B1 gives the shard's partial pair matrix, which is all-reduced
+(SUM) before ``expand`` (the reference's ``psum`` at its wave), so the
+frontier, records and counters agree on every rank.  Under NCCL the
+reduce stays on the stream and the wave body stays free of host syncs.
+
 Static caps (wave width, ring, emissions and children per wave, total
 records, waves) bound every shape; any overflow makes :meth:`mine`
 return None and the caller falls back (capacity is a routing concern,
@@ -49,16 +55,18 @@ import numpy as np
 import torch
 
 from spark_fsm_tpu_torch.data.vertical import VerticalDB
-from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
+from spark_fsm_tpu_torch.device import DeviceLike
 from spark_fsm_tpu_torch.models._common import (
-    I_TILE, P_TILE, CounterReader, FrontierNode, bucket_seq, copy_rows_drop,
-    decode_frontier, device_axes, device_hbm_budget, encode_frontier,
-    frontier_fingerprint, nonzero_static, pad_to_multiple, prep_rows,
-    recompute_rows, scatter_build_store)
+    I_TILE, P_TILE, CounterReader, FrontierNode, bucket_seq, checkpoint_due,
+    copy_rows_drop, decode_frontier, device_axes, device_hbm_budget,
+    encode_frontier, engine_device, frontier_fingerprint, nonzero_static,
+    pad_to_multiple, prep_rows, recompute_rows, scatter_build_store,
+    shard_width)
 from spark_fsm_tpu_torch.models.spade_fused import (
     decode_records, expand, root_state)
 from spark_fsm_tpu_torch.ops import pair_support as PS
 from spark_fsm_tpu_torch.ops import ragged_batch as RB
+from spark_fsm_tpu_torch.parallel.mesh import all_reduce_sum, mesh_size
 from spark_fsm_tpu_torch.utils.canonical import PatternResult, sort_patterns
 
 # ring slots a resume refills per join-chain fold launch
@@ -67,17 +75,19 @@ _REFILL_GROUP = 256
 
 def queue_geometry(n_sequences: int, n_items: int, n_words: int, *,
                    device: DeviceLike = None, shape_buckets: bool = False,
-                   caps: Optional["QueueCaps"] = None) -> dict:
+                   caps: Optional["QueueCaps"] = None, mesh=None) -> dict:
     """Derived device geometry of a :class:`QueueSpadeTorch`; pure host
     arithmetic (the budget probe reads device metadata only).
     ``shape_buckets`` buckets the sequence axis (``_common.bucket_seq``),
-    which the caps are sized on."""
-    n_seq = device_axes(n_sequences, shape_buckets)
+    which the caps are sized on; under a ``mesh`` the axis is the
+    reference's for that many shards and the caps judge one shard."""
+    n_seq = device_axes(n_sequences, shape_buckets, mesh)
     ni_pad = pad_to_multiple(max(n_items, 1), I_TILE)
     if caps is None:
         caps = QueueCaps.for_budget(
             n_seq * n_words * 4, ni_pad,
-            int(0.45 * device_hbm_budget(resolve_device(device))))
+            int(0.45 * device_hbm_budget(engine_device(device, mesh))),
+            mesh_size(mesh))
     return {"n_seq": n_seq, "ni_pad": ni_pad, "caps": caps,
             # the narrow wave width the mine switches to once the live
             # frontier drops below it
@@ -107,15 +117,17 @@ class QueueCaps:
 
     @classmethod
     def for_budget(cls, row_bytes: int, ni_pad: int,
-                   budget: int) -> "QueueCaps":
+                   budget: int, n_dev: int = 1) -> "QueueCaps":
         """The largest pow2 ring in [256, 65536] whose working set
         (:func:`working_set_bytes`, which ``queue_eligible`` judges too)
-        fits ``budget``; the smallest ring when none does."""
+        fits ``budget`` per device, on ``n_dev`` devices' shares of a
+        ``row_bytes`` row; the smallest ring when none does."""
+        per_dev_row = max(1, -(-row_bytes // n_dev))
         best = None
         ring = 256
         while ring <= 65536:
             caps = cls(ring=ring)
-            if working_set_bytes(caps, max(1, row_bytes), ni_pad) > budget:
+            if working_set_bytes(caps, per_dev_row, ni_pad) > budget:
                 break
             best = caps
             ring *= 2
@@ -139,21 +151,24 @@ def working_set_bytes(caps: QueueCaps, per_dev_row: int,
 
 def queue_eligible(vdb: VerticalDB, device: DeviceLike = None,
                    caps: Optional[QueueCaps] = None,
-                   shape_buckets: bool = False) -> bool:
+                   shape_buckets: bool = False, mesh=None) -> bool:
     """The reference's routing test for ``fused="auto"``: the padded
     alphabet is at most 1024 items (the pair matrix spans every item
     row), the ring holds the whole root level, and the working set fits
     45 % of the device budget.  It judges the unpadded sequence count, or
-    its bucket under ``shape_buckets``, as the reference does."""
+    its bucket under ``shape_buckets``, as the reference does, and under
+    a ``mesh`` one device's share of a row (``ceil(n_seq / N)``)."""
     ni_pad = pad_to_multiple(max(vdb.n_items, 1), I_TILE)
     if ni_pad > 1024:
         return False
+    n_dev = mesh_size(mesh)
     n_seq = (bucket_seq(vdb.n_sequences) if shape_buckets
              else vdb.n_sequences)
-    row_bytes = n_seq * vdb.n_words * 4
-    budget = 0.45 * device_hbm_budget(resolve_device(device))
+    row_bytes = -(-n_seq // n_dev) * vdb.n_words * 4
+    budget = 0.45 * device_hbm_budget(engine_device(device, mesh))
     if caps is None:
-        caps = QueueCaps.for_budget(row_bytes, ni_pad, int(budget))
+        caps = QueueCaps.for_budget(row_bytes * n_dev, ni_pad, int(budget),
+                                    n_dev)
     if caps.ring < vdb.n_items:
         return False
     return working_set_bytes(caps, row_bytes, ni_pad) <= budget
@@ -184,18 +199,20 @@ class QueueSpadeTorch:
     """
 
     def __init__(self, vdb: VerticalDB, minsup_abs: int, *,
-                 device: DeviceLike = None,
+                 device: DeviceLike = None, mesh=None,
                  max_pattern_itemsets: Optional[int] = None,
                  caps: Optional[QueueCaps] = None,
                  shape_buckets: bool = False):
-        self.device = resolve_device(device)
+        self.device = engine_device(device, mesh)
+        self.mesh = mesh
         self.vdb = vdb
         self.minsup = int(minsup_abs)
         self.max_its = max_pattern_itemsets
         g = queue_geometry(vdb.n_sequences, vdb.n_items, vdb.n_words,
                            device=self.device, shape_buckets=shape_buckets,
-                           caps=caps)
+                           caps=caps, mesh=mesh)
         self.n_seq, self.n_words = g["n_seq"], vdb.n_words
+        self.s_local = shard_width(self.n_seq, mesh)
         self.ni_pad = g["ni_pad"]
         self.n_items = vdb.n_items
         self.caps = g["caps"]
@@ -206,7 +223,7 @@ class QueueSpadeTorch:
         # scratch row inactive lanes read; the trash row
         self._scratch = self.ni_pad + self.caps.ring
         self.store = scatter_build_store(vdb, self._scratch + 2, self.n_seq,
-                                         self.n_words, self.device)
+                                         self.n_words, self.device, mesh)
 
     def mine(self, *, resume: Optional[dict] = None, checkpoint_cb=None,
              checkpoint_every_s: float = 30.0,
@@ -257,9 +274,10 @@ class QueueSpadeTorch:
         ridx = torch.where(active, qid % ring, ring - 1)
         pt = prep_rows(self.store,
                        torch.where(active, c.q_slot[ridx], self._scratch),
-                       self.n_seq, self.n_words)
-        pair = PS.pair_supports(pt, self.store, ni,
-                                n_words=self.n_words).view(nb, 2, ni)
+                       self.s_local, self.n_words)
+        pair = all_reduce_sum(PS.pair_supports(pt, self.store, ni,
+                                               n_words=self.n_words),
+                              self.mesh).view(nb, 2, ni)
         # row 2f: plain & item = i-ext; row 2f+1: transform & item = s-ext
         sup_i, sup_s = pair[:, 0], pair[:, 1]
         nits = c.q_nits[ridx]
@@ -412,8 +430,7 @@ class QueueSpadeTorch:
                 break
             if not narrow and nbl < cap.nb and tail - head <= nbl:
                 narrow = True  # never switched back
-            if (checkpoint_cb is not None
-                    and time.monotonic() - last_ckpt >= every_s):
+            if checkpoint_due(checkpoint_cb, last_ckpt, every_s, self.mesh):
                 checkpoint_cb(self._snapshot(c, head, tail, n_rec, ckpt_done))
                 ckpt_done = n_rec
                 self.stats["checkpoints"] = (
@@ -525,7 +542,7 @@ class QueueSpadeTorch:
             hi = min(n_live, lo + _REFILL_GROUP)
             recompute_rows(self.store, items[:, lo:hi], iss_a[:, lo:hi],
                            valid[:, lo:hi], list(range(ni + lo, ni + hi)),
-                           self.n_seq, self.n_words)
+                           self.s_local, self.n_words)
 
         def put(a):
             return torch.from_numpy(a).to(dev)

@@ -25,10 +25,13 @@ exact identity).
   host tensors with non-blocking copies behind one recorded CUDA event.
 
 ``shape_buckets`` buckets the sequence axis and the store's rows as the
-reference does (:func:`spam_geometry`).  Not ported: meshes (ROADMAP
-Queue A item 6), class-partitioned mining (item 11), and the service
-planes the
-reference's dispatch calls (fusion, usage, cost-model observation, job
+reference does (:func:`spam_geometry`).  With a ``mesh`` every rank runs
+the DFS over its block of the sequence axis: the wave is B1 on the shard,
+the all-reduce and the threshold and pack as torch ops
+(``spam_bitops.wave_prune_sharded``: B3 never runs on a mesh), the
+sparse half all-reduces before its threshold, and prep, materialize and
+recompute stay local.  Not ported: class-partitioned mining (ROADMAP
+Queue A item 11), and the service planes the reference's dispatch calls (fusion, usage, cost-model observation, job
 control, shape records: item 13).
 """
 
@@ -44,14 +47,17 @@ import torch
 from spark_fsm_tpu_torch.data.spmf import SequenceDB
 from spark_fsm_tpu_torch.data.vertical import (
     VerticalDB, build_vertical, idlist_join_support)
-from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
+from spark_fsm_tpu_torch.device import DeviceLike
 from spark_fsm_tpu_torch.models._common import (
     FrontierNode, SlotPool, auto_pool_bytes, bucket_store_rows,
-    decode_frontier, device_axes, encode_frontier, ensure_slots, frontier_fingerprint, load_checkpoint,
-    materialize_rows, prep_rows, scatter_build_store, to_host, to_index)
+    checkpoint_due, decode_frontier, device_axes, encode_frontier,
+    engine_device, ensure_slots, frontier_fingerprint, load_checkpoint,
+    materialize_rows, prep_rows, scatter_build_store, shard_width, to_host,
+    to_index)
 from spark_fsm_tpu_torch.ops import bitops_np as BN
 from spark_fsm_tpu_torch.ops import spam_bitops as SB
 from spark_fsm_tpu_torch.ops.ragged_batch import next_pow2
+from spark_fsm_tpu_torch.parallel.mesh import mesh_size
 from spark_fsm_tpu_torch.service import planner
 from spark_fsm_tpu_torch.utils.canonical import Pattern, PatternResult, sort_patterns
 
@@ -60,7 +66,8 @@ _Node = FrontierNode
 
 
 def spam_geometry(n_sequences: int, n_items: int, n_words: int, *,
-                  device: Optional[torch.device] = None, node_batch: int = 64,
+                  device: Optional[torch.device] = None, mesh=None,
+                  node_batch: int = 64,
                   pipeline_depth: int = 2,
                   pool_bytes: Optional[int] = None,
                   shape_buckets: bool = False) -> dict:
@@ -73,16 +80,19 @@ def spam_geometry(n_sequences: int, n_items: int, n_words: int, *,
     (the plain spelling's) fit a quarter of the pool budget.
     ``shape_buckets`` buckets the sequence axis and rounds the store's
     rows (padded items, pool and the reference's unused scratch row) to a
-    power of two (``_common.bucket_store_rows``)."""
-    n_seq = device_axes(n_sequences, shape_buckets)
+    power of two (``_common.bucket_store_rows``).  With a ``mesh`` the
+    sequence axis is the reference's for that many shards and the wave
+    temporaries are one shard's."""
+    n_seq = device_axes(n_sequences, shape_buckets, mesh)
     if pool_bytes is None:
         pool_bytes = auto_pool_bytes(device)
     ni_pad = SB.pad_items(n_items)
     slot_bytes = n_seq * n_words * 4
+    spd = -(-slot_bytes // mesh_size(mesh))  # one device's bytes of a row
     budget_slots = max(64, min(int(pool_bytes) // max(slot_bytes, 1), 32768))
     d = max(1, min(int(pipeline_depth), max(1, budget_slots // 8)))
     nb_wave = max(1, (int(pool_bytes) // 4)
-                  // max(1, 2 * SB.ITEM_TILE * slot_bytes * d))
+                  // max(1, 2 * SB.ITEM_TILE * spd * d))
     nb = max(1, min(int(node_batch), nb_wave, budget_slots // (3 * (d + 2))))
     pool_slots = max(8, budget_slots - 2 * d * nb)
     total = ni_pad + pool_slots
@@ -99,12 +109,15 @@ def spam_geometry(n_sequences: int, n_items: int, n_words: int, *,
 
 
 class SpamBitmapTorch:
-    """Single-device SPAM miner over the shared bitmap store.
+    """Single-device or sequence-sharded SPAM miner over the shared
+    bitmap store.
 
     Args:
       vdb: vertical DB (build with ``min_item_support=minsup_abs``).
       minsup_abs: absolute minimum sequence support.
       device: ``None`` (= CUDA, raising without it) or ``"cpu"``.
+      mesh: optional ``parallel.mesh.SeqMesh`` (this rank's block of the
+        sequence axis, on the mesh's device).
       node_batch: DFS nodes per wave (each pays the whole item axis).
       pipeline_depth: waves in flight at once.
       pool_bytes: device memory budget for the pattern-bitmap pool.
@@ -122,6 +135,7 @@ class SpamBitmapTorch:
         minsup_abs: int,
         *,
         device: DeviceLike = None,
+        mesh=None,
         node_batch: int = 64,
         pipeline_depth: int = 2,
         pool_bytes: Optional[int] = None,
@@ -131,7 +145,8 @@ class SpamBitmapTorch:
         diffset_depth: Optional[int] = None,
         shape_buckets: bool = False,
     ):
-        self.device = resolve_device(device)
+        self.device = engine_device(device, mesh)
+        self.mesh = mesh
         self.vdb = vdb
         self.minsup = int(minsup_abs)
         self.max_pattern_itemsets = max_pattern_itemsets
@@ -143,10 +158,11 @@ class SpamBitmapTorch:
         self._hybrid = self.rep_plan.n_sparse > 0
 
         g = spam_geometry(
-            vdb.n_sequences, n_items, n_words, device=self.device,
+            vdb.n_sequences, n_items, n_words, device=self.device, mesh=mesh,
             node_batch=node_batch, pipeline_depth=pipeline_depth,
             pool_bytes=pool_bytes, shape_buckets=shape_buckets)
         self.n_items, self.n_seq, self.n_words = n_items, g["n_seq"], n_words
+        self.s_local = shard_width(self.n_seq, mesh)
         self.ni_pad = g["ni_pad"]
         self.node_batch = g["node_batch"]
         self.pipeline_depth = g["pipeline_depth"]
@@ -156,7 +172,7 @@ class SpamBitmapTorch:
         # pool slots start at ni_pad, not n_items: rows n_items..ni_pad-1
         # are the all-zero item pad rows the wave ANDs against
         self.store = scatter_build_store(vdb, g["total_rows"], self.n_seq,
-                                         n_words, self.device)
+                                         n_words, self.device, mesh)
         self._pool = SlotPool(range(self.ni_pad, self.ni_pad + self.pool_slots))
 
         # hybrid split: dense items are wave lanes in a compact gathered
@@ -214,9 +230,9 @@ class SpamBitmapTorch:
         batch = [stack.pop() for _ in range(min(self.node_batch, len(stack)))]
         ensure_slots(self.store, self._pool, batch, stack,
                      first_pool_slot=self.ni_pad,
-                     group=max(16, self.node_batch), n_seq=self.n_seq,
+                     group=max(16, self.node_batch), n_seq=self.s_local,
                      n_words=self.n_words, stats=self.stats)
-        pt = prep_rows(self.store, [n.slot for n in batch], self.n_seq,
+        pt = prep_rows(self.store, [n.slot for n in batch], self.s_local,
                        self.n_words)
         self.stats["kernel_launches"] += 1
         # per-row dEclat flags: a node at or past the diffset depth counts
@@ -232,10 +248,15 @@ class SpamBitmapTorch:
         if self.nd_pad:
             # the wave's item rows past the real items are all zero: the
             # store's pad rows (pure bitmap) or the gather's -1 rows (hybrid)
-            sup, mask = SB.wave_extend_prune(
-                pt, self._items, self.minsup, torch.from_numpy(ud_rows),
-                n_words=self.n_words, nd_pad=self.nd_pad,
-                n_live=self.n_dense if self._hybrid else self.n_items)
+            if self.mesh is None:
+                sup, mask = SB.wave_extend_prune(
+                    pt, self._items, self.minsup, torch.from_numpy(ud_rows),
+                    n_words=self.n_words, nd_pad=self.nd_pad,
+                    n_live=self.n_dense if self._hybrid else self.n_items)
+            else:
+                sup, mask = SB.wave_prune_sharded(
+                    pt, self._items, self.minsup, n_words=self.n_words,
+                    nd_pad=self.nd_pad, mesh=self.mesh)
             self.stats["kernel_launches"] += 1
             self.stats["waves"] += 1
             self.stats["evaluated_lanes"] += 2 * self.node_batch * self.nd_pad
@@ -277,7 +298,8 @@ class SpamBitmapTorch:
                 out = SB.pair_prune(
                     pt, self.store, to_index(pref, self.device),
                     to_index(item, self.device), self.minsup,
-                    torch.from_numpy(ud).to(self.device), self.n_words)
+                    torch.from_numpy(ud).to(self.device), self.n_words,
+                    self.mesh)
                 outs.append(out[: hi - lo])
                 self.stats["kernel_launches"] += 1
                 self.stats["pair_launches"] += 1
@@ -391,8 +413,8 @@ class SpamBitmapTorch:
             while stack and len(inflight) < self.pipeline_depth:
                 inflight.append(self._dispatch(stack))
             self._resolve(inflight.popleft(), stack, results)
-            if (checkpoint_cb is not None
-                    and time.monotonic() - last_ckpt >= checkpoint_every_s):
+            if checkpoint_due(checkpoint_cb, last_ckpt, checkpoint_every_s,
+                              self.mesh):
                 while inflight:  # drain for a consistent frontier
                     self._resolve(inflight.popleft(), stack, results)
                 checkpoint_cb(self.frontier_state(stack, results,
@@ -554,13 +576,11 @@ def mine_spam_torch(
     ``checkpoint`` (optional): an object with ``load() -> Optional[dict]``,
     ``save(state)`` and ``every_s``; a saved frontier (from either package,
     SPAM or SPADE) is resumed when its fingerprint still matches.  A
-    ``mesh`` and ``partition_parts > 1`` are not ported yet and raise
-    ``NotImplementedError``.  ``kwargs`` go to :class:`SpamBitmapTorch`."""
-    dev = resolve_device(device)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: multi-GPU sequence sharding is not ported yet "
-            "(ROADMAP Queue A item 6)")
+    ``mesh`` shards the sequence axis over its ranks (every rank calls
+    this alike and gets the same result); ``partition_parts > 1`` is not
+    ported yet and raises ``NotImplementedError``.  ``kwargs`` go to
+    :class:`SpamBitmapTorch`."""
+    dev = engine_device(device, mesh)
     if partition_parts and int(partition_parts) > 1:
         raise NotImplementedError(
             "partition_parts > 1: class-partitioned mining is not ported "
@@ -568,7 +588,7 @@ def mine_spam_torch(
     vdb = build_vertical(db, min_item_support=minsup_abs)
     if vdb.n_items == 0:
         return []
-    eng = SpamBitmapTorch(vdb, minsup_abs, device=dev,
+    eng = SpamBitmapTorch(vdb, minsup_abs, device=dev, mesh=mesh,
                           max_pattern_itemsets=max_pattern_itemsets,
                           shape_buckets=shape_buckets, **kwargs)
     resume, save_cb, every_s = load_checkpoint(

@@ -31,8 +31,16 @@ capacity overflow spills the intact frontier back to the host loop.
 
 ``shape_buckets`` buckets the sequence axis (:func:`tsr_geometry`) and
 pads each round's token slice to a power of two, as the reference does.
-Not ported, each raising ``NotImplementedError``: meshes and
-class-partitioned mining.  A launch that fails raises: the reference's
+
+With a ``mesh`` (``parallel.mesh.SeqMesh``) every rank runs the host loop
+over its block of the sequence axis: a round scatter-builds only that
+block of the m selected rows (the reference's ``_sharded_bitmaps``), the
+prefix/suffix ORs are per-sequence, and each dispatch's ``[2, C]``
+(sup, supx) counts are all-reduced (SUM) after B2 (the reference's two
+``psum``s), so every rank's heap and threshold agree.  The resident route
+refuses a mesh, as the reference's does, so ``resident="auto"`` and
+``"always"`` both take the host loop there.  Not ported, raising
+``NotImplementedError``: class-partitioned mining.  A launch that fails raises: the reference's
 kernel-to-jnp downgrades and its resident-round fallback
 (``_resident_abandon``) have no counterpart.
 """
@@ -52,15 +60,18 @@ import torch
 
 from spark_fsm_tpu_torch.data.spmf import SequenceDB
 from spark_fsm_tpu_torch.data.vertical import VerticalDB, build_vertical
-from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
+from spark_fsm_tpu_torch.device import DeviceLike
 from spark_fsm_tpu_torch.models._common import (
-    CounterReader, bucket_seq, device_hbm_budget, load_checkpoint,
-    pad_tokens_pow2, scatter_tokens, to_host)
+    CounterReader, bucket_seq, checkpoint_due, device_hbm_budget,
+    engine_device, load_checkpoint, pad_tokens_pow2, scatter_tokens,
+    shard_tokens, shard_width, to_host)
 from spark_fsm_tpu_torch.ops import bitops_np as Bnp
 from spark_fsm_tpu_torch.ops import bitops_torch as B
 from spark_fsm_tpu_torch.ops import ragged_batch as RB
 from spark_fsm_tpu_torch.ops import resident_frontier as RF
 from spark_fsm_tpu_torch.ops import rule_support as RS
+from spark_fsm_tpu_torch.parallel.mesh import (
+    all_reduce_sum, mesh_size, pad_to_multiple)
 from spark_fsm_tpu_torch.utils.canonical import RuleResult, sort_rules
 
 # initial top-m item restriction for the iterative-deepening outer loop
@@ -88,16 +99,20 @@ def resident_counters(stats: dict) -> dict:
     return {k: stats.get(k, 0) for k in RESIDENT_EXPORT_KEYS}
 
 
-def tsr_geometry(n_sequences: int, *, shape_buckets: bool = False) -> dict:
+def tsr_geometry(n_sequences: int, *, shape_buckets: bool = False,
+                 mesh=None) -> dict:
     """Static device geometry of a :class:`TsrTorch`: the sequence axis,
-    bucketed by ``_common.bucket_seq`` under ``shape_buckets``; padded
-    sequences hold all-zero item bitmaps and support nothing.  The
-    reference's Pallas sequence block (``sb``, and ``_bucket_seq_block``,
-    which halves it per km so the rows fit TPU VMEM) has no counterpart:
-    B2 takes any sequence count."""
+    bucketed by ``_common.bucket_seq`` under ``shape_buckets`` and padded
+    to a multiple of a ``mesh``'s rank count; padded sequences hold
+    all-zero item bitmaps and support nothing.  The reference's Pallas
+    sequence block (``sb``, and ``_bucket_seq_block``, which halves it
+    per km so the rows fit TPU VMEM) has no counterpart: B2 takes any
+    sequence count."""
     n_seq = int(n_sequences)
     if shape_buckets:
         n_seq = bucket_seq(n_seq)
+    if mesh is not None:
+        n_seq = pad_to_multiple(n_seq, mesh_size(mesh))
     return {"n_seq": n_seq}
 
 
@@ -206,10 +221,6 @@ class TsrTorch:
         resident="auto",
         partition=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-GPU sequence sharding is not ported yet "
-                "(ROADMAP Queue A item 6)")
         if partition is not None:
             raise NotImplementedError(
                 "partition: class-partitioned TSR is not ported yet "
@@ -221,7 +232,8 @@ class TsrTorch:
                              f"got {resident!r}")
         self.resident = resident
         self._resident_caps: Optional[RF.ResidentCaps] = None
-        self.device = resolve_device(device)
+        self.device = engine_device(device, mesh)
+        self.mesh = mesh
         if use_kernel == "auto":
             self.use_kernel = self.device.type == "cuda"
         elif use_kernel:
@@ -251,7 +263,10 @@ class TsrTorch:
         self.n_words = vdb.n_words
         self._shape_buckets = bool(shape_buckets)
         self.n_seq = tsr_geometry(vdb.n_sequences,
-                                  shape_buckets=self._shape_buckets)["n_seq"]
+                                  shape_buckets=self._shape_buckets,
+                                  mesh=mesh)["n_seq"]
+        # this rank's block of the sequence axis (all of it without a mesh)
+        self.s_local = shard_width(self.n_seq, mesh, tile=1)
         # chunk <= 0 = adaptive sizing, like None
         self._chunk_user = None if not chunk or chunk <= 0 else int(chunk)
         # the plain evaluator's device memory budget, read at first use
@@ -285,18 +300,23 @@ class TsrTorch:
 
     def _round_tokens(self, m: int):
         """The token slice of a round's top-m items, pow2-padded with
-        mask-0 tokens under ``shape_buckets`` as the reference pads it."""
+        mask-0 tokens under ``shape_buckets`` as the reference pads it;
+        under a mesh only the tokens of this rank's block, with local
+        sequence ids."""
         toks = self._sel_tokens(self._order[:m])
+        if self.mesh is not None:
+            toks = shard_tokens(*toks, self.n_seq, self.mesh)
         return pad_tokens_pow2(*toks) if self._shape_buckets else toks
 
     def _prep(self, m: int):
         """Prefix/suffix-OR rows of the top-m items as flat ``[m+1, S*W]``
         int32 stores with the all-ones pad row last.  The ``[m, S, W]``
         rows are scatter-built on the device from the token slice; the
-        dense rows never exist on the host."""
+        dense rows never exist on the host.  Under a mesh the rows are
+        this rank's block of the sequence axis."""
         ti, ts, tw, tm = self._round_tokens(m)
-        b = scatter_tokens(ti, ts, tw, tm, m, self.n_seq, self.n_words,
-                           self.device).view(m, self.n_seq, self.n_words)
+        b = scatter_tokens(ti, ts, tw, tm, m, self.s_local, self.n_words,
+                           self.device).view(m, self.s_local, self.n_words)
         p1 = self._with_pad(B.prefix_or_incl(b))
         s1 = self._with_pad(B.suffix_or_incl(b))
         self.stats["kernel_launches"] += 1
@@ -304,8 +324,8 @@ class TsrTorch:
 
     def _with_pad(self, rows: torch.Tensor) -> torch.Tensor:
         m = rows.shape[0]
-        out = torch.empty(m + 1, self.n_seq * self.n_words, dtype=torch.int32,
-                          device=self.device)
+        out = torch.empty(m + 1, self.s_local * self.n_words,
+                          dtype=torch.int32, device=self.device)
         out[:m] = rows.reshape(m, -1)
         out[m] = -1
         return out
@@ -325,11 +345,12 @@ class TsrTorch:
         """Budget-derived width for the plain evaluator (the reference's
         ``_round_chunk_jnp``): what the budget allows after the round's two
         ``[m, S, W]`` stores, at four live ``[chunk, S, W]`` temporaries a
-        candidate, floored to a power of two."""
+        candidate, floored to a power of two; ``S`` is one shard's under a
+        mesh."""
         if self._chunk_user is not None:
             return self._chunk_user
         self._ensure_budget()
-        s_local = max(1, self.n_seq)
+        s_local = max(1, self.n_seq // mesh_size(self.mesh))
         per_cand = max(1, s_local * self.n_words * 4 * 4)
         prep = 2 * m * s_local * self.n_words * 4
         budget = max(per_cand, self._eval_budget - prep)
@@ -399,6 +420,10 @@ class TsrTorch:
             self._count_launch(L)
         self.stats["evaluated"] += n
         out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        if self.mesh is not None:
+            # one reduce for the dispatch's sup and supx rows (the
+            # reference psums each launch's two rows)
+            out = all_reduce_sum(out.contiguous(), self.mesh)
         (host,), ev = to_host([out])
         return host, cols, ev, xy_bufs
 
@@ -490,14 +515,16 @@ class TsrTorch:
 
     def _resident_route(self, m: int) -> bool:
         """Should this round run on the resident-frontier route?  The
-        reference's test as written (its mesh and multiprocess guards
-        aside: the port raises on a mesh).  Structural eligibility, which
+        reference's test as written: never on a mesh (the resident waves
+        have no collective).  Structural eligibility, which
         applies to ``resident="always"`` too: k within the on-device top-k
         buffer, exact-conf products within int32, and caps that fit the
         budget.  The ``auto`` heuristic on top: only deep mines (sides
         unlimited or above 2), and only when one saved dispatch is worth at
         least a wave of km-ladder padding (``overhead_units >= nb``)."""
         if not self._RESIDENT_CAPABLE or self.resident == "never":
+            return False
+        if self.mesh is not None:
             return False
         if self.k > RF.K_PAD:
             return False
@@ -610,8 +637,7 @@ class TsrTorch:
             if not narrow and caps.nb_late < caps.nb and (
                     tail - head) <= caps.nb_late:
                 narrow = True  # the late-wave switch, never switched back
-            if (checkpoint_cb is not None
-                    and time.monotonic() - last_ckpt >= every_s):
+            if checkpoint_due(checkpoint_cb, last_ckpt, every_s, self.mesh):
                 checkpoint_cb(self._resident_snapshot(
                     m, carry, head, tail, n_rec, n_def, minsup))
                 self.stats["checkpoints"] = (
@@ -900,8 +926,7 @@ class TsrTorch:
             if not inflight:
                 break
             consume(*inflight.pop(0))
-            if (checkpoint_cb is not None
-                    and time.monotonic() - last_ckpt >= every_s):
+            if checkpoint_due(checkpoint_cb, last_ckpt, every_s, self.mesh):
                 while inflight:  # drain for a consistent frontier
                     consume(*inflight.pop(0))
                 checkpoint_cb(self.frontier_state(queue, results, m, minsup))
@@ -1020,14 +1045,12 @@ def mine_tsr_torch(db: SequenceDB, k: int, minconf: float, *,
 
     ``checkpoint`` (optional): an object with ``load() -> Optional[dict]``,
     ``save(state)`` and ``every_s``; a saved frontier (from either
-    package) is resumed when its fingerprint still matches.  A ``mesh`` and
-    ``partition_parts > 1`` are not ported yet and raise
-    ``NotImplementedError``.  ``kwargs`` go to :class:`TsrTorch`."""
-    dev = resolve_device(device)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: multi-GPU sequence sharding is not ported yet "
-            "(ROADMAP Queue A item 6)")
+    package) is resumed when its fingerprint still matches.  A ``mesh``
+    shards the sequence axis over its ranks (every rank calls this alike
+    and gets the same rules); ``partition_parts > 1`` is not ported yet
+    and raises ``NotImplementedError``.  ``kwargs`` go to
+    :class:`TsrTorch`."""
+    dev = engine_device(device, mesh)
     if partition_parts and int(partition_parts) > 1:
         raise NotImplementedError(
             "partition_parts > 1: class-partitioned TSR is not ported yet "
@@ -1035,7 +1058,7 @@ def mine_tsr_torch(db: SequenceDB, k: int, minconf: float, *,
     vdb = build_vertical(db, min_item_support=1)
     if vdb.n_items == 0:
         return []
-    eng = TsrTorch(vdb, k, minconf, device=dev, **kwargs)
+    eng = TsrTorch(vdb, k, minconf, device=dev, mesh=mesh, **kwargs)
     return _run(eng, stats_out, checkpoint)
 
 

@@ -39,7 +39,16 @@ in ``stats``'s counters:
   slots, candidates, tokens and the remap exists for XLA's compile cache;
   ``kernel_launches`` still counts the reference's events;
 - ``stats`` omits ``shape_key`` and ``sweep_shape_keys`` (the shape
-  registry is not ported), and a ``mesh`` raises (ROADMAP Queue A item 6).
+  registry is not ported).
+
+With a ``mesh`` (``parallel.mesh.SeqMesh``) every rank keeps its block of
+each batch's sequence axis: it uploads only the tokens of that block, and
+every support vector (the sweep's and the repair folds') is all-reduced
+(SUM) before the host reads it, as the reference ``psum``s.  The census,
+the tree and every decision are host data, the same on every rank.  The
+reference's ``_block_collectives_on_cpu`` works around two collective
+programs in flight deadlocking XLA's CPU backend; torch's collectives run
+in program order on each rank, so it has no counterpart here.
 
 After every push the frequent set and its supports are byte-identical to
 a fresh mine of the window.  Scope: plain SPADE (no maxgap/maxwindow, no
@@ -57,29 +66,34 @@ import torch
 
 from spark_fsm_tpu_torch.data.spmf import SequenceDB
 from spark_fsm_tpu_torch.data.vertical import abs_minsup, build_vertical
-from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
+from spark_fsm_tpu_torch.device import DeviceLike
 from spark_fsm_tpu_torch.models._common import (
-    I_TILE, bucket_seq, device_hbm_budget, fold_rows, materialize_rows,
-    pad_to_multiple, prep_rows, scatter_tokens_remap, to_device, to_host,
-    to_index)
+    I_TILE, bucket_seq, device_hbm_budget, engine_device, fold_rows,
+    materialize_rows, pad_to_multiple, prep_rows, scatter_tokens_remap,
+    shard_tokens, shard_width, to_device, to_host, to_index)
 from spark_fsm_tpu_torch.ops import bitops_torch as B
 from spark_fsm_tpu_torch.ops import pair_support as PS
 from spark_fsm_tpu_torch.ops.ragged_batch import next_pow2
+from spark_fsm_tpu_torch.parallel.mesh import all_reduce_sum, mesh_size
 from spark_fsm_tpu_torch.streaming.window import SlidingWindow
 from spark_fsm_tpu_torch.utils.canonical import PatternResult, sort_patterns
 
 Key = Tuple[int, bool]  # (GLOBAL item id, is_s_extension)
 
 
-def sweep_geometry(batch_sequences: int, n_words_raw: int) -> dict:
+def sweep_geometry(batch_sequences: int, n_words_raw: int, *,
+                   mesh=None) -> dict:
     """Device geometry of a batch store: the word axis rounded up to a
-    power of two and the sequence axis bucketed (``_common.bucket_seq``).
-    The reference's Pallas sequence block leaves a pow2 bucket as it is,
-    so these equal its numbers with or without its kernel.  Its
-    ``seq_floor`` (a prewarmed steady-state bucket) comes with the
-    service's prewarm (ROADMAP Queue A item 13)."""
+    power of two and the sequence axis bucketed (``_common.bucket_seq``),
+    then padded to a multiple of a ``mesh``'s rank count.  The
+    reference's Pallas sequence block leaves a pow2 bucket as it is on
+    one device, so these equal its numbers; on a mesh they equal its XLA
+    path's (B1 needs no sequence block).  Its ``seq_floor`` (a prewarmed
+    steady-state bucket) comes with the service's prewarm (ROADMAP Queue
+    A item 13)."""
     n_words = next_pow2(max(1, n_words_raw))
-    return {"n_seq": bucket_seq(batch_sequences), "n_words": n_words}
+    n_seq = pad_to_multiple(bucket_seq(batch_sequences), mesh_size(mesh))
+    return {"n_seq": n_seq, "n_words": n_words}
 
 
 class _TNode:
@@ -114,9 +128,12 @@ class _BatchTokens:
     """Per-live-batch device state: the token table (uploaded once when
     the batch arrives, far smaller than the dense store) plus the batch's
     item census.  Bitmap stores are rebuilt from these tokens on demand
-    (one scatter on the device) and dropped under memory pressure."""
+    (one scatter on the device) and dropped under memory pressure.  Under
+    a ``mesh`` the tokens and the store are this rank's block of the
+    sequence axis (``s_local`` wide); the census is the whole batch's."""
 
-    def __init__(self, bid: int, db: SequenceDB, device: torch.device):
+    def __init__(self, bid: int, db: SequenceDB, device: torch.device,
+                 mesh=None):
         self.bid = bid
         self.db = db
         self.device = device
@@ -126,13 +143,17 @@ class _BatchTokens:
             int(i): int(s)
             for i, s in zip(vdb.item_ids, vdb.item_supports)}
         self.n_local = vdb.n_items
-        g = sweep_geometry(vdb.n_sequences, vdb.n_words)
+        g = sweep_geometry(vdb.n_sequences, vdb.n_words, mesh=mesh)
         self.n_words = g["n_words"]
         self.n_seq = g["n_seq"]
-        self.ti = to_device(vdb.tok_item.astype(np.int64), device)
-        self.ts = to_device(vdb.tok_seq.astype(np.int64), device)
-        self.tw = to_device(vdb.tok_word.astype(np.int64), device)
-        self.tm = to_device(np.ascontiguousarray(vdb.tok_mask, np.uint32)
+        self.s_local = shard_width(self.n_seq, mesh)
+        toks = (vdb.tok_item, vdb.tok_seq, vdb.tok_word, vdb.tok_mask)
+        if mesh is not None:
+            toks = shard_tokens(*toks, self.n_seq, mesh)
+        self.ti = to_device(toks[0].astype(np.int64), device)
+        self.ts = to_device(toks[1].astype(np.int64), device)
+        self.tw = to_device(toks[2].astype(np.int64), device)
+        self.tm = to_device(np.ascontiguousarray(toks[3], np.uint32)
                             .view(np.int32), device)
         # projection-dependent state, set by _project and kept across
         # pushes while the frequent projection holds still (steady-state
@@ -163,7 +184,8 @@ class _BatchTokens:
         self.store = None   # free the old store before the new one
         self.store = scatter_tokens_remap(
             self.ti, self.ts, self.tw, self.tm,
-            to_device(remap, self.device), n_rows, self.n_seq, self.n_words)
+            to_device(remap, self.device), n_rows, self.s_local,
+            self.n_words)
         self._proj_key = key
         self._n_rows = n_rows
         return n_rows
@@ -188,7 +210,9 @@ class IncrementalWindowMiner:
     B1, whose wrapper runs its plain version on CPU tensors; False: the
     gather-join) picks the sweep's supports.  ``repair_chunk`` candidates
     go to a repair fold launch, ``support_chunk`` to a gather-join or
-    materialize launch.  ``mesh`` is not ported yet and raises.
+    materialize launch.  ``mesh`` (a ``parallel.mesh.SeqMesh``) shards
+    every batch's sequence axis over its ranks; every rank pushes the
+    same batches and holds the same patterns.
     """
 
     def __init__(self, min_support: float, *,
@@ -199,11 +223,8 @@ class IncrementalWindowMiner:
                  use_kernel="auto",
                  repair_chunk: int = 256,
                  support_chunk: int = 2048) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-GPU sequence sharding is not ported yet "
-                "(ROADMAP Queue A item 6)")
-        self.device = resolve_device(device)
+        self.device = engine_device(device, mesh)
+        self.mesh = mesh
         self.min_support = float(min_support)
         self.window = SlidingWindow(max_batches=max_batches,
                                     max_sequences=max_sequences)
@@ -277,7 +298,8 @@ class IncrementalWindowMiner:
             fresh: List[_BatchTokens] = []
             for b in live:
                 if id(b) not in self._states:
-                    st = _BatchTokens(self._next_bid, b, self.device)
+                    st = _BatchTokens(self._next_bid, b, self.device,
+                                      self.mesh)
                     self._next_bid += 1
                     self._states[id(b)] = st
                     fresh.append(st)
@@ -316,14 +338,17 @@ class IncrementalWindowMiner:
             self.stats["border_nodes"] = n_nodes - len(self.patterns)
             self.stats["push_wall_s"] = round(time.monotonic() - t0, 4)
             # keep projected stores warm across pushes under a fifth of
-            # device memory; beyond it, drop oldest-batch stores first
+            # device memory; beyond it, drop oldest-batch stores first.
+            # A store shards over the mesh, so a device holds 1/N of it
             budget = 0.2 * device_hbm_budget(self.device)
-            total = sum(st.store_bytes() for st in self._states.values())
+            n_sh = mesh_size(self.mesh)
+            total = sum(st.store_bytes() for st in self._states.values()
+                        ) // n_sh
             for b in live:  # oldest first
                 if total <= budget:
                     break
                 st = self._states[id(b)]
-                total -= st.store_bytes()
+                total -= st.store_bytes() // n_sh
                 st.drop_store()
             self.stats["store_cache_bytes"] = int(
                 sum(st.store_bytes() for st in self._states.values()))
@@ -388,7 +413,7 @@ class IncrementalWindowMiner:
         event = None
         depth = 0
         while cur:
-            pt = prep_rows(st.store, [slot for _, slot in cur], st.n_seq,
+            pt = prep_rows(st.store, [slot for _, slot in cur], st.s_local,
                            st.n_words)
             self.stats["kernel_launches"] += 1
 
@@ -450,14 +475,17 @@ class IncrementalWindowMiner:
                            iss: np.ndarray, meta):
         """Support vectors for a candidate list: B1's pair matrix with the
         per-candidate extraction on the device (one launch), or the
-        gather-join, one launch per ``support_chunk`` candidates.  Each
-        vector starts its copy to the host; yields ``(host tensor,
-        event_or_None, meta slice)`` triples."""
+        gather-join, one launch per ``support_chunk`` candidates; on a
+        mesh each vector is all-reduced.  Each vector starts its copy to
+        the host; yields ``(host tensor, event_or_None, meta slice)``
+        triples."""
         dev = self.device
         if self.use_kernel:
-            sup = PS.batch_supports(pt, st.store, st.ni_rows,
-                                    to_index(2 * refs + iss, dev),
-                                    to_index(items, dev), n_words=st.n_words)
+            sup = all_reduce_sum(
+                PS.batch_supports(pt, st.store, st.ni_rows,
+                                  to_index(2 * refs + iss, dev),
+                                  to_index(items, dev), n_words=st.n_words),
+                self.mesh)
             self.stats["kernel_launches"] += 1
             (host,), ev = to_host([sup])
             return [(host, ev, meta)]
@@ -468,7 +496,9 @@ class IncrementalWindowMiner:
             rows = (pt.index_select(0, to_index(2 * refs[lo:hi] + iss[lo:hi],
                                                 dev))
                     & st.store.index_select(0, to_index(items[lo:hi], dev)))
-            sup = B.support(rows.view(hi - lo, st.n_seq, st.n_words))
+            sup = all_reduce_sum(
+                B.support(rows.view(hi - lo, st.s_local, st.n_words)),
+                self.mesh)
             (host,), ev = to_host([sup])
             out.append((host, ev, meta[lo:hi]))
             self.stats["kernel_launches"] += 1
@@ -561,8 +591,9 @@ class IncrementalWindowMiner:
                         it[row_i, col] = r
                         ss[row_i, col] = s
                         va[row_i, col] = True
-                sup = fold_supports(st.store, it, ss, va, st.n_seq,
-                                    st.n_words)
+                sup = all_reduce_sum(
+                    fold_supports(st.store, it, ss, va, st.s_local,
+                                  st.n_words), self.mesh)
                 self.stats["kernel_launches"] += 1
                 (host,), ev = to_host([sup])
                 event = ev if ev is not None else event

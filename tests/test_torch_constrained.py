@@ -278,11 +278,20 @@ def test_checkpoint_resumes_across_packages(direction):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(mesh=object()), "mesh"),
+    (dict(mesh="local"), "mesh"),
     (dict(partition_parts=2), "partition"),
     (dict(shape_buckets=True), "shape_buckets"),
 ])
 def test_unported_options_raise(kw, what):
+    if what == "mesh":
+        # ported (Queue A item 6): a 1-rank mesh mines what one device does
+        from spark_fsm_tpu_torch.parallel.mesh import local_mesh
+        mesh = local_mesh("cpu")
+        got = TC.mine_cspade_torch(ZAKI_DB, 2, maxgap=1, mesh=mesh)
+        assert patterns_text(got) == patterns_text(
+            TC.mine_cspade_torch(ZAKI_DB, 2, maxgap=1, device="cpu"))
+        assert mesh.reduce_stats()["all_reduces"] > 0
+        return
     if what == "shape_buckets":
         # ported (Queue A item 9): the bucketed mine equals the oracle's
         got = TC.mine_cspade_torch(ZAKI_DB, 2, maxgap=1, device="cpu", **kw)

@@ -18,6 +18,10 @@ the same stream on the CPU, the oracle and the re-mine miner after every
 push; its sweep's dispatch runs under sync-debug "error" too.  The rule
 trie's scorer on the card equals its CPU run, its wave up to the one
 readback makes no host sync, and broker threads keep the trie's device.
+Sequence meshes on the one card: a 1-rank NCCL world's SPADE (queue and
+classic), SPAM and TSR mines equal the one-device mines, its queue waves
+with their all-reduce make no host sync, and a 2-rank gloo world whose
+ranks share the card equals the one-device mines too.
 """
 
 import numpy as np
@@ -614,3 +618,39 @@ def test_broker_threads_keep_the_trie_device(card, monkeypatch):
     assert max(t.wave_jobs for t in tickets) >= 2
     for p, t in zip(prefixes, tickets):
         assert t.entries == RT.score_wave(cpu, [p], 8)[0]
+
+
+# ---------------------------------------------------------------- meshes
+
+
+def _one_device_mines(card):
+    import _torch_mesh_worker as W
+    return {name: W.card_mine(name, device=card) for name in W.CARD_MINES}
+
+
+@pytest.mark.parametrize("backend,ranks", [("nccl", 1), ("gloo", 2)])
+def test_mesh_mines_on_card_equal_one_device(card, backend, ranks):
+    import _torch_mesh_worker as W
+    from spark_fsm_tpu_torch.parallel.launch import spawn_world
+
+    PS._kernel(), RS._kernel(), EP._kernel()   # built once, before the ranks
+    want = _one_device_mines(card)
+    got = spawn_world(W.card_mines, ranks, backend, "cuda:0", timeout_s=600)
+    for rank in got:
+        for name, (text, fused, resident, launches) in rank.items():
+            assert text == want[name][0], (backend, name)
+            assert fused == want[name][1].get("fused"), name
+            b1, b2, b3 = launches
+            if name == "tsr":
+                assert b2 > 0 and not resident and b1 == b3 == 0
+            else:
+                assert b1 > 0 and b2 == b3 == 0, (name, launches)
+
+
+def test_mesh_queue_waves_make_no_host_sync(card):
+    import _torch_mesh_worker as W
+    from spark_fsm_tpu_torch.parallel.launch import spawn_world
+
+    PS._kernel()
+    assert spawn_world(W.queue_waves_sync_free, 1, "nccl", "cuda:0",
+                       timeout_s=300) == [2]

@@ -220,8 +220,19 @@ def test_use_kernel_auto_resolves_by_device():
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        IncrementalWindowMiner(0.5, device="cpu", mesh=object())
+    # ported (Queue A item 6): on a 1-rank mesh every push equals the
+    # one-device miner's, with the kernel's branch and the gather-join
+    from spark_fsm_tpu_torch.parallel.mesh import local_mesh
+    mesh = local_mesh("cpu")
+    for use_kernel in (True, False):
+        on_mesh = IncrementalWindowMiner(0.2, max_batches=3, mesh=mesh,
+                                         use_kernel=use_kernel)
+        one = IncrementalWindowMiner(0.2, max_batches=3, device="cpu",
+                                     use_kernel=use_kernel)
+        for batch in _batches(7, 4, 40):
+            assert patterns_text(on_mesh.push(batch)) == patterns_text(
+                one.push(batch))
+    assert mesh.reduce_stats()["all_reduces"] > 0
 
 
 # ----------------------------------------------------------- device steps

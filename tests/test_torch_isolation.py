@@ -11,7 +11,9 @@ the same mine pinned to the dense and the classic engines, a tiny TSR mine
 hybrid plan), a tiny cSPADE mine and a two-push stream through both
 window miners (``streaming.*``) run on the CPU, the vertical build through
 the native tokenizer, and a rule trie is built from TSR and SPADE output
-and scored (``ops.rule_trie``, ``service.predictor``)."""
+and scored (``ops.rule_trie``, ``service.predictor``), and the SPADE,
+SPAM, TSR, cSPADE and incremental mines run again on a 1-rank gloo mesh
+(``parallel.mesh``, ``parallel.multihost``, ``parallel.launch``)."""
 
 import ast
 import os
@@ -76,12 +78,24 @@ trie = build_trie(rules, depth_floor=4, device="cpu")
 waves = score_wave(trie, [[], [1], [1, 3], [2, 4]], 3)
 assert waves == [predict_host(rules, p, 3) for p in ([], [1], [1, 3], [2, 4])] and waves[1], waves
 assert predictor.predict_rules(model.serialize_rules(rules), "rules", [3, 1], 3, device="cpu") == waves[2]
+from spark_fsm_tpu_torch.parallel import launch, multihost
+from spark_fsm_tpu_torch.parallel.mesh import local_mesh
+mesh = local_mesh("cpu")
+assert patterns_text(mine_spade_torch(db, 2, mesh=mesh)) == patterns_text(mine_spade(db, 2))
+assert patterns_text(mine_spam_torch(db, 2, mesh=mesh)) == patterns_text(mine_spade(db, 2))
+assert rules_text(mine_tsr_torch(db, 3, 0.5, mesh=mesh)) == rules_text(mine_tsr_cpu(db, 3, 0.5))
+assert patterns_text(mine_cspade_torch(db, 2, maxgap=1, maxwindow=2, mesh=mesh)) == patterns_text(mine_cspade(db, 2, maxgap=1, maxwindow=2))
+inc = IncrementalWindowMiner(2, max_batches=2, mesh=mesh)
+assert patterns_text(inc.push(db)) == patterns_text(mine_spade(db, 2))
+assert mesh.reduce_stats()["all_reduces"] > 0 and not multihost.is_multihost(mesh)
+assert launch.free_port() > 0
 for name in ("ops.extend_prune", "ops.spam_bitops", "models.spam_bitmap", "service.planner",
              "data.fasttok", "models.spade_queue", "models.spade_fused",
              "ops.resident_frontier", "ops.maxstart_torch", "ops.maxstart_np",
              "models.spade_constrained", "streaming.window",
              "streaming.incremental", "ops.rule_trie", "service.model",
-             "service.predictor"):
+             "service.predictor", "parallel.mesh", "parallel.multihost",
+             "parallel.launch"):
     assert "spark_fsm_tpu_torch." + name in names, name
 try:
     import jax  # noqa: F401

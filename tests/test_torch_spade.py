@@ -185,8 +185,22 @@ def test_default_device_raises_without_cuda():
         SpadeTorch(TV.build_vertical(ZAKI_DB, min_item_support=2), 2)
 
 
-@pytest.mark.parametrize("kw", [{"partition_parts": 2}, {"mesh": object()}])
+@pytest.mark.parametrize("kw", [{"partition_parts": 2}, {"mesh": "local"}])
 def test_unported_routes_raise(kw):
+    if "mesh" in kw:
+        # ported (Queue A item 6): a 1-rank mesh mines what one device does
+        from spark_fsm_tpu_torch.parallel.mesh import local_mesh
+        mesh = local_mesh("cpu")
+        for fused in ("auto", "never", "dense"):
+            stats, want_stats = {}, {}
+            got = mine_spade_torch(ZAKI_DB, 2, mesh=mesh, fused=fused,
+                                   stats_out=stats)
+            want = mine_spade_torch(ZAKI_DB, 2, device="cpu", fused=fused,
+                                    stats_out=want_stats)
+            assert patterns_text(got) == patterns_text(want)
+            assert stats["fused"] == want_stats["fused"]
+        assert mesh.reduce_stats()["all_reduces"] > 0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mine_spade_torch(ZAKI_DB, 2, device="cpu", **kw)
 

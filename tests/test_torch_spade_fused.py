@@ -115,9 +115,18 @@ def test_caps_and_eligibility_equal_reference():
     assert vars(TF.FusedCaps.for_mesh()) == vars(JF.FusedCaps.for_mesh(None))
     for f in (1, 7, 16, 100, 1024):
         assert vars(TF.FusedCaps(f_cap=f)) == vars(JF.FusedCaps(f_cap=f))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TF.FusedCaps.for_mesh(object())
+    # a 1-rank mesh takes the reference's make_mesh(1) caps, and the dense
+    # engine on it mines what one device does
+    from spark_fsm_tpu.parallel.mesh import make_mesh
+    from spark_fsm_tpu_torch.parallel.mesh import local_mesh
+    mesh = local_mesh("cpu")
+    assert vars(TF.FusedCaps.for_mesh(mesh)) == vars(
+        JF.FusedCaps.for_mesh(make_mesh(1)))
     db = parse_spmf(ZAKI)
+    vdb = TV.build_vertical(db, min_item_support=2)
+    on_mesh = TF.FusedSpadeTorch(vdb, 2, mesh=mesh).mine()
+    assert patterns_text(on_mesh) == patterns_text(
+        TF.FusedSpadeTorch(vdb, 2, device="cpu").mine())
     assert TF.fused_eligible(TV.build_vertical(db, min_item_support=2), CPU)
     for n_items, n_seq, n_words in ((17, 5000, 1), (17, 300_000, 3),
                                     (5000, 100, 1), (1025, 100, 1),

@@ -263,10 +263,25 @@ def test_entry_point_resumes_a_checkpoint():
 # ---------------------------------------------------------------- refusals
 
 
-@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "item 6"),
+@pytest.mark.parametrize("kw,item", [({"mesh": "local"}, "item 6"),
                                      ({"partition_parts": 2}, "item 11"),
                                      ({"shape_buckets": True}, "item 9")])
 def test_unported_options_raise(kw, item):
+    if item == "item 6":
+        # ported: a 1-rank mesh mines what one device does, B1 then the
+        # reduce and the threshold (the hybrid store's pairs too)
+        from spark_fsm_tpu_torch.parallel.mesh import local_mesh
+        mesh = local_mesh("cpu")
+        for extra in ({}, {"density_crossover": 0.5}):
+            stats, want_stats = {}, {}
+            got = TS.mine_spam_torch(_db_small(), 3, mesh=mesh,
+                                     stats_out=stats, **extra)
+            want = TS.mine_spam_torch(_db_small(), 3, device="cpu",
+                                      stats_out=want_stats, **extra)
+            assert patterns_text(got) == patterns_text(want)
+            assert stats == want_stats
+        assert mesh.reduce_stats()["all_reduces"] > 0
+        return
     if item == "item 9":
         # ported: shape_buckets mines the oracle's patterns
         got = TS.mine_spam_torch(_db_small(), 3, device="cpu", **kw)

@@ -1,7 +1,8 @@
 """Port parity for ``ops/spam_bitops.py``: the wave passes, the dense-block
 gather and the sparse pair prune against the reference's jitted
-``*_fn(None, ...)`` (no mesh) on the same operands, exactly.  Both take the
-flat ``[rows, S*W]`` store layout; the port holds the uint32 words as
+``*_fn(None, ...)`` (no mesh) on the same operands, exactly, and the mesh
+forms on a 1-rank mesh against ``*_fn(make_mesh(1), ...)``.  Both take
+the flat ``[rows, S*W]`` store layout; the port holds the uint32 words as
 int32."""
 
 import jax.numpy as jnp
@@ -117,3 +118,40 @@ def test_wave_extend_prune_with_live_hint_equals_reference(W, nd_pad, n_live):
         np.testing.assert_array_equal(sup.numpy(), np.asarray(want[0]))
         np.testing.assert_array_equal(mask.numpy().view(np.uint32),
                                       np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("W,nd_pad", [(1, 64), (2, 128)])
+def test_mesh_forms_equal_reference_mesh_forms(W, nd_pad):
+    """The sharded wave (B1, the all-reduce, the threshold and the pack)
+    and the sharded pair prune on a 1-rank mesh against the reference's
+    ``wave_extend_prune_fn(make_mesh(1), ...)`` and ``pair_prune_fn``."""
+    from spark_fsm_tpu.parallel.mesh import make_mesh
+    from spark_fsm_tpu_torch.parallel.mesh import local_mesh
+
+    jm, tm = make_mesh(1), local_mesh("cpu")
+    P, S, C = 12, 161, 96
+    pt, store = _operands(W + nd_pad, P, nd_pad + 5, 45, S, W)
+    rng = np.random.default_rng(W)
+    use_diff = rng.integers(0, 2, P).astype(bool)
+    pref = rng.integers(0, P, C).astype(np.int32)
+    item = rng.integers(0, 45, C).astype(np.int32)
+    item[80:] = -1
+    c_diff = rng.integers(0, 2, C).astype(bool)
+    wave_fn = JSB.wave_extend_prune_fn(jm, W, nd_pad)
+    pair_fn = JSB.pair_prune_fn(jm, W)
+    for thr in (1, 50, S + 1):
+        want = wave_fn(jnp.asarray(pt), jnp.asarray(store), jnp.int32(thr),
+                       jnp.asarray(use_diff))
+        sup, mask = SB.wave_prune_sharded(_t(pt), _t(store), thr, n_words=W,
+                                          nd_pad=nd_pad, mesh=tm)
+        np.testing.assert_array_equal(sup.numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(mask.numpy().view(np.uint32),
+                                      np.asarray(want[1]))
+        want = pair_fn(jnp.asarray(pt), jnp.asarray(store), jnp.asarray(pref),
+                       jnp.asarray(item), jnp.int32(thr),
+                       jnp.asarray(c_diff))
+        got = SB.pair_prune(_t(pt), _t(store), torch.from_numpy(pref),
+                            torch.from_numpy(item), thr,
+                            torch.from_numpy(c_diff), W, tm)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert tm.reduce_stats()["all_reduces"] == 6

@@ -178,11 +178,25 @@ def test_frontier_state_matches_reference_field_for_field():
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(mesh=object()), "mesh"),
+    (dict(mesh="local"), "mesh"),
     (dict(partition_parts=2), "partition"),
     (dict(shape_buckets=True), "shape_buckets"),
 ])
 def test_unported_options_raise(kw, what):
+    if what == "mesh":
+        # ported (Queue A item 6): a 1-rank mesh finds the same rules on
+        # the host loop, as the reference's mesh route does
+        from spark_fsm_tpu_torch.parallel.mesh import local_mesh
+        mesh = local_mesh("cpu")
+        for side in (2, None):
+            stats = {}
+            got = mine_tsr_torch(ZAKI_DB, 5, 0.5, mesh=mesh, max_side=side,
+                                 stats_out=stats)
+            assert rules_text(got) == rules_text(mine_tsr_torch(
+                ZAKI_DB, 5, 0.5, device="cpu", max_side=side))
+            assert not stats.get("resident")
+        assert mesh.reduce_stats()["all_reduces"] > 0
+        return
     if what == "shape_buckets":
         # ported (Queue A item 9): the bucketed mine finds the same rules
         got = mine_tsr_torch(ZAKI_DB, 5, 0.5, device="cpu", **kw)
