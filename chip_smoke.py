@@ -136,7 +136,32 @@ Phases, one printed line each (any failure raises and exits non-zero):
      route, each rank's B1/B2 launches and kernel time (CUDA events
      around each launch), the all-reduces' count and time, each rank's
      wall beside the one-device wall of the earlier phase, and each
-     rank's peak memory, with the card's name and power limit.
+     rank's peak memory, with the card's name and power limit.  The
+     2-rank world also mines in two class partitions
+     (``partition_parts=2``, one partition row a rank, each on the bare
+     one-device route, the exchange through gloo): phase 9's TSR, phase
+     5's SPADE through ``auto`` and phase 13's SPAM, each rank
+     byte-identical to the earlier phase's text, with its exchange rounds
+     and bytes; in the 1-rank world ``partition_parts=2`` raises the
+     ``ValueError`` of a mesh that does not split;
+ 22. class-partitioned mines at full size in one process (``mesh=None``:
+     the partitions mined in turn on the card), each held by SHA-256 of
+     its text against the earlier phase's: phase 9's Kosarak-shaped TSR
+     (``max_side=2``) at 2 parts through ``TsrPartitioned`` on phase 9's
+     vertical DB, beside the unpartitioned ``TsrTorch`` on it; phase 15's
+     1 % TSR (``max_side=None``, each slice on the resident route) at 2
+     parts (at 4 its first slice alone evaluates about 15 times the
+     unpartitioned mine's candidates: ``profile_mine tsr-partition``);
+     phase 5's BMS SPADE at 2
+     parts through ``auto`` (queue slices) and ``"never"`` (classic);
+     phase 13's MSNBC SPAM and phase 16's Gazelle cSPADE at 2 parts; and a
+     composite checkpoint of the BMS mine (a snapshot at every chance)
+     resumed from a snapshot taken mid-slice.  ``[part]`` lines print the
+     plan's imbalance, per partition the wall, the candidates evaluated
+     and the B1/B2/B3 launches and kernel time (CUDA events), the
+     exchanges (one a deepening round on TSR, one a mine otherwise), the
+     peak and the unpartitioned wall of the same run; B1, B2 and B3 must
+     each launch on the partitioned path.
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 and prints no result.
@@ -225,6 +250,8 @@ MW_STREAM = dict(seed=8, batches=5, per_batch=40, minsup=70)
 # phase 21: the mesh worlds, both on the one card: (backend, ranks)
 MESH_WORLDS = (("nccl", 1), ("gloo", 2))
 MESH_STREAM_PUSHES = 5
+# phases 21 and 22: the class partitions of the partitioned mines
+PARTITION_PARTS = 2
 
 
 def digest(text: str) -> str:
@@ -306,6 +333,9 @@ def mesh_rank(mesh, plan: dict) -> dict:
             "all_reduces": red["all_reduces"],
             "all_reduce_ms": red["all_reduce_ms"],
             "waves": stats.get("waves"), "evaluated": stats.get("evaluated"),
+            "exchanges": stats.get("partition_exchanges"),
+            "cross_bytes": stats.get("partition_cross_bytes"),
+            "rounds": stats.get("deepening_rounds"),
             "peak": torch.cuda.max_memory_allocated(mesh.device),
         }
 
@@ -325,15 +355,33 @@ def mesh_rank(mesh, plan: dict) -> dict:
                                    stats_out=st, **extra)
             return patterns_text(res), st
         run(f"spade {fused}", spade)
+    # class partitions: one row a rank on an even world; a 1-rank world
+    # cannot hold two rows and must refuse
+    parts = PARTITION_PARTS if mesh.size % PARTITION_PARTS == 0 else 0
+    if mesh.size == 1:
+        try:
+            mine_spade_torch(db, minsup, mesh=mesh,
+                             partition_parts=PARTITION_PARTS)
+        except ValueError as exc:
+            out["refused"] = str(exc)
+    if parts:
+        def spade_part():
+            st: dict = {}
+            res = mine_spade_torch(db, minsup, mesh=mesh,
+                                   partition_parts=parts, stats_out=st)
+            return patterns_text(res), st
+        run("part spade auto", spade_part)
     db = gen("msnbc", lambda: msnbc_like(scale=1.0, fast=True))
     minsup = abs_minsup(0.005, len(db))
 
-    def spam():
+    def spam(**kw):
         st: dict = {}
         res = mine_spam_torch(db, minsup, mesh=mesh, pool_bytes=pool,
-                              stats_out=st)
+                              stats_out=st, **kw)
         return patterns_text(res), st
     run("spam", spam)
+    if parts:
+        run("part spam", lambda: spam(partition_parts=parts))
     per = len(db) // plan["stream_pushes"]
     inc = IncrementalWindowMiner(plan["stream_minsup"],
                                  max_batches=plan["stream_keep"], mesh=mesh)
@@ -344,12 +392,14 @@ def mesh_rank(mesh, plan: dict) -> dict:
     del inc, db
     db = gen("kosarak", lambda: kosarak_like(scale=1.0, fast=True))
 
-    def tsr():
+    def tsr(**kw):
         st: dict = {}
         res = mine_tsr_torch(db, 100, 0.5, max_side=2, mesh=mesh,
-                             stats_out=st)
+                             stats_out=st, **kw)
         return rules_text(res), st
     run("tsr", tsr)
+    if parts:
+        run("part tsr", lambda: tsr(partition_parts=parts))
     db = gen("gazelle", lambda: gazelle_like(scale=1.0, fast=True))
     minsup = abs_minsup(0.005, len(db))
 
@@ -386,11 +436,30 @@ def mesh_phase(torch, want: dict, single_walls: dict, card: str,
         world_s = time.perf_counter() - t0
         for r in res:
             for label, rec in r["mines"].items():
-                check(rec["digest"] == want[label],
+                check(rec["digest"] == want[label.removeprefix("part ")],
                       f"{backend} x{ranks} rank {r['rank']}: {label} "
                       f"differs from the one-device oracle text")
-                check(rec["all_reduces"] > 0,
-                      f"{backend} x{ranks}: {label} made no all-reduce")
+                if label.startswith("part "):
+                    # one-rank rows: the bare route, no in-row reduce;
+                    # the exchange is the one collective
+                    check(rec["exchanges"] == (rec["rounds"] if label ==
+                                               "part tsr" else 1),
+                          f"{backend} x{ranks}: {label} made "
+                          f"{rec['exchanges']} exchanges")
+                else:
+                    check(rec["all_reduces"] > 0,
+                          f"{backend} x{ranks}: {label} made no all-reduce")
+            if ranks == 1:
+                check("does not split into 2 equal" in r.get("refused", ""),
+                      f"a 1-rank world at partition_parts=2 did not raise "
+                      f"the ValueError: {r.get('refused')!r}")
+            else:
+                pm = r["mines"]
+                check(pm["part spade auto"]["launches"]["b1"] > 0
+                      and pm["part spam"]["launches"]["b3"] > 0
+                      and pm["part tsr"]["launches"]["b2"] > 0,
+                      f"{backend} x{ranks}: partitioned launches "
+                      f"{[pm[k]['launches'] for k in pm if k.startswith('part ')]}")
             m = r["mines"]
             check(m["spade auto"]["fused"] == "queue",
                   f"{backend} x{ranks}: auto routed to "
@@ -408,27 +477,313 @@ def mesh_phase(torch, want: dict, single_walls: dict, card: str,
               f"{peaks} exceed the card's {total} B")
         for label in res[0]["mines"]:
             recs = [r["mines"][label] for r in res]
-            one = single_walls.get(label)
-            launches = [(rec["launches"]["b1"], rec["launches"]["b2"])
-                        for rec in recs]
+            one = single_walls.get(label.removeprefix("part "))
+            launches = [(rec["launches"]["b1"], rec["launches"]["b2"],
+                         rec["launches"]["b3"]) for rec in recs]
             print(f"[mesh] {backend} x{ranks} {label}: byte-identical to the "
                   f"one-device text on every rank; route {recs[0]['route']}; "
-                  f"per rank (B1, B2) launches {launches}, B1 ms "
+                  f"per rank (B1, B2, B3) launches {launches}, B1 ms "
                   f"{[round(rec['kernel_ms']['b1'], 3) for rec in recs]}, "
                   f"B2 ms {[round(rec['kernel_ms']['b2'], 3) for rec in recs]}, "
                   f"all-reduces {[rec['all_reduces'] for rec in recs]} taking "
                   f"{[round(rec['all_reduce_ms'], 3) for rec in recs]} ms; "
                   f"wall {[round(rec['wall_s'], 3) for rec in recs]} s "
                   f"against one device {one} s; peak "
-                  f"{[rec['peak'] for rec in recs]} B", flush=True)
+                  f"{[rec['peak'] for rec in recs]} B"
+                  + (f"; exchanges {[rec['exchanges'] for rec in recs]} "
+                     f"over {recs[0]['rounds']} rounds, bytes "
+                     f"{[rec['cross_bytes'] for rec in recs]}"
+                     if label.startswith("part ") else ""), flush=True)
         launched[(backend, ranks)] = {
             label: res[0]["mines"][label]["launches"]
             for label in res[0]["mines"]}
+        if ranks == 1:
+            print(f"[mesh] {backend} x1 partition_parts=2 raised: "
+                  f"{res[0]['refused']}", flush=True)
         print(f"[mesh] {backend} x{ranks} world: {world_s:.1f} s with spawn "
               f"and data; generators {res[0]['gen_s']}; largest peak per "
               f"rank {peaks} B (sum {sum(peaks)} of {total} B); card {card}",
               flush=True)
     print(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launched
+
+
+class PartMeter:
+    """Phase 22's meter: B1, B2 and B3 wrapped with CUDA events
+    (``_timed_kernel``) while it is entered, and each partition's
+    stretches of work (a TSR round's slice, a SPADE/SPAM/cSPADE slice)
+    timed and charged with the launches, kernel events and candidates
+    inside them."""
+
+    def __init__(self, torch, kernels):
+        self.torch = torch
+        self.kernels = kernels   # ((key, module, wrapper name), ...)
+        self.sinks = {key: [] for key, _, _ in kernels}
+        self.parts: dict = {}
+        self._saved: list = []
+
+    def __enter__(self):
+        for key, mod, name in self.kernels:
+            fn = getattr(mod, name)
+            self._saved.append((mod, name, fn))
+            setattr(mod, name, _timed_kernel(self.torch, fn, self.sinks[key]))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        self._saved.clear()
+
+    def reset(self) -> None:
+        self.parts = {}
+        for key, mod, name in self.kernels:
+            self.sinks[key].clear()
+            getattr(mod, name).launches = 0
+
+    def launches(self) -> dict:
+        return {key: getattr(mod, name).launches
+                for key, mod, name in self.kernels}
+
+    def stretch(self, part, work, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)`` as partition ``part``'s work;
+        ``work()`` reads the candidates evaluated so far."""
+        self.torch.cuda.synchronize()
+        l0, w0 = self.launches(), work()
+        i0 = {key: len(v) for key, v in self.sinks.items()}
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            self.torch.cuda.synchronize()
+            rec = self.parts.setdefault(part, {
+                "wall_s": 0.0, "work": 0,
+                "launches": {key: 0 for key in self.sinks},
+                "events": {key: [] for key in self.sinks}})
+            rec["wall_s"] += time.perf_counter() - t0
+            rec["work"] += work() - w0
+            for key, n in self.launches().items():
+                rec["launches"][key] += n - l0[key]
+                rec["events"][key] += self.sinks[key][i0[key]:]
+
+    def summary(self) -> str:
+        out = []
+        for p in sorted(self.parts):
+            rec = self.parts[p]
+            ms = {key: round(sum(a.elapsed_time(b) for a, b in ev), 3)
+                  for key, ev in rec["events"].items()}
+            out.append(f"part {p}: {rec['wall_s']:.3f} s, evaluated "
+                       f"{rec['work']}, (B1, B2, B3) launches "
+                       f"{tuple(rec['launches'].values())} taking "
+                       f"{tuple(ms.values())} ms")
+        return "; ".join(out)
+
+
+class CompositeStore:
+    """A checkpoint for the partitioned mines: a snapshot at every chance,
+    each kept as a store would hold it (JSON), resuming ``state``."""
+
+    def __init__(self, state=None, every_s: float = 0.0):
+        self.state, self.every_s, self.saved = state, every_s, []
+
+    def load(self):
+        return self.state
+
+    def save(self, state):
+        self.saved.append(json.loads(json.dumps(state)))
+
+
+def partition_phase(torch, inputs: dict, want: dict, single_walls: dict,
+                    card: str) -> dict:
+    """Phase 22: the partitioned mines of ``inputs`` in this process, each
+    held against the earlier phase's digest in ``want``; returns each
+    kernel's launches on the partitioned path."""
+    from spark_fsm_tpu_torch.models import tsr as TT
+    from spark_fsm_tpu_torch.models.spade import mine_spade_torch
+    from spark_fsm_tpu_torch.models.spade_constrained import mine_cspade_torch
+    from spark_fsm_tpu_torch.models.spam_bitmap import mine_spam_torch
+    from spark_fsm_tpu_torch.ops import extend_prune as EP
+    from spark_fsm_tpu_torch.ops import pair_support as PS
+    from spark_fsm_tpu_torch.ops import rule_support as RS
+    from spark_fsm_tpu_torch.parallel import partition as PN
+    from spark_fsm_tpu_torch.utils.canonical import patterns_text, rules_text
+
+    t_phase = time.perf_counter()
+    meter = PartMeter(torch, (("b1", PS, "pair_supports"),
+                              ("b2", RS, "rule_supports"),
+                              ("b3", EP, "extend_count_prune")))
+    launched = {key: 0 for key in meter.sinks}
+    orig_round = TT.TsrTorch._mine_restricted
+    orig_slices = PN.mine_partitioned_slices
+
+    def tsr_round(self, m, *args, **kwargs):
+        part = None if self._partition is None else self._partition[1]
+        return meter.stretch(part, lambda: self.stats["evaluated"],
+                             orig_round, self, m, *args, **kwargs)
+
+    def slices(*, mine_part, stats=None, **kwargs):
+        def metered(p, *args):
+            return meter.stretch(p, lambda: stats.get("candidates", 0),
+                                 mine_part, p, *args)
+        return orig_slices(mine_part=metered, stats=stats, **kwargs)
+
+    def measured(label, fn, want_digest, text_of, unpart, kernel):
+        """One partitioned mine: parity, launches, exchanges, peak."""
+        meter.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res, stats = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(digest(text_of(res)) == want_digest,
+              f"the partitioned {label} differs from the earlier phase's text")
+        n = meter.launches()
+        check(n[kernel] > 0, f"the partitioned {label} launched {kernel} "
+              f"0 times: {n}")
+        for key in launched:
+            launched[key] += n[key]
+        rounds = stats.get("deepening_rounds", 1)
+        check(stats["partition_exchanges"] == rounds,
+              f"the partitioned {label}: {stats['partition_exchanges']} "
+              f"exchanges for {rounds} rounds")
+        print(f"[part] {label}: {len(res)} results byte-identical to the "
+              f"earlier phase's text; parts {stats['partition_parts']}, "
+              f"imbalance {stats['partition_imbalance']}; "
+              f"{meter.summary()}; exchanges {stats['partition_exchanges']} "
+              f"({stats['partition_cross_bytes']} B) over {rounds} rounds; "
+              f"wall {wall:.3f} s against unpartitioned {unpart} s; peak "
+              f"{peak} B; card {card}", flush=True)
+        return res, stats
+
+    TT.TsrTorch._mine_restricted = tsr_round
+    PN.mine_partitioned_slices = slices
+    try:
+        with meter:
+            # Kosarak-shaped TSR at two parts on phase 9's vertical DB,
+            # beside the unpartitioned engine on it
+            vdb = inputs["kos_vdb"]
+            eng = TT.TsrTorch(vdb, 100, 0.5, max_side=2)
+            meter.reset()
+            t0 = time.perf_counter()
+            one = eng.mine()
+            torch.cuda.synchronize()
+            one_s = time.perf_counter() - t0
+            one_b2 = meter.launches()["b2"]
+            check(digest(rules_text(one)) == want["tsr"],
+                  "the unpartitioned TSR engine on phase 9's DB differs")
+            orch = TT.TsrPartitioned(vdb, 100, 0.5, parts=PARTITION_PARTS,
+                                     max_side=2)
+            _, st = measured(
+                "kosarak_like TSR k=100 max_side=2",
+                lambda: (orch.mine(), orch.stats), want["tsr"], rules_text,
+                round(one_s, 3), "b2")
+            print(f"[part] kosarak_like TSR: evaluated {st['evaluated']} "
+                  f"partitioned against {eng.stats['evaluated']} "
+                  f"unpartitioned (ratio "
+                  f"{st['evaluated'] / eng.stats['evaluated']:.3f}); B2 "
+                  f"launches {meter.launches()['b2']} partitioned against "
+                  f"{one_b2} unpartitioned", flush=True)
+            del eng, orch, one
+            # the 1 % TSR, max_side=None: resident rows
+            db = inputs["tsr_small_db"]
+            t0 = time.perf_counter()
+            one = rules_text(TT.mine_tsr_torch(db, 100, 0.5, max_side=None))
+            torch.cuda.synchronize()
+            one_s = time.perf_counter() - t0
+            check(digest(one) == want["tsr 1%"], "the 1 % TSR mine differs")
+
+            def small():
+                st: dict = {}
+                res = TT.mine_tsr_torch(db, 100, 0.5, max_side=None,
+                                        partition_parts=PARTITION_PARTS,
+                                        stats_out=st)
+                return res, st
+            _, st = measured("kosarak_like(scale=0.01) TSR max_side=None",
+                             small, want["tsr 1%"], rules_text,
+                             round(one_s, 3), "b2")
+            check(st.get("resident_rounds", 0)
+                  == PARTITION_PARTS * st["deepening_rounds"],
+                  f"the 1 % partitioned TSR's slices took the resident "
+                  f"route {st.get('resident_rounds', 0)} times")
+            print(f"[part] kosarak_like(scale=0.01) TSR: resident rounds "
+                  f"{st['resident_rounds']}, waves {st['resident_waves']}, "
+                  f"evaluated {st['evaluated']}", flush=True)
+            # BMS SPADE through the queue slices and the classic ones
+            bms, bms_minsup = inputs["bms"]
+            for fused in ("auto", "never"):
+                def spade(fused=fused):
+                    st: dict = {}
+                    res = mine_spade_torch(bms, bms_minsup, fused=fused,
+                                           partition_parts=PARTITION_PARTS,
+                                           stats_out=st)
+                    return res, st
+                measured(f"bms_webview2_like SPADE fused={fused!r}", spade,
+                         want[f"spade {fused}"], patterns_text,
+                         single_walls[f"spade {fused}"], "b1")
+            # MSNBC SPAM: B3 on each slice
+            msnbc, msnbc_minsup = inputs["msnbc"]
+
+            def spam():
+                st: dict = {}
+                res = mine_spam_torch(msnbc, msnbc_minsup,
+                                      partition_parts=PARTITION_PARTS,
+                                      stats_out=st)
+                return res, st
+            measured("msnbc_like SPAM", spam, want["spam"], patterns_text,
+                     single_walls["spam"], "b3")
+            # Gazelle cSPADE: no hand kernel on this route
+            gz, gz_minsup = inputs["gazelle"]
+            meter.reset()
+            t0 = time.perf_counter()
+            cs: dict = {}
+            got = mine_cspade_torch(gz, gz_minsup, maxgap=2, maxwindow=5,
+                                    partition_parts=PARTITION_PARTS,
+                                    stats_out=cs)
+            torch.cuda.synchronize()
+            cs_s = time.perf_counter() - t0
+            check(digest(patterns_text(got)) == want["cspade"],
+                  "the partitioned cSPADE mine differs from phase 16's")
+            check(cs["partition_exchanges"] == 1, "cSPADE exchanges")
+            print(f"[part] gazelle_like cSPADE: {len(got)} patterns "
+                  f"byte-identical to phase 16's text; imbalance "
+                  f"{cs['partition_imbalance']}; {meter.summary()}; wall "
+                  f"{cs_s:.3f} s against unpartitioned "
+                  f"{single_walls['cspade']} s", flush=True)
+            # a composite checkpoint of the BMS mine, resumed mid-slice
+            store = CompositeStore()
+            meter.reset()
+            got = mine_spade_torch(bms, bms_minsup,
+                                   partition_parts=PARTITION_PARTS,
+                                   checkpoint=store)
+            check(digest(patterns_text(got)) == want["spade auto"],
+                  "the checkpointed partitioned SPADE mine differs")
+            mids = [st for st in store.saved
+                    if st["partition"]["active_part"] is not None
+                    and st["partition"]["active_state"]["stack"]]
+            check(bool(mids), "no composite was saved mid-slice")
+            mid = mids[len(mids) // 2]
+            t0 = time.perf_counter()
+            got = mine_spade_torch(bms, bms_minsup,
+                                   partition_parts=PARTITION_PARTS,
+                                   checkpoint=CompositeStore(mid, 1e9))
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+            check(digest(patterns_text(got)) == want["spade auto"],
+                  "the resumed partitioned SPADE mine differs")
+            print(f"[part] bms_webview2_like SPADE checkpointed: "
+                  f"{len(store.saved)} composites, {len(mids)} mid-slice; "
+                  f"composite {store.saved.index(mid)} (part "
+                  f"{mid['partition']['active_part']}, "
+                  f"{len(mid['partition']['active_state']['stack'])} live "
+                  f"nodes, {len(mid['results'])} done rows) resumed "
+                  f"byte-identical in {resume_s:.3f} s", flush=True)
+    finally:
+        TT.TsrTorch._mine_restricted = orig_round
+        PN.mine_partitioned_slices = orig_slices
+    print(f"[part] phase {time.perf_counter() - t_phase:.1f} s; launches "
+          f"on the partitioned path {launched}; tallies {PN.tallies()}",
+          flush=True)
     return launched
 
 
@@ -1467,6 +1822,7 @@ def run(torch, oracles) -> int:
           f"generator {gen_s:.1f} s, oracle {oracle_s:.1f} s", flush=True)
     mesh_want["spam"] = digest(text)
     single_walls["spam"] = (round(scold_s, 3), round(swarm_s, 3))
+    part_inputs = {"msnbc": (db, minsup)}   # phase 22 mines them again
     predict_sets["spam"] = ("msnbc_like SPAM minsup 0.5 %", "patterns",
                             SM.serialize_patterns(got),
                             predict_prefixes(db, 3))
@@ -1616,7 +1972,7 @@ def run(torch, oracles) -> int:
           f"launches name {statistics.mean(wave_rows):.1f} store rows each "
           f"(min {min(wave_rows)}, max {max(wave_rows)}), bound summed over "
           f"them {wave_bound_ms:.3f} ms", flush=True)
-    del res_rules, res_warm, host_rules, kos_vdb
+    del res_rules, res_warm, host_rules   # phase 22 mines kos_vdb again
     torch.cuda.empty_cache()
 
     db = kosarak_like(scale=0.01, fast=True)
@@ -1661,7 +2017,8 @@ def run(torch, oracles) -> int:
           f"(resident='never') {[round(w, 4) for w in small_walls['never']]} "
           f"s, medians {statistics.median(small_walls['auto']):.4f} / "
           f"{statistics.median(small_walls['never']):.4f} s", flush=True)
-    tsr_small_db, tsr_small_text = db, text   # phase 19 mines it again
+    tsr_small_db, tsr_small_text = db, text   # phases 19 and 22 mine it
+    mesh_want["tsr 1%"] = digest(text)
     del db, got_t, want_t
 
     # 16. constrained SPADE against the copied oracle, full size and 10 %
@@ -1691,6 +2048,7 @@ def run(torch, oracles) -> int:
         check(len(got) > 0, f"the cSPADE mine at scale {scale} is empty")
         cspade_small = (db, minsup, want_text)   # phase 19: the last scale
         if scale == 1.0:
+            part_inputs["gazelle"] = (db, minsup)
             mesh_want["cspade"] = digest(want_text)
             single_walls["cspade"] = (round(ccold_s, 3), round(cwarm_s, 3))
         print(f"[mine] gazelle_like(scale={scale}) maxgap=2 maxwindow=5: "
@@ -1902,7 +2260,10 @@ def run(torch, oracles) -> int:
           f"{len(got)} patterns byte-identical to the oracle; geometry "
           f"{bstats['geometry']}", flush=True)
     mesh_bms = bms_db   # phase 21 mines it again
+    part_inputs.update(kos_vdb=kos_vdb, tsr_small_db=tsr_small_db,
+                       bms=(bms_db, bms_minsup))
     del got, got_t, bms_db, stream_first, tsr_small_db, cspade_small
+    del kos_vdb
 
     # 20. prediction scoring over the rule sets of phases 9, 5 and 13
     predict_phase(torch, dev, [predict_sets[k] for k in ("tsr", "spade",
@@ -1911,6 +2272,10 @@ def run(torch, oracles) -> int:
     # 21. sequence meshes on the card
     mesh_phase(torch, mesh_want, single_walls, card, mesh_bms)
     del mesh_bms
+
+    # 22. class-partitioned mines at full size in this process
+    partition_phase(torch, part_inputs, mesh_want, single_walls, card)
+    del part_inputs
 
     print(json.dumps({"kernels": [pair_record, rule_record, {
         "name": "extend_prune", "route": "cuda",

@@ -17,6 +17,16 @@ DFS frontier snapshot.
 - A sharded store: :func:`shard_store_from_numpy` gives a mesh rank its
   block of a reference store's sequence axis, as the engines' sharded
   store builders lay it out.
+- A partitioned mine's composite snapshot (``parallel/partition.
+  composite_state``: the merged rows, the active partition's frontier in
+  its engine's format, the plan's fingerprint) is host JSON too, shared
+  as is.  A ``PartitionPlan`` is a pure function of the vertical DB's item
+  ids and supports (the same splitmix64 class hash, the same LPT order),
+  so both packages build the same plan from the same database and each
+  resumes the other's composite.  The port nests the active frontier with
+  all of its slice's results (``results_done=0``), so a composite taken
+  mid-slice resumes in either package; the reference nests the engine's
+  delta snapshot.
 """
 
 from __future__ import annotations

@@ -37,8 +37,13 @@ loop over its block of the sequence axis (the reference's ``shard_map``
 over ``SEQ_AXIS``): prep, materialize and recompute are per-sequence and
 stay local, and each batch's extracted supports are all-reduced (SUM)
 before the prune (the reference's ``psum``), so every rank prunes alike.
-Not ported: partitioned mining and shape-key registration (ROADMAP
-Queue A).
+
+``partition_parts > 1`` mines equivalence-class slices
+(``parallel/partition.py``): a pattern's class is its first item, so each
+partition seeds only its owned roots and the slices union to the whole
+set.  Each slice routes queue -> classic (the dense engine has no root
+slice); the composite checkpoint nests the active slice's frontier.  Not
+ported: shape-key registration (ROADMAP Queue A item 13).
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ from spark_fsm_tpu_torch.models.spade_fused import (
 from spark_fsm_tpu_torch.models.spade_queue import (
     QueueSpadeTorch, queue_eligible)
 from spark_fsm_tpu_torch.ops import pair_support as PS
+from spark_fsm_tpu_torch.parallel import partition as PN
 from spark_fsm_tpu_torch.parallel.mesh import all_reduce_sum, mesh_size
 from spark_fsm_tpu_torch.utils.canonical import Pattern, PatternResult, sort_patterns
 
@@ -139,6 +145,8 @@ class SpadeTorch:
       pool_bytes: device memory budget for the pattern-bitmap pool.
       max_pattern_itemsets: optional cap on pattern length in itemsets.
       shape_buckets: bucketed geometry (:func:`classic_geometry`).
+      partition: optional ``(PartitionPlan, part)``: seed only the roots
+        whose class the part owns.
     """
 
     def __init__(
@@ -155,11 +163,13 @@ class SpadeTorch:
         pool_bytes: Optional[int] = None,
         max_pattern_itemsets: Optional[int] = None,
         shape_buckets: bool = False,
+        partition=None,
     ):
         self.device = engine_device(device, mesh)
         self.mesh = mesh
         self.vdb = vdb
         self.minsup = int(minsup_abs)
+        self._partition = partition
         self.max_pattern_itemsets = max_pattern_itemsets
         n_items, n_words = vdb.n_items, vdb.n_words
         g = classic_geometry(
@@ -350,7 +360,11 @@ class SpadeTorch:
             results = []
             root_items = [i for i in range(self.n_items)
                           if int(self.vdb.item_supports[i]) >= minsup]
+            seed = set(PN.owned_roots(root_items, self.vdb.item_ids,
+                                      self._partition))
             for i in reversed(root_items):
+                if i not in seed:
+                    continue  # another partition's class slice
                 results.append((self._pattern_of(((i, True),)),
                                 int(self.vdb.item_supports[i])))
                 stack.append(_Node(((i, True),), i, root_items,
@@ -394,6 +408,7 @@ def mine_spade_torch(
     checkpoint=None,
     fused: str = "auto",
     partition_parts: int = 0,
+    partition_classes: int = 64,
     shape_buckets: bool = False,
     **kwargs,
 ) -> List[PatternResult]:
@@ -418,19 +433,24 @@ def mine_spade_torch(
     (a ``parallel.mesh.SeqMesh``) shards the sequence axis over its ranks:
     every rank calls this with the same arguments and gets the same
     result, and the routing tests judge one shard's bytes as the
-    reference's do.  ``partition_parts > 1`` is not ported yet and raises
-    ``NotImplementedError``.  ``kwargs`` go to :class:`SpadeTorch`.
+    reference's do.  ``partition_parts > 1`` mines ``partition_classes``
+    equivalence classes in that many slices (:func:`_mine_spade_partitioned`;
+    on a mesh, one row of ranks a slice).  ``kwargs`` go to
+    :class:`SpadeTorch`.
     """
     dev = engine_device(device, mesh)
     if fused not in _FUSED:
         raise ValueError(f"fused must be one of {_FUSED}, got {fused!r}")
-    if partition_parts and int(partition_parts) > 1:
-        raise NotImplementedError(
-            "partition_parts > 1: class-partitioned mining is not ported "
-            "yet (ROADMAP Queue A item 11)")
     vdb = build_vertical(db, min_item_support=minsup_abs)
     if vdb.n_items == 0:
         return []
+    if partition_parts and int(partition_parts) > 1:
+        return _mine_spade_partitioned(
+            vdb, minsup_abs, device=dev, mesh=mesh,
+            parts=int(partition_parts), classes=int(partition_classes),
+            max_pattern_itemsets=max_pattern_itemsets, stats_out=stats_out,
+            checkpoint=checkpoint, fused=fused, shape_buckets=shape_buckets,
+            **kwargs)
     return _route_spade(vdb, minsup_abs, device=dev, mesh=mesh,
                         max_pattern_itemsets=max_pattern_itemsets,
                         stats_out=stats_out, checkpoint=checkpoint,
@@ -448,19 +468,23 @@ def _route_spade(
     checkpoint=None,
     fused: str = "auto",
     shape_buckets: bool = False,
+    partition=None,
     **kwargs,
 ) -> List[PatternResult]:
     """The reference's engine ladder (``spade_tpu._route_spade``): queue,
     then dense, then classic, each engine and routing test judging the
     bucketed sequence axis when ``shape_buckets``, and one shard of it
-    under a ``mesh``."""
+    under a ``mesh``.  A ``partition`` slice reaches the queue and
+    classic engines; the dense engine, which has no root slice, is gated
+    off under one."""
     ekw = dict(device=device, mesh=mesh,
                max_pattern_itemsets=max_pattern_itemsets,
                shape_buckets=shape_buckets)
     if fused in ("auto", "always", "queue"):
         if fused in ("always", "queue") or queue_eligible(
                 vdb, device, shape_buckets=shape_buckets, mesh=mesh):
-            qeng = QueueSpadeTorch(vdb, minsup_abs, **ekw)
+            qeng = QueueSpadeTorch(vdb, minsup_abs, partition=partition,
+                                   **ekw)
             q_resume, q_save, q_every = load_checkpoint(
                 checkpoint, qeng.frontier_fingerprint())
             res = qeng.mine(resume=q_resume, checkpoint_cb=q_save,
@@ -483,7 +507,8 @@ def _route_spade(
                 fused in ("always", "dense") or fused_eligible(
                     vdb, device, shape_buckets=shape_buckets, mesh=mesh)):
             stats_out["fused_skipped"] = "checkpoint"
-    if checkpoint is None and fused in ("always", "dense", "auto"):
+    if checkpoint is None and partition is None \
+            and fused in ("always", "dense", "auto"):
         if fused in ("always", "dense") or fused_eligible(
                 vdb, device, shape_buckets=shape_buckets, mesh=mesh):
             feng = FusedSpadeTorch(vdb, minsup_abs, **ekw)
@@ -495,7 +520,7 @@ def _route_spade(
             if stats_out is not None:
                 stats_out["fused_overflow"] = True
                 stats_out["fused_levels"] = feng.stats.get("levels", 0)
-    eng = SpadeTorch(vdb, minsup_abs, **ekw, **kwargs)
+    eng = SpadeTorch(vdb, minsup_abs, partition=partition, **ekw, **kwargs)
     resume, save_cb, every_s = load_checkpoint(
         checkpoint, eng.frontier_fingerprint())
     results = eng.mine(resume=resume, checkpoint_cb=save_cb,
@@ -504,4 +529,78 @@ def _route_spade(
         stats_out.update(eng.stats)
         # the routing decision is always recorded ("routed classic")
         stats_out.setdefault("fused", False)
+    return results
+
+
+class _SliceCheckpoint:
+    """The engines' checkpoint contract (``load``, ``save``, ``every_s``)
+    over a partition slice's resumed state and snapshot callback."""
+
+    def __init__(self, state, save, every_s: float):
+        self._state = state
+        self.save = save
+        self.every_s = every_s
+
+    def load(self):
+        return self._state
+
+
+def _mine_spade_partitioned(
+    vdb: VerticalDB,
+    minsup_abs: int,
+    *,
+    device: DeviceLike,
+    mesh,
+    parts: int,
+    classes: int,
+    max_pattern_itemsets: Optional[int],
+    stats_out: Optional[dict],
+    checkpoint,
+    fused: str,
+    **kwargs,
+) -> List[PatternResult]:
+    """Equivalence-class partitioned SPADE (``spade_tpu.
+    _mine_spade_partitioned``): each partition mines the patterns rooted
+    at its owned classes as an independent slice (a fixed minsup), and
+    the union of the slices is the exact pattern set.  Each slice routes
+    queue -> classic: ``fused`` "always"/"dense" map to "auto", since the
+    dense engine has no root slice.  Checkpoints are composite
+    (``partition.mine_partitioned_slices``)."""
+    plan = PN.plan_partitions(vdb.item_ids, vdb.item_supports, parts,
+                              classes)
+    meshes = PN.submeshes(mesh, parts)
+    fused_p = fused if fused in ("never", "queue", "auto") else "auto"
+    fingerprint = dict(
+        frontier_fingerprint(vdb, minsup_abs, max_pattern_itemsets),
+        partition=plan.fingerprint())
+    resume, save_cb, every_s = load_checkpoint(checkpoint, fingerprint)
+    stats: dict = {
+        "partition_parts": int(parts),
+        "partition_classes": int(classes),
+        "partition_imbalance": round(plan.imbalance_ratio, 4),
+    }
+    PN.count_mine("spade")
+
+    def mine_part(p, row_mesh, resume_state, part_cb):
+        part_stats: dict = {}
+        ckpt = None
+        if resume_state is not None or part_cb is not None:
+            ckpt = _SliceCheckpoint(resume_state, part_cb, every_s)
+        res = _route_spade(
+            vdb, minsup_abs, device=device, mesh=row_mesh,
+            max_pattern_itemsets=max_pattern_itemsets,
+            stats_out=part_stats, checkpoint=ckpt, fused=fused_p,
+            partition=(plan, p), **kwargs)
+        PN.fold_numeric_stats(stats, part_stats)
+        return PN.encode_patterns(res)
+
+    rows = PN.mine_partitioned_slices(
+        plan=plan, meshes=meshes, fingerprint=fingerprint,
+        mine_part=mine_part, resume=resume, checkpoint_cb=save_cb,
+        stats=stats, mesh=mesh)
+    results = sort_patterns(PN.decode_patterns(rows))
+    stats["patterns"] = len(results)
+    stats["fused"] = "partitioned"
+    if stats_out is not None:
+        stats_out.update(stats)
     return results

@@ -33,8 +33,9 @@ reference does (:func:`cspade_geometry`).  With a ``mesh`` every rank
 keeps its block of the sequence axis (item bitmaps and state pool), the
 device steps are per-sequence and stay local, and each batch's windowed
 supports are all-reduced (SUM) before the prune (the reference's
-``psum``).  Not ported, raising ``NotImplementedError``: class-partitioned
-mining (ROADMAP Queue A item 11).
+``psum``).  ``partition_parts > 1`` mines equivalence-class slices
+(:func:`_mine_cspade_partitioned`): a pattern's class is its first item,
+and the constraints change support counting, not the class structure.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ from spark_fsm_tpu_torch.models._common import (
     load_checkpoint, scatter_build_store, shard_width, to_host, to_index)
 from spark_fsm_tpu_torch.ops.ragged_batch import next_pow2
 from spark_fsm_tpu_torch.ops import maxstart_torch as MS
+from spark_fsm_tpu_torch.parallel import partition as PN
 from spark_fsm_tpu_torch.parallel.mesh import (
     all_reduce_sum, mesh_size, pad_to_multiple)
 from spark_fsm_tpu_torch.utils.canonical import (
@@ -63,13 +65,6 @@ from spark_fsm_tpu_torch.utils.canonical import (
 # the one frontier-node shape every engine snapshots (see _common); here
 # s_list holds siblings when maxgap is None, else all roots
 _Node = FrontierNode
-
-
-def _refuse(partition) -> None:
-    if partition is not None:
-        raise NotImplementedError(
-            "partition: class-partitioned cSPADE is not ported yet "
-            "(ROADMAP Queue A item 11)")
 
 
 def cspade_geometry(n_sequences: int, n_items: int, n_words: int, *,
@@ -153,11 +148,14 @@ class ConstrainedSpadeTorch:
         shape_buckets: bool = False,
         partition=None,
     ):
-        _refuse(partition)
         self.device = engine_device(device, mesh)
         self.mesh = mesh
         self.vdb = vdb
         self.minsup = int(minsup_abs)
+        # a (PartitionPlan, part) slice seeds only the owned classes'
+        # roots; the candidate lists stay full-width (under maxgap the
+        # s-side is every frequent root)
+        self._partition = partition
         self.maxgap = maxgap
         self.maxwindow = maxwindow
         self.max_pattern_itemsets = max_pattern_itemsets
@@ -350,7 +348,11 @@ class ConstrainedSpadeTorch:
                 resume, self.frontier_fingerprint(), _Node)
             self.stats["resumed_nodes"] = len(stack)
         else:
+            seed = set(PN.owned_roots(root_items, self.vdb.item_ids,
+                                      self._partition))
             for i in reversed(root_items):
+                if i not in seed:
+                    continue  # another partition's class slice
                 results.append((self._pattern_of(((i, True),)),
                                 int(self.vdb.item_supports[i])))
                 stack.append(_Node(((i, True),), None, root_items,
@@ -472,6 +474,7 @@ def mine_cspade_torch(
     stats_out: Optional[dict] = None,
     checkpoint=None,
     partition_parts: int = 0,
+    partition_classes: int = 64,
     **kwargs,
 ) -> List[PatternResult]:
     """DB -> vertical build -> constrained mine, on ``device`` (default
@@ -479,19 +482,23 @@ def mine_cspade_torch(
     load/save/every_s contract (a stale snapshot is ignored and the mine
     restarts fresh).  A ``mesh`` shards the sequence axis over its ranks
     (every rank calls this alike and gets the same result);
-    ``partition_parts > 1`` is not ported yet and raises
-    ``NotImplementedError``.  ``kwargs`` go to
-    :class:`ConstrainedSpadeTorch`.  ``stats_out`` gets the engine's stats
-    and, under ``geometry``, the dtype, chunk, node batch, pool slots,
-    recompute chunk and pipeline depth the mine ran with."""
+    ``partition_parts > 1`` mines ``partition_classes`` equivalence
+    classes in that many slices (:func:`_mine_cspade_partitioned`).
+    ``kwargs`` go to :class:`ConstrainedSpadeTorch`.  ``stats_out`` gets
+    the engine's stats and, under ``geometry`` (unpartitioned mines), the
+    dtype, chunk, node batch, pool slots, recompute chunk and pipeline
+    depth the mine ran with."""
     dev = engine_device(device, mesh)
-    if partition_parts and int(partition_parts) > 1:
-        raise NotImplementedError(
-            "partition_parts > 1: class-partitioned cSPADE is not ported "
-            "yet (ROADMAP Queue A item 11)")
     vdb = build_vertical(db, min_item_support=minsup_abs)
     if vdb.n_items == 0:
         return []
+    if partition_parts and int(partition_parts) > 1:
+        return _mine_cspade_partitioned(
+            vdb, minsup_abs, maxgap=maxgap, maxwindow=maxwindow, device=dev,
+            mesh=mesh, parts=int(partition_parts),
+            classes=int(partition_classes),
+            max_pattern_itemsets=max_pattern_itemsets, stats_out=stats_out,
+            checkpoint=checkpoint, **kwargs)
     eng = ConstrainedSpadeTorch(vdb, minsup_abs, maxgap=maxgap,
                                 maxwindow=maxwindow, device=dev, mesh=mesh,
                                 max_pattern_itemsets=max_pattern_itemsets,
@@ -508,4 +515,69 @@ def mine_cspade_torch(
             "node_batch": eng.node_batch, "pool_slots": eng.pool_slots,
             "recompute_chunk": eng.recompute_chunk,
             "pipeline_depth": eng.pipeline_depth}
+    return results
+
+
+def _mine_cspade_partitioned(
+    vdb: VerticalDB,
+    minsup_abs: int,
+    *,
+    maxgap: Optional[int],
+    maxwindow: Optional[int],
+    device: DeviceLike,
+    mesh,
+    parts: int,
+    classes: int,
+    max_pattern_itemsets: Optional[int],
+    stats_out: Optional[dict],
+    checkpoint,
+    **kwargs,
+) -> List[PatternResult]:
+    """Equivalence-class partitioned cSPADE (``spade_constrained.
+    _mine_cspade_partitioned``): the partitioned SPADE route's independent
+    slices, one :class:`ConstrainedSpadeTorch` a slice.  The composite's
+    fingerprint is built without an engine (the constructor builds the
+    device stores), field for field the engine's."""
+    plan = PN.plan_partitions(vdb.item_ids, vdb.item_supports, parts,
+                              classes)
+    meshes = PN.submeshes(mesh, parts)
+    ids = vdb.item_ids
+    fingerprint = {
+        "minsup": int(minsup_abs),
+        "maxgap": maxgap,
+        "maxwindow": maxwindow,
+        "n_items": int(vdb.n_items),
+        "n_sequences": int(vdb.n_sequences),
+        "max_itemsets": max_pattern_itemsets,
+        "item_ids_head": [int(i) for i in ids[:8]],
+        "item_ids_sum": int(ids.astype(np.int64).sum()),
+        "partition": plan.fingerprint(),
+    }
+    resume, save_cb, every_s = load_checkpoint(checkpoint, fingerprint)
+    stats: dict = {
+        "partition_parts": int(parts),
+        "partition_classes": int(classes),
+        "partition_imbalance": round(plan.imbalance_ratio, 4),
+    }
+    PN.count_mine("cspade")
+
+    def mine_part(p, row_mesh, resume_state, part_cb):
+        eng = ConstrainedSpadeTorch(
+            vdb, minsup_abs, maxgap=maxgap, maxwindow=maxwindow,
+            device=device, mesh=row_mesh,
+            max_pattern_itemsets=max_pattern_itemsets,
+            partition=(plan, p), **kwargs)
+        res = eng.mine(resume=resume_state, checkpoint_cb=part_cb,
+                       checkpoint_every_s=every_s)
+        PN.fold_numeric_stats(stats, eng.stats)
+        return PN.encode_patterns(res)
+
+    rows = PN.mine_partitioned_slices(
+        plan=plan, meshes=meshes, fingerprint=fingerprint,
+        mine_part=mine_part, resume=resume, checkpoint_cb=save_cb,
+        stats=stats, mesh=mesh)
+    results = sort_patterns(PN.decode_patterns(rows))
+    stats["patterns"] = len(results)
+    if stats_out is not None:
+        stats_out.update(stats)
     return results

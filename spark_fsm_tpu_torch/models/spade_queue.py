@@ -66,6 +66,7 @@ from spark_fsm_tpu_torch.models.spade_fused import (
     decode_records, expand, root_state)
 from spark_fsm_tpu_torch.ops import pair_support as PS
 from spark_fsm_tpu_torch.ops import ragged_batch as RB
+from spark_fsm_tpu_torch.parallel import partition as PN
 from spark_fsm_tpu_torch.parallel.mesh import all_reduce_sum, mesh_size
 from spark_fsm_tpu_torch.utils.canonical import PatternResult, sort_patterns
 
@@ -202,12 +203,15 @@ class QueueSpadeTorch:
                  device: DeviceLike = None, mesh=None,
                  max_pattern_itemsets: Optional[int] = None,
                  caps: Optional[QueueCaps] = None,
-                 shape_buckets: bool = False):
+                 shape_buckets: bool = False, partition=None):
         self.device = engine_device(device, mesh)
         self.mesh = mesh
         self.vdb = vdb
         self.minsup = int(minsup_abs)
         self.max_its = max_pattern_itemsets
+        # a (PartitionPlan, part) slice seeds only the owned classes'
+        # roots; the candidate masks stay the whole extension universe
+        self._partition = partition
         g = queue_geometry(vdb.n_sequences, vdb.n_items, vdb.n_words,
                            device=self.device, shape_buckets=shape_buckets,
                            caps=caps, mesh=mesh)
@@ -247,11 +251,18 @@ class QueueSpadeTorch:
         return [i for i in range(self.n_items)
                 if int(self.vdb.item_supports[i]) >= self.minsup]
 
+    def _seed_roots(self) -> List[int]:
+        """The roots this engine seeds: every frequent item, or only the
+        owned classes' items under a partition slice."""
+        return PN.owned_roots(self.roots(), self.vdb.item_ids,
+                              self._partition)
+
     def start(self, roots: List[int]) -> _Carry:
-        """The device state of a fresh mine seeded with ``roots``."""
+        """The device state of a fresh mine seeded with ``roots``; the
+        candidate masks are every frequent item, whichever roots seed."""
         cap, ni, dev = self.caps, self.ni_pad, self.device
         root_mask = np.zeros(ni, bool)
-        root_mask[roots] = True
+        root_mask[self.roots()] = True
         slots, s_mask, i_mask, nits, records, recsup = root_state(
             roots, [int(self.vdb.item_supports[i]) for i in roots],
             root_mask, cap.ring + 1, ni, cap.r_cap, dev)
@@ -332,7 +343,7 @@ class QueueSpadeTorch:
 
     def _mine_oneshot(self) -> Optional[List[PatternResult]]:
         cap = self.caps
-        roots = self.roots()
+        roots = self._seed_roots()
         if not roots:
             return []
         if len(roots) > min(cap.ring, cap.r_cap):
@@ -387,7 +398,7 @@ class QueueSpadeTorch:
             ckpt_done = len(results)
             head, tail, n_rec = 0, len(nodes), len(results)
         else:
-            roots = self.roots()
+            roots = self._seed_roots()
             if not roots:
                 return []
             if len(roots) > min(cap.ring, cap.r_cap):

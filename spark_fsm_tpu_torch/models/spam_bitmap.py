@@ -30,9 +30,11 @@ the DFS over its block of the sequence axis: the wave is B1 on the shard,
 the all-reduce and the threshold and pack as torch ops
 (``spam_bitops.wave_prune_sharded``: B3 never runs on a mesh), the
 sparse half all-reduces before its threshold, and prep, materialize and
-recompute stay local.  Not ported: class-partitioned mining (ROADMAP
-Queue A item 11), and the service planes the reference's dispatch calls (fusion, usage, cost-model observation, job
-control, shape records: item 13).
+recompute stay local.  ``partition_parts > 1`` mines equivalence-class
+slices as the partitioned SPADE route does (:func:`_mine_spam_partitioned`).
+Not ported: the service planes the reference's dispatch calls (fusion,
+usage, cost-model observation, job control, shape records: ROADMAP Queue A
+item 13).
 """
 
 from __future__ import annotations
@@ -57,6 +59,7 @@ from spark_fsm_tpu_torch.models._common import (
 from spark_fsm_tpu_torch.ops import bitops_np as BN
 from spark_fsm_tpu_torch.ops import spam_bitops as SB
 from spark_fsm_tpu_torch.ops.ragged_batch import next_pow2
+from spark_fsm_tpu_torch.parallel import partition as PN
 from spark_fsm_tpu_torch.parallel.mesh import mesh_size
 from spark_fsm_tpu_torch.service import planner
 from spark_fsm_tpu_torch.utils.canonical import Pattern, PatternResult, sort_patterns
@@ -144,11 +147,13 @@ class SpamBitmapTorch:
         density_crossover: Optional[float] = None,
         diffset_depth: Optional[int] = None,
         shape_buckets: bool = False,
+        partition=None,
     ):
         self.device = engine_device(device, mesh)
         self.mesh = mesh
         self.vdb = vdb
         self.minsup = int(minsup_abs)
+        self._partition = partition
         self.max_pattern_itemsets = max_pattern_itemsets
 
         n_items, n_words = vdb.n_items, vdb.n_words
@@ -400,7 +405,11 @@ class SpamBitmapTorch:
             results = []
             root_items = [i for i in range(self.n_items)
                           if int(self.vdb.item_supports[i]) >= self.minsup]
+            seed = set(PN.owned_roots(root_items, self.vdb.item_ids,
+                                      self._partition))
             for i in reversed(root_items):
+                if i not in seed:
+                    continue  # another partition's class slice
                 results.append((self._pattern_of(((i, True),)),
                                 int(self.vdb.item_supports[i])))
                 stack.append(_Node(((i, True),), i, root_items,
@@ -567,6 +576,7 @@ def mine_spam_torch(
     stats_out: Optional[dict] = None,
     checkpoint=None,
     partition_parts: int = 0,
+    partition_classes: int = 64,
     shape_buckets: bool = False,
     **kwargs,
 ) -> List[PatternResult]:
@@ -577,17 +587,20 @@ def mine_spam_torch(
     ``save(state)`` and ``every_s``; a saved frontier (from either package,
     SPAM or SPADE) is resumed when its fingerprint still matches.  A
     ``mesh`` shards the sequence axis over its ranks (every rank calls
-    this alike and gets the same result); ``partition_parts > 1`` is not
-    ported yet and raises ``NotImplementedError``.  ``kwargs`` go to
+    this alike and gets the same result); ``partition_parts > 1`` mines
+    ``partition_classes`` equivalence classes in that many slices
+    (:func:`_mine_spam_partitioned`).  ``kwargs`` go to
     :class:`SpamBitmapTorch`."""
     dev = engine_device(device, mesh)
-    if partition_parts and int(partition_parts) > 1:
-        raise NotImplementedError(
-            "partition_parts > 1: class-partitioned mining is not ported "
-            "yet (ROADMAP Queue A item 11)")
     vdb = build_vertical(db, min_item_support=minsup_abs)
     if vdb.n_items == 0:
         return []
+    if partition_parts and int(partition_parts) > 1:
+        return _mine_spam_partitioned(
+            vdb, minsup_abs, device=dev, mesh=mesh,
+            parts=int(partition_parts), classes=int(partition_classes),
+            max_pattern_itemsets=max_pattern_itemsets, stats_out=stats_out,
+            checkpoint=checkpoint, shape_buckets=shape_buckets, **kwargs)
     eng = SpamBitmapTorch(vdb, minsup_abs, device=dev, mesh=mesh,
                           max_pattern_itemsets=max_pattern_itemsets,
                           shape_buckets=shape_buckets, **kwargs)
@@ -597,4 +610,64 @@ def mine_spam_torch(
                        checkpoint_every_s=every_s)
     if stats_out is not None:
         stats_out.update(eng.stats)
+    return results
+
+
+def _mine_spam_partitioned(
+    vdb: VerticalDB,
+    minsup_abs: int,
+    *,
+    device: DeviceLike,
+    mesh,
+    parts: int,
+    classes: int,
+    max_pattern_itemsets: Optional[int],
+    stats_out: Optional[dict],
+    checkpoint,
+    **kwargs,
+) -> List[PatternResult]:
+    """Equivalence-class partitioned SPAM (``spam_bitmap.
+    _mine_spam_partitioned``): the partitioned SPADE route's structure,
+    one :class:`SpamBitmapTorch` a slice.  The composite's fingerprint is
+    field for field the partitioned SPADE route's, so either route
+    resumes the other's checkpoint."""
+    from spark_fsm_tpu_torch.models.spade import _SliceCheckpoint
+
+    plan = PN.plan_partitions(vdb.item_ids, vdb.item_supports, parts,
+                              classes)
+    meshes = PN.submeshes(mesh, parts)
+    fingerprint = dict(
+        frontier_fingerprint(vdb, minsup_abs, max_pattern_itemsets),
+        partition=plan.fingerprint())
+    resume, save_cb, every_s = load_checkpoint(checkpoint, fingerprint)
+    stats: dict = {
+        "engine": "spam",
+        "partition_parts": int(parts),
+        "partition_classes": int(classes),
+        "partition_imbalance": round(plan.imbalance_ratio, 4),
+    }
+    PN.count_mine("spam")
+
+    def mine_part(p, row_mesh, resume_state, part_cb):
+        ckpt = None
+        if resume_state is not None or part_cb is not None:
+            ckpt = _SliceCheckpoint(resume_state, part_cb, every_s)
+        eng = SpamBitmapTorch(vdb, minsup_abs, device=device, mesh=row_mesh,
+                              max_pattern_itemsets=max_pattern_itemsets,
+                              partition=(plan, p), **kwargs)
+        p_resume, p_save, p_every = load_checkpoint(
+            ckpt, eng.frontier_fingerprint())
+        res = eng.mine(resume=p_resume, checkpoint_cb=p_save,
+                       checkpoint_every_s=p_every)
+        PN.fold_numeric_stats(stats, eng.stats)
+        return PN.encode_patterns(res)
+
+    rows = PN.mine_partitioned_slices(
+        plan=plan, meshes=meshes, fingerprint=fingerprint,
+        mine_part=mine_part, resume=resume, checkpoint_cb=save_cb,
+        stats=stats, mesh=mesh)
+    results = sort_patterns(PN.decode_patterns(rows))
+    stats["patterns"] = len(results)
+    if stats_out is not None:
+        stats_out.update(stats)
     return results

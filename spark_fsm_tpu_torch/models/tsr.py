@@ -1,8 +1,9 @@
 """TSR — top-k sequential rules (TopSeqRules) on a CUDA device — port of
 ``spark_fsm_tpu/models/tsr.py`` (``conf_ok``, ``rule_counts_direct``,
 ``brute_force_rules``, ``TsrTPU`` with its host-loop and resident-frontier
-routes as :class:`TsrTorch`, ``TsrCPU``, ``mine_tsr_tpu`` as
-:func:`mine_tsr_torch`, ``mine_tsr_cpu``, ``resident_counters``).
+routes as :class:`TsrTorch`, ``TsrCPU``, ``TsrPartitioned``,
+``mine_tsr_tpu`` as :func:`mine_tsr_torch`, ``mine_tsr_cpu``,
+``resident_counters``).
 
 Semantics: a rule X ==> Y (X, Y disjoint itemsets) occurs in a sequence iff
 every item of X occurs strictly before every item of Y, i.e.
@@ -39,10 +40,16 @@ prefix/suffix ORs are per-sequence, and each dispatch's ``[2, C]``
 (sup, supx) counts are all-reduced (SUM) after B2 (the reference's two
 ``psum``s), so every rank's heap and threshold agree.  The resident route
 refuses a mesh, as the reference's does, so ``resident="auto"`` and
-``"always"`` both take the host loop there.  Not ported, raising
-``NotImplementedError``: class-partitioned mining.  A launch that fails raises: the reference's
-kernel-to-jnp downgrades and its resident-round fallback
-(``_resident_abandon``) have no counterpart.
+``"always"`` both take the host loop there.
+
+:class:`TsrPartitioned` (``partition_parts > 1``) splits the candidates
+by equivalence class, ``min(X)`` (``parallel/partition.py``): each
+partition seeds only its owned roots and starts its threshold at a
+conservative global floor, one exchange a deepening round merges the
+slices, and the exact global s_k filters the union.  A launch that
+fails raises: the reference's kernel-to-jnp downgrades, its resident-
+round fallback (``_resident_abandon``) and its meshguard adoption of a
+failed partition have no counterpart.
 """
 
 from __future__ import annotations
@@ -70,6 +77,7 @@ from spark_fsm_tpu_torch.ops import bitops_torch as B
 from spark_fsm_tpu_torch.ops import ragged_batch as RB
 from spark_fsm_tpu_torch.ops import resident_frontier as RF
 from spark_fsm_tpu_torch.ops import rule_support as RS
+from spark_fsm_tpu_torch.parallel import partition as PN
 from spark_fsm_tpu_torch.parallel.mesh import (
     all_reduce_sum, mesh_size, pad_to_multiple)
 from spark_fsm_tpu_torch.utils.canonical import RuleResult, sort_rules
@@ -196,6 +204,8 @@ class TsrTorch:
         resident-frontier route or the host loop as the reference's
         heuristic does; "always"/"never" (or True/False) pin it (the
         structural tests still apply to "always").
+      partition: optional ``(PartitionPlan, part)``: seed only the roots
+        whose class (``min(X)``) the part owns.
     """
 
     # dispatches kept in flight by the mine loop: each one's readback
@@ -222,9 +232,12 @@ class TsrTorch:
         partition=None,
     ):
         if partition is not None:
-            raise NotImplementedError(
-                "partition: class-partitioned TSR is not ported yet "
-                "(ROADMAP Queue A item 11)")
+            plan, part = partition
+            if not (0 <= int(part) < plan.n_parts):
+                raise ValueError(f"partition index {part} out of range "
+                                 f"for {plan.n_parts} partitions")
+            partition = (plan, int(part))
+        self._partition = partition
         if isinstance(resident, bool):
             resident = "always" if resident else "never"
         if resident not in ("auto", "always", "never"):
@@ -280,6 +293,17 @@ class TsrTorch:
         order = np.lexsort((vdb.item_ids, -vdb.item_supports))
         self._order = order
         self._sup_sorted = vdb.item_supports[order]
+        if partition is not None:
+            self.stats["partition"] = partition[1]
+
+    def _owned_mask(self, m: int) -> Optional[np.ndarray]:
+        """Over the round's local roots 0..m-1: True where this partition
+        owns the root's class (a hash of the global item id, the same in
+        every round and on every process); None when unpartitioned."""
+        if self._partition is None:
+            return None
+        plan, part = self._partition
+        return plan.owner_of(self.vdb.item_ids[self._order[:m]]) == part
 
     # ------------------------------------------------------------- kernels
 
@@ -429,7 +453,8 @@ class TsrTorch:
 
     def _count_launch(self, L) -> None:
         """Per-launch accounting: geometry-keyed fill counters, the
-        planner's traffic units, super-batch and borrow counts."""
+        planner's traffic units, super-batch and borrow counts, and the
+        launches of each partition."""
         self.stats["kernel_launches"] += 1
         lk, wk = f"launches_km{L.km}", f"width_km{L.km}"
         self.stats[lk] = self.stats.get(lk, 0) + 1
@@ -443,6 +468,10 @@ class TsrTorch:
         if L.mixed:
             self.stats["superbatches"] = (
                 self.stats.get("superbatches", 0) + 1)
+        if self._partition is not None:
+            # per-partition dispatch accounting (the scaling split)
+            pk = f"launches_part{self._partition[1]}"
+            self.stats[pk] = self.stats.get(pk, 0) + 1
 
     def _resolve_eval(self, handle):
         """Wait for one dispatch's readback (its CUDA event only), recycle
@@ -498,20 +527,24 @@ class TsrTorch:
 
     def _mine_restricted(self, m: int, resume: Optional[dict] = None,
                          checkpoint_cb=None, every_s: float = 30.0,
-                         ) -> Tuple[List[RuleResult], int]:
+                         floor: int = 1) -> Tuple[List[RuleResult], int]:
         """One deepening round over the top-m items; returns (results,
         s_k).  Routes the round as the reference does: the resident-
         frontier route when :meth:`_resident_route` picks it, else the
         host loop.  The resident route spills back to the host loop on a
-        capacity overflow, so the choice never changes the answer."""
+        capacity overflow, so the choice never changes the answer.
+
+        ``floor``: the initial minsup, the partitioned route's
+        conservative global top-k floor (``partition.ThresholdBoard``), a
+        lower bound on the global s_k; 1 is the whole-frontier search."""
         self.chunk = self._round_chunk(m)
         if self._resident_route(m):
             return self._mine_resident(m, resume=resume,
                                        checkpoint_cb=checkpoint_cb,
-                                       every_s=every_s)
+                                       every_s=every_s, floor=floor)
         return self._mine_host_restricted(m, resume=resume,
                                           checkpoint_cb=checkpoint_cb,
-                                          every_s=every_s)
+                                          every_s=every_s, floor=floor)
 
     def _resident_route(self, m: int) -> bool:
         """Should this round run on the resident-frontier route?  The
@@ -547,7 +580,7 @@ class TsrTorch:
     # ------------------------------------------------- resident route
 
     def _mine_resident(self, m: int, resume: Optional[dict],
-                       checkpoint_cb, every_s: float,
+                       checkpoint_cb, every_s: float, floor: int = 1,
                        ) -> Tuple[List[RuleResult], int]:
         """One deepening round on the resident-frontier route: the
         frontier, the antecedent supports and the top-k threshold stay on
@@ -568,7 +601,7 @@ class TsrTorch:
         max_side_t = self.max_side if self.max_side is not None else 1 << 30
         sup_l = self._sup_sorted[:m].astype(np.int64).tolist()
         if resume is not None:
-            minsup = max(int(resume["minsup"]), 1)
+            minsup = max(int(resume["minsup"]), int(floor))
             results0 = [(int(sup), int(supx), tuple(x), tuple(y))
                         for x, y, sup, supx in resume["results"]
                         if int(sup) >= minsup]
@@ -577,15 +610,20 @@ class TsrTorch:
                        for b, x, y, cr, side, psup, psupx in resume["stack"]]
             self.stats["resumed_nodes"] = len(entries)
         else:
-            minsup = 1
+            minsup = max(1, int(floor))
             results0 = []
             entries = RF.root_entries(sup_l, minsup, num, den, self.max_side)
+            own = self._owned_mask(m)
+            if own is not None:
+                # only the owned classes' root chains: every descendant
+                # keeps min(X) = its root, so the slice stays owned
+                entries = [e for e in entries if own[e[1][0]]]
         state = RF.pack_state(entries, results0, caps)
         if state is None:
             # the resumed frontier outgrows the caps: the host loop
             return self._mine_host_restricted(
                 m, resume=resume, checkpoint_cb=checkpoint_cb,
-                every_s=every_s)
+                every_s=every_s, floor=floor)
         self.stats["resident"] = True
         self.stats["resident_rounds"] = (
             self.stats.get("resident_rounds", 0) + 1)
@@ -735,6 +773,7 @@ class TsrTorch:
     def _mine_host_restricted(self, m: int, resume: Optional[dict] = None,
                               checkpoint_cb=None, every_s: float = 30.0,
                               count_resume: bool = True, prep=None,
+                              floor: int = 1,
                               ) -> Tuple[List[RuleResult], int]:
         """One deepening round on the host loop: best-first heap on the
         host, ragged super-batched eval dispatches on the device.  Returns
@@ -743,13 +782,17 @@ class TsrTorch:
         ``count_resume=False``: ``resume`` is an internal continuation (a
         resident spill or handoff), not a persisted checkpoint, so
         ``resumed_nodes`` is left as it is.  ``prep``: the resident
-        round's live ``(p1, s1)``, reused instead of built again."""
+        round's live ``(p1, s1)``, reused instead of built again.
+        ``floor``: the initial minsup (see :meth:`_mine_restricted`)."""
         sup_it = self._sup_sorted[:m].astype(np.int64)
         p1, s1 = prep if prep is not None else self._prep(m)
         ids = self.vdb.item_ids[self._order[:m]]
 
         results: List[Tuple[int, int, Tuple[int, ...], Tuple[int, ...]]] = []
-        minsup = 1
+        # the partitioned route's conservative global floor is a sound
+        # initial threshold (it never exceeds the global s_k)
+        floor = max(1, int(floor))
+        minsup = floor
         sup_sorted: List[int] = []  # ascending supports of accepted rules
         # conf test as exact integer cross-multiply: sup/supx >= num/den —
         # shared by acceptance AND the conf-bound pruning below
@@ -757,7 +800,7 @@ class TsrTorch:
 
         def s_k_threshold() -> int:
             if len(sup_sorted) < self.k:
-                return 1
+                return floor
             return sup_sorted[-self.k]
 
         # queue: (-bound, X, Y, can_right, side, psup, psupx); X/Y are
@@ -822,7 +865,7 @@ class TsrTorch:
                 push(queue, (-b, xf, yf + (c,), cr, 1, psup, psupx))
 
         if resume is not None:
-            minsup = max(int(resume["minsup"]), 1)
+            minsup = max(int(resume["minsup"]), floor)
             results = [(int(sup), int(supx), tuple(x), tuple(y))
                        for x, y, sup, supx in resume["results"]
                        if int(sup) >= minsup]
@@ -836,8 +879,12 @@ class TsrTorch:
                 self.stats["resumed_nodes"] = len(queue)
         else:
             # roots: one right-side chain per item i over partners j != i;
-            # X = {i} is fixed, so psupx = sup(i) exactly
+            # X = {i} is fixed, so psupx = sup(i) exactly.  A partition
+            # seeds only its owned classes' roots
+            own = self._owned_mask(m)
             for i in range(m):
+                if own is not None and not own[i]:
+                    continue
                 chain_push((i,), (), True, 1, sup_l[i], sup_l[i], 0)
 
         def left_viable(x, y):
@@ -1022,6 +1069,170 @@ class TsrCPU(TsrTorch):
         return handle
 
 
+class TsrPartitioned:
+    """Equivalence-class partitioned TSR (the reference's
+    ``TsrPartitioned``, without its meshguard).
+
+    The candidates split by class, ``min(X)`` (invariant under both
+    expansions): each partition's engine seeds only its owned roots, on
+    its own row of a mesh (``partition.submeshes``) or, without a mesh,
+    in turn on the one device.  Each deepening round every owned
+    partition mines its slice from the board's conservative global floor
+    (a lower bound on the global s_k, so nothing it prunes could enter
+    the global top-k), then ONE exchange merges the slices and the
+    floors; the exact global s_k over the union restores the unpartitioned
+    mine's output byte for byte.  Partition-local thresholds rise more
+    slowly than the global one, so this evaluates more candidates than
+    the whole-frontier search for the same output.
+
+    Checkpoints are composite (``partition.composite_state``): the merged
+    rows plus the active partition's frontier in the engine's own
+    ``frontier_state`` format, with the round's ``m`` and floor, bound to
+    the plan's fingerprint.  A partition that fails raises."""
+
+    def __init__(self, vdb: VerticalDB, k: int, minconf: float, *,
+                 device: DeviceLike = None, mesh=None, parts: int,
+                 classes: int = 64, **engine_kwargs):
+        self.vdb = vdb
+        self.k = int(k)
+        self.minconf = float(minconf)
+        self.plan = PN.plan_partitions(vdb.item_ids, vdb.item_supports,
+                                       parts, classes)
+        self.mesh = mesh
+        self.meshes = PN.submeshes(mesh, parts)
+        self.owned = PN.owned_parts(self.plan, mesh)
+        self.item_cap = int(engine_kwargs.get("item_cap",
+                                              ITEM_CAP_DEFAULT))
+        dev = engine_device(device, mesh)
+        self.engines: Dict[int, TsrTorch] = {
+            p: TsrTorch(vdb, k, minconf, device=dev, mesh=self.meshes[p],
+                        partition=(self.plan, p), **engine_kwargs)
+            for p in self.owned}
+        self.stats: dict = {
+            "partition_parts": int(parts),
+            "partition_classes": int(classes),
+            "partition_owned": list(self.owned),
+            "partition_imbalance": round(self.plan.imbalance_ratio, 4),
+            "partition_exchanges": 0,
+            "partition_cross_bytes": 0,
+            "deepening_rounds": 0,
+        }
+        PN.count_mine("tsr")
+
+    def frontier_fingerprint(self) -> dict:
+        fp = self.engines[self.owned[0]].frontier_fingerprint()
+        fp["partition"] = self.plan.fingerprint()
+        return fp
+
+    def _composite(self, m: int, floor: int, done: dict,
+                   active_part, active_state) -> dict:
+        """The composite checkpoint with the round's (m, floor), so a
+        resume re-enters the right round at the right threshold."""
+        return PN.composite_state(
+            self.frontier_fingerprint(), done, active_part,
+            active_state, m=int(m), minsup=int(floor))
+
+    def _mine_round(self, m: int, floor: int, resume: Optional[dict],
+                    checkpoint_cb, every_s: float):
+        """One deepening round: every owned partition mines its slice in
+        turn (each starting from the board's floor, which the slices
+        before it tightened), then ONE exchange merges the slices and
+        floors.  Returns (merged rows, the next floor)."""
+        board = PN.ThresholdBoard(self.k, floor)
+        done, active_resume = PN.decode_composite(
+            resume, self.frontier_fingerprint())
+        for rows_p in done.values():
+            board.merge(int(r[2]) for r in rows_p)
+        for p in self.owned:
+            if p in done:
+                continue  # completed before the resumed snapshot
+            cb = None
+            if checkpoint_cb is not None:
+                def cb(fs, p=p):
+                    checkpoint_cb(self._composite(m, board.floor(), done,
+                                                  p, fs))
+            res_p, _ = self.engines[p]._mine_restricted(
+                m, resume=active_resume.get(p), checkpoint_cb=cb,
+                every_s=every_s, floor=board.floor())
+            done[p] = [[list(x), list(y), int(sup), int(supx)]
+                       for x, y, sup, supx in res_p]
+            board.merge(r[2] for r in done[p])
+            if checkpoint_cb is not None:
+                # part boundary: a resume starts past this slice
+                checkpoint_cb(self._composite(m, board.floor(), done,
+                                              None, None))
+        # contribute only owned parts: a resumed composite can carry
+        # other rows' slices, which their own rows contribute
+        own = set(self.owned)
+        payload = {"floor": board.floor(),
+                   "rows": [r for p in sorted(done) if p in own
+                            for r in done[p]]}
+        gathered = PN.exchange_objects(
+            payload, mesh=self.mesh, n_parts=self.plan.n_parts,
+            stats=self.stats)
+        rows_all = [r for g in gathered for r in g["rows"]]
+        # the next floor from a FRESH board over the merged rows (merging
+        # this board's own slice again would count its supports twice);
+        # the peers' floors are lower bounds too
+        out = PN.ThresholdBoard(
+            self.k, max([board.floor()]
+                        + [int(g.get("floor", 1)) for g in gathered]))
+        out.merge(int(r[2]) for r in rows_all)
+        return rows_all, out.floor()
+
+    def _merge(self, rows: list) -> Tuple[List[RuleResult], int]:
+        """The exact global top-k filter over the union of the slices."""
+        qual = [(tuple(int(i) for i in x), tuple(int(j) for j in y),
+                 int(sup), int(supx)) for x, y, sup, supx in rows]
+        sups = sorted((r[2] for r in qual), reverse=True)
+        s_k = sups[self.k - 1] if len(sups) >= self.k else 1
+        return sort_rules([r for r in qual if r[2] >= s_k]), s_k
+
+    def mine(self, *, resume: Optional[dict] = None, checkpoint_cb=None,
+             checkpoint_every_s: float = 30.0) -> List[RuleResult]:
+        if resume is not None:
+            fp = resume.get("fingerprint")
+            if fp != self.frontier_fingerprint():
+                raise ValueError(
+                    "partitioned frontier checkpoint does not match this "
+                    f"layout; checkpointed {fp}, engine "
+                    f"{self.frontier_fingerprint()}")
+        n_total = self.vdb.n_items
+        if resume is not None:
+            m = max(1, min(int(resume["m"]), n_total))
+            floor = max(1, int(resume.get("minsup", 1)))
+        else:
+            m = max(1, min(self.item_cap, n_total))
+            floor = 1
+        first = self.engines[self.owned[0]]
+        while True:
+            self.stats["deepening_rounds"] += 1
+            rows, floor = self._mine_round(m, floor, resume, checkpoint_cb,
+                                           checkpoint_every_s)
+            resume = None  # only the first (snapshot's) round resumes
+            results, s_k = self._merge(rows)
+            if m >= n_total:
+                break
+            # the deepening decision runs on the merged global state, so
+            # every process walks the same m ladder
+            next_item_sup = int(first._sup_sorted[m])
+            if len(results) >= self.k and next_item_sup < s_k:
+                break
+            if len(results) >= self.k:
+                # round m's exact global s_k lower-bounds round 2m's
+                floor = max(floor, s_k)
+            m = min(m * 2, n_total)
+        self._fold_stats()
+        return results
+
+    def _fold_stats(self) -> None:
+        """Add the partition engines' numeric counters into the stats."""
+        for eng in self.engines.values():
+            PN.fold_numeric_stats(
+                self.stats, {k: v for k, v in eng.stats.items()
+                             if k != "partition"})
+
+
 def _resume_dict(minsup: int, entries: List[tuple],
                  results: List[tuple]) -> dict:
     """A resident round's frontier and records as the host loop's resume
@@ -1038,7 +1249,7 @@ def _resume_dict(minsup: int, entries: List[tuple],
 def mine_tsr_torch(db: SequenceDB, k: int, minconf: float, *,
                    device: DeviceLike = None, mesh=None,
                    stats_out: Optional[dict] = None, checkpoint=None,
-                   partition_parts: int = 0,
+                   partition_parts: int = 0, partition_classes: int = 64,
                    **kwargs) -> List[RuleResult]:
     """DB -> vertical build -> device mine, on ``device`` (default CUDA;
     raises without it).
@@ -1047,18 +1258,20 @@ def mine_tsr_torch(db: SequenceDB, k: int, minconf: float, *,
     ``save(state)`` and ``every_s``; a saved frontier (from either
     package) is resumed when its fingerprint still matches.  A ``mesh``
     shards the sequence axis over its ranks (every rank calls this alike
-    and gets the same rules); ``partition_parts > 1`` is not ported yet
-    and raises ``NotImplementedError``.  ``kwargs`` go to
+    and gets the same rules); ``partition_parts > 1`` mines through
+    :class:`TsrPartitioned` with ``partition_classes`` classes (on a
+    mesh, one row of ranks a partition).  ``kwargs`` go to
     :class:`TsrTorch`."""
     dev = engine_device(device, mesh)
-    if partition_parts and int(partition_parts) > 1:
-        raise NotImplementedError(
-            "partition_parts > 1: class-partitioned TSR is not ported yet "
-            "(ROADMAP Queue A item 11)")
     vdb = build_vertical(db, min_item_support=1)
     if vdb.n_items == 0:
         return []
-    eng = TsrTorch(vdb, k, minconf, device=dev, mesh=mesh, **kwargs)
+    if partition_parts and int(partition_parts) > 1:
+        eng = TsrPartitioned(vdb, k, minconf, device=dev, mesh=mesh,
+                             parts=int(partition_parts),
+                             classes=int(partition_classes), **kwargs)
+    else:
+        eng = TsrTorch(vdb, k, minconf, device=dev, mesh=mesh, **kwargs)
     return _run(eng, stats_out, checkpoint)
 
 

@@ -52,6 +52,9 @@ class SeqMesh:
         self.size = int(size)
         self.device = device
         self.backend = group.name().lower()   # "gloo" or "nccl"
+        # n_parts -> each partition row's process group
+        # (``partition.submeshes`` makes them once a mesh)
+        self.row_groups: dict = {}
         self.reset_counters()
 
     def __repr__(self) -> str:
@@ -77,10 +80,10 @@ class SeqMesh:
 def make_mesh(n_devices: Optional[int] = None, group=None,
               device: DeviceLike = None) -> SeqMesh:
     """The sequence mesh of ``group`` (default: the initialized default
-    world, see ``multihost.init_distributed``) with this rank's shard on
-    ``device`` (default: the current CUDA device; raises without one).
-    ``n_devices``, when given, must equal the group's size: a sub-mesh of
-    the world is a partition concern (ROADMAP Queue A item 11)."""
+    world, see ``multihost.init_distributed``; a partition row's group,
+    see ``partition.submeshes``) with this rank's shard on ``device``
+    (default: the current CUDA device; raises without one).
+    ``n_devices``, when given, must equal the group's size."""
     if group is None:
         if not dist.is_initialized():
             raise RuntimeError(

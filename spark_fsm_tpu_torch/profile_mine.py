@@ -1,9 +1,10 @@
 """Where the main paths' time goes, on one CUDA card.
 
     python3 -m spark_fsm_tpu_torch.profile_mine [spade] [tsr] [spam] \
-        [tsr-resident] [cspade] [stream] [predict]
+        [tsr-resident] [cspade] [stream] [predict] [tsr-partition] \
+        [partition-world]
 
-Prints one JSON line per path named (all seven when none is):
+Prints one JSON line per path named (the first seven when none is):
 - SPADE: the BMS-WebView-2-shaped database (full size) at minsup 0.1 %
   through both of its routes, in turns: the queue engine (the ``auto``
   route's choice) and the classic engine (``fused="never"``).  For each,
@@ -51,7 +52,22 @@ Prints one JSON line per path named (all seven when none is):
   (upload, the scorer's launches, the readback wait; its device part by
   CUDA events) and decode (medians and p99), then the same waves under
   ``torch.profiler``: the device's busy time and idle share and the
-  scorer's device ops by time.
+  scorer's device ops by time;
+- class-partitioned TSR (``tsr-partition``, named only): the
+  Kosarak-shaped database at 1 % with k=100, minconf=0.5 and no side cap
+  (the rows take the resident route), unpartitioned (``TsrTorch``) and
+  through ``TsrPartitioned`` at 2 and 4 parts, one cold mine each on one
+  vertical DB: per partition the wall, the candidates evaluated, the
+  resident waves and the B2 launches, the floor each slice started from,
+  and the exchanges;
+- partition rows across cards (``partition-world``, named only; needs
+  two cards or more): an NCCL world of one rank a card mines the
+  BMS-WebView-2-shaped SPADE (``auto``) and the Kosarak-shaped TSR
+  (``max_side=2``) as a plain sequence mesh, at 2 partitions and at one
+  partition a rank; per rank and layout the wall (its first mine of each
+  database includes nothing but the mine: each rank builds its databases
+  first), the B1/B2 launches, the exchanges and their bytes, each text
+  held against the one-device mine's.
 Each line also names the tokenizer that ran (``data/fasttok.backend()``);
 each mining path's line gives the host functions that take the vertical
 build's time (one more build under ``cProfile``: the ten largest by own
@@ -742,18 +758,167 @@ def predict(dev, card: str) -> dict:
             "config": cfg, "sets": out}
 
 
+def tsr_partition(dev, card: str) -> dict:
+    import torch
+
+    from spark_fsm_tpu_torch.data.synth import kosarak_like
+    from spark_fsm_tpu_torch.data.vertical import build_vertical
+    from spark_fsm_tpu_torch.models import tsr as TS
+    from spark_fsm_tpu_torch.ops import rule_support as RS
+
+    RS._kernel()  # build outside the timed mines
+    vdb = build_vertical(kosarak_like(scale=0.01, fast=True),
+                         min_item_support=1)
+    out = {"path": "tsr-partition", "card": card,
+           "device": torch.cuda.get_device_name(dev), "scale": 0.01,
+           "k": 100, "minconf": 0.5, "max_side": None}
+    for parts in (1, 2, 4):
+        if parts == 1:
+            eng = TS.TsrTorch(vdb, 100, 0.5, max_side=None, device=dev)
+            engines = {0: eng}
+        else:
+            eng = TS.TsrPartitioned(vdb, 100, 0.5, parts=parts,
+                                    max_side=None, device=dev)
+            engines = eng.engines
+        per = {p: {"wall_s": 0.0, "floors": [], "b2": 0} for p in engines}
+        for p, e in engines.items():
+            def timed(m, *args, _inner=e._mine_restricted, _p=p, **kwargs):
+                per[_p]["floors"].append(kwargs.get("floor", 1))
+                before = RS.rule_supports.launches
+                t0 = time.perf_counter()
+                res = _inner(m, *args, **kwargs)
+                torch.cuda.synchronize()
+                per[_p]["wall_s"] += time.perf_counter() - t0
+                per[_p]["b2"] += RS.rule_supports.launches - before
+                return res
+            e._mine_restricted = timed
+        t0 = time.perf_counter()
+        rules = eng.mine()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for p, e in engines.items():
+            per[p].update({key: e.stats.get(key, 0) for key in (
+                "evaluated", "resident_rounds", "resident_waves",
+                "kernel_launches")})
+        out[f"parts_{parts}"] = {
+            "wall_s": wall, "rules": len(rules),
+            "exchanges": eng.stats.get("partition_exchanges", 0),
+            "imbalance": eng.stats.get("partition_imbalance", 1.0),
+            "evaluated": sum(r["evaluated"] for r in per.values()),
+            "per_part": {str(p): r for p, r in per.items()}}
+        del eng, engines
+        torch.cuda.empty_cache()
+    return out
+
+
+def _world_mines(mesh, want: dict) -> dict:
+    """``partition-world``'s rank: every mine at every layout, each text
+    held against the one-device digest in ``want``."""
+    import hashlib
+
+    import torch
+
+    from spark_fsm_tpu_torch.data.synth import bms_webview2_like, kosarak_like
+    from spark_fsm_tpu_torch.data.vertical import abs_minsup
+    from spark_fsm_tpu_torch.models.spade import mine_spade_torch
+    from spark_fsm_tpu_torch.models.tsr import mine_tsr_torch
+    from spark_fsm_tpu_torch.ops import pair_support as PS
+    from spark_fsm_tpu_torch.ops import rule_support as RS
+    from spark_fsm_tpu_torch.parallel.mesh import all_reduce_sum
+    from spark_fsm_tpu_torch.utils.canonical import patterns_text, rules_text
+
+    bms, kos = bms_webview2_like(), kosarak_like(scale=1.0, fast=True)
+    minsup = abs_minsup(0.001, len(bms))
+    # the first collective sets the communicator up: not a mine's
+    all_reduce_sum(torch.zeros(1, dtype=torch.int32, device=mesh.device),
+                   mesh)
+    mines = {
+        "spade": lambda **kw: patterns_text(mine_spade_torch(
+            bms, minsup, mesh=mesh, **kw)),
+        "tsr": lambda **kw: rules_text(mine_tsr_torch(
+            kos, 100, 0.5, max_side=2, mesh=mesh, **kw))}
+    out = {}
+    for parts in sorted({0, 2, mesh.size}):
+        if parts and mesh.size % parts:
+            continue
+        for name, mine in mines.items():
+            st: dict = {}
+            mesh.reset_counters()
+            before = (PS.pair_supports.launches, RS.rule_supports.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            text = mine(partition_parts=parts, stats_out=st)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if hashlib.sha256(text.encode()).hexdigest() != want[name]:
+                raise AssertionError(f"rank {mesh.rank}: {name} at "
+                                     f"{parts} parts differs from one card")
+            out[f"{name} parts={parts}"] = {
+                "wall_s": wall,
+                "b1": PS.pair_supports.launches - before[0],
+                "b2": RS.rule_supports.launches - before[1],
+                "world_all_reduces": mesh.reduce_stats()["all_reduces"],
+                "exchanges": st.get("partition_exchanges", 0),
+                "cross_bytes": st.get("partition_cross_bytes", 0)}
+    return out
+
+
+def partition_world(dev, card: str) -> dict:
+    import hashlib
+
+    import torch
+
+    from spark_fsm_tpu_torch.data.synth import bms_webview2_like, kosarak_like
+    from spark_fsm_tpu_torch.data.vertical import abs_minsup
+    from spark_fsm_tpu_torch.models.spade import mine_spade_torch
+    from spark_fsm_tpu_torch.models.tsr import mine_tsr_torch
+    from spark_fsm_tpu_torch.ops import pair_support as PS
+    from spark_fsm_tpu_torch.ops import rule_support as RS
+    from spark_fsm_tpu_torch.parallel.launch import spawn_world
+    from spark_fsm_tpu_torch.utils.canonical import patterns_text, rules_text
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise SystemExit(f"partition-world needs two cards or more, found {n}")
+    PS._kernel(), RS._kernel()   # built once, before the ranks
+    bms = bms_webview2_like()
+    one = {}
+    t0 = time.perf_counter()
+    text = patterns_text(mine_spade_torch(bms, abs_minsup(0.001, len(bms))))
+    one["spade"] = (hashlib.sha256(text.encode()).hexdigest(),
+                    time.perf_counter() - t0)
+    kos = kosarak_like(scale=1.0, fast=True)
+    t0 = time.perf_counter()
+    text = rules_text(mine_tsr_torch(kos, 100, 0.5, max_side=2))
+    one["tsr"] = (hashlib.sha256(text.encode()).hexdigest(),
+                  time.perf_counter() - t0)
+    del bms, kos
+    t0 = time.perf_counter()
+    ranks = spawn_world(_world_mines, n, "nccl", "cuda",
+                        ({k: v[0] for k, v in one.items()},),
+                        timeout_s=1800)
+    return {"path": "partition-world", "card": card, "cards": n,
+            "device": torch.cuda.get_device_name(dev),
+            "one_card_s": {k: v[1] for k, v in one.items()},
+            "world_s": time.perf_counter() - t0, "ranks": ranks}
+
+
 PATHS = {"spade": spade, "tsr": tsr, "spam": spam,
          "tsr-resident": tsr_resident, "cspade": cspade, "stream": stream,
          "predict": predict}
+# named only: a four-part mine takes minutes; a world needs several cards
+EXTRA_PATHS = {"tsr-partition": tsr_partition,
+               "partition-world": partition_world}
 
 
 def main(names=None) -> list:
     from spark_fsm_tpu_torch.device import resolve_device
 
     names = list(names or PATHS)
-    unknown = [n for n in names if n not in PATHS]
+    paths = {**PATHS, **EXTRA_PATHS}
+    unknown = [n for n in names if n not in paths]
     if unknown:
-        raise SystemExit(f"unknown path(s) {unknown}; choose from {list(PATHS)}")
+        raise SystemExit(f"unknown path(s) {unknown}; choose from {list(paths)}")
     dev = resolve_device(None)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -762,7 +927,7 @@ def main(names=None) -> list:
 
     out = []
     for name in names:
-        out.append(PATHS[name](dev, card))
+        out.append(paths[name](dev, card))
         out[-1]["tokenizer"] = fasttok.backend()
         print(json.dumps(out[-1]), flush=True)
     return out

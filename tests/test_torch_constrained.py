@@ -298,8 +298,15 @@ def test_unported_options_raise(kw, what):
         assert patterns_text(got) == j_patterns_text(
             JO.mine_cspade(ZAKI_DB, 2, maxgap=1))
         return
-    with pytest.raises(NotImplementedError, match=what):
-        TC.mine_cspade_torch(ZAKI_DB, 2, maxgap=1, device="cpu", **kw)
+    # ported (Queue A item 11): two class slices mine what the reference's
+    # partitioned mine and one device mine, with equal stats
+    stats, ref_stats = {}, {}
+    got = TC.mine_cspade_torch(ZAKI_DB, 2, maxgap=1, device="cpu",
+                               stats_out=stats, **kw)
+    ref = JC.mine_cspade_tpu(ZAKI_DB, 2, maxgap=1, stats_out=ref_stats, **kw)
+    assert patterns_text(got) == j_patterns_text(ref) == patterns_text(
+        TC.mine_cspade_torch(ZAKI_DB, 2, maxgap=1, device="cpu"))
+    assert stats == ref_stats
 
 
 # ------------------------------------------------------------ the planner

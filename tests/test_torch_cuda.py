@@ -21,7 +21,9 @@ readback makes no host sync, and broker threads keep the trie's device.
 Sequence meshes on the one card: a 1-rank NCCL world's SPADE (queue and
 classic), SPAM and TSR mines equal the one-device mines, its queue waves
 with their all-reduce make no host sync, and a 2-rank gloo world whose
-ranks share the card equals the one-device mines too.
+ranks share the card equals the one-device mines too.  Two class
+partitions of each engine, mined in turn on the card, launch the route's
+kernel and equal the one-device mine.
 """
 
 import numpy as np
@@ -654,3 +656,52 @@ def test_mesh_queue_waves_make_no_host_sync(card):
     PS._kernel()
     assert spawn_world(W.queue_waves_sync_free, 1, "nccl", "cuda:0",
                        timeout_s=300) == [2]
+
+
+# ------------------------------------------------------- class partitions
+
+
+@pytest.mark.parametrize("name", ["spade_queue", "spade_classic", "spam",
+                                  "tsr", "tsr_resident", "cspade"])
+def test_partitioned_mines_on_card_equal_one_device(card, name):
+    """Two class partitions mined in turn on the card launch the route's
+    kernel and give the one-device text."""
+    db = synthetic_db(seed=21, n_sequences=300, n_items=60, mean_itemsets=6.0,
+                      mean_itemset_size=1.3)
+    minsup = abs_minsup(0.02, len(db))
+    kernels = {"spade_queue": PS.pair_supports,
+               "spade_classic": PS.pair_supports,
+               "spam": EP.extend_count_prune, "tsr": RS.rule_supports,
+               "tsr_resident": RS.rule_supports}
+
+    def mine(**kw):
+        stats: dict = {}
+        if name.startswith("spade"):
+            fused = "queue" if name == "spade_queue" else "never"
+            text = patterns_text(mine_spade_torch(db, minsup, fused=fused,
+                                                  stats_out=stats, **kw))
+        elif name == "spam":
+            text = patterns_text(mine_spam_torch(db, minsup, stats_out=stats,
+                                                 **kw))
+        elif name == "cspade":
+            text = patterns_text(mine_cspade_torch(
+                db, minsup, maxgap=2, maxwindow=4, stats_out=stats, **kw))
+        else:
+            side = None if name == "tsr_resident" else 2
+            resident = "always" if name == "tsr_resident" else "auto"
+            text = rules_text(mine_tsr_torch(db, 20, 0.5, max_side=side,
+                                             resident=resident,
+                                             stats_out=stats, **kw))
+        return text, stats
+
+    want, _ = mine(device=card)
+    kernel = kernels.get(name)
+    before = kernel.launches if kernel is not None else 0
+    got, stats = mine(device=card, partition_parts=2)
+    torch.cuda.synchronize()
+    assert got == want
+    assert stats["partition_parts"] == 2 and stats["partition_exchanges"] >= 1
+    if kernel is not None:
+        assert kernel.launches > before, name
+    if name == "tsr_resident":
+        assert stats["resident_waves"] > 0

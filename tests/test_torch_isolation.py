@@ -13,7 +13,9 @@ window miners (``streaming.*``) run on the CPU, the vertical build through
 the native tokenizer, and a rule trie is built from TSR and SPADE output
 and scored (``ops.rule_trie``, ``service.predictor``), and the SPADE,
 SPAM, TSR, cSPADE and incremental mines run again on a 1-rank gloo mesh
-(``parallel.mesh``, ``parallel.multihost``, ``parallel.launch``)."""
+(``parallel.mesh``, ``parallel.multihost``, ``parallel.launch``) and the
+SPADE, SPAM, TSR and cSPADE mines once more in two class partitions
+(``parallel.partition``)."""
 
 import ast
 import os
@@ -89,13 +91,19 @@ inc = IncrementalWindowMiner(2, max_batches=2, mesh=mesh)
 assert patterns_text(inc.push(db)) == patterns_text(mine_spade(db, 2))
 assert mesh.reduce_stats()["all_reduces"] > 0 and not multihost.is_multihost(mesh)
 assert launch.free_port() > 0
+from spark_fsm_tpu_torch.parallel import partition
+assert patterns_text(mine_spade_torch(db, 2, device="cpu", partition_parts=2)) == patterns_text(mine_spade(db, 2))
+assert patterns_text(mine_spam_torch(db, 2, device="cpu", partition_parts=2)) == patterns_text(mine_spade(db, 2))
+assert rules_text(mine_tsr_torch(db, 3, 0.5, device="cpu", partition_parts=2)) == rules_text(mine_tsr_cpu(db, 3, 0.5))
+assert patterns_text(mine_cspade_torch(db, 2, maxgap=1, maxwindow=2, device="cpu", partition_parts=2)) == patterns_text(mine_cspade(db, 2, maxgap=1, maxwindow=2))
+assert partition.tallies()["mines"] == {"tsr": 1, "spade": 1, "spam": 1, "cspade": 1}
 for name in ("ops.extend_prune", "ops.spam_bitops", "models.spam_bitmap", "service.planner",
              "data.fasttok", "models.spade_queue", "models.spade_fused",
              "ops.resident_frontier", "ops.maxstart_torch", "ops.maxstart_np",
              "models.spade_constrained", "streaming.window",
              "streaming.incremental", "ops.rule_trie", "service.model",
              "service.predictor", "parallel.mesh", "parallel.multihost",
-             "parallel.launch"):
+             "parallel.launch", "parallel.partition"):
     assert "spark_fsm_tpu_torch." + name in names, name
 try:
     import jax  # noqa: F401

@@ -201,8 +201,18 @@ def test_unported_routes_raise(kw):
             assert stats["fused"] == want_stats["fused"]
         assert mesh.reduce_stats()["all_reduces"] > 0
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mine_spade_torch(ZAKI_DB, 2, device="cpu", **kw)
+    # ported (Queue A item 11): two class slices mine what the reference's
+    # partitioned mine and one device mine, for every fused value
+    want = patterns_text(mine_spade_torch(ZAKI_DB, 2, device="cpu"))
+    for fused in ("auto", "never", "dense", "always", "queue"):
+        stats, ref_stats = {}, {}
+        got = mine_spade_torch(ZAKI_DB, 2, device="cpu", fused=fused,
+                               stats_out=stats, **kw)
+        ref = mine_spade_tpu(ZAKI_DB, 2, fused=fused, stats_out=ref_stats,
+                             **kw)
+        assert patterns_text(got) == patterns_text(ref) == want, fused
+        assert stats["fused"] == ref_stats["fused"] == "partitioned"
+        assert stats["partition_exchanges"] == 1
 
 
 def test_shape_buckets_raise():

@@ -287,8 +287,17 @@ def test_unported_options_raise(kw, item):
         got = TS.mine_spam_torch(_db_small(), 3, device="cpu", **kw)
         assert patterns_text(got) == patterns_text(mine_spade(_db_small(), 3))
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A {item}"):
-        TS.mine_spam_torch(_db_small(), 3, device="cpu", **kw)
+    # ported: two class slices mine what the reference's partitioned mine
+    # and one device mine, with equal stats
+    for extra in ({}, {"density_crossover": 0.5}):
+        stats, ref_stats = {}, {}
+        got = TS.mine_spam_torch(_db_small(), 3, device="cpu",
+                                 stats_out=stats, **extra, **kw)
+        ref = JS.mine_spam_tpu(_db_small(), 3, stats_out=ref_stats, **extra,
+                               **kw)
+        one = TS.mine_spam_torch(_db_small(), 3, device="cpu", **extra)
+        assert patterns_text(got) == patterns_text(ref) == patterns_text(one)
+        assert stats == ref_stats
 
 
 def test_default_device_raises_without_cuda():

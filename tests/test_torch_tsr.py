@@ -203,8 +203,21 @@ def test_unported_options_raise(kw, what):
         assert rules_text(got) == rules_text(
             mine_tsr_torch(ZAKI_DB, 5, 0.5, device="cpu"))
         return
-    with pytest.raises(NotImplementedError, match=what):
-        mine_tsr_torch(ZAKI_DB, 5, 0.5, device="cpu", **kw)
+    # ported (Queue A item 11): two class slices find the reference's
+    # partitioned rules and one device's, one exchange a deepening round
+    for side in (2, None):
+        stats, ref_stats = {}, {}
+        got = mine_tsr_torch(ZAKI_DB, 5, 0.5, device="cpu", max_side=side,
+                             stats_out=stats, **kw)
+        ref = JT.mine_tsr_tpu(ZAKI_DB, 5, 0.5, max_side=side,
+                              stats_out=ref_stats, **kw)
+        assert rules_text(got) == j_rules_text(ref) == rules_text(
+            mine_tsr_torch(ZAKI_DB, 5, 0.5, device="cpu", max_side=side))
+        assert stats["partition_exchanges"] == stats["deepening_rounds"]
+        # key for key but the known differences (ROADMAP.md)
+        drop = ("shape_key", "wait_s")
+        assert ({k: v for k, v in stats.items() if k not in drop}
+                == {k: v for k, v in ref_stats.items() if k not in drop})
 
 
 @pytest.mark.parametrize("resident", ["always", True])
