@@ -161,7 +161,24 @@ Phases, one printed line each (any failure raises and exits non-zero):
      and the B1/B2/B3 launches and kernel time (CUDA events), the
      exchanges (one a deepening round on TSR, one a mine otherwise), the
      peak and the unpartitioned wall of the same run; B1, B2 and B3 must
-     each launch on the partitioned path.
+     each launch on the partitioned path;
+ 23. the service: the port's ``serve_background()`` (default device
+     ``cuda``) in this process, with a source registered through
+     ``service.sources.register`` that names the full-size databases of
+     phases 9, 13, 16 and 5.  Over HTTP: ``TSR_TPU`` k=100, minconf 0.5,
+     ``max_side=2`` on the Kosarak-shaped database, ``SPAM_TPU`` at
+     0.5 % on the MSNBC-shaped one, ``SPADE_TPU`` with maxgap 2 and
+     maxwindow 5 on the Gazelle-shaped one, ``SPADE_TPU`` at 0.1 % on the
+     BMS-WebView-2-shaped one and that request again, which the engine
+     cache answers (``store_cache_hit``).  Every ``/get/*`` body equals
+     ``model.serialize_*`` of the earlier phase's library result by
+     SHA-256; B2, B3 and B1 launch during the TSR, SPAM and SPADE
+     requests (the cSPADE engine runs torch ops only); ``/predict`` against the TSR and SPADE results equals
+     ``predict_host`` on 16 prefixes each; ``/admin/stats`` reports
+     ``backend: "cuda"``.  ``[service]`` lines print each job's
+     submit-to-finished wall beside the library walls of the same call,
+     the cache hit's wall, ``/predict`` latency and the peak device
+     memory, with the card's name and power limit.
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 and prints no result.
@@ -1210,6 +1227,123 @@ def predict_phase(torch, dev, rule_sets) -> None:
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def _http(port: int, endpoint: str, **params) -> dict:
+    import urllib.parse
+    import urllib.request
+
+    url = f"http://127.0.0.1:{port}{endpoint}"
+    data = urllib.parse.urlencode(params).encode()
+    with urllib.request.urlopen(url, data=data, timeout=600) as resp:
+        return json.loads(resp.read().decode())
+
+
+def service_phase(torch, card: str, jobs: list, predict_sets: dict) -> None:
+    """Phase 23: the port's service on the card, over HTTP.  ``jobs``:
+    ``(name, db, params, get kind, the library result's serialization,
+    the library walls (cold, warm), the kernel whose launches must rise or
+    None for cSPADE, whose engine runs torch ops only)`` in the order they
+    are sent; a ``None`` serialization repeats the previous job, which the
+    engine cache must answer."""
+    from spark_fsm_tpu_torch.ops import extend_prune as EP
+    from spark_fsm_tpu_torch.ops import pair_support as PS
+    from spark_fsm_tpu_torch.ops import rule_support as RS
+    from spark_fsm_tpu_torch.ops.rule_trie import (predict_host,
+                                                   rules_from_patterns)
+    from spark_fsm_tpu_torch.service import model as SM
+    from spark_fsm_tpu_torch.service import sources
+    from spark_fsm_tpu_torch.service.app import serve_background
+
+    counters = {"b1": PS.pair_supports, "b2": RS.rule_supports,
+                "b3": EP.extend_count_prune}
+    dbs = {name: db for name, db, *_ in jobs}
+    sources.register("SMOKE", lambda req, store: dbs[req.param("db")])
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    srv = serve_background()   # no device given: the service takes cuda
+    port = srv.server_port
+    try:
+        payloads = {}
+        for i, (name, db, params, get, want, lib_walls, kernel) in \
+                enumerate(jobs):
+            uid = f"smoke-{i}-{name}"
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            r = _http(port, "/train", uid=uid, source="SMOKE", db=name,
+                      **params)
+            check(r["status"] == "started", f"/train {name}: {r}")
+            while True:
+                st = _http(port, f"/status/{uid}")
+                if st["status"] in ("finished", "failure"):
+                    break
+                time.sleep(0.005)
+            wall_s = time.perf_counter() - t0
+            check(st["status"] == "finished",
+                  f"service job {name} failed: {st['data'].get('error')}")
+            launches = {k: fn.launches for k, fn in counters.items()}
+            stats = json.loads(st["data"]["stats"])
+            body = _http(port, f"/get/{get}", uid=uid)["data"][get]
+            if want is None:   # the repeat: the cache answers it
+                want = payloads[name]
+                check(stats.get("store_cache_hit") is True,
+                      f"the repeat {name} request missed the engine cache")
+            check(digest(body) == digest(want),
+                  f"/get/{get} of {name} differs from the library result "
+                  f"by SHA-256")
+            payloads[name] = body
+            check(kernel is None or launches[kernel] > 0,
+                  f"the {name} job launched {kernel} 0 times: {launches}")
+            print(f"[service] {name} {params}: status finished, {get} body "
+                  f"SHA-256 {digest(body)[:16]} == library result's; "
+                  f"submit-to-finished {wall_s:.3f} s (job mine_s "
+                  f"{stats.get('mine_s')}, dataset_s "
+                  f"{stats.get('dataset_s')}), library cold/warm "
+                  f"{lib_walls} s; route fused={stats.get('fused')!r} "
+                  f"resident={stats.get('resident')!r} store_cache_hit="
+                  f"{stats.get('store_cache_hit')!r}; launches {launches}; "
+                  f"card {card}", flush=True)
+        for name, (what, kind, payload, prefixes) in predict_sets.items():
+            uid = next(f"smoke-{i}-{n}" for i, (n, *_r) in enumerate(jobs)
+                       if n == name)
+            rules = (SM.deserialize_rules(payload) if kind == "rules"
+                     else rules_from_patterns(SM.deserialize_patterns(payload)))
+            lat = []
+            for prefix in prefixes:
+                t0 = time.perf_counter()
+                r = _http(port, "/predict", uid=uid,
+                          items=",".join(map(str, prefix)), m="8")
+                lat.append(time.perf_counter() - t0)
+                check(r["status"] == "finished", f"/predict {name}: {r}")
+                got = json.loads(r["data"]["predictions"])
+                check(got == predict_host(rules, prefix, 8),
+                      f"/predict on {name} differs from predict_host at "
+                      f"prefix {prefix}")
+            lat_ms = sorted(1e3 * x for x in lat)
+            print(f"[service] /predict {what}: {len(prefixes)} prefixes "
+                  f"equal to predict_host (m=8); latency median "
+                  f"{statistics.median(lat_ms):.3f} ms, first (artifact "
+                  f"build) {1e3 * lat[0]:.3f} ms, max {lat_ms[-1]:.3f} ms; "
+                  f"card {card}", flush=True)
+        admin = _http(port, "/admin/stats")
+        check(admin["backend"] == "cuda" and admin["devices"] >= 1,
+              f"/admin/stats reports {admin['backend']!r} x{admin['devices']}")
+        check(admin["store_cache"]["hits"] >= 1,
+              f"/admin/stats store_cache {admin['store_cache']}")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[service] /admin/stats backend {admin['backend']!r} devices "
+              f"{admin['devices']}, store_cache {admin['store_cache']}, "
+              f"jobs {admin['jobs']}; max_memory_allocated {peak} B; phase "
+              f"{time.perf_counter() - t_phase:.1f} s; card {card}",
+              flush=True)
+    finally:
+        srv.master.shutdown()
+        srv.shutdown()
+        srv.server_close()
+        sources.SOURCES.pop("SMOKE", None)
+
+
 def main() -> int:
     import torch
 
@@ -1657,6 +1791,7 @@ def run(torch, oracles) -> int:
           f"max_memory_allocated {tpeak} B; host: generator {gen_s:.1f} s, "
           f"recount {recount_s:.1f} s", flush=True)
     kos_vdb = vdb   # phase 15 mines it again
+    service_dbs = {"kosarak": db}   # phase 23 serves it
     mesh_want["tsr"] = digest(text)
     single_walls["tsr"] = (round(tcold_s, 3), round(twarm_s, 3))
     predict_sets["tsr"] = ("kosarak_like TSR k=100", "rules",
@@ -2049,6 +2184,7 @@ def run(torch, oracles) -> int:
         cspade_small = (db, minsup, want_text)   # phase 19: the last scale
         if scale == 1.0:
             part_inputs["gazelle"] = (db, minsup)
+            gazelle_payload = SM.serialize_patterns(got)   # phase 23
             mesh_want["cspade"] = digest(want_text)
             single_walls["cspade"] = (round(ccold_s, 3), round(cwarm_s, 3))
         print(f"[mine] gazelle_like(scale={scale}) maxgap=2 maxwindow=5: "
@@ -2275,7 +2411,29 @@ def run(torch, oracles) -> int:
 
     # 22. class-partitioned mines at full size in this process
     partition_phase(torch, part_inputs, mesh_want, single_walls, card)
-    del part_inputs
+
+    # 23. the service over HTTP on the full-size databases above
+    (bms_db, bms_minsup), (ms_db, ms_minsup), (gz_db, gz_minsup) = (
+        part_inputs[k] for k in ("bms", "msnbc", "gazelle"))
+    service_phase(torch, card, [
+        ("kosarak", service_dbs.pop("kosarak"),
+         dict(algorithm="TSR_TPU", k="100", minconf="0.5", max_side="2"),
+         "rules", predict_sets["tsr"][2], single_walls["tsr"], "b2"),
+        ("msnbc", ms_db, dict(algorithm="SPAM_TPU", support=str(ms_minsup)),
+         "patterns", predict_sets["spam"][2], single_walls["spam"], "b3"),
+        ("gazelle", gz_db, dict(algorithm="SPADE_TPU", support=str(gz_minsup),
+                                maxgap="2", maxwindow="5"),
+         "patterns", gazelle_payload, single_walls["cspade"], None),
+        ("bms", bms_db, dict(algorithm="SPADE_TPU", support=str(bms_minsup)),
+         "patterns", predict_sets["spade"][2], single_walls["spade auto"],
+         "b1"),
+        ("bms", bms_db, dict(algorithm="SPADE_TPU", support=str(bms_minsup)),
+         "patterns", None, single_walls["spade auto"], "b1"),
+    ], {name: (what, kind, payload, prefixes[:16])
+        for name, (what, kind, payload, prefixes) in (
+            ("kosarak", predict_sets["tsr"]),
+            ("bms", predict_sets["spade"]))})
+    del part_inputs, bms_db, ms_db, gz_db
 
     print(json.dumps({"kernels": [pair_record, rule_record, {
         "name": "extend_prune", "route": "cuda",

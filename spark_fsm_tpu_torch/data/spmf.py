@@ -1,4 +1,6 @@
-"""SPMF sequence-format parser / writer (copy of ``spark_fsm_tpu/data/spmf.py``).
+"""SPMF sequence-format parser / writer (copy of ``spark_fsm_tpu/data/spmf.py``;
+with ``fingerprint_db`` and ``file_validator``, the service's dataset
+identities).
 
 Kept as a copy because the port imports nothing of the reference package.
 One sequence per line; itemsets are groups of space-separated positive
@@ -14,11 +16,73 @@ ascending.
 
 from __future__ import annotations
 
-from typing import Iterable, List, Tuple
+import hashlib
+import os
+from typing import Iterable, List, Optional, Tuple
 
 Itemset = Tuple[int, ...]
 Sequence = Tuple[Itemset, ...]
 SequenceDB = List[Sequence]
+
+
+def fingerprint_db(db: Iterable[Sequence]) -> str:
+    """Content-addressed dataset fingerprint: a streaming sha256 over the
+    canonical in-memory form (itemsets deduped + sorted by the parser),
+    one sequence at a time — never materializing the whole text.
+
+    Deliberately hashes CONTENT ONLY, not the source spelling: a FILE
+    path, an INLINE payload, and a SYNTH generator that resolve to the
+    same sequences produce the SAME fingerprint, which is exactly what
+    lets the result-reuse tier (service/resultcache.py) serve one
+    cached mine to every spelling of the data.  The checkpoint layer's
+    engine fingerprints cover engine state; this covers the dataset
+    dimension.
+    """
+    h = hashlib.sha256(b"fsm-db-v1\n")
+    for seq in db:
+        parts: List[str] = []
+        for itemset in seq:
+            parts.extend(str(i) for i in itemset)
+            parts.append("-1")
+        parts.append("-2\n")
+        h.update(" ".join(parts).encode("ascii"))
+    return h.hexdigest()
+
+
+def file_validator(path: str,
+                   sample_bytes: int = 65536) -> Optional[dict]:
+    """Cheap immutability witness for a FILE artifact: mtime (ns) +
+    size + a sha256 over a head/tail content sample.  Two calls that
+    return EQUAL dicts prove — to the strength an immutable-artifact
+    deployment needs — that the path still names the bytes it named
+    before, without re-reading a multi-GB dataset.
+
+    This is what lets the result-reuse tier (service/resultcache.py)
+    resolve a FILE-spelling request's content fingerprint AT ADMISSION
+    (unlocking dominance serving for the FILE spelling, ROADMAP 2b):
+    the learned path→fingerprint mapping is trusted only while the
+    validator matches; any mismatch — touched file, rewritten file,
+    same-size in-place edit inside the sampled windows — falls back to
+    the mutable path (coalesce-only), never serves stale results.  An
+    adversarial same-mtime same-size edit OUTSIDE the sampled windows
+    can defeat it, which is why it gates REUSE, never correctness of a
+    cold mine.  None when the path cannot be statted/read (the caller
+    degrades to the mutable path)."""
+    try:
+        st = os.stat(path)
+        h = hashlib.sha256()
+        with open(path, "rb") as fh:
+            h.update(fh.read(sample_bytes))
+            if st.st_size > sample_bytes:
+                # tail window, starting past the head so files up to
+                # 2x sample_bytes are covered in full
+                fh.seek(max(sample_bytes, st.st_size - sample_bytes))
+                h.update(fh.read(sample_bytes))
+        return {"mtime_ns": int(st.st_mtime_ns),
+                "size": int(st.st_size),
+                "sample": h.hexdigest()}
+    except OSError:
+        return None
 
 
 def parse_spmf(text: str) -> SequenceDB:

@@ -1,7 +1,7 @@
 """Deterministic synthetic sequence databases (copy of
 ``spark_fsm_tpu/data/synth.py``: ``synthetic_db``, ``synthetic_db_fast``,
-``bms_webview2_like``, ``msnbc_like``, ``kosarak_like`` and
-``gazelle_like``).
+``bms_webview1_like``, ``bms_webview2_like``, ``msnbc_like``,
+``kosarak_like``, ``gazelle_like`` and ``sub_crossover_db``).
 
 The copy draws the same numbers from the same seed in the same order, so it
 yields the same database as the reference generator.  Item popularity is
@@ -113,6 +113,12 @@ def _generator(fast: bool):
     return synthetic_db_fast if fast else synthetic_db
 
 
+def bms_webview1_like(seed: int = 1, scale: float = 1.0,
+                      fast: bool = False) -> SequenceDB:
+    return _generator(fast)(seed, int(59600 * scale), max(32, int(497 * scale)),
+                            mean_itemsets=2.5, zipf_s=1.1)
+
+
 def bms_webview2_like(seed: int = 2, scale: float = 1.0,
                       fast: bool = False) -> SequenceDB:
     """BMS-WebView-2 shape: 77,500 sequences over a 3,300-item Zipfian
@@ -143,3 +149,24 @@ def gazelle_like(seed: int = 5, scale: float = 1.0,
                  fast: bool = False) -> SequenceDB:
     return _generator(fast)(seed, int(59000 * scale), max(64, int(498 * scale)),
                             mean_itemsets=2.5, zipf_s=1.1)
+
+
+def sub_crossover_db(offset: int = 0, n_seq: int = 200) -> SequenceDB:
+    """Deterministic SUB-crossover shape for the engine planner
+    (service/planner.py): ~400 items each in exactly 2 of ``n_seq``
+    sequences (frequent-projection density at minsup 2 ~ 2/n_seq =
+    0.01 < the 0.02 crossover; alphabet ~ 402 < the 512 ceiling), plus
+    two shared marker items so the mine is non-trivial.  ``offset``
+    rotates the item assignment for distinct-but-identically-shaped
+    pools.  ONE definition — tests/test_planner.py, spam_smoke and
+    ``bench_throughput --mix engines`` all pin routing against this
+    shape, and a crossover retune must move them together."""
+    db: SequenceDB = []
+    for s in range(n_seq):
+        a = 1000 + ((s + offset) % 200) * 2
+        c = 1000 + ((s + offset + 50) % 200) * 2
+        seq = [(a,), (a + 1,), (c,), (c + 1,)]
+        if s % 16 == 0:
+            seq = [(3 + offset,)] + seq + [(5 + offset,)]
+        db.append(tuple(seq))
+    return db

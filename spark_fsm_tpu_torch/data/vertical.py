@@ -143,6 +143,18 @@ class RepPlan:
     def n_sparse(self) -> int:
         return int(self.rep.size) - self.n_dense
 
+    def as_attrs(self) -> dict:
+        """Flat numeric/str summary for the planner trace span."""
+        d = self.densities
+        return {
+            "representation": self.pin,
+            "density_crossover": round(float(self.crossover), 6),
+            "dense_items": self.n_dense,
+            "idlist_items": self.n_sparse,
+            "min_item_density": round(float(d.min()), 6) if d.size else 0.0,
+            "max_item_density": round(float(d.max()), 6) if d.size else 0.0,
+        }
+
 
 def rep_plan(item_supports: np.ndarray, n_sequences: int, *,
              crossover: float, pin: str = "auto") -> RepPlan:

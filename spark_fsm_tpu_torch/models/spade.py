@@ -350,6 +350,11 @@ class SpadeTorch:
             drained first so the snapshot is consistent).
         """
         minsup = self.minsup
+        # every mine starts from a whole slot pool (a repeat mine on a
+        # cached engine must not inherit the last one's free list or its
+        # reclaim count): no node of this mine holds a slot yet
+        self._pool = SlotPool(range(self.n_items,
+                                    self.n_items + self.pool_slots))
         stack: List[_Node] = []
         results: List[PatternResult]
         if resume is not None:

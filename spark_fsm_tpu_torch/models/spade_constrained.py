@@ -339,6 +339,8 @@ class ConstrainedSpadeTorch:
         ``checkpoint_every_s`` seconds (the in-flight batches drained
         first)."""
         minsup = self.minsup
+        # a whole state pool for every mine (see SpadeTorch.mine)
+        self._pool_alloc = SlotPool(range(self.pool_slots))
         results: List[PatternResult] = []
         root_items = [i for i in range(self.n_items)
                       if int(self.vdb.item_supports[i]) >= minsup]

@@ -68,6 +68,7 @@ from spark_fsm_tpu_torch.ops import pair_support as PS
 from spark_fsm_tpu_torch.ops import ragged_batch as RB
 from spark_fsm_tpu_torch.parallel import partition as PN
 from spark_fsm_tpu_torch.parallel.mesh import all_reduce_sum, mesh_size
+from spark_fsm_tpu_torch.utils import jobctl
 from spark_fsm_tpu_torch.utils.canonical import PatternResult, sort_patterns
 
 # ring slots a resume refills per join-chain fold launch
@@ -349,6 +350,9 @@ class QueueSpadeTorch:
         if len(roots) > min(cap.ring, cap.r_cap):
             self.stats["fused_overflow"] = True
             return None  # the ring cannot hold the root level
+        # deadline/cancel safe point before the whole mine's waves, where
+        # the reference commits its one whole-mine dispatch
+        jobctl.check()
         c = self.start(roots)
         reader = CounterReader(6, self.device)
         head, tail, n_rec = 0, len(roots), len(roots)
@@ -421,6 +425,8 @@ class QueueSpadeTorch:
         # after wave 1), coarse later
         budget = 1 if checkpoint_cb is not None else seg_waves
         while True:
+            # deadline/cancel safe point between segments
+            jobctl.check()
             nbw = nbl if narrow else cap.nb
             ceil = cap.i_max * (ratio if narrow else 1)
             wave_end = wave + budget

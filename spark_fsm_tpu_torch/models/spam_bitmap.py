@@ -62,6 +62,7 @@ from spark_fsm_tpu_torch.ops.ragged_batch import next_pow2
 from spark_fsm_tpu_torch.parallel import partition as PN
 from spark_fsm_tpu_torch.parallel.mesh import mesh_size
 from spark_fsm_tpu_torch.service import planner
+from spark_fsm_tpu_torch.utils import jobctl
 from spark_fsm_tpu_torch.utils.canonical import Pattern, PatternResult, sort_patterns
 
 Step = Tuple[int, bool]
@@ -232,6 +233,7 @@ class SpamBitmapTorch:
         for the whole (nodes x dense items x {s, i}) grid, plus, on a
         hybrid plan, pair launches for the sparse-item candidates; start
         the copies to the host."""
+        jobctl.check()  # launch-boundary safe point (cancel/deadline)
         batch = [stack.pop() for _ in range(min(self.node_batch, len(stack)))]
         ensure_slots(self.store, self._pool, batch, stack,
                      first_pool_slot=self.ni_pad,

@@ -80,6 +80,7 @@ from spark_fsm_tpu_torch.ops import rule_support as RS
 from spark_fsm_tpu_torch.parallel import partition as PN
 from spark_fsm_tpu_torch.parallel.mesh import (
     all_reduce_sum, mesh_size, pad_to_multiple)
+from spark_fsm_tpu_torch.utils import jobctl
 from spark_fsm_tpu_torch.utils.canonical import RuleResult, sort_rules
 
 # initial top-m item restriction for the iterative-deepening outer loop
@@ -644,6 +645,9 @@ class TsrTorch:
         last_ckpt = time.monotonic()
         waves_done = ev_done = pr_done = 0
         while True:
+            # deadline/cancel safe point between segments (a host-side
+            # check, no device sync)
+            jobctl.check()
             nbw = caps.nb_late if narrow else caps.nb
             wave_end = waves_done + budget
             while tail > head and not oflow and waves < wave_end:
@@ -963,6 +967,8 @@ class TsrTorch:
         inflight: List[Tuple[list, object]] = []
         last_ckpt = time.monotonic()
         while True:
+            # deadline/cancel safe point between launches
+            jobctl.check()
             while queue and len(inflight) < self.PIPELINE_DEPTH:
                 batch = pop_batch()
                 if not batch:

@@ -1,8 +1,9 @@
 """Ragged candidate super-batching for TSR's evaluation launches — copy of
 the launch planner in ``spark_fsm_tpu/ops/ragged_batch.py`` (``Launch``,
 ``plan_launches``, ``XYStager``, ``overhead_units``,
-``dispatch_quantum_lanes``, ``KM_LADDER`` and the pow2 helpers), and the
-queue engine's late-wave geometry ``late_wave_nb``.
+``dispatch_quantum_lanes``, ``KM_LADDER`` and the pow2 helpers), the
+queue engine's late-wave geometry ``late_wave_nb``, and the service's
+cost estimate ``estimate_seconds``.
 
 Candidates arrive in per-km pools (km = the pow2 bucket of a rule's
 larger side).  :func:`plan_launches` splits each pool greedily into full
@@ -40,6 +41,25 @@ DISPATCH_LANE_SEQWORDS = Fraction(25, 429) * QUANTUM_LANE_SEQWORDS
 
 # The km side-size ladder (pow2 buckets of a rule's larger side).
 KM_LADDER = (1, 2, 4, 8)
+
+
+# The reference's committed cost-model anchors, in seconds: one km1 lane
+# over one sequence word, and one dispatch.  They are the reference
+# device's figures, not measurements of the port; the port reads them
+# only through :func:`estimate_seconds`, to size the service's admission
+# hints (``Retry-After``) and the dispatch watchdog's deadlines, never a
+# launch plan.
+LANE_SEC_PER_SEQWORD = 85.8e-3 / 8192 / 990_000
+DISPATCH_SEC = 0.005
+
+
+def estimate_seconds(traffic_units: int, n_launches: int, n_seq: int,
+                     n_words: int, dispatch_s: float = DISPATCH_SEC) -> float:
+    """Predicted wall of ``n_launches`` launches streaming
+    ``traffic_units`` lane-km units (the reference's
+    ``ragged_batch.estimate_seconds``, same anchors)."""
+    lane_s = n_seq * max(1, n_words) * LANE_SEC_PER_SEQWORD
+    return max(0, traffic_units) * lane_s + max(1, n_launches) * dispatch_s
 
 
 def next_pow2(n: int) -> int:

@@ -2,7 +2,7 @@
 
     python3 -m spark_fsm_tpu_torch.profile_mine [spade] [tsr] [spam] \
         [tsr-resident] [cspade] [stream] [predict] [tsr-partition] \
-        [partition-world]
+        [partition-world] [service]
 
 Prints one JSON line per path named (the first seven when none is):
 - SPADE: the BMS-WebView-2-shaped database (full size) at minsup 0.1 %
@@ -67,7 +67,16 @@ Prints one JSON line per path named (the first seven when none is):
   partition a rank; per rank and layout the wall (its first mine of each
   database includes nothing but the mine: each rank builds its databases
   first), the B1/B2 launches, the exchanges and their bytes, each text
-  held against the one-device mine's.
+  held against the one-device mine's;
+- the service (``service``, named only): the Kosarak-shaped TSR request
+  (k=100, minconf=0.5, max_side=2) and the BMS-WebView-2-shaped SPADE
+  request (minsup 0.1 %) through the port's ``serve_background()``, in
+  turns with the library call of the same mine and with the engine
+  caches emptied before each job: per run the library wall on the main
+  thread and on a fresh thread (the Miner mines on its own thread), the
+  vertical build alone on each, the engine cache's content fingerprint
+  alone, and the job's submit-to-finished wall and ``mine_s`` with the
+  client polling ``/status`` every 5 ms and every 250 ms.
 Each line also names the tokenizer that ran (``data/fasttok.backend()``);
 each mining path's line gives the host functions that take the vertical
 build's time (one more build under ``cProfile``: the ten largest by own
@@ -903,12 +912,115 @@ def partition_world(dev, card: str) -> dict:
             "world_s": time.perf_counter() - t0, "ranks": ranks}
 
 
+def service(dev, card: str) -> dict:
+    import threading
+    import urllib.parse
+    import urllib.request
+
+    import torch
+
+    from spark_fsm_tpu_torch.data.synth import bms_webview2_like, kosarak_like
+    from spark_fsm_tpu_torch.data.vertical import abs_minsup, build_vertical
+    from spark_fsm_tpu_torch.models.spade import mine_spade_torch
+    from spark_fsm_tpu_torch.models.tsr import mine_tsr_torch
+    from spark_fsm_tpu_torch.service import devcache, sources
+    from spark_fsm_tpu_torch.service.app import serve_background
+
+    kos = kosarak_like(scale=1.0, fast=True)
+    bms = bms_webview2_like()
+    bms_minsup = abs_minsup(0.001, len(bms))
+    dbs = {"kosarak": kos, "bms": bms}
+    sources.register("PROFILE", lambda req, store: dbs[req.param("db")])
+    work = {
+        "kosarak TSR k=100 max_side=2": (
+            "kosarak", dict(algorithm="TSR_TPU", k="100", minconf="0.5",
+                            max_side="2"),
+            lambda: mine_tsr_torch(kos, 100, 0.5, max_side=2, device=dev),
+            lambda: build_vertical(kos, min_item_support=1)),
+        "bms SPADE minsup 0.1 %": (
+            "bms", dict(algorithm="SPADE_TPU", support=str(bms_minsup)),
+            lambda: mine_spade_torch(bms, bms_minsup, device=dev),
+            lambda: build_vertical(bms, min_item_support=bms_minsup)),
+    }
+
+    def timed(fn, thread: bool) -> float:
+        t0 = time.perf_counter()
+        if thread:
+            th = threading.Thread(target=fn)
+            th.start()
+            th.join()
+        else:
+            fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    srv = serve_background(device=dev)
+    port = srv.server_port
+
+    def post(endpoint, **params):
+        data = urllib.parse.urlencode(params).encode()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{endpoint}",
+                                    data=data, timeout=600) as resp:
+            return json.loads(resp.read().decode())
+
+    n = [0]
+
+    def job(name, params, poll_s):
+        for cache in (devcache.spade_engine_cache, devcache.tsr_engine_cache):
+            cache.clear()
+        n[0] += 1
+        uid = f"profile-{n[0]}"
+        t0 = time.perf_counter()
+        post("/train", uid=uid, source="PROFILE", db=name, **params)
+        while True:
+            st = post(f"/status/{uid}")
+            if st["status"] in ("finished", "failure"):
+                break
+            time.sleep(poll_s)
+        wall = time.perf_counter() - t0
+        if st["status"] != "finished":
+            raise RuntimeError(f"service job failed: {st['data']}")
+        return wall, json.loads(st["data"]["stats"])["mine_s"]
+
+    out = {}
+    try:
+        for what, (name, params, lib, vertical) in work.items():
+            lib()   # warm-up: kernels built, allocator warm
+            torch.cuda.synchronize()
+            runs = []
+            for rep in range(2):
+                order = (("lib", "thread", 0.005, 0.25) if rep == 0
+                         else (0.25, 0.005, "thread", "lib"))
+                row = {}
+                for step in order:
+                    if step in ("lib", "thread"):
+                        sfx = "" if step == "lib" else "_thread"
+                        row["library" + sfx + "_s"] = timed(lib, sfx != "")
+                        row["vertical" + sfx + "_s"] = timed(vertical,
+                                                             sfx != "")
+                        continue
+                    wall, mine_s = job(name, params, step)
+                    row[f"job_s_poll_{int(step * 1000)}ms"] = wall
+                    row[f"mine_s_poll_{int(step * 1000)}ms"] = mine_s
+                t0 = time.perf_counter()
+                devcache.db_fingerprint(dbs[name])
+                row["fingerprint_s"] = time.perf_counter() - t0
+                runs.append(row)
+            out[what] = runs
+    finally:
+        srv.master.shutdown()
+        srv.shutdown()
+        srv.server_close()
+        sources.SOURCES.pop("PROFILE", None)
+    return {"path": "service", "card": card,
+            "device": torch.cuda.get_device_name(dev), "runs": out}
+
+
 PATHS = {"spade": spade, "tsr": tsr, "spam": spam,
          "tsr-resident": tsr_resident, "cspade": cspade, "stream": stream,
          "predict": predict}
 # named only: a four-part mine takes minutes; a world needs several cards
 EXTRA_PATHS = {"tsr-partition": tsr_partition,
-               "partition-world": partition_world}
+               "partition-world": partition_world, "service": service}
 
 
 def main(names=None) -> list:

@@ -1,21 +1,97 @@
-"""Result serialization (partial copy of ``spark_fsm_tpu/service/model.py``:
-``serialize_patterns``, ``deserialize_patterns``, ``serialize_rules`` and
-``deserialize_rules``).
+"""Request/response model + JSON serialization.
 
-The prediction plane's artifact cache keys on
-``ops/rule_trie.rules_digest(payload)``, so these strings are the
-reference's byte for byte.  The request/response model (``Status``,
-``ServiceRequest``, ``ServiceResponse``, ``response``) belongs to the
-service seam, which is not ported.
+Mirrors the reference's model layer (SURVEY.md sec 2: ``ServiceRequest(
+service, task, data: Map[String,String])``, ``FSMPattern`` = support +
+itemset list, ``FSMRule`` = antecedent/consequent/support/confidence, job
+statuses ``started -> dataset -> trained/finished`` plus ``failure``) with
+plain dataclasses and json — the contracts are the reference's, the
+implementation is not.
+
+Port: a copy of ``spark_fsm_tpu/service/model.py`` with its imports pointed at ``spark_fsm_tpu_torch``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
-from typing import List
+import time
+import uuid
+from typing import Dict, List, Optional
 
 from spark_fsm_tpu_torch.utils.canonical import PatternResult, RuleResult
 
+
+class Status:
+    """Job lifecycle constants (the reference's ResponseStatus vocabulary)."""
+
+    STARTED = "started"
+    DATASET = "dataset"
+    TRAINED = "trained"
+    FINISHED = "finished"
+    FAILURE = "failure"
+
+
+@dataclasses.dataclass
+class ServiceRequest:
+    """``(service, task, data)`` request envelope.
+
+    ``data`` carries the per-request knobs as a flat string map exactly
+    like the reference: ``uid``, ``algorithm`` (any name in
+    ``service/plugins.ALGORITHMS`` — the SPADE/SPAM pattern engines,
+    the TSR rule engines, and ``AUTO`` for planner routing; an unknown
+    name sheds a structured 400 listing the registry), ``source``,
+    ``support``, ``k``, ``minconf``, ``maxgap``, ``maxwindow``, plus
+    source-specific fields.
+    """
+
+    service: str
+    task: str
+    data: Dict[str, str]
+
+    @property
+    def uid(self) -> str:
+        return self.data.get("uid", "")
+
+    def param(self, key: str, default: Optional[str] = None) -> Optional[str]:
+        return self.data.get(key, default)
+
+    @staticmethod
+    def fresh_uid() -> str:
+        return uuid.uuid4().hex
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self))
+
+    @staticmethod
+    def from_json(text: str) -> "ServiceRequest":
+        obj = json.loads(text)
+        return ServiceRequest(
+            service=obj.get("service", "fsm"),
+            task=obj.get("task", ""),
+            data={str(k): str(v) for k, v in obj.get("data", {}).items()},
+        )
+
+
+@dataclasses.dataclass
+class ServiceResponse:
+    service: str
+    task: str
+    data: Dict[str, str]
+    status: str
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self))
+
+
+def response(req: ServiceRequest, status: str, **extra: str) -> ServiceResponse:
+    data = {"uid": req.uid}
+    data.update(extra)
+    return ServiceResponse(req.service, req.task, data, status)
+
+
+# ---------------------------------------------------------------------------
+# Result serialization (patterns / rules)
+# ---------------------------------------------------------------------------
 
 def serialize_patterns(patterns: List[PatternResult]) -> str:
     """FSMPattern list -> JSON: [{"support": N, "itemsets": [[...], ...]}]."""

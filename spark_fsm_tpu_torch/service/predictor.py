@@ -17,14 +17,17 @@
   between resolving a rule payload and answering — the digest, the
   staleness note, the pattern-to-rule lowering, the ``depth_need`` rule,
   the cache and the broker — answering in the Questor entry spelling.
+- **Serving surface** (:class:`Predictor`): the actor Master routes
+  ``predict`` tasks to ``Predictor.handle``, which validates the request,
+  resolves the payload from the result store (a finished job uid) or the
+  result-reuse tier (a dataset fingerprint), scores it through the same
+  path as :func:`predict_rules` on the service's device, and answers in
+  the reference's envelope.
 
 ``configure`` takes the reference's ``[predict]`` fields
-(``config.PredictConfig``) from a plain object or a dict.  The registry
-metric families, usage deposits, event log, the request surface
-(``Predictor.handle``) and its store, result cache and observability
-planes belong to the service seam, which is not ported: the cache's
-hits, misses, builds, evictions and stale rebuilds are plain integers
-here (:func:`tallies`).
+(``config.PredictConfig``) from a plain object or a dict.  The cache and
+broker counts live on the reference's ``fsm_predict_*`` registry families
+(``utils/obs.REGISTRY``); :func:`tallies` is a view of them.
 """
 
 from __future__ import annotations
@@ -35,21 +38,56 @@ from collections import OrderedDict
 from collections.abc import Mapping
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import json
+
 import torch
 
 from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
 from spark_fsm_tpu_torch.ops import rule_trie
-from spark_fsm_tpu_torch.service import model
+from spark_fsm_tpu_torch.service import model, obsplane, usage
+from spark_fsm_tpu_torch.service.model import (ServiceRequest,
+                                               ServiceResponse, Status)
+from spark_fsm_tpu_torch.utils import obs
+from spark_fsm_tpu_torch.utils.obs import log_event
 
 # the reference's request priorities (``service/obsplane.PRIORITIES``)
-PRIORITIES = ("high", "normal", "low")
+PRIORITIES = obsplane.PRIORITIES
+
+# ---------------------------------------------------------------------------
+# Metrics — the reference's families, every one zero-seeded
+# ---------------------------------------------------------------------------
+
+_REQS = obs.REGISTRY.counter(
+    "fsm_predict_requests_total", "predict requests by outcome")
+for _o in ("served", "failure", "no_rules"):
+    _REQS.seed(outcome=_o)
+_WAVES = obs.REGISTRY.counter(
+    "fsm_predict_waves_total", "scoring waves launched, by fusion mode")
+for _m in ("fused", "solo"):
+    _WAVES.seed(mode=_m)
+_WAVE_JOBS = obs.REGISTRY.histogram(
+    "fsm_predict_wave_jobs", "requests fused per scoring wave",
+    buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0)).seed()
+_BUILDS = obs.REGISTRY.counter(
+    "fsm_predict_artifact_builds_total", "rule-trie artifact compiles")
+_STALE = obs.REGISTRY.counter(
+    "fsm_predict_artifact_stale_rebuilds_total",
+    "artifact rebuilds because the source's rule set changed (re-mine "
+    "invalidation observed through the content-addressed key)")
+_EVICTS = obs.REGISTRY.counter(
+    "fsm_predict_artifact_evictions_total", "artifact cache LRU evictions")
+_HITS = obs.REGISTRY.counter(
+    "fsm_predict_artifact_cache_hits_total", "artifact cache hits")
+_MISSES = obs.REGISTRY.counter(
+    "fsm_predict_artifact_cache_misses_total", "artifact cache misses")
+
+_TALLY = {"hits": _HITS, "misses": _MISSES, "builds": _BUILDS,
+          "evictions": _EVICTS, "stale": _STALE}
 
 _stats_lock = threading.Lock()
 _stats = {"requests": 0, "served": 0, "failures": 0, "waves": 0,
           "fused_waves": 0, "fused_jobs": 0, "solo_jobs": 0,
           "stale_rebuilds": 0, "exec_s": 0.0}
-# the reference's registry counters, as plain integers
-_tallies = {"hits": 0, "misses": 0, "builds": 0, "evictions": 0, "stale": 0}
 
 
 def _bump(**kw) -> None:
@@ -59,15 +97,55 @@ def _bump(**kw) -> None:
 
 
 def _tally(key: str) -> None:
-    with _stats_lock:
-        _tallies[key] += 1
+    _TALLY[key].inc()
 
 
 def tallies() -> dict:
     """The artifact cache's hits, misses, builds and evictions and the
-    stale rebuilds, over the process's lifetime."""
+    stale rebuilds, over the process's lifetime (a view of the
+    ``fsm_predict_artifact_*`` registry counters)."""
+    return {k: int(c.total()) for k, c in _TALLY.items()}
+
+
+def _collect_metrics():
+    hits, misses = _HITS.total(), _MISSES.total()
+    ratio = hits / (hits + misses) if (hits + misses) else 0.0
     with _stats_lock:
-        return dict(_tallies)
+        fused = float(_stats["fused_jobs"])
+        solo = float(_stats["solo_jobs"])
+    total_jobs = fused + solo
+    now = time.time()
+    age = 0.0
+    entries = bytes_ = 0
+    with _caches_lock:
+        caches = list(_CACHES.values())
+    for cache in caches:
+        with cache._lock:
+            entries += len(cache._entries)
+            bytes_ += cache._bytes
+            if cache._entries:
+                age = max(age, max(now - trie.built_ts
+                                   for trie, _ in cache._entries.values()))
+    return [
+        ("fsm_predict_artifact_cache_hit_ratio", "gauge",
+         "artifact cache hits / lookups (process lifetime)",
+         [({}, round(ratio, 6))]),
+        ("fsm_predict_fused_ratio", "gauge",
+         "share of predict requests served by a fused (>=2 job) wave",
+         [({}, round(fused / total_jobs, 6) if total_jobs else 0.0)]),
+        ("fsm_predict_artifact_entries", "gauge",
+         "resident rule-trie artifacts", [({}, entries)]),
+        ("fsm_predict_artifact_bytes", "gauge",
+         "resident rule-trie artifact bytes", [({}, bytes_)]),
+        ("fsm_predict_artifact_age_seconds", "gauge",
+         "age of the OLDEST resident artifact (staleness horizon: an "
+         "artifact never outlives its digest, so age only measures how "
+         "long a rule set has gone without re-mining)",
+         [({}, round(age, 3))]),
+    ]
+
+
+obs.REGISTRY.register_collector("predictor", _collect_metrics)
 
 
 # ---------------------------------------------------------------------------
@@ -347,8 +425,26 @@ class PredictBroker:
             waves = rule_trie.score_wave(
                 g.trie, [t.prefix for t in g.tickets], g.m)
             exec_s = time.monotonic() - t0
+            mode = "fused" if n >= 2 else "solo"
+            _WAVES.inc(mode=mode)
+            _WAVE_JOBS.observe(float(n))
             _bump(waves=1, fused_waves=1 if n >= 2 else 0, exec_s=exec_s,
                   **{("fused_jobs" if n >= 2 else "solo_jobs"): n})
+            log_event("predict_wave", jobs=n, mode=mode,
+                      wave_ms=round(exec_s * 1000.0, 3),
+                      tags=[t.tag for t in g.tickets])
+            # per-rider attribution (service/usage.py): the wave is one
+            # launch streaming the artifact's lanes once, split across
+            # riders by largest remainder, wall split equally
+            if usage.get() is not None:
+                one = usage.split_integral(1, [1.0] * n)
+                lanes = usage.split_integral(
+                    int(getattr(g.trie, "lanes", 0) or 0), [1.0] * n)
+                for i, t in enumerate(g.tickets):
+                    usage.deposit_tenant(
+                        t.tenant, launches=one[i],
+                        traffic_units=lanes[i],
+                        seconds_measured=exec_s / n)
             for i, t in enumerate(g.tickets):
                 t.entries = waves[i]
                 t.dispatch_t = t0
@@ -390,6 +486,31 @@ def _note_staleness(src: str, digest: str) -> None:
             _src_digest.popitem(last=False)
 
 
+def _score(payload: str, kind: str, prefix: List[int], m: int, *,
+           priority: str, source: Optional[str], device: DeviceLike,
+           tenant: str = "default"):
+    """Digest, staleness note, artifact and broker ride of one request:
+    returns ``(digest, trie, ticket)``.  Raises on a build or wave
+    failure."""
+    digest = rule_trie.rules_digest(payload)
+    if source is not None:
+        _note_staleness(source, digest)
+
+    def rules_provider() -> list:
+        if kind == "patterns":
+            return rule_trie.rules_from_patterns(
+                model.deserialize_patterns(payload))
+        return model.deserialize_rules(payload)
+
+    depth_floor = int(_cfg_get("depth_floor"))
+    depth_need = max(depth_floor, rule_trie._next_pow2(max(1, len(prefix))))
+    trie = _cache(device).get_or_build(digest, depth_need, rules_provider,
+                                       _cfg_get("lanes_floor"))
+    ticket = _BROKER.submit(trie, prefix, m, priority,
+                            tag=source or digest[:16], tenant=tenant)
+    return digest, trie, ticket
+
+
 def predict_rules(payload: str, kind: str, prefix: Sequence[int], m: int, *,
                   priority: str = "normal", source: Optional[str] = None,
                   device: DeviceLike = None) -> List[dict]:
@@ -408,25 +529,144 @@ def predict_rules(payload: str, kind: str, prefix: Sequence[int], m: int, *,
                          f"(have: {', '.join(PRIORITIES)})")
     prefix = sorted({int(i) for i in prefix})
     m = max(1, min(int(m), 256))
-    digest = rule_trie.rules_digest(payload)
-    if source is not None:
-        _note_staleness(source, digest)
-
-    def rules_provider() -> list:
-        if kind == "patterns":
-            return rule_trie.rules_from_patterns(
-                model.deserialize_patterns(payload))
-        return model.deserialize_rules(payload)
-
-    depth_floor = int(_cfg_get("depth_floor"))
-    depth_need = max(depth_floor, rule_trie._next_pow2(max(1, len(prefix))))
     try:
-        trie = _cache(device).get_or_build(digest, depth_need, rules_provider,
-                                           _cfg_get("lanes_floor"))
-        ticket = _BROKER.submit(trie, prefix, m, priority,
-                                tag=source or digest[:16])
+        _, _, ticket = _score(payload, kind, prefix, m, priority=priority,
+                              source=source, device=device)
     except BaseException:
         _bump(requests=1, failures=1)
         raise
     _bump(requests=1, served=1)
     return ticket.entries or []
+
+
+# ---------------------------------------------------------------------------
+# Serving surface
+# ---------------------------------------------------------------------------
+
+class Predictor:
+    """``predict`` task handler: resolve rules, ride the broker, answer
+    in the Questor prediction spelling, on ``device`` (the service's)."""
+
+    def __init__(self, store, device: DeviceLike = None) -> None:
+        self.store = store
+        self.device = device
+
+    # -- rule resolution ----------------------------------------------------
+
+    def _resolve_payload(self, req: ServiceRequest
+                         ) -> Tuple[Optional[str], Optional[str], str]:
+        """-> (payload, kind, source key) or (None, error message, "")."""
+        uid = req.uid
+        fp = req.param("fingerprint")
+        if uid:
+            status = self.store.status(uid)
+            if status is None:
+                return None, "unknown uid", ""
+            if status != Status.FINISHED:
+                return None, "job not finished; results pending", ""
+            payload = self.store.rules(uid)
+            if payload is not None:
+                return payload, "rules", f"uid:{uid}"
+            payload = self.store.patterns(uid)
+            if payload is not None:
+                return payload, "patterns", f"uid:{uid}"
+            return None, "no rules", ""
+        if fp:
+            from spark_fsm_tpu_torch.service import resultcache
+
+            algo = (req.param("algorithm") or "TSR_TPU").upper()
+            # verified read + rules_digest cross-check: the artifact
+            # cache keys compiled tries on that digest, so never build
+            # from bytes the digest does not vouch for
+            opened = resultcache.open_entry(self.store, fp, algo,
+                                            check_digest=True)
+            if opened is None:
+                return None, "no rescache entry for fingerprint", ""
+            ent, _size = opened
+            return (ent.get("payload") or "[]",
+                    ent.get("kind") or "rules", f"fp:{fp}:{algo}")
+        return None, "predict needs 'uid' (finished job) or 'fingerprint'", ""
+
+    # -- request handling ---------------------------------------------------
+
+    def _fail(self, req: ServiceRequest, error: str,
+              outcome: str = "failure") -> ServiceResponse:
+        _REQS.inc(outcome=outcome)
+        _bump(requests=1, failures=1)
+        return model.response(req, Status.FAILURE, error=error)
+
+    def handle(self, req: ServiceRequest) -> ServiceResponse:
+        t_start = time.monotonic()
+        priority = (req.param("priority") or "normal").lower()
+        if priority not in PRIORITIES:
+            return self._fail(req, f"unknown priority {priority!r} "
+                                   f"(have: {', '.join(PRIORITIES)})")
+        # an unknown tenant reads as "default", never a failure (the
+        # label space stays bounded)
+        tenant = (req.param("tenant") or obsplane.DEFAULT_TENANT)
+        if tenant not in obsplane.known_tenants():
+            tenant = obsplane.DEFAULT_TENANT
+        items_param = req.param("items")
+        if items_param is None:
+            return self._fail(
+                req, "predict needs 'items' (comma-separated item ids "
+                     "observed so far; empty allowed)")
+        try:
+            prefix = sorted({int(i) for i in items_param.split(",") if i})
+        except ValueError:
+            return self._fail(req, f"bad 'items' value {items_param!r}")
+        try:
+            m = int(req.param("m") or _cfg_get("topm"))
+        except ValueError:
+            m = int(_cfg_get("topm"))
+        m = max(1, min(m, 256))
+
+        payload, kind, src = self._resolve_payload(req)
+        if payload is None:
+            outcome = "no_rules" if kind in (
+                "no rules", "no rescache entry for fingerprint") \
+                else "failure"
+            return self._fail(req, kind, outcome)
+        try:
+            digest, trie, ticket = _score(
+                payload, kind, prefix, m, priority=priority, source=src,
+                device=self.device, tenant=tenant)
+        except Exception as exc:
+            log_event("predict_failed", source=src, error=str(exc))
+            return self._fail(req, f"predict failed: {exc}")
+        e2e_s = time.monotonic() - t_start
+        window_wait_s = max(0.0, ticket.dispatch_t - ticket.submit_t)
+        # read-path SLO: the obsplane's second signal class
+        obsplane.observe_predict(priority, e2e_s, window_wait_s,
+                                 ticket.exec_s, tenant=tenant)
+        _REQS.inc(outcome="served")
+        _bump(requests=1, served=1)
+        return model.response(
+            req, Status.FINISHED,
+            predictions=json.dumps(ticket.entries or []),
+            stats=json.dumps({
+                "shape_key": f"predict:f{trie.F}d{trie.D}",
+                "artifact_digest": digest[:16],
+                "artifact_lanes": trie.lanes,
+                "source": src,
+                "fused": ticket.wave_jobs >= 2,
+                "wave_jobs": ticket.wave_jobs,
+                "m": m,
+                "priority": priority,
+                "tenant": tenant,
+                "e2e_ms": round(e2e_s * 1000.0, 3),
+                "window_wait_ms": round(window_wait_s * 1000.0, 3),
+                "exec_ms": round(ticket.exec_s * 1000.0, 3),
+            }))
+
+    def stats(self) -> dict:
+        with _stats_lock:
+            s = dict(_stats)
+        s["exec_s"] = round(s["exec_s"], 6)
+        s["cache"] = _cache(self.device).snapshot()
+        with _cfg_lock:
+            s["config"] = dict(_cfg)
+        return s
+
+    def shutdown(self) -> None:
+        _BROKER.shutdown()

@@ -82,17 +82,19 @@ Key = Tuple[int, bool]  # (GLOBAL item id, is_s_extension)
 
 
 def sweep_geometry(batch_sequences: int, n_words_raw: int, *,
-                   mesh=None) -> dict:
+                   mesh=None, seq_floor: int = 0) -> dict:
     """Device geometry of a batch store: the word axis rounded up to a
-    power of two and the sequence axis bucketed (``_common.bucket_seq``),
-    then padded to a multiple of a ``mesh``'s rank count.  The
-    reference's Pallas sequence block leaves a pow2 bucket as it is on
-    one device, so these equal its numbers; on a mesh they equal its XLA
-    path's (B1 needs no sequence block).  Its ``seq_floor`` (a prewarmed
-    steady-state bucket) comes with the service's prewarm (ROADMAP Queue
-    A item 13)."""
+    power of two and the sequence axis bucketed (``_common.bucket_seq``)
+    from at least ``seq_floor`` sequences, then padded to a multiple of a
+    ``mesh``'s rank count.  The reference's Pallas sequence block leaves
+    a pow2 bucket as it is on one device, so these equal its numbers; on
+    a mesh they equal its XLA path's (B1 needs no sequence block).
+    ``seq_floor`` pins small batches up to a declared steady-state
+    bucket, as in the reference."""
     n_words = next_pow2(max(1, n_words_raw))
-    n_seq = pad_to_multiple(bucket_seq(batch_sequences), mesh_size(mesh))
+    n_seq = pad_to_multiple(
+        bucket_seq(max(int(batch_sequences), int(seq_floor or 0))),
+        mesh_size(mesh))
     return {"n_seq": n_seq, "n_words": n_words}
 
 
@@ -133,7 +135,7 @@ class _BatchTokens:
     sequence axis (``s_local`` wide); the census is the whole batch's."""
 
     def __init__(self, bid: int, db: SequenceDB, device: torch.device,
-                 mesh=None):
+                 mesh=None, seq_floor: int = 0):
         self.bid = bid
         self.db = db
         self.device = device
@@ -143,7 +145,8 @@ class _BatchTokens:
             int(i): int(s)
             for i, s in zip(vdb.item_ids, vdb.item_supports)}
         self.n_local = vdb.n_items
-        g = sweep_geometry(vdb.n_sequences, vdb.n_words, mesh=mesh)
+        g = sweep_geometry(vdb.n_sequences, vdb.n_words, mesh=mesh,
+                           seq_floor=seq_floor)
         self.n_words = g["n_words"]
         self.n_seq = g["n_seq"]
         self.s_local = shard_width(self.n_seq, mesh)
@@ -222,7 +225,8 @@ class IncrementalWindowMiner:
                  mesh=None,
                  use_kernel="auto",
                  repair_chunk: int = 256,
-                 support_chunk: int = 2048) -> None:
+                 support_chunk: int = 2048,
+                 seq_floor: int = 0) -> None:
         self.device = engine_device(device, mesh)
         self.mesh = mesh
         self.min_support = float(min_support)
@@ -234,6 +238,9 @@ class IncrementalWindowMiner:
             self.use_kernel = bool(use_kernel)
         self.repair_chunk = int(repair_chunk)
         self.support_chunk = int(support_chunk)
+        # pins every batch store's sequence bucket to at least this many
+        # sequences (the declared steady-state batch size)
+        self.seq_floor = int(seq_floor or 0)
         self._lock = threading.Lock()
         self._next_bid = 0
         # keyed by id() of the window's PRIVATE copy of each batch —
@@ -299,7 +306,7 @@ class IncrementalWindowMiner:
             for b in live:
                 if id(b) not in self._states:
                     st = _BatchTokens(self._next_bid, b, self.device,
-                                      self.mesh)
+                                      self.mesh, seq_floor=self.seq_floor)
                     self._next_bid += 1
                     self._states[id(b)] = st
                     fresh.append(st)

@@ -213,6 +213,26 @@ def test_matches_remine_miners_exactly():
             rem.push(list(batch)))
 
 
+@pytest.mark.parametrize("batch,floor", [(100, 0), (100, 5000),
+                                         (9000, 5000), (70, 130)])
+def test_sweep_geometry_seq_floor_equals_reference(batch, floor):
+    got = TI.sweep_geometry(batch, 1, seq_floor=floor)
+    want = JI.sweep_geometry(batch, 1, seq_floor=floor)
+    assert (got["n_seq"], got["n_words"]) == (want["n_seq"], want["n_words"])
+
+
+def test_seq_floor_pins_the_batch_stores_and_keeps_the_answer():
+    """``seq_floor`` sizes every batch store's sequence axis from the
+    declared steady-state batch, as the reference's does; the patterns
+    and counters do not move."""
+    p = _Pair(0.2, max_batches=2, seq_floor=4096)
+    for batch in _batches(19, 3, 60, n_items=10):
+        p.push(batch)
+    stores = list(p.port._states.values())
+    assert stores and {st.n_seq for st in stores} == {
+        TI.sweep_geometry(4096, 1)["n_seq"]}
+
+
 def test_use_kernel_auto_resolves_by_device():
     assert IncrementalWindowMiner(0.5, device="cpu").use_kernel is False
     assert IncrementalWindowMiner(0.5, device="cpu",

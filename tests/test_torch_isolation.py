@@ -15,7 +15,8 @@ and scored (``ops.rule_trie``, ``service.predictor``), and the SPADE,
 SPAM, TSR, cSPADE and incremental mines run again on a 1-rank gloo mesh
 (``parallel.mesh``, ``parallel.multihost``, ``parallel.launch``) and the
 SPADE, SPAM, TSR and cSPADE mines once more in two class partitions
-(``parallel.partition``)."""
+(``parallel.partition``), and the service boots on the CPU
+(``service.app``) and answers a TSR train, get and predict round trip."""
 
 import ast
 import os
@@ -97,13 +98,37 @@ assert patterns_text(mine_spam_torch(db, 2, device="cpu", partition_parts=2)) ==
 assert rules_text(mine_tsr_torch(db, 3, 0.5, device="cpu", partition_parts=2)) == rules_text(mine_tsr_cpu(db, 3, 0.5))
 assert patterns_text(mine_cspade_torch(db, 2, maxgap=1, maxwindow=2, device="cpu", partition_parts=2)) == patterns_text(mine_cspade(db, 2, maxgap=1, maxwindow=2))
 assert partition.tallies()["mines"] == {"tsr": 1, "spade": 1, "spam": 1, "cspade": 1}
+import json, time, urllib.parse, urllib.request
+from spark_fsm_tpu_torch.service.app import serve_background
+srv = serve_background(device="cpu")
+def post(endpoint, **params):
+    url = f"http://127.0.0.1:{srv.server_port}{endpoint}"
+    with urllib.request.urlopen(url, data=urllib.parse.urlencode(params).encode(), timeout=60) as r:
+        return json.loads(r.read().decode())
+from spark_fsm_tpu_torch.data.spmf import format_spmf
+assert post("/train", uid="iso", algorithm="TSR_TPU", k="3", minconf="0.5", source="INLINE", sequences=format_spmf(db))["status"] == "started"
+for _ in range(600):
+    if post("/status/iso")["status"] in ("finished", "failure"):
+        break
+    time.sleep(0.05)
+assert post("/status/iso")["status"] == "finished"
+assert model.deserialize_rules(post("/get/rules", uid="iso")["data"]["rules"]) == mine_tsr_cpu(db, 3, 0.5)
+got = json.loads(post("/predict", uid="iso", items="3,1", m="3")["data"]["predictions"])
+assert got == predict_host(mine_tsr_cpu(db, 3, 0.5), [1, 3], 3), got
+assert post("/admin/stats")["backend"] == "cpu"
+srv.master.shutdown(); srv.shutdown()
 for name in ("ops.extend_prune", "ops.spam_bitops", "models.spam_bitmap", "service.planner",
              "data.fasttok", "models.spade_queue", "models.spade_fused",
              "ops.resident_frontier", "ops.maxstart_torch", "ops.maxstart_np",
              "models.spade_constrained", "streaming.window",
              "streaming.incremental", "ops.rule_trie", "service.model",
              "service.predictor", "parallel.mesh", "parallel.multihost",
-             "parallel.launch", "parallel.partition"):
+             "parallel.launch", "parallel.partition", "config",
+             "service.app", "service.actors", "service.plugins",
+             "service.devcache", "service.store", "service.sources",
+             "service.remote", "service.fusion", "service.meshguard",
+             "service.resultcache", "service.lease", "streaming.consumer",
+             "streaming.kafka", "utils.obs", "utils.jobctl", "utils.shapes"):
     assert "spark_fsm_tpu_torch." + name in names, name
 try:
     import jax  # noqa: F401
