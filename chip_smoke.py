@@ -125,8 +125,9 @@ Phases, one printed line each (any failure raises and exits non-zero):
      card.  Every rank mines, through the entry points with ``mesh=``:
      phase 5's BMS-WebView-2-shaped SPADE through ``auto`` (the queue
      engine) and ``fused="never"``, phase 13's MSNBC-shaped SPAM (B1 on
-     the shard, the all-reduce, the threshold; B3 never), phase 9's
-     Kosarak-shaped TSR (B2; the host loop, never the resident route),
+     the shard, the all-reduce, the threshold; B3 never), a tenth of
+     phase 9's Kosarak-shaped TSR (B2; the host loop, never the resident
+     route; held against a one-device mine of that tenth),
      phase 16's full-size Gazelle-shaped cSPADE and the first five pushes
      of phase 17's stream through ``IncrementalWindowMiner(mesh=)``; each
      answer must equal the earlier phase's text (SHA-256 of the canonical
@@ -178,7 +179,45 @@ Phases, one printed line each (any failure raises and exits non-zero):
      ``backend: "cuda"``.  ``[service]`` lines print each job's
      submit-to-finished wall beside the library walls of the same call,
      the cache hit's wall, ``/predict`` latency and the peak device
-     memory, with the card's name and power limit.
+     memory, with the card's name and power limit;
+ 24. the warm and fused service on the card.  (a) Two fresh child
+     processes (``python -m spark_fsm_tpu_torch.service.app --device
+     cuda``, so the CUDA context, the kernel libraries' loads and the
+     caching allocator start cold; both share the checkout's build
+     directory, as two restarts of one service would): one boots
+     without prewarm, the other with ``[prewarm] enabled`` at phase 5's
+     BMS-WebView-2-shaped SPADE envelope (the boot prewarm, before it
+     listens), then takes ``/admin/prewarm`` at phase 15's 1 %
+     Kosarak-shaped TSR envelope.  Each takes ``SPADE_TPU`` at 0.1 % on
+     the BMS database and ``TSR_TPU`` k=100, minconf 0.5 (no side cap:
+     the resident route) on the 1 % database as ``/train`` requests
+     (INLINE), each body equal to the library result by SHA-256.  Printed:
+     each child's boot wall, the prewarm report (keys, walls, builds and
+     first loads), each first job's wall, and ``/admin/shapes``: its
+     ``drift`` after the BMS job and, after the TSR job, the recorded keys
+     outside both prewarms' enumerations, each ``[]``; a report row with
+     an ``error`` fails the phase.  (b) In this process, a service with
+     ``[fusion] enabled`` and two miner workers takes two ``TSR_TPU``
+     jobs at once, their first waves held in the broker's window until
+     both jobs have one pending: on phase 9's Kosarak-shaped database
+     (k=100, minconf 0.5, ``max_side=2``), both bodies equal to phase 9's
+     library result by SHA-256, with the broker's decisions printed (at
+     this size every wave fills one 8,192-lane launch, so the cost model
+     rejects each group: fusing saves no dispatch and pays the prep
+     concat); then on phase 13's MSNBC-shaped database (990,000
+     sequences, 17 items; k=100, minconf 0.5, ``max_side=2``), where a
+     wave's candidates leave its launches part-filled: both bodies equal
+     the library result by SHA-256,
+     ``fsm_fusion_launches_total{cross_job="true"}`` must rise and a fused
+     store the broker built gives B2 equal to its plain version.  A
+     full-size fused store laid out as the broker lays one out (two
+     engines' first-round stores of phase 9's vertical DB) gives B2 equal
+     to plain, timed against one job's store with the same candidates
+     (the walk path against the staged).  (c) An injected ``device.oom``
+     on the first broker launch of the MSNBC-shaped pair (a cross-job
+     launch halved by the engine's own ladder) and on the first kernel
+     launch of a Kosarak TSR mine on phase 9's vertical DB:
+     ``degraded_launches`` >= 1 in each job and the rules byte-identical.
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 and prints no result.
@@ -190,6 +229,7 @@ import hashlib
 import json
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -267,6 +307,9 @@ MW_STREAM = dict(seed=8, batches=5, per_batch=40, minsup=70)
 # phase 21: the mesh worlds, both on the one card: (backend, ranks)
 MESH_WORLDS = (("nccl", 1), ("gloo", 2))
 MESH_STREAM_PUSHES = 5
+# phase 21's Kosarak-shaped TSR: a tenth of phase 9's database (the
+# reduce's cost shows at that size; phases 9 and 22 mine the full one)
+MESH_KOSARAK_SCALE = 0.1
 # phases 21 and 22: the class partitions of the partitioned mines
 PARTITION_PARTS = 2
 
@@ -407,7 +450,8 @@ def mesh_rank(mesh, plan: dict) -> dict:
         run(f"stream push {push}",
             lambda batch=batch: (patterns_text(inc.push(batch)), inc.stats))
     del inc, db
-    db = gen("kosarak", lambda: kosarak_like(scale=1.0, fast=True))
+    db = gen("kosarak", lambda: kosarak_like(scale=MESH_KOSARAK_SCALE,
+                                             fast=True))
 
     def tsr(**kw):
         st: dict = {}
@@ -436,9 +480,20 @@ def mesh_phase(torch, want: dict, single_walls: dict, card: str,
     against the earlier phases' digests ``want``; the ranks get phase 5's
     database ``bms_db`` and make the others.  Returns the mesh path's B1
     and B2 launches (rank 0 of each world)."""
+    from spark_fsm_tpu_torch.data.synth import kosarak_like
+    from spark_fsm_tpu_torch.models.tsr import mine_tsr_torch
     from spark_fsm_tpu_torch.parallel.launch import spawn_world
+    from spark_fsm_tpu_torch.utils.canonical import rules_text
 
     t_phase = time.perf_counter()
+    db = kosarak_like(scale=MESH_KOSARAK_SCALE, fast=True)
+    t0 = time.perf_counter()
+    text = rules_text(mine_tsr_torch(db, 100, 0.5, max_side=2))
+    torch.cuda.synchronize()
+    want = dict(want, tsr=digest(text))
+    single_walls = dict(single_walls,
+                        tsr=(round(time.perf_counter() - t0, 3),))
+    del db, text
     total = torch.cuda.get_device_properties(0).total_memory
     torch.cuda.empty_cache()
     launched = {}
@@ -1030,9 +1085,10 @@ class SnapshotStore:
         return snap
 
 
-def tokenizer_times(name: str, db, minsup: int) -> None:
+def tokenizer_times(name: str, db, minsup: int):
     """``build_vertical``'s wall with the native tokenizer and with the
-    numpy flatten, on the same database; both builds must agree."""
+    numpy flatten, on the same database; both builds must agree.  Returns
+    the first build."""
     from spark_fsm_tpu_torch.data import fasttok
     from spark_fsm_tpu_torch.data import vertical as V
 
@@ -1055,6 +1111,7 @@ def tokenizer_times(name: str, db, minsup: int) -> None:
           f"tokenizer {first_s:.3f} s, with the numpy flatten {numpy_s:.3f} s "
           f"({len(db)} sequences, min_item_support {minsup}); equal builds",
           flush=True)
+    return a
 
 
 def time_ms(fn, warmup: int, reps: int) -> float:
@@ -1262,6 +1319,7 @@ def service_phase(torch, card: str, jobs: list, predict_sets: dict) -> None:
     torch.cuda.reset_peak_memory_stats()
     srv = serve_background()   # no device given: the service takes cuda
     port = srv.server_port
+    job_launches = {}
     try:
         payloads = {}
         for i, (name, db, params, get, want, lib_walls, kernel) in \
@@ -1282,6 +1340,7 @@ def service_phase(torch, card: str, jobs: list, predict_sets: dict) -> None:
             check(st["status"] == "finished",
                   f"service job {name} failed: {st['data'].get('error')}")
             launches = {k: fn.launches for k, fn in counters.items()}
+            job_launches.setdefault(name, launches)
             stats = json.loads(st["data"]["stats"])
             body = _http(port, f"/get/{get}", uid=uid)["data"][get]
             if want is None:   # the repeat: the cache answers it
@@ -1342,6 +1401,366 @@ def service_phase(torch, card: str, jobs: list, predict_sets: dict) -> None:
         srv.shutdown()
         srv.server_close()
         sources.SOURCES.pop("SMOKE", None)
+    return job_launches
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _service_child(name: str, cfg: dict):
+    """Boot ``spark_fsm_tpu_torch.service.app`` in a fresh process on the
+    card with the boot config ``cfg``; returns (process, port, wall from
+    start to the first answered ping, log path).  The prewarm, when the
+    config enables it, runs before the server listens, so it is inside
+    that wall."""
+    import urllib.error
+
+    port = _free_port()
+    run_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "smoke")
+    os.makedirs(run_dir, exist_ok=True)
+    cfg_path = os.path.join(run_dir, f"{name}.json")
+    log_path = os.path.join(run_dir, f"{name}.log")
+    with open(cfg_path, "w") as fh:
+        json.dump(cfg, fh)
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "spark_fsm_tpu_torch.service.app",
+             "--config", cfg_path, "--device", "cuda", "--port", str(port)],
+            stdout=log, stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    while True:
+        try:
+            _http(port, "/admin/ping")
+            return proc, port, time.perf_counter() - t0, log_path
+        except (urllib.error.URLError, ConnectionError, OSError):
+            if proc.poll() is not None or time.perf_counter() - t0 > 600:
+                proc.kill()
+                with open(log_path) as fh:
+                    raise RuntimeError(f"service child {name} never answered:"
+                                       f"\n{fh.read()[-3000:]}")
+            time.sleep(0.05)
+
+
+def _train_wait(port: int, uid: str, **params) -> tuple:
+    """Submit a /train, wait for it; returns (status body, wall s)."""
+    t0 = time.perf_counter()
+    r = _http(port, "/train", uid=uid, **params)
+    check(r["status"] == "started", f"/train {uid}: {r}")
+    while True:
+        st = _http(port, f"/status/{uid}")
+        if st["status"] in ("finished", "failure"):
+            break
+        time.sleep(0.005)
+    wall = time.perf_counter() - t0
+    check(st["status"] == "finished",
+          f"{uid} failed: {st['data'].get('error')}")
+    return st, wall
+
+
+def warm_phase(torch, card: str, bms: tuple, small: tuple) -> None:
+    """Phase 24 (a): a cold and a prewarmed service, each in a fresh
+    process.  ``bms``/``small``: (database, /train params, the body's
+    library serialization, its get kind, the prewarm envelope)."""
+    from spark_fsm_tpu_torch.data.spmf import format_spmf
+
+    inline = {name: format_spmf(job[0]) for name, job in
+              (("bms", bms), ("small", small))}
+    t_phase = time.perf_counter()
+    for name, prewarmed in (("cold", False), ("prewarmed", True)):
+        cfg = {"prewarm": dict(bms[4], enabled=True)} if prewarmed else {}
+        proc, port, boot_s, log_path = _service_child(f"warm-{name}", cfg)
+        try:
+            line = [f"[warm] {name} child: boot (process start to the "
+                    f"first answered ping) {boot_s:.3f} s"]
+            enums = []
+
+            def report(what: str, rep: dict) -> None:
+                bad = [r for r in rep["keys"] if "error" in r]
+                check(not bad, f"prewarm ({what}) rows with error: {bad}")
+                kinds: dict = {}
+                for r in rep["keys"]:
+                    n, w = kinds.get(r["kind"], (0, 0.0))
+                    kinds[r["kind"]] = (n + 1, round(w + r["wall_s"], 3))
+                line.append(
+                    f"prewarm ({what}) {len(rep['keys'])} keys in "
+                    f"{rep['total_wall_s']} s, builds+first loads "
+                    f"{sum(r['fresh_compiles'] for r in rep['keys'])} "
+                    f"({round(sum(r['compile_s'] for r in rep['keys']), 3)}"
+                    f" s), by kind (keys, wall s) {kinds}")
+                enums.append(rep.get("enumerated") or _http(
+                    port, "/admin/shapes")["enumerated"])
+                tag = "boot" if what == "boot" else "admin"
+                with open(os.path.join(os.path.dirname(os.path.abspath(
+                        __file__)), "build", "smoke", f"prewarm_{tag}.json"),
+                          "w") as fh:
+                    json.dump(rep, fh, indent=1)
+
+            if prewarmed:
+                boot = _http(port, "/admin/stats")["prewarm"]
+                check(boot is not None, "the boot prewarm left no report")
+                report("boot", boot)
+            for job_name, (db, params, want, get, _env) in (("bms", bms),
+                                                          ("small", small)):
+                if prewarmed and job_name == "small":
+                    report("/admin/prewarm", _http(
+                        port, "/admin/prewarm",
+                        **{k: str(int(v)) for k, v in small[4].items()}))
+                st, wall = _train_wait(port, f"{name}-{job_name}",
+                                       source="INLINE",
+                                       sequences=inline[job_name], **params)
+                body = _http(port, f"/get/{get}",
+                             uid=f"{name}-{job_name}")["data"][get]
+                check(digest(body) == digest(want),
+                      f"{name} child's {job_name} body differs from the "
+                      f"library result by SHA-256")
+                stats = json.loads(st["data"]["stats"])
+                line.append(f"first {job_name} job {wall:.3f} s (mine_s "
+                            f"{stats.get('mine_s')}, route fused="
+                            f"{stats.get('fused')!r} resident="
+                            f"{stats.get('resident')!r})")
+                if prewarmed:
+                    shp = _http(port, "/admin/shapes")
+                    if job_name == "bms":
+                        drift = shp["drift"]
+                        check(shp["enumerated"] == enums[0],
+                              "/admin/shapes lost the boot enumeration")
+                    else:
+                        known = set(enums[0]) | set(enums[1])
+                        drift = sorted(k for k in shp["recorded"]
+                                       if k not in known)
+                    check(drift == [], f"drift after the {job_name} job: "
+                          f"{drift}")
+                    line.append(f"drift after it {drift}")
+            print("; ".join(line) + f"; card {card}", flush=True)
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    print(f"[warm] phase (a) {time.perf_counter() - t_phase:.1f} s; child "
+          f"logs and the prewarm reports (prewarm_*.json) under "
+          f"build/smoke/", flush=True)
+
+
+def _fused_pair(torch, port: int, broker, uids: tuple, params: dict,
+                want: str) -> tuple:
+    """Two TSR /train jobs on the SMOKE source at once, their first waves
+    held in the broker's window until both jobs have a wave pending;
+    returns (release-to-both-finished wall, broker stats delta, cross-job
+    launches of the registry, B2 launches)."""
+    from spark_fsm_tpu_torch.ops import rule_support as RS
+    from spark_fsm_tpu_torch.service import fusion as FZ
+
+    def cross() -> float:
+        return sum(v for _, key, v in FZ._LAUNCHES_TOTAL.samples()
+                   if dict(key).get("cross_job") == "true")
+
+    def pending_jobs() -> set:
+        with broker._cond:
+            return {w.uid for g in broker._groups.values() for w in g.waves}
+
+    broker.hold()
+    stats0, cross0 = dict(broker.stats), cross()
+    for uid in uids:
+        r = _http(port, "/train", uid=uid, source="SMOKE", algorithm="TSR_TPU",
+                  **params)
+        check(r["status"] == "started", f"/train {uid}: {r}")
+    t_wait = time.perf_counter()
+    while not set(uids) <= pending_jobs():
+        check(time.perf_counter() - t_wait < 300,
+              f"the jobs {uids} never had waves in one window")
+        time.sleep(0.01)
+    RS.rule_supports.launches = 0
+    t0 = time.perf_counter()
+    broker.release()
+    for uid in uids:
+        while _http(port, f"/status/{uid}")["status"] not in (
+                "finished", "failure"):
+            time.sleep(0.01)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b2 = RS.rule_supports.launches
+    for uid in uids:
+        st = _http(port, f"/status/{uid}")
+        check(st["status"] == "finished",
+              f"{uid} failed: {st['data'].get('error')}")
+        body = _http(port, "/get/rules", uid=uid)["data"]["rules"]
+        check(digest(body) == digest(want),
+              f"/get/rules of {uid} differs from the library result by "
+              f"SHA-256")
+    delta = {k: v - stats0.get(k, 0) for k, v in broker.stats.items()
+             if v != stats0.get(k, 0)}
+    return wall, delta, int(cross() - cross0), b2
+
+
+def _b2_on(torch, p1, s1, rows: int, C: int, km: int, seed: int):
+    """B2 against its plain version on a store, candidates over its first
+    ``rows`` rows with unused (-1) slots; returns (max abs err, the
+    candidates)."""
+    from spark_fsm_tpu_torch.ops import rule_support as RS
+
+    rng = np.random.default_rng(seed)
+    xy = rng.integers(0, rows, size=(C, 2, km)).astype(np.int32)
+    xy[rng.random(xy.shape) < 0.25] = -1
+    xy[:, :, 0] = rng.integers(0, rows, size=(C, 2))
+    xy_t = torch.from_numpy(xy).to(p1.device)
+    got = RS.rule_supports(p1, s1, xy_t)
+    want = RS.rule_supports_plain(p1, s1, xy_t)
+    torch.cuda.synchronize()
+    return int((got.long() - want.long()).abs().max()), xy_t
+
+
+def fusion_phase(torch, card: str, kos_db, kos_vdb, kos_payload: str,
+                 kos_digest: str, ms_db, ms_payload: str,
+                 solo_launches: dict, headline: tuple) -> None:
+    """Phase 24 (b) and (c).  ``kos_*``: phase 9's Kosarak-shaped database,
+    vertical DB, library result's serialization and the SHA-256 of its
+    rule text; ``ms_*``: phase 13's MSNBC-shaped database and its TSR
+    library result (k=100, minconf 0.5, ``max_side=2``); ``headline``:
+    (C, km) of phase 8's headline launch."""
+    from spark_fsm_tpu_torch import config as TC
+    from spark_fsm_tpu_torch.models.tsr import TsrTorch
+    from spark_fsm_tpu_torch.ops import rule_support as RS
+    from spark_fsm_tpu_torch.service import fusion as FZ
+    from spark_fsm_tpu_torch.service import sources
+    from spark_fsm_tpu_torch.service.app import make_server
+    from spark_fsm_tpu_torch.utils import faults
+    from spark_fsm_tpu_torch.utils.canonical import rules_text
+
+    saved = TC.get_config()
+    fuse = FZ._fuse_preps
+    kept: list = []
+
+    def keep_last(uniq, m_pad, total_m):
+        out = fuse(uniq, m_pad, total_m)
+        kept[:] = [out, total_m]
+        return out
+
+    t_phase = time.perf_counter()
+    dbs = {"kosarak": kos_db, "msnbc": ms_db}
+    TC.set_config(TC.parse_config({"fusion": {"enabled": True,
+                                              "window_ms": 20.0}}))
+    FZ._fuse_preps = keep_last
+    sources.register("SMOKE", lambda req, store: dbs[req.param("db")])
+    srv = make_server(0, miner_workers=2)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    C, km = headline
+    try:
+        b = FZ.broker()
+        tsr = dict(k="100", minconf="0.5", max_side="2")
+        # (b) the full-size pair: the cost model decides every group
+        wall, delta, cross, b2 = _fused_pair(
+            torch, srv.server_port, b, ("fuse-a", "fuse-b"),
+            dict(tsr, db="kosarak"), kos_payload)
+        print(f"[fusion] two kosarak_like TSR jobs at once (k=100, minconf "
+              f"0.5, max_side=2), both bodies equal phase 9's library result "
+              f"by SHA-256; release-to-both-finished {wall:.3f} s; broker "
+              f"{delta}; cross-job launches {cross}; B2 launches {b2} "
+              f"against the solo job's {solo_launches.get('b2')} in phase "
+              f"23; card {card}", flush=True)
+        # the MSNBC-shaped pair: 17 items, so a wave's candidates leave
+        # its launches part-filled and the cost model fuses
+        kept.clear()
+        wall, delta, cross, b2 = _fused_pair(
+            torch, srv.server_port, b, ("fuse-c", "fuse-d"),
+            dict(tsr, db="msnbc"), ms_payload)
+        check(cross > 0, "no cross-job launch in the MSNBC-shaped pair: "
+              "fsm_fusion_launches_total{cross_job=\"true\"} did not rise")
+        check(bool(kept), "the broker built no fused store")
+        (pf, sf), total_m = kept
+        err, _ = _b2_on(torch, pf, sf, total_m, C, km, 24)
+        check(err == 0, f"B2 on the broker's fused store != plain (max abs "
+              f"err {err})")
+        print(f"[fusion] two msnbc_like TSR jobs at once (k=100, minconf "
+              f"0.5, max_side=2), both bodies equal the library result by "
+              f"SHA-256; release-to-both-finished {wall:.3f} s; broker "
+              f"{delta}; cross-job launches {cross}; B2 launches {b2}; a "
+              f"fused store the broker built (M={pf.shape[0] - 1}, "
+              f"{total_m} real rows): B2 equal to plain at C={C} km={km} "
+              f"(max abs err {err}); card {card}", flush=True)
+        del pf, sf
+        kept.clear()
+        # (c) the OOM drill on a fused launch: the broker's first launch
+        # runs out of memory and halves through the engine's ladder
+        with faults.injected("device.oom", nth=1):
+            wall, delta, cross, b2 = _fused_pair(
+                torch, srv.server_port, b, ("fuse-e", "fuse-f"),
+                dict(tsr, db="msnbc"), ms_payload)
+        halved = [json.loads(srv.master.store.get(f"fsm:stats:{u}") or "{}")
+                  .get("degraded_launches", 0) for u in ("fuse-e", "fuse-f")]
+        check(cross > 0 and min(halved) >= 1,
+              f"the OOM on the first fused launch halved no cross-job "
+              f"launch: cross-job launches {cross}, degraded_launches "
+              f"{halved}")
+        print(f"[fusion] OOM drill on a fused launch: device.oom injected on "
+              f"the broker's first launch of the msnbc_like pair; "
+              f"degraded_launches {halved}, cross-job launches {cross}, both "
+              f"bodies equal the library result by SHA-256; "
+              f"release-to-both-finished {wall:.3f} s; broker {delta}; B2 "
+              f"launches {b2}; card {card}", flush=True)
+    finally:
+        FZ._fuse_preps = fuse
+        srv.master.shutdown()
+        srv.shutdown()
+        srv.server_close()
+        sources.SOURCES.pop("SMOKE", None)
+        TC.set_config(saved)
+    torch.cuda.empty_cache()
+
+    # a full-size fused store laid out as the broker lays one out (two
+    # engines' first-round stores), B2 on it against the solo store
+    engines = [TsrTorch(kos_vdb, 100, 0.5, max_side=2) for _ in range(2)]
+    m = min(engines[0].item_cap, kos_vdb.n_items)
+    preps = [e._prep(m) for e in engines]
+    pf, sf = fuse(preps, 1 << (2 * m - 1).bit_length(), 2 * m)
+    err, xy_t = _b2_on(torch, pf, sf, 2 * m, C, km, 25)
+    check(err == 0, f"B2 on the full-size fused store != plain (max abs "
+          f"err {err})")
+    p1, s1 = preps[0]
+    xy_solo = torch.where(xy_t >= 0, xy_t % m, -1).to(torch.int32)
+    fused_ms = time_ms(lambda: RS.rule_supports(pf, sf, xy_t), 2, 10)
+    solo_ms = time_ms(lambda: RS.rule_supports(p1, s1, xy_solo), 2, 10)
+    M = pf.shape[0] - 1
+    S = kos_vdb.n_sequences
+    fbound, fby = rule_bound_ms(xy_t, S, 1)
+    sbound, sby = rule_bound_ms(xy_solo, S, 1)
+    print(f"[fusion] full-size fused store (two first-round stores, M={M}, "
+          f"{2 * m} real rows): B2 equal to plain at C={C} km={km} (max abs "
+          f"err {err}), {fused_ms:.4f} ms on the "
+          f"{'staged' if M <= RS.staged_max_rows(km) else 'walk'} path "
+          f"(bound {fbound:.4f} ms, {fby}) against {solo_ms:.4f} ms on one "
+          f"job's store (M={m}, "
+          f"{'staged' if m <= RS.staged_max_rows(km) else 'walk'} path; "
+          f"bound {sbound:.4f} ms, {sby}), the same candidates folded onto "
+          f"its rows; card {card}", flush=True)
+    del engines, preps, pf, sf, p1, s1, xy_t, xy_solo
+    torch.cuda.empty_cache()
+
+    # (c) the OOM drill on the kernel path
+    eng = TsrTorch(kos_vdb, 100, 0.5, max_side=2)
+    t0 = time.perf_counter()
+    with faults.injected("device.oom", nth=1):
+        got_r = eng.mine()
+    torch.cuda.synchronize()
+    drill_s = time.perf_counter() - t0
+    check(digest(rules_text(got_r)) == kos_digest,
+          "the OOM drill's rules differ from phase 9's")
+    check(eng.stats.get("degraded_launches", 0) >= 1,
+          f"the injected OOM halved no launch: {eng.stats}")
+    print(f"[fusion] OOM drill: device.oom injected on the first kernel "
+          f"launch of the kosarak_like TSR mine; degraded_launches "
+          f"{eng.stats['degraded_launches']}, rules byte-identical to phase "
+          f"9's; {drill_s:.3f} s, B2 launches "
+          f"{eng.stats['kernel_launches'] - eng.stats['deepening_rounds']}; "
+          f"phase (b)+(c) {time.perf_counter() - t_phase:.1f} s; card {card}",
+          flush=True)
 
 
 def main() -> int:
@@ -1744,7 +2163,7 @@ def run(torch, oracles) -> int:
     t0 = time.perf_counter()
     db = kosarak_like(scale=1.0, fast=True)
     gen_s = time.perf_counter() - t0
-    tokenizer_times("kosarak_like", db, 1)
+    vdb = tokenizer_times("kosarak_like", db, 1)   # the recount's
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     RS.rule_supports.launches = 0
@@ -1772,7 +2191,6 @@ def run(torch, oracles) -> int:
     check(rules_text(rules_plain) == text,
           "TSR mine through the kernel differs from the plain evaluator's")
     t0 = time.perf_counter()
-    vdb = build_vertical(db, min_item_support=1)
     recount = recount_rules(vdb, rules)
     recount_s = time.perf_counter() - t0
     bad = [(r, c) for r, c in zip(rules, recount) if r != c]
@@ -2153,6 +2571,7 @@ def run(torch, oracles) -> int:
           f"s, medians {statistics.median(small_walls['auto']):.4f} / "
           f"{statistics.median(small_walls['never']):.4f} s", flush=True)
     tsr_small_db, tsr_small_text = db, text   # phases 19 and 22 mine it
+    tsr_small_payload = SM.serialize_rules(got_t)   # phase 24 serves it
     mesh_want["tsr 1%"] = digest(text)
     del db, got_t, want_t
 
@@ -2415,8 +2834,9 @@ def run(torch, oracles) -> int:
     # 23. the service over HTTP on the full-size databases above
     (bms_db, bms_minsup), (ms_db, ms_minsup), (gz_db, gz_minsup) = (
         part_inputs[k] for k in ("bms", "msnbc", "gazelle"))
-    service_phase(torch, card, [
-        ("kosarak", service_dbs.pop("kosarak"),
+    kos_db = service_dbs.pop("kosarak")   # phase 24 fuses it
+    solo = service_phase(torch, card, [
+        ("kosarak", kos_db,
          dict(algorithm="TSR_TPU", k="100", minconf="0.5", max_side="2"),
          "rules", predict_sets["tsr"][2], single_walls["tsr"], "b2"),
         ("msnbc", ms_db, dict(algorithm="SPAM_TPU", support=str(ms_minsup)),
@@ -2433,7 +2853,28 @@ def run(torch, oracles) -> int:
         for name, (what, kind, payload, prefixes) in (
             ("kosarak", predict_sets["tsr"]),
             ("bms", predict_sets["spade"]))})
-    del part_inputs, bms_db, ms_db, gz_db
+    del gz_db
+
+    # 24. the warm and fused service
+    bms_vdb = build_vertical(bms_db, min_item_support=bms_minsup)
+    small_db = part_inputs["tsr_small_db"]
+    small_vdb = build_vertical(small_db, min_item_support=1)
+    warm_phase(torch, card, (
+        bms_db, dict(algorithm="SPADE_TPU", support=str(bms_minsup)),
+        predict_sets["spade"][2], "patterns",
+        dict(sequences=len(bms_db), items=bms_vdb.n_items,
+             words=bms_vdb.n_words)), (
+        small_db, dict(algorithm="TSR_TPU", k="100", minconf="0.5"),
+        tsr_small_payload, "rules",
+        dict(sequences=len(small_db), items=small_vdb.n_items,
+             words=small_vdb.n_words, tsr=True)))
+    del bms_vdb, small_vdb
+    ms_rules = SM.serialize_rules(mine_tsr_torch(ms_db, 100, 0.5,
+                                                 max_side=2))
+    fusion_phase(torch, card, kos_db, part_inputs["kos_vdb"],
+                 predict_sets["tsr"][2], mesh_want["tsr"], ms_db, ms_rules,
+                 solo["kosarak"], RULE_HEADLINE[:2])
+    del part_inputs, bms_db, kos_db, small_db, ms_db
 
     print(json.dumps({"kernels": [pair_record, rule_record, {
         "name": "extend_prune", "route": "cuda",

@@ -214,8 +214,8 @@ Port: a copy of ``spark_fsm_tpu/config.py`` with its imports pointed at
 ``spark_fsm_tpu_torch``.  Every section, default and validation rule is
 the reference's; :func:`refuse_unported` refuses the knobs whose planes
 the port does not serve yet (``[engine] mesh_devices > 0``,
-``[distributed]``, ``[prewarm]``, ``[fusion]`` and ``[meshguard]``
-enabled), and :func:`get_mesh` is always None.
+``[distributed]`` and ``[meshguard]`` enabled), and :func:`get_mesh` is
+always None.
 """
 
 from __future__ import annotations
@@ -983,20 +983,19 @@ def parse_config(obj: Dict[str, Any]) -> Config:
 
 def refuse_unported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for a knob whose plane the port does
-    not serve yet (ROADMAP Queue A item A13b): a device mesh or a
-    multi-process boot (the port's mesh is one process per rank, so a
-    service mesh needs a launcher), the boot prewarm, cross-job launch
-    fusion and the degraded-topology guard."""
+    not serve yet (ROADMAP Queue A item A13b, steps 5–7): a device mesh or
+    a multi-process boot (the port's mesh is one process per rank, so a
+    service mesh needs a launcher) and the degraded-topology guard."""
     refused = []
     if cfg.engine.mesh_devices > 0:
         refused.append("[engine] mesh_devices > 0")
-    for name in ("distributed", "prewarm", "fusion", "meshguard"):
+    for name in ("distributed", "meshguard"):
         if getattr(cfg, name).enabled:
             refused.append(f"[{name}] enabled = true")
     if refused:
         raise NotImplementedError(
             f"{', '.join(refused)}: not served by spark_fsm_tpu_torch "
-            "yet (ROADMAP A13b)")
+            "yet (ROADMAP A13b steps 5–7)")
 
 
 def load_config(path: str) -> Config:

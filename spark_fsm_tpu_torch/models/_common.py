@@ -269,6 +269,16 @@ def device_axes(n_sequences: int, shape_buckets: bool = False,
     return -(-n // PS.SEQ_TILE) * PS.SEQ_TILE
 
 
+def key_seq(n_sequences: int, shape_buckets: bool = False,
+            mesh=None) -> int:
+    """The sequence axis a shape key spells (``utils/shapes.py``): the
+    reference's XLA-path axis, i.e. :func:`device_axes` before the pad to
+    B1's sequence tile, so the port's keys equal the reference's for the
+    same input and options."""
+    n = bucket_seq(n_sequences) if shape_buckets else int(n_sequences)
+    return pad_to_multiple(n, mesh_size(mesh)) if mesh is not None else n
+
+
 def bucket_store_rows(total: int, n_fixed: int, budget_slots: int,
                       node_batch: int, depth: int) -> Tuple[int, int, int]:
     """The reference's ``shape_buckets`` store rounding

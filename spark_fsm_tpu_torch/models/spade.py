@@ -61,9 +61,9 @@ from spark_fsm_tpu_torch.device import DeviceLike
 from spark_fsm_tpu_torch.models._common import (
     FrontierNode, SlotPool, auto_pool_bytes, bucket_store_rows,
     checkpoint_due, decode_frontier, device_axes, encode_frontier,
-    engine_device, ensure_slots, frontier_fingerprint, launch_width_cap,
-    load_checkpoint, materialize_rows, prep_rows, scatter_build_store,
-    shard_width, to_host, to_index)
+    engine_device, ensure_slots, frontier_fingerprint, key_seq,
+    launch_width_cap, load_checkpoint, materialize_rows, prep_rows,
+    scatter_build_store, shard_width, to_host, to_index)
 from spark_fsm_tpu_torch.models.spade_fused import (
     FusedSpadeTorch, fused_eligible)
 from spark_fsm_tpu_torch.models.spade_queue import (
@@ -71,6 +71,7 @@ from spark_fsm_tpu_torch.models.spade_queue import (
 from spark_fsm_tpu_torch.ops import pair_support as PS
 from spark_fsm_tpu_torch.parallel import partition as PN
 from spark_fsm_tpu_torch.parallel.mesh import all_reduce_sum, mesh_size
+from spark_fsm_tpu_torch.utils import shapes
 from spark_fsm_tpu_torch.utils.canonical import Pattern, PatternResult, sort_patterns
 
 Step = Tuple[int, bool]  # (item index, is_s_extension)
@@ -102,11 +103,17 @@ def classic_geometry(n_sequences: int, n_items: int, n_words: int, *,
 
     With a ``mesh`` the sequence axis is the reference's for that many
     shards (``_common.device_axes``), and the launch-width cap judges one
-    shard's bytes of a row, as the reference's does."""
+    shard's bytes of a row, as the reference's does.
+
+    ``shape_key`` is the reference's ``classic:`` key: its sequence axis
+    (``_common.key_seq``) and its store rows, the scratch row counted."""
     n_seq = device_axes(n_sequences, shape_buckets, mesh)
     if pool_bytes is None:
         pool_bytes = auto_pool_bytes(device)
-    slot_bytes = n_seq * n_words * 4
+    # the budget judges the reference's sequence axis (no tile pad, at
+    # most 31 sequences a row fewer), so the pool equals its
+    ks = key_seq(n_sequences, shape_buckets, mesh)
+    slot_bytes = ks * n_words * 4
     # memory-safety ceiling on launch widths; overrides an explicit chunk
     max_chunk = launch_width_cap(pool_bytes,
                                  -(-slot_bytes // mesh_size(mesh)), 8)
@@ -126,6 +133,8 @@ def classic_geometry(n_sequences: int, n_items: int, n_words: int, *,
         "n_seq": n_seq, "chunk": chunk, "recompute_chunk": recompute_chunk,
         "pipeline_depth": pipeline_depth, "node_batch": nb,
         "pool_slots": pool_slots, "total_rows": total,
+        "shape_key": shapes.key_classic(ks, n_words,
+                                        n_items + pool_slots + 1, nb, chunk),
     }
 
 
@@ -191,7 +200,9 @@ class SpadeTorch:
         self.stats = {
             "candidates": 0, "kernel_launches": 0, "recomputed_nodes": 0,
             "reclaimed_slots": 0, "patterns": 0,
+            "shape_key": g["shape_key"],
         }
+        shapes.record(g["shape_key"])
 
     # ------------------------------------------------------------ helpers
 

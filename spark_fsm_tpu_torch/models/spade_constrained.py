@@ -59,6 +59,7 @@ from spark_fsm_tpu_torch.ops import maxstart_torch as MS
 from spark_fsm_tpu_torch.parallel import partition as PN
 from spark_fsm_tpu_torch.parallel.mesh import (
     all_reduce_sum, mesh_size, pad_to_multiple)
+from spark_fsm_tpu_torch.utils import shapes
 from spark_fsm_tpu_torch.utils.canonical import (
     Pattern, PatternResult, sort_patterns)
 
@@ -68,6 +69,8 @@ _Node = FrontierNode
 
 
 def cspade_geometry(n_sequences: int, n_items: int, n_words: int, *,
+                    maxgap: Optional[int] = None,
+                    maxwindow: Optional[int] = None,
                     device: DeviceLike = None, mesh=None, chunk: int = 256,
                     node_batch: int = 32, pipeline_depth: int = 4,
                     recompute_chunk: int = 32,
@@ -82,7 +85,9 @@ def cspade_geometry(n_sequences: int, n_items: int, n_words: int, *,
     sequence axis (``_common.bucket_seq``) and rounds the item rows up to
     a power of two of at least 16; the extra rows stay all-zero.  A
     ``mesh`` pads the sequence axis to a multiple of its rank count and
-    caps the launch width on one shard's bytes, as the reference does."""
+    caps the launch width on one shard's bytes, as the reference does.
+    ``shape_key`` is the reference's ``cspade:`` key, which carries the
+    constraint pair and the state dtype's bits."""
     n_seq = int(n_sequences)
     item_rows = n_items
     if shape_buckets:
@@ -113,6 +118,9 @@ def cspade_geometry(n_sequences: int, n_items: int, n_words: int, *,
         "recompute_chunk": recompute_chunk,
         "pipeline_depth": pipeline_depth, "node_batch": nb,
         "pool_slots": pool_slots,
+        "shape_key": shapes.key_cspade(n_seq, n_words, item_rows,
+                                       pool_slots, nb, chunk, maxgap,
+                                       maxwindow, state_bits),
     }
 
 
@@ -161,7 +169,8 @@ class ConstrainedSpadeTorch:
         self.max_pattern_itemsets = max_pattern_itemsets
         n_items, n_words = vdb.n_items, vdb.n_words
         g = cspade_geometry(
-            vdb.n_sequences, n_items, n_words, device=self.device, mesh=mesh,
+            vdb.n_sequences, n_items, n_words, maxgap=maxgap,
+            maxwindow=maxwindow, device=self.device, mesh=mesh,
             chunk=chunk, node_batch=node_batch,
             pipeline_depth=pipeline_depth, recompute_chunk=recompute_chunk,
             pool_bytes=pool_bytes, shape_buckets=shape_buckets)
@@ -189,7 +198,9 @@ class ConstrainedSpadeTorch:
         # root items per node, so its share is the cost of that constraint
         self.stats = {"candidates": 0, "s_candidates": 0, "i_candidates": 0,
                       "kernel_launches": 0, "recomputed_nodes": 0,
-                      "reclaimed_slots": 0, "patterns": 0}
+                      "reclaimed_slots": 0, "patterns": 0,
+                      "shape_key": g["shape_key"]}
+        shapes.record(g["shape_key"])
 
     # ------------------------------------------------------- device steps
 

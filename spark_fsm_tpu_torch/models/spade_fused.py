@@ -49,10 +49,11 @@ from spark_fsm_tpu_torch.data.vertical import VerticalDB
 from spark_fsm_tpu_torch.device import DeviceLike
 from spark_fsm_tpu_torch.models._common import (
     I_TILE, P_TILE, CounterReader, bucket_seq, copy_rows_drop, device_axes,
-    device_hbm_budget, engine_device, nonzero_static, pad_to_multiple,
-    prep_rows, scatter_build_store, shard_width)
+    device_hbm_budget, engine_device, key_seq, nonzero_static,
+    pad_to_multiple, prep_rows, scatter_build_store, shard_width)
 from spark_fsm_tpu_torch.ops import pair_support as PS
 from spark_fsm_tpu_torch.parallel.mesh import all_reduce_sum, mesh_size
+from spark_fsm_tpu_torch.utils import shapes
 from spark_fsm_tpu_torch.utils.canonical import PatternResult, sort_patterns
 
 
@@ -61,10 +62,15 @@ def fused_geometry(n_sequences: int, n_items: int, n_words: int, *,
                    caps: Optional["FusedCaps"] = None, mesh=None) -> dict:
     """Derived device geometry of a :class:`FusedSpadeTorch`;
     ``shape_buckets`` buckets the sequence axis (``_common.bucket_seq``),
-    and a ``mesh`` sizes it and the default caps for its shards."""
+    and a ``mesh`` sizes it and the default caps for its shards.
+    ``shape_key`` is the reference's ``fused:`` key."""
+    caps = caps or FusedCaps.for_mesh(mesh)
+    ni_pad = pad_to_multiple(max(n_items, 1), I_TILE)
     return {"n_seq": device_axes(n_sequences, shape_buckets, mesh),
-            "ni_pad": pad_to_multiple(max(n_items, 1), I_TILE),
-            "caps": caps or FusedCaps.for_mesh(mesh)}
+            "ni_pad": ni_pad, "caps": caps,
+            "shape_key": shapes.key_fused(
+                key_seq(n_sequences, shape_buckets, mesh), n_words, ni_pad,
+                caps.f_cap)}
 
 
 def fused_eligible(vdb: VerticalDB, device: DeviceLike = None,
@@ -243,7 +249,9 @@ class FusedSpadeTorch:
         self.s_local = shard_width(self.n_seq, mesh)
         self.ni_pad = g["ni_pad"]
         self.n_items = vdb.n_items
-        self.stats = {"patterns": 0, "levels": 0, "fused": True}
+        self.stats = {"patterns": 0, "levels": 0, "fused": True,
+                      "shape_key": g["shape_key"]}
+        shapes.record(g["shape_key"])
 
     def mine(self) -> Optional[List[PatternResult]]:
         vdb, cap, dev = self.vdb, self.caps, self.device

@@ -59,16 +59,17 @@ from spark_fsm_tpu_torch.device import DeviceLike
 from spark_fsm_tpu_torch.models._common import (
     I_TILE, P_TILE, CounterReader, FrontierNode, bucket_seq, checkpoint_due,
     copy_rows_drop, decode_frontier, device_axes, device_hbm_budget,
-    encode_frontier, engine_device, frontier_fingerprint, nonzero_static,
-    pad_to_multiple, prep_rows, recompute_rows, scatter_build_store,
-    shard_width)
+    encode_frontier, engine_device, frontier_fingerprint, key_seq,
+    nonzero_static, pad_to_multiple, prep_rows, recompute_rows,
+    scatter_build_store, shard_width)
 from spark_fsm_tpu_torch.models.spade_fused import (
     decode_records, expand, root_state)
 from spark_fsm_tpu_torch.ops import pair_support as PS
 from spark_fsm_tpu_torch.ops import ragged_batch as RB
 from spark_fsm_tpu_torch.parallel import partition as PN
 from spark_fsm_tpu_torch.parallel.mesh import all_reduce_sum, mesh_size
-from spark_fsm_tpu_torch.utils import jobctl
+from spark_fsm_tpu_torch.service import fusion as FZ
+from spark_fsm_tpu_torch.utils import faults, jobctl, obs, shapes, watchdog
 from spark_fsm_tpu_torch.utils.canonical import PatternResult, sort_patterns
 
 # ring slots a resume refills per join-chain fold launch
@@ -82,18 +83,24 @@ def queue_geometry(n_sequences: int, n_items: int, n_words: int, *,
     arithmetic (the budget probe reads device metadata only).
     ``shape_buckets`` buckets the sequence axis (``_common.bucket_seq``),
     which the caps are sized on; under a ``mesh`` the axis is the
-    reference's for that many shards and the caps judge one shard."""
+    reference's for that many shards and the caps judge one shard.
+    ``shape_key`` is the reference's ``queue:`` key
+    (``_common.key_seq``)."""
     n_seq = device_axes(n_sequences, shape_buckets, mesh)
+    ks = key_seq(n_sequences, shape_buckets, mesh)
     ni_pad = pad_to_multiple(max(n_items, 1), I_TILE)
     if caps is None:
+        # sized on the reference's sequence axis, as queue_eligible judges
         caps = QueueCaps.for_budget(
-            n_seq * n_words * 4, ni_pad,
+            ks * n_words * 4, ni_pad,
             int(0.45 * device_hbm_budget(engine_device(device, mesh))),
             mesh_size(mesh))
     return {"n_seq": n_seq, "ni_pad": ni_pad, "caps": caps,
             # the narrow wave width the mine switches to once the live
             # frontier drops below it
-            "nb_late": RB.late_wave_nb(caps.nb, P_TILE)}
+            "nb_late": RB.late_wave_nb(caps.nb, P_TILE),
+            "shape_key": shapes.key_queue(ks, n_words, ni_pad, caps.nb,
+                                          caps.ring)}
 
 
 class QueueCaps:
@@ -222,7 +229,9 @@ class QueueSpadeTorch:
         self.n_items = vdb.n_items
         self.caps = g["caps"]
         self.nb_late = g["nb_late"]
-        self.stats = {"patterns": 0, "waves": 0, "fused": "queue"}
+        self.stats = {"patterns": 0, "waves": 0, "fused": "queue",
+                      "shape_key": g["shape_key"]}
+        shapes.record(g["shape_key"])
         # store rows: [0, ni_pad) the item rows (children go to rows >=
         # ni_pad); [ni_pad, ni_pad + ring) the slot ring; the all-zero
         # scratch row inactive lanes read; the trash row
@@ -355,27 +364,52 @@ class QueueSpadeTorch:
         jobctl.check()
         c = self.start(roots)
         reader = CounterReader(6, self.device)
-        head, tail, n_rec = 0, len(roots), len(roots)
-        oflow = wave = n_cand = 0
         nb, nbl = cap.nb, self.nb_late
-        if nbl < nb:
-            # wide waves while the live frontier exceeds nb_late, then
-            # narrow waves drain it; the narrow phase pops nb/nb_late
-            # times fewer nodes a wave, so its ceiling is that much higher
-            while tail - head > nbl and not oflow and wave < cap.i_max:
-                self.wave(c, nb)
-                head, tail, oflow, wave, n_rec, n_cand = reader.read(c.ctr)
-            wide = wave
-            i_max_late = cap.i_max * max(1, nb // nbl)
-            while tail > head and not oflow and wave < i_max_late:
-                self.wave(c, nbl)
-                head, tail, oflow, wave, n_rec, n_cand = reader.read(c.ctr)
-            self.stats["late_waves"] = wave - wide
-        else:
-            while tail > head and not oflow and wave < cap.i_max:
-                self.wave(c, nb)
-                head, tail, oflow, wave, n_rec, n_cand = reader.read(c.ctr)
-            self.stats["late_waves"] = 0
+        # watchdog deadline for every counter read of the mine: the wave
+        # ceiling times the wave width bounds the lanes the mine streams
+        # (a ceiling, not a prediction: it feeds no cost-model gauge)
+        bound_s = RB.estimate_seconds(cap.nb * cap.i_max, 1, self.n_seq,
+                                      self.n_words)
+        deadline = watchdog.deadline_s(bound_s)
+
+        def read():
+            faults.fault_site("device.dispatch", point="queue_readback")
+            return reader.read(c.ctr)
+
+        def run():
+            """The whole mine's waves: wide while the live frontier
+            exceeds nb_late, then narrow waves drain it (their ceiling is
+            nb/nb_late times higher).  Returns the last counters and the
+            narrow waves."""
+            ctr = (0, len(roots), 0, 0, len(roots), 0)  # as start() sets them
+            rd = lambda: watchdog.run_with_deadline(  # noqa: E731
+                read, deadline, site="queue.readback")
+            wide = None
+            if nbl < nb:
+                while (ctr[1] - ctr[0] > nbl and not ctr[2]
+                       and ctr[3] < cap.i_max):
+                    self.wave(c, nb)
+                    ctr = rd()
+                wide = ctr[3]
+                i_max_late = cap.i_max * max(1, nb // nbl)
+                while ctr[1] > ctr[0] and not ctr[2] and ctr[3] < i_max_late:
+                    self.wave(c, nbl)
+                    ctr = rd()
+            else:
+                while ctr[1] > ctr[0] and not ctr[2] and ctr[3] < cap.i_max:
+                    self.wave(c, nb)
+                    ctr = rd()
+            return ctr, (0 if wide is None else ctr[3] - wide)
+
+        with obs.span("queue.dispatch", point="oneshot", nb=cap.nb,
+                      bound_s=round(bound_s, 6)):
+            faults.fault_site("device.dispatch", point="queue_launch")
+            # the mine carries this job's device state, so it never
+            # fuses; it routes through the broker's accounting and fault
+            # surface (one global read when the broker is off)
+            ctr, late = FZ.dispatch_wave("queue", run, point="oneshot")
+        head, tail, oflow, wave, n_rec, n_cand = ctr
+        self.stats["late_waves"] = late
         self.stats["wait_s"] = reader.wait_s
         self.stats["candidates"] = n_cand
         if oflow or tail > head:
@@ -424,16 +458,36 @@ class QueueSpadeTorch:
         # fine segment boundaries early (a checkpointed mine snapshots
         # after wave 1), coarse later
         budget = 1 if checkpoint_cb is not None else seg_waves
+        ctr = (head, tail, oflow, wave, n_rec, n_cand)
+
+        def segment(nbw: int, ceil: int, wave_end: int, deadline):
+            """One segment's waves; each counter read runs under the
+            watchdog.  Returns the last counters."""
+            k = ctr
+            while k[1] > k[0] and not k[2] and k[3] < ceil and k[3] < wave_end:
+                self.wave(c, nbw)
+                k = watchdog.run_with_deadline(
+                    lambda: reader.read(c.ctr), deadline,
+                    site="queue.segment_readback")
+            return k
+
         while True:
             # deadline/cancel safe point between segments
             jobctl.check()
             nbw = nbl if narrow else cap.nb
             ceil = cap.i_max * (ratio if narrow else 1)
-            wave_end = wave + budget
-            while (tail > head and not oflow and wave < ceil
-                   and wave < wave_end):
-                self.wave(c, nbw)
-                head, tail, oflow, wave, n_rec, n_cand = reader.read(c.ctr)
+            seg_bound_s = RB.estimate_seconds(nbw * budget, 1, self.n_seq,
+                                              self.n_words)
+            with obs.span("queue.segment", nb=nbw, budget=budget,
+                          narrow=narrow, bound_s=round(seg_bound_s, 6)):
+                faults.fault_site("device.dispatch", point="queue_segment")
+                # unfusable (per-job device state), broker-accounted
+                ctr = FZ.dispatch_wave(
+                    "queue", lambda: segment(
+                        nbw, ceil, wave + budget,
+                        watchdog.deadline_s(seg_bound_s)),
+                    point="segment")
+            head, tail, oflow, wave, n_rec, n_cand = ctr
             budget = min(seg_waves, budget * 4)
             pending = tail > head
             if narrow:

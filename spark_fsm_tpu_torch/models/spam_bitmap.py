@@ -53,16 +53,17 @@ from spark_fsm_tpu_torch.device import DeviceLike
 from spark_fsm_tpu_torch.models._common import (
     FrontierNode, SlotPool, auto_pool_bytes, bucket_store_rows,
     checkpoint_due, decode_frontier, device_axes, encode_frontier,
-    engine_device, ensure_slots, frontier_fingerprint, load_checkpoint,
-    materialize_rows, prep_rows, scatter_build_store, shard_width, to_host,
-    to_index)
+    engine_device, ensure_slots, frontier_fingerprint, key_seq,
+    load_checkpoint, materialize_rows, prep_rows, scatter_build_store,
+    shard_width, to_host, to_index)
 from spark_fsm_tpu_torch.ops import bitops_np as BN
+from spark_fsm_tpu_torch.ops import ragged_batch as RB
 from spark_fsm_tpu_torch.ops import spam_bitops as SB
 from spark_fsm_tpu_torch.ops.ragged_batch import next_pow2
 from spark_fsm_tpu_torch.parallel import partition as PN
 from spark_fsm_tpu_torch.parallel.mesh import mesh_size
-from spark_fsm_tpu_torch.service import planner
-from spark_fsm_tpu_torch.utils import jobctl
+from spark_fsm_tpu_torch.service import fusion, planner, usage
+from spark_fsm_tpu_torch.utils import jobctl, obs, shapes
 from spark_fsm_tpu_torch.utils.canonical import Pattern, PatternResult, sort_patterns
 
 Step = Tuple[int, bool]
@@ -86,12 +87,19 @@ def spam_geometry(n_sequences: int, n_items: int, n_words: int, *,
     rows (padded items, pool and the reference's unused scratch row) to a
     power of two (``_common.bucket_store_rows``).  With a ``mesh`` the
     sequence axis is the reference's for that many shards and the wave
-    temporaries are one shard's."""
+    temporaries are one shard's.
+
+    ``key_seq``/``key_rows`` are the reference's sequence axis
+    (``_common.key_seq``) and store rows (its scratch row counted), which
+    its ``spam:`` keys spell; ``shape_key`` is the pure-bitmap plan's."""
     n_seq = device_axes(n_sequences, shape_buckets, mesh)
     if pool_bytes is None:
         pool_bytes = auto_pool_bytes(device)
     ni_pad = SB.pad_items(n_items)
-    slot_bytes = n_seq * n_words * 4
+    # the budget judges the reference's sequence axis (no tile pad), so
+    # the pool equals its
+    ks = key_seq(n_sequences, shape_buckets, mesh)
+    slot_bytes = ks * n_words * 4
     spd = -(-slot_bytes // mesh_size(mesh))  # one device's bytes of a row
     budget_slots = max(64, min(int(pool_bytes) // max(slot_bytes, 1), 32768))
     d = max(1, min(int(pipeline_depth), max(1, budget_slots // 8)))
@@ -103,12 +111,15 @@ def spam_geometry(n_sequences: int, n_items: int, n_words: int, *,
     if shape_buckets:
         total, pool_slots, nb = bucket_store_rows(
             total + 1, ni_pad, budget_slots, nb, d)
+    kr = ni_pad + pool_slots + 1
     return {
         "n_seq": n_seq, "ni_pad": ni_pad, "node_batch": nb,
         "pipeline_depth": d, "pool_slots": pool_slots,
-        "total_rows": total,
+        "total_rows": total, "tile": SB.ITEM_TILE,
         # sparse-candidate pair-launch width (hybrid store)
         "chunk": min(2048, max(64, next_pow2(2 * nb))),
+        "key_seq": ks, "key_rows": kr,
+        "shape_key": shapes.key_spam(ks, n_words, kr, nb, ni_pad),
     }
 
 
@@ -199,17 +210,26 @@ class SpamBitmapTorch:
             rows[: self.n_dense] = dense_idx
             self._items = SB.gather_rows(self.store, to_index(rows, self.device))
 
+        self._key_seq = g["key_seq"]
+        if self._hybrid:
+            shape_key = shapes.key_spam_hybrid(
+                g["key_seq"], n_words, g["key_rows"], self.node_batch,
+                self.ni_pad, self.nd_pad)
+        else:
+            shape_key = g["shape_key"]
         self.stats = {
             "engine": "spam",
             "candidates": 0, "evaluated_lanes": 0, "waves": 0,
             "kernel_launches": 0, "recomputed_nodes": 0,
             "reclaimed_slots": 0, "patterns": 0,
+            "shape_key": shape_key,
             "representation": self.rep_plan.pin,
             "rep_dense": self.n_dense,
             "rep_idlist": int(self.rep_plan.n_sparse),
             "diffset_depth": int(self.diffset_depth),
             "diffset_nodes": 0, "pair_launches": 0, "wave_survivors": 0,
         }
+        shapes.record(shape_key)
 
     # ---------------------------------------------------------------- mine
 
@@ -234,6 +254,7 @@ class SpamBitmapTorch:
         hybrid plan, pair launches for the sparse-item candidates; start
         the copies to the host."""
         jobctl.check()  # launch-boundary safe point (cancel/deadline)
+        pairs0 = self.stats["pair_launches"]
         batch = [stack.pop() for _ in range(min(self.node_batch, len(stack)))]
         ensure_slots(self.store, self._pool, batch, stack,
                      first_pool_slot=self.ni_pad,
@@ -255,15 +276,22 @@ class SpamBitmapTorch:
         if self.nd_pad:
             # the wave's item rows past the real items are all zero: the
             # store's pad rows (pure bitmap) or the gather's -1 rows (hybrid)
+            # every device wave routes through the fusion broker's
+            # accounting and fault surface (one global read when it is off)
             if self.mesh is None:
-                sup, mask = SB.wave_extend_prune(
-                    pt, self._items, self.minsup, torch.from_numpy(ud_rows),
-                    n_words=self.n_words, nd_pad=self.nd_pad,
-                    n_live=self.n_dense if self._hybrid else self.n_items)
+                sup, mask = fusion.dispatch_wave(
+                    "spam", lambda: SB.wave_extend_prune(
+                        pt, self._items, self.minsup,
+                        torch.from_numpy(ud_rows), n_words=self.n_words,
+                        nd_pad=self.nd_pad,
+                        n_live=self.n_dense if self._hybrid else self.n_items),
+                    nodes=len(batch), items=self.nd_pad)
             else:
-                sup, mask = SB.wave_prune_sharded(
-                    pt, self._items, self.minsup, n_words=self.n_words,
-                    nd_pad=self.nd_pad, mesh=self.mesh)
+                sup, mask = fusion.dispatch_wave(
+                    "spam", lambda: SB.wave_prune_sharded(
+                        pt, self._items, self.minsup, n_words=self.n_words,
+                        nd_pad=self.nd_pad, mesh=self.mesh),
+                    nodes=len(batch), items=self.nd_pad)
             self.stats["kernel_launches"] += 1
             self.stats["waves"] += 1
             self.stats["evaluated_lanes"] += 2 * self.node_batch * self.nd_pad
@@ -272,6 +300,7 @@ class SpamBitmapTorch:
         # launches of at most `chunk` lanes
         pair = None
         pair_pos = {}
+        pair_lanes = 0
         if self._hybrid:
             pref_l: List[int] = []
             item_l: List[int] = []
@@ -302,12 +331,18 @@ class SpamBitmapTorch:
                 item[: hi - lo] = item_l[lo:hi]
                 ud = np.zeros(w, bool)
                 ud[: hi - lo] = ud_l[lo:hi]
-                out = SB.pair_prune(
-                    pt, self.store, to_index(pref, self.device),
-                    to_index(item, self.device), self.minsup,
-                    torch.from_numpy(ud).to(self.device), self.n_words,
-                    self.mesh)
+                out = fusion.dispatch_wave(
+                    "spam",
+                    lambda p=pref, it=item, u=ud: SB.pair_prune(
+                        pt, self.store, to_index(p, self.device),
+                        to_index(it, self.device), self.minsup,
+                        torch.from_numpy(u).to(self.device), self.n_words,
+                        self.mesh),
+                    nodes=len(batch), items=w)
+                shapes.record(shapes.key_spam_pair(self._key_seq,
+                                                   self.n_words, w))
                 outs.append(out[: hi - lo])
+                pair_lanes += w
                 self.stats["kernel_launches"] += 1
                 self.stats["pair_launches"] += 1
                 self.stats["evaluated_lanes"] += w
@@ -317,17 +352,42 @@ class SpamBitmapTorch:
             (len(n.s_list) if self._allow_s(n) else 0) + len(n.i_list)
             for n in batch)
         host, ev = to_host([sup, mask, pair])
-        return batch, pt, pair_pos, host, ev
+        # dispatch-cost stamp for attribution at resolve time: launches
+        # and lane traffic this wave bought, the cost model's estimate for
+        # them, and the dispatch instant
+        launches = ((1 if sup is not None else 0)
+                    + self.stats["pair_launches"] - pairs0)
+        lanes = (2 * self.node_batch * self.nd_pad if sup is not None
+                 else 0) + pair_lanes
+        est_s = (RB.estimate_seconds(lanes, max(1, launches), self.n_seq,
+                                     self.n_words) if launches else 0.0)
+        return (batch, pt, pair_pos, host, ev,
+                (launches, lanes, est_s, time.monotonic()))
 
     def _resolve(self, inflight, stack: List[_Node],
                  results: List[PatternResult]) -> None:
         """Wait for a wave's outputs; read the candidates' lanes, emit the
         survivors, materialize their children and push them."""
-        batch, pt, pair_pos, (sup, mask, pair), ev = inflight
+        batch, pt, pair_pos, (sup, mask, pair), ev, cost = inflight
         if ev is not None:
             ev.synchronize()
         sups = sup.numpy() if sup is not None else None  # [2*len(batch), nd_pad]
         pair_sups = pair.numpy() if pair is not None else None
+        launches, lanes, est_s, t0 = cost
+        if launches:
+            measured_s = time.monotonic() - t0
+            # spam residuals feed the spam family gauge only
+            obs.observe_costmodel_family("spam", est_s, measured_s)
+            if usage.get() is not None:
+                ctl = jobctl.current()
+                if ctl is not None:
+                    nbytes = ((sups.nbytes if sups is not None else 0)
+                              + (pair_sups.nbytes
+                                 if pair_sups is not None else 0))
+                    usage.deposit(ctl.uid, launches=launches,
+                                  traffic_units=lanes, seconds_est=est_s,
+                                  seconds_measured=measured_s,
+                                  readback_bytes=int(nbytes))
         if mask is not None:
             self.stats["wave_survivors"] += int(
                 BN.popcount(mask.numpy().view(np.uint32)).sum())

@@ -49,7 +49,19 @@ conservative global floor, one exchange a deepening round merges the
 slices, and the exact global s_k filters the union.  A launch that
 fails raises: the reference's kernel-to-jnp downgrades, its resident-
 round fallback (``_resident_abandon``) and its meshguard adoption of a
-failed partition have no counterpart.
+failed partition have no counterpart.  A device OOM on a kernel launch
+is the one fault the engine absorbs, as the reference's does: the launch
+re-plans at half width, down to ``RB.OOM_FLOOR_LANES`` (``RB.is_oom``
+knows ``torch.cuda.OutOfMemoryError``), on the direct path and in the
+fusion broker alike (``RB.launch_halving``).
+
+The service's planes sit at the reference's sites: every engine stamps
+and records its shape key (``utils/shapes.py``); with ``[fusion]`` on,
+an eval wave off a mesh goes to the cross-job broker
+(``service/fusion.py``) with this engine's own evaluator, B2 on the card;
+host readbacks run under the dispatch watchdog, feed the cost model
+(``measured_s`` is the host's wall from dispatch to readback) and
+deposit usage; resident segments route through ``fusion.dispatch_wave``.
 """
 
 from __future__ import annotations
@@ -80,11 +92,18 @@ from spark_fsm_tpu_torch.ops import rule_support as RS
 from spark_fsm_tpu_torch.parallel import partition as PN
 from spark_fsm_tpu_torch.parallel.mesh import (
     all_reduce_sum, mesh_size, pad_to_multiple)
-from spark_fsm_tpu_torch.utils import jobctl
+from spark_fsm_tpu_torch.service import fusion as FZ
+from spark_fsm_tpu_torch.service import usage
+from spark_fsm_tpu_torch.utils import faults, jobctl, obs, shapes, watchdog
 from spark_fsm_tpu_torch.utils.canonical import RuleResult, sort_rules
 
 # initial top-m item restriction for the iterative-deepening outer loop
 ITEM_CAP_DEFAULT = 256
+
+# transfer-pricing floor (bytes/s) for the resident round's final
+# readback deadline (the reference's figure)
+_RESIDENT_READBACK_FLOOR_BPS = 8e6
+
 
 # Lane floor of the kernel path's launch plans: the reference kernel's
 # 128-candidate output tile.  This kernel takes any candidate count and
@@ -109,20 +128,20 @@ def resident_counters(stats: dict) -> dict:
 
 
 def tsr_geometry(n_sequences: int, *, shape_buckets: bool = False,
-                 mesh=None) -> dict:
+                 mesh=None, n_words: int = 1) -> dict:
     """Static device geometry of a :class:`TsrTorch`: the sequence axis,
     bucketed by ``_common.bucket_seq`` under ``shape_buckets`` and padded
     to a multiple of a ``mesh``'s rank count; padded sequences hold
     all-zero item bitmaps and support nothing.  The reference's Pallas
     sequence block (``sb``, and ``_bucket_seq_block``, which halves it
     per km so the rows fit TPU VMEM) has no counterpart: B2 takes any
-    sequence count."""
+    sequence count.  ``shape_key`` is the reference's ``tsr:`` key."""
     n_seq = int(n_sequences)
     if shape_buckets:
         n_seq = bucket_seq(n_seq)
     if mesh is not None:
         n_seq = pad_to_multiple(n_seq, mesh_size(mesh))
-    return {"n_seq": n_seq}
+    return {"n_seq": n_seq, "shape_key": shapes.key_tsr(n_seq, n_words)}
 
 
 def conf_ok(sup: int, supx: int, minconf: float) -> bool:
@@ -216,6 +235,9 @@ class TsrTorch:
     # resident-frontier route capability; the NumPy TsrCPU opts out
     _RESIDENT_CAPABLE = True
 
+    # shape-registry participation; the NumPy TsrCPU launches nothing
+    _RECORD_SHAPES = True
+
     def __init__(
         self,
         vdb: VerticalDB,
@@ -276,9 +298,12 @@ class TsrTorch:
         # round builds only the top-m item rows from the token table
         self.n_words = vdb.n_words
         self._shape_buckets = bool(shape_buckets)
-        self.n_seq = tsr_geometry(vdb.n_sequences,
-                                  shape_buckets=self._shape_buckets,
-                                  mesh=mesh)["n_seq"]
+        g = tsr_geometry(vdb.n_sequences, shape_buckets=self._shape_buckets,
+                         mesh=mesh, n_words=self.n_words)
+        self.n_seq = g["n_seq"]
+        self.stats["shape_key"] = g["shape_key"]
+        if self._RECORD_SHAPES:
+            shapes.record(g["shape_key"])
         # this rank's block of the sequence axis (all of it without a mesh)
         self.s_local = shard_width(self.n_seq, mesh, tile=1)
         # chunk <= 0 = adaptive sizing, like None
@@ -296,6 +321,15 @@ class TsrTorch:
         self._sup_sorted = vdb.item_supports[order]
         if partition is not None:
             self.stats["partition"] = partition[1]
+
+    def _part_idx(self) -> Optional[int]:
+        return None if self._partition is None else self._partition[1]
+
+    def _fault_ctx(self) -> dict:
+        """Chaos-site context naming this engine's partition (``part{p}``);
+        empty when unpartitioned."""
+        p = self._part_idx()
+        return {} if p is None else {"part": f"part{p}"}
 
     def _owned_mask(self, m: int) -> Optional[np.ndarray]:
         """Over the round's local roots 0..m-1: True where this partition
@@ -391,6 +425,30 @@ class TsrTorch:
             self._eval_budget = device_hbm_budget(self.device)
         return self._eval_budget
 
+    def _plain_cap(self):
+        """The plain evaluator's per-km width cap: its temporaries grow
+        with km, so the budget-derived width narrows 1/km; a pinned chunk
+        is honored as it is."""
+        cw = self.chunk
+        if self._chunk_user:
+            return lambda km: cw
+        return lambda km: max(32, min(cw, self._plain_raw // km))
+
+    def _eval_fn(self, km: int):
+        """The evaluator a launch at geometry ``km`` runs: B2 on the kernel
+        path, the plain version otherwise (the fusion broker calls this
+        too)."""
+        evaluate = RS.rule_supports if self.use_kernel else RS.rule_supports_plain
+        return functools.partial(evaluate, n_words=self.n_words)
+
+    def _put(self, xy: np.ndarray) -> torch.Tensor:
+        """A launch's staged ``[C, 2, km]`` candidates on the device (on
+        CUDA through pinned memory, without blocking the host)."""
+        t = torch.from_numpy(xy)
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
     def _dispatch_eval(self, p1, s1,
                        cands: List[Tuple[Tuple[int, ...], Tuple[int, ...]]]):
         """Launch (sup, supx) evaluation for candidate rules (local item
@@ -401,7 +459,9 @@ class TsrTorch:
         width cap is flat at the engine chunk; the plain evaluator's
         budget-derived cap narrows 1/km (its temporaries grow with km),
         and a pinned chunk is honored as the cap.  Each launch carries
-        only its plan's real lanes."""
+        only its plan's real lanes.  With ``[fusion]`` on and no mesh the
+        whole wave goes to the cross-job broker instead, which plans it
+        with the same inputs; the ticket is the handle."""
         n = len(cands)
         kms = np.empty(n, np.int32)
         for r, (x, y) in enumerate(cands):
@@ -416,33 +476,42 @@ class TsrTorch:
         pools: Dict[int, List[int]] = {}
         for r in range(n):
             pools.setdefault(int(kms[r]), []).append(r)
+        if FZ.eval_enabled() and self.mesh is None:
+            ticket = self._submit_fusion_wave(p1, s1, cands, pools)
+            if ticket is not None:
+                self.stats["evaluated"] += n
+                return ticket
+        t0 = time.monotonic()
+        launches0 = self.stats["kernel_launches"]
+        traffic0 = self.stats.get("traffic_units", 0)
         overhead = RB.overhead_units(self.n_seq, self.n_words)
-        if self.use_kernel:
-            plan = RB.plan_launches(pools, cap=lambda km: self.chunk,
-                                    lane=KERNEL_LANE, overhead=overhead)
-            evaluate = RS.rule_supports
-        else:
-            cw = self.chunk
-            cap = ((lambda km: cw) if self._chunk_user
-                   else (lambda km: max(32, min(cw, self._plain_raw // km))))
-            plan = RB.plan_launches(pools, cap=cap, lane=32,
-                                    overhead=overhead)
-            evaluate = RS.rule_supports_plain
-        parts = []
+        parts: List[torch.Tensor] = []
         cols = np.empty(n, np.int64)  # candidate r -> column of `out`
         base = 0
         xy_bufs: List[np.ndarray] = []  # recycled at readback
-        cuda = self.device.type == "cuda"
-        for L in plan:
-            xy = self._stager.take(L, cands)
-            xy_bufs.append(xy)
-            xy_t = torch.from_numpy(xy[:len(L.rows)])
-            if cuda:
-                xy_t = xy_t.pin_memory().to(self.device, non_blocking=True)
-            parts.append(evaluate(p1, s1, xy_t, self.n_words))
-            cols[L.rows] = base + np.arange(len(L.rows))
-            base += len(L.rows)
-            self._count_launch(L)
+        if self.use_kernel:
+            plan = RB.plan_launches(pools, cap=lambda km: self.chunk,
+                                    lane=KERNEL_LANE, overhead=overhead,
+                                    part=self._part_idx())
+            for L in plan:
+                base = self._dispatch_kernel_launch(p1, s1, cands, L, parts,
+                                                    cols, base, xy_bufs)
+        else:
+            plan = RB.plan_launches(pools, cap=self._plain_cap(), lane=32,
+                                    overhead=overhead, part=self._part_idx())
+            fn = self._eval_fn(0)
+            for L in plan:
+                with obs.span("tsr.launch", point="jnp", km=L.km,
+                              width=L.width):
+                    faults.fault_site("device.dispatch", point="jnp",
+                                      km=str(L.km), width=str(L.width),
+                                      **self._fault_ctx())
+                    xy = self._stager.take(L, cands)
+                    xy_bufs.append(xy)
+                    parts.append(fn(p1, s1, self._put(xy[:len(L.rows)])))
+                    cols[L.rows] = base + np.arange(len(L.rows))
+                    base += len(L.rows)
+                    self._count_launch(L)
         self.stats["evaluated"] += n
         out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         if self.mesh is not None:
@@ -450,12 +519,68 @@ class TsrTorch:
             # reference psums each launch's two rows)
             out = all_reduce_sum(out.contiguous(), self.mesh)
         (host,), ev = to_host([out])
-        return host, cols, ev, xy_bufs
+        n_launch = self.stats["kernel_launches"] - launches0
+        traffic = self.stats.get("traffic_units", 0) - traffic0
+        # the planner's own wall estimate: the readback's watchdog
+        # deadline and the cost model's prediction
+        est_s = RB.estimate_seconds(traffic, n_launch, self.n_seq,
+                                    self.n_words)
+        return host, cols, ev, xy_bufs, est_s, t0, n_launch, traffic
+
+    def _dispatch_kernel_launch(self, p1, s1, cands, L, parts, cols,
+                                base: int, xy_bufs) -> int:
+        """Launch B2 for one planned launch; appends to ``parts``/``cols``
+        and returns the advanced base.  A device OOM re-plans the launch
+        at half width (``RB.launch_halving``), each halving counted in
+        ``degraded_launches``; any other failure raises."""
+        def launch(leaf):
+            faults.fault_site("device.dispatch", point="kernel",
+                              km=str(leaf.km), width=str(leaf.width),
+                              **self._fault_ctx())
+            faults.fault_site("device.oom", point="kernel",
+                              km=str(leaf.km), width=str(leaf.width))
+            xy = self._stager.take(leaf, cands)
+            return xy, RS.rule_supports(p1, s1,
+                                        self._put(xy[:len(leaf.rows)]),
+                                        self.n_words)
+
+        for leaf, (xy, part) in RB.launch_halving(
+                L, launch,
+                span=lambda leaf: obs.span("tsr.launch", point="kernel",
+                                           km=leaf.km, width=leaf.width),
+                on_halve=self._count_halving):
+            xy_bufs.append(xy)
+            self._count_launch(leaf)
+            cols[leaf.rows] = base + np.arange(len(leaf.rows))
+            parts.append(part)
+            base += len(leaf.rows)
+        return base
+
+    def _count_halving(self, L) -> None:
+        self.stats["degraded_launches"] = (
+            self.stats.get("degraded_launches", 0) + 1)
+
+    def _submit_fusion_wave(self, p1, s1, cands, pools):
+        """Hand one dispatch's candidate wave to the cross-job broker with
+        this engine's own planner inputs (kernel path: flat cap at the
+        chunk, the kernel lane, B2; plain path: the budget cap, lane 32,
+        the plain version), so a wave that finds no peer launches what
+        the direct path would have.  None when the broker declined."""
+        if self.use_kernel:
+            cw = self.chunk
+            cap, lane = (lambda km: cw), KERNEL_LANE
+        else:
+            cap, lane = self._plain_cap(), 32
+        return FZ.submit_eval(
+            cands=cands, pools=pools, p1=p1, s1=s1, eval_fn=self._eval_fn,
+            put=self._put, cap=cap, lane=lane, n_seq=self.n_seq,
+            n_words=self.n_words,
+            point="kernel" if self.use_kernel else "jnp")
 
     def _count_launch(self, L) -> None:
         """Per-launch accounting: geometry-keyed fill counters, the
-        planner's traffic units, super-batch and borrow counts, and the
-        launches of each partition."""
+        planner's traffic units, super-batch and borrow counts, the
+        launches of each partition and the launch's shape key."""
         self.stats["kernel_launches"] += 1
         lk, wk = f"launches_km{L.km}", f"width_km{L.km}"
         self.stats[lk] = self.stats.get(lk, 0) + 1
@@ -469,18 +594,67 @@ class TsrTorch:
         if L.mixed:
             self.stats["superbatches"] = (
                 self.stats.get("superbatches", 0) + 1)
-        if self._partition is not None:
+        if L.part is not None:
             # per-partition dispatch accounting (the scaling split)
-            pk = f"launches_part{self._partition[1]}"
+            pk = f"launches_part{L.part}"
             self.stats[pk] = self.stats.get(pk, 0) + 1
+        if self._RECORD_SHAPES:
+            shapes.record(shapes.key_tsr_eval(
+                self.n_seq, self.n_words, L.km, L.width))
+
+    @staticmethod
+    def _bill_readback(nbytes: int) -> None:
+        """Attribute a readback's bytes to the current job (no-op when
+        the usage plane is off)."""
+        if usage.get() is not None:
+            ctl = jobctl.current()
+            if ctl is not None:
+                usage.deposit(ctl.uid, readback_bytes=int(nbytes))
 
     def _resolve_eval(self, handle):
-        """Wait for one dispatch's readback (its CUDA event only), recycle
-        its staging buffers and return (sups, supxs) in candidate order."""
-        out, cols, ev, xy_bufs = handle
-        if ev is not None:
-            ev.synchronize()
-        arr = out.numpy()
+        """Wait for one dispatch's readback and return (sups, supxs) in
+        candidate order.  A broker ticket blocks on the broker's result
+        (its launches land in ``fusion_*`` stats, not in this engine's
+        ``kernel_launches``: a fused launch is shared work).  A direct
+        handle waits on its CUDA event under the dispatch watchdog, feeds
+        the cost model, deposits usage and recycles its staging
+        buffers."""
+        if isinstance(handle, FZ.EvalWave):
+            sups, supxs, report = handle.result()
+            self.stats["fusion_waves"] = self.stats.get("fusion_waves", 0) + 1
+            if report.get("fused_jobs", 1) > 1:
+                self.stats["fusion_fused_waves"] = (
+                    self.stats.get("fusion_fused_waves", 0) + 1)
+            self.stats["fusion_launches"] = (
+                self.stats.get("fusion_launches", 0)
+                + report.get("launches", 0))
+            if report.get("degraded_launches"):
+                self.stats["degraded_launches"] = (
+                    self.stats.get("degraded_launches", 0)
+                    + report["degraded_launches"])
+            return sups, supxs
+        out, cols, ev, xy_bufs, est_s, t0, n_launch, traffic = handle
+
+        def read():
+            faults.fault_site("device.dispatch", point="readback",
+                              **self._fault_ctx())
+            if ev is not None:
+                ev.synchronize()
+            return out.numpy()
+
+        with obs.span("tsr.readback", predicted_s=round(est_s, 6)) as sp:
+            arr = watchdog.run_with_deadline(
+                read, watchdog.deadline_s(est_s), site="tsr.readback")
+            measured_s = time.monotonic() - t0
+            sp.set(measured_s=round(measured_s, 6))
+            obs.observe_costmodel(est_s, measured_s, family="tsr-eval")
+        if usage.get() is not None:
+            ctl = jobctl.current()
+            if ctl is not None:
+                usage.deposit(ctl.uid, launches=int(n_launch),
+                              traffic_units=int(traffic), seconds_est=est_s,
+                              seconds_measured=measured_s,
+                              readback_bytes=int(arr.nbytes))
         self._stager.release(xy_bufs)
         return arr[0, cols].astype(np.int64), arr[1, cols].astype(np.int64)
 
@@ -628,6 +802,9 @@ class TsrTorch:
         self.stats["resident"] = True
         self.stats["resident_rounds"] = (
             self.stats.get("resident_rounds", 0) + 1)
+        keys = RF.resident_keys(self.n_seq, self.n_words, m, caps)
+        if self._RECORD_SHAPES:
+            shapes.record(keys[0])
         p1, s1 = self._prep(m)
         sup_items = torch.from_numpy(
             np.asarray(sup_l, np.int32)).to(self.device)
@@ -639,30 +816,78 @@ class TsrTorch:
         head, tail, oflow, waves = 0, state["n_entries"], 0, 0
         evaluated = pruned = 0
         narrow = caps.nb_late < caps.nb and tail <= caps.nb_late
+        if narrow and self._RECORD_SHAPES:
+            shapes.record(keys[-1])
+        narrow_recorded = narrow
         # segment budget: fine-grained when checkpointing (the first
         # snapshot lands after wave 1), coarse otherwise
         budget = 1 if checkpoint_cb is not None else 256
         last_ckpt = time.monotonic()
         waves_done = ev_done = pr_done = 0
+        ctr = (n_rec, oflow, waves, head, tail, minsup, evaluated, pruned,
+               0, n_def)
+
+        def segment(nbw: int, wave_end: int, deadline):
+            """Waves until the frontier empties, a cap overflows or the
+            segment's wave budget is spent; each counter read runs under
+            the watchdog.  Returns the last counters."""
+            c = ctr
+            while c[4] > c[3] and not c[1] and c[2] < wave_end:
+                RF.wave(carry, p1, s1, sup_items, num, den, self.k,
+                        max_side_t, nbw, self.n_words, evaluate)
+                c = watchdog.run_with_deadline(
+                    lambda: reader.read(carry.ctr), deadline,
+                    site="tsr.resident")
+            return c
+
         while True:
             # deadline/cancel safe point between segments (a host-side
             # check, no device sync)
             jobctl.check()
             nbw = caps.nb_late if narrow else caps.nb
-            wave_end = waves_done + budget
-            while tail > head and not oflow and waves < wave_end:
-                RF.wave(carry, p1, s1, sup_items, num, den, self.k,
-                        max_side_t, nbw, self.n_words, evaluate)
-                (n_rec, oflow, waves, head, tail, minsup, evaluated,
-                 pruned, _n_acc, n_def) = reader.read(carry.ctr)
+            # watchdog ceiling from the cost model: the segment streams
+            # at most budget x nbw x km lane-units
+            bound_s = RB.estimate_seconds(budget * nbw * caps.km, 1,
+                                          self.n_seq, self.n_words)
+            deadline = watchdog.deadline_s(bound_s)
+            t_seg = time.monotonic()
+            with obs.span("tsr.resident", point="segment", nb=nbw,
+                          budget=budget, narrow=narrow,
+                          bound_s=round(bound_s, 6)):
+                # a segment carries this round's device state: it never
+                # waits in a fusion window (dispatch_wave is the broker's
+                # accounting and fault surface only)
+                ctr = FZ.dispatch_wave(
+                    "tsr_resident",
+                    functools.partial(segment, nbw, waves_done + budget,
+                                      deadline),
+                    point="resident_segment")
+            (n_rec, oflow, waves, head, tail, minsup, evaluated,
+             pruned, _n_acc, n_def) = ctr
             self.stats["kernel_launches"] += 1  # one segment
+            RF.count_segment(waves - waves_done)
             self.stats["resident_segments"] = (
                 self.stats.get("resident_segments", 0) + 1)
             self.stats["resident_waves"] = (
                 self.stats.get("resident_waves", 0) + waves - waves_done)
+            seg_traffic = (waves - waves_done) * nbw * caps.km
             self.stats["traffic_units"] = (
-                self.stats.get("traffic_units", 0)
-                + (waves - waves_done) * nbw * caps.km)
+                self.stats.get("traffic_units", 0) + seg_traffic)
+            # one owning job per segment; its residual feeds the
+            # tsr-resident family gauge only
+            seg_wall = time.monotonic() - t_seg
+            seg_est = RB.estimate_seconds(seg_traffic, 1, self.n_seq,
+                                          self.n_words)
+            obs.observe_costmodel_family("tsr-resident", seg_est, seg_wall)
+            if usage.get() is not None:
+                ctl = jobctl.current()
+                if ctl is not None:
+                    usage.deposit(ctl.uid, launches=1,
+                                  traffic_units=seg_traffic,
+                                  seconds_est=seg_est,
+                                  seconds_measured=seg_wall,
+                                  readback_bytes=8 * len(RF.COUNTERS)
+                                  * (waves - waves_done))
             self.stats["evaluated"] += evaluated - ev_done
             self.stats["pruned_conf"] += pruned - pr_done
             waves_done, ev_done, pr_done = waves, evaluated, pruned
@@ -679,6 +904,9 @@ class TsrTorch:
             if not narrow and caps.nb_late < caps.nb and (
                     tail - head) <= caps.nb_late:
                 narrow = True  # the late-wave switch, never switched back
+                if not narrow_recorded and self._RECORD_SHAPES:
+                    shapes.record(keys[-1])
+                    narrow_recorded = True
             if checkpoint_due(checkpoint_cb, last_ckpt, every_s, self.mesh):
                 checkpoint_cb(self._resident_snapshot(
                     m, carry, head, tail, n_rec, n_def, minsup))
@@ -687,19 +915,28 @@ class TsrTorch:
                 last_ckpt = time.monotonic()
         self._resident_wait(reader)
         # the final readback: the records, and the deferred children when
-        # there are any
+        # there are any; its deadline prices the buffers' bytes at a
+        # conservative transfer floor plus a second of latency
         names = RF.RECORD_FIELDS + (RF.DEFER_FIELDS if n_def else ())
-        arrs = carry.arrays(names)
+        rb_est_s = 1.0 + (carry.nbytes(names)
+                          / _RESIDENT_READBACK_FLOOR_BPS)
+        with obs.span("tsr.resident", point="readback", records=n_rec,
+                      deferred=n_def, bound_s=round(rb_est_s, 6)):
+            arrs = watchdog.run_with_deadline(
+                lambda: carry.arrays(names), watchdog.deadline_s(rb_est_s),
+                site="tsr.resident")
         self._count_readback(arrs)
         results = RF.unpack_results(*arrs[:3], n_rec, minsup)
         if n_def:
             # over-ladder children filtered against the final exact top-k
             # threshold; survivors are deep-side work the host loop
             # finishes (a handoff: the in-ladder search completed)
+            RF.count_deferred(n_def)
             self.stats["resident_deferred"] = (
                 self.stats.get("resident_deferred", 0) + n_def)
             deep = RF.unpack_entries(*arrs[3:], 0, n_def, minsup)
             if deep:
+                RF.count_handoff()
                 self.stats["resident_handoffs"] = (
                     self.stats.get("resident_handoffs", 0) + 1)
                 return self._mine_host_restricted(
@@ -712,9 +949,11 @@ class TsrTorch:
         self.stats["wait_s"] = self.stats.get("wait_s", 0.0) + reader.wait_s
 
     def _count_readback(self, arrs: List[np.ndarray]) -> None:
+        nbytes = sum(a.nbytes for a in arrs)
+        RF.count_readback(nbytes)
         self.stats["resident_readback_bytes"] = (
-            self.stats.get("resident_readback_bytes", 0)
-            + sum(a.nbytes for a in arrs))
+            self.stats.get("resident_readback_bytes", 0) + nbytes)
+        self._bill_readback(nbytes)
 
     def _resident_entries(self, carry: RF.Carry, head: int, tail: int,
                           n_rec: int, n_def: int, minsup: int):
@@ -738,6 +977,7 @@ class TsrTorch:
         duplicated."""
         entries, results = self._resident_entries(carry, head, tail,
                                                   n_rec, n_def, minsup)
+        RF.count_spill("capacity")
         self.stats["resident_spills"] = (
             self.stats.get("resident_spills", 0) + 1)
         return self._mine_host_restricted(
@@ -1039,6 +1279,7 @@ class TsrCPU(TsrTorch):
 
     PIPELINE_DEPTH = 1  # dispatch is synchronous — nothing to overlap
     _RESIDENT_CAPABLE = False  # numpy evaluation: no device frontier
+    _RECORD_SHAPES = False  # launches nothing on a device
 
     def __init__(self, *args, **kwargs):
         kwargs["device"] = "cpu"
@@ -1094,11 +1335,14 @@ class TsrPartitioned:
     Checkpoints are composite (``partition.composite_state``): the merged
     rows plus the active partition's frontier in the engine's own
     ``frontier_state`` format, with the round's ``m`` and floor, bound to
-    the plan's fingerprint.  A partition that fails raises."""
+    the plan's fingerprint.  A partition that fails raises.
+    ``record_metrics=False`` keeps a warm-up mine out of the
+    ``fsm_partition_*`` families (prewarm's)."""
 
     def __init__(self, vdb: VerticalDB, k: int, minconf: float, *,
                  device: DeviceLike = None, mesh=None, parts: int,
-                 classes: int = 64, **engine_kwargs):
+                 classes: int = 64, record_metrics: bool = True,
+                 **engine_kwargs):
         self.vdb = vdb
         self.k = int(k)
         self.minconf = float(minconf)
@@ -1123,7 +1367,13 @@ class TsrPartitioned:
             "partition_cross_bytes": 0,
             "deepening_rounds": 0,
         }
-        PN.count_mine("tsr")
+        first = self.engines[self.owned[0]]
+        self.stats["shape_key"] = shapes.key_tsr_part(
+            int(parts), first.n_seq, vdb.n_words)
+        if first._RECORD_SHAPES:
+            shapes.record(self.stats["shape_key"])
+        if record_metrics:
+            PN.count_mine("tsr")
 
     def frontier_fingerprint(self) -> dict:
         fp = self.engines[self.owned[0]].frontier_fingerprint()
@@ -1236,7 +1486,7 @@ class TsrPartitioned:
         for eng in self.engines.values():
             PN.fold_numeric_stats(
                 self.stats, {k: v for k, v in eng.stats.items()
-                             if k != "partition"})
+                             if k not in ("shape_key", "partition")})
 
 
 def _resume_dict(minsup: int, entries: List[tuple],

@@ -8,6 +8,10 @@ flags, so an edited source always rebuilds and an unchanged one loads the
 earlier build.  ``-Xptxas -v`` makes ptxas report each kernel's registers,
 shared memory and spills; the build keeps that report beside the library
 (:func:`build_log`).  Nothing is built when a module is imported.
+
+Every build that really runs ``nvcc`` and every first load of a library
+is reported, with its seconds, to the listeners in :data:`LISTENERS`
+(``utils/jitcache.py`` counts them).
 """
 
 from __future__ import annotations
@@ -18,10 +22,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
+from typing import Callable, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+# callables ``fn(kind, seconds)``, kind "build" or "load"
+LISTENERS: List[Callable[[str, float], None]] = []
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,6 +48,11 @@ def nvcc_path() -> str:
         "CUDA kernels are built from source at first use")
 
 
+def _notify(kind: str, seconds: float) -> None:
+    for fn in list(LISTENERS):
+        fn(kind, seconds)
+
+
 def library_path(name: str, csrc: Path = CSRC) -> Path:
     src = csrc / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
@@ -53,15 +66,17 @@ def build(name: str, csrc: Path = CSRC) -> Path:
     out = library_path(name, csrc)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
+    t0 = time.monotonic()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)  # atomic: concurrent builds race safely
+    _notify("build", time.monotonic() - t0)
     return out
 
 
@@ -74,4 +89,8 @@ def build_log(name: str) -> str:
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load one kernel library, once per process."""
-    return ctypes.CDLL(str(build(name)))
+    path = build(name)
+    t0 = time.monotonic()
+    lib = ctypes.CDLL(str(path))
+    _notify("load", time.monotonic() - t0)
+    return lib

@@ -19,9 +19,20 @@ dispatch streams :data:`QUANTUM_LANE_SEQWORDS`, and one dispatch's fixed
 cost is worth :data:`DISPATCH_LANE_SEQWORDS` of padded lanes.  Held as
 exact integers and fractions, they give the same plans as the reference's
 floating-point arithmetic (``tests/test_torch_ragged_batch.py``).  They
-shape launches, never results.  Left out of the copy: the planner's
-metric counters and the live drift recalibration (the factor is 1, as
-with ``set_overhead_calibration(False)`` in the reference).
+shape launches, never results.  Left out of the copy: the live drift
+recalibration (the factor is 1, as with ``set_overhead_calibration(False)``
+in the reference).
+
+The cross-job fusion broker (``service/fusion.py``) plans over candidates
+pooled from several jobs: ``plan_launches(job_of=...)`` tags each lane
+with its job (``Launch.jobs``, ``cross_job``), ``record=False`` plans
+without counting, and :func:`record_plan` counts a plan that dispatches
+(the reference's ``fsm_planner_*`` families).  :func:`superbatch_geometries`
+lists the (km, width) set a plan can emit, for the shape-key enumerator.
+
+:func:`launch_halving` is the OOM half-width ladder (the reference's
+``TsrTPU._dispatch_kernel_launch``), shared by TSR's direct launches and
+the broker's fused and solo ones.
 """
 
 from __future__ import annotations
@@ -31,6 +42,15 @@ from fractions import Fraction
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from spark_fsm_tpu_torch.utils import faults, obs
+
+_PLAN_LAUNCHES = obs.REGISTRY.counter(
+    "fsm_planner_launches_total", "launches emitted by the ragged packer")
+_PLAN_SUPERBATCHES = obs.REGISTRY.counter(
+    "fsm_planner_superbatches_total",
+    "mixed-km launches emitted by the ragged packer")
 
 # lane x sequence-words of one launch at the dispatch-efficiency quantum:
 # 8192 lanes over a 990,000-sequence single-word axis
@@ -102,12 +122,17 @@ class Launch:
     ``km``: the launch geometry (xy minor width), the max of its lanes' own
     km buckets.  ``width``: padded pow2 lane count.  ``rows``: candidate
     indices in lane order.  ``kms``: each lane's own km bucket (lanes with
-    ``kms[j] < km`` ride a wider geometry)."""
+    ``kms[j] < km`` ride a wider geometry).  ``jobs``: each lane's job tag
+    (None for single-job plans); the fusion broker demuxes a fused
+    readback by it.  ``part``: the equivalence-class partition the launch
+    belongs to (None outside partitioned mines)."""
 
     km: int
     width: int
     rows: List[int]
     kms: List[int]
+    jobs: Optional[List[int]] = None
+    part: Optional[int] = None
 
     @property
     def traffic_units(self) -> int:
@@ -124,9 +149,22 @@ class Launch:
         """Lanes whose own km is below the launch geometry."""
         return sum(1 for k in self.kms if k < self.km)
 
+    @property
+    def n_jobs(self) -> int:
+        """Distinct jobs sharing the launch (1 for untagged plans)."""
+        return len(set(self.jobs)) if self.jobs else 1
+
+    @property
+    def cross_job(self) -> bool:
+        """True when lanes from more than one job share the launch."""
+        return self.n_jobs > 1
+
 
 def plan_launches(pools: Dict[int, Sequence[int]], cap: Callable[[int], int],
-                  lane: int, overhead: int) -> List[Launch]:
+                  lane: int, overhead: int,
+                  job_of: Optional[Callable[[int], int]] = None,
+                  record: bool = True,
+                  part: Optional[int] = None) -> List[Launch]:
     """Pack per-km candidate pools into pow2 super-batch launches.
 
     Args:
@@ -136,6 +174,11 @@ def plan_launches(pools: Dict[int, Sequence[int]], cap: Callable[[int], int],
       lane: minimum launch width.
       overhead: per-launch fixed cost in traffic units (lanes x km), as
         :func:`overhead_units` gives it.
+      job_of: optional candidate index -> job tag; every launch then
+        carries per-lane ``jobs``.
+      record: False for exploratory plans (the caller counts the chosen
+        one with :func:`record_plan`).
+      part: partition tag stamped on every launch.
 
     Returns launches in dispatch order: full same-km launches largest km
     first, then the merged tails.  Every candidate appears in exactly one
@@ -170,7 +213,10 @@ def plan_launches(pools: Dict[int, Sequence[int]], cap: Callable[[int], int],
                 # lane-width tail is the only legal shape
                 tails.append((km, rows[i:]))
                 break
-            launches.append(Launch(km, take, rows[i:i + take], [km] * take))
+            piece = rows[i:i + take]
+            launches.append(Launch(
+                km, take, piece, [km] * take,
+                [job_of(r) for r in piece] if job_of else None, part))
             i += take
 
     # cross-km tail merge, largest geometry first: every lane's own km is
@@ -189,16 +235,105 @@ def plan_launches(pools: Dict[int, Sequence[int]], cap: Callable[[int], int],
                     crows.extend(rows)
                     ckms.extend([km] * len(rows))
                     continue
-            launches.append(_emit(cur, lane))
+            launches.append(_emit(cur, lane, job_of, part))
         cur = (km, list(rows), [km] * len(rows))
     if cur is not None:
-        launches.append(_emit(cur, lane))
+        launches.append(_emit(cur, lane, job_of, part))
+    if record:
+        record_plan(launches)
     return launches
 
 
-def _emit(cur: Tuple[int, List[int], List[int]], lane: int) -> Launch:
+def record_plan(launches: List[Launch]) -> None:
+    """Planner counters and the per-dispatch trace event for a plan that
+    dispatches."""
+    if not launches:
+        return
+    mixed = sum(1 for L in launches if L.mixed)
+    _PLAN_LAUNCHES.inc(len(launches))
+    if mixed:
+        _PLAN_SUPERBATCHES.inc(mixed)
+    obs.trace_event(
+        "plan_launches",
+        candidates=sum(len(L.rows) for L in launches),
+        launches=len(launches), superbatches=mixed,
+        traffic_units=sum(L.traffic_units for L in launches))
+
+
+# OOM ladder floor (lanes): a launch that runs out of device memory
+# re-plans at half width recursively down to here, the kernel path's
+# lane floor
+OOM_FLOOR_LANES = 128
+
+
+def is_oom(exc: BaseException) -> bool:
+    """Device allocation failure: the card's own
+    ``torch.cuda.OutOfMemoryError``, an injected one
+    (``faults.InjectedOom``), or the reference's RESOURCE_EXHAUSTED
+    spelling."""
+    if isinstance(exc, (torch.cuda.OutOfMemoryError, faults.InjectedOom)):
+        return True
+    s = repr(exc)
+    return "RESOURCE_EXHAUSTED" in s or "Resource exhausted" in s
+
+
+def launch_halving(L: Launch, launch: Callable[[Launch], object],
+                   span: Callable[[Launch], object],
+                   on_halve: Callable[[Launch], None]
+                   ) -> List[Tuple[Launch, object]]:
+    """Run ``launch(L)`` inside ``span(L)`` and return ``[(L, result)]``.
+
+    A device OOM (:func:`is_oom`) re-plans the launch at half width,
+    recursively down to :data:`OOM_FLOOR_LANES`, and returns the leaves
+    in lane order.  Each halving calls ``on_halve(L)``, logs
+    ``oom_degraded_launch`` and puts a ``resource_exhausted`` event on
+    the failed launch's span, under which the halves nest.  The halves
+    keep the parent's partition tag and their lanes' job tags.  Any
+    other failure, and an OOM at the floor, raises."""
+    with span(L) as sp:
+        try:
+            return [(L, launch(L))]
+        except Exception as exc:
+            if not is_oom(exc) or L.width <= OOM_FLOOR_LANES:
+                raise
+            half = L.width // 2
+            on_halve(L)
+            obs.log_event("oom_degraded_launch", km=L.km, width=L.width,
+                          half=half)
+            sp.event("resource_exhausted", km=L.km, width=L.width,
+                     half=half, error=f"{type(exc).__name__}: {exc}")
+            leaves: List[Tuple[Launch, object]] = []
+            for lo, hi in ((0, half), (half, len(L.rows))):
+                if L.rows[lo:hi]:
+                    leaves += launch_halving(
+                        Launch(L.km, half, L.rows[lo:hi], L.kms[lo:hi],
+                               L.jobs[lo:hi] if L.jobs else None, L.part),
+                        launch, span, on_halve)
+            return leaves
+
+
+def _emit(cur: Tuple[int, List[int], List[int]], lane: int,
+          job_of: Optional[Callable[[int], int]] = None,
+          part: Optional[int] = None) -> Launch:
     km_g, rows, kms = cur
-    return Launch(km_g, max(lane, next_pow2(len(rows))), rows, kms)
+    return Launch(km_g, max(lane, next_pow2(len(rows))), rows, kms,
+                  [job_of(r) for r in rows] if job_of else None, part)
+
+
+def superbatch_geometries(lane: int, hi_width: int,
+                          kms: Sequence[int] = KM_LADDER
+                          ) -> List[Tuple[int, int]]:
+    """The finite (km, width) set :func:`plan_launches` can emit for a
+    lane floor and a width ceiling: the ladder the shape-key enumerator
+    lists and prewarm walks."""
+    out = []
+    for km in kms:
+        w = max(1, int(lane))
+        hi = max(w, next_pow2(max(1, int(hi_width))))
+        while w <= hi:
+            out.append((int(km), w))
+            w *= 2
+    return out
 
 
 def late_wave_nb(nb: int, tile: int, ratio: int = 8) -> int:

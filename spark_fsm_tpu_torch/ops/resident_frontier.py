@@ -31,6 +31,11 @@ over a bool mask goes through an int cast, and the reference's
 (``ops/rule_support.rule_supports``) on the gathered ``exy`` rows: its
 ``[C, 2, km]`` candidates with -1 reading the all-ones pad row are the
 ring's own layout, and it computes the reference's masked AND-fold.
+
+The ``fsm_tsr_resident_*`` registry families and :func:`resident_keys`
+are the reference's, counted where its engine counts them, but for
+``fsm_tsr_resident_fallbacks_total``: a resident round here never falls
+back to the host path (a dispatch fault raises), so it has no family.
 """
 
 from __future__ import annotations
@@ -43,10 +48,54 @@ import torch
 
 from spark_fsm_tpu_torch.models._common import copy_rows_drop
 from spark_fsm_tpu_torch.ops import ragged_batch as RB
+from spark_fsm_tpu_torch.utils import obs, shapes
 
 # Exact on-device top-k capacity: the ``topk`` buffer's static length (a
 # larger k routes to the host loop)
 K_PAD = 1024
+
+_SEGMENTS = obs.REGISTRY.counter(
+    "fsm_tsr_resident_segments_total",
+    "resident-frontier segments (runs of waves between counter checks)")
+_WAVES = obs.REGISTRY.counter(
+    "fsm_tsr_resident_waves_total",
+    "frontier waves executed on device inside resident segments")
+_SPILLS = obs.REGISTRY.counter(
+    "fsm_tsr_resident_spills_total",
+    "resident frontiers spilled back to the host path (capacity overflow)")
+_DEFERRED = obs.REGISTRY.counter(
+    "fsm_tsr_resident_deferred_total",
+    "over-km-ladder children deferred to the host's end-of-round filter")
+_HANDOFFS = obs.REGISTRY.counter(
+    "fsm_tsr_resident_handoffs_total",
+    "rounds whose surviving deferred entries resumed the host path")
+_READBACK = obs.REGISTRY.counter(
+    "fsm_tsr_resident_readback_bytes_total",
+    "bytes read back from resident device state (records + spills)")
+
+
+def count_segment(waves: int) -> None:
+    _SEGMENTS.inc()
+    if waves:
+        _WAVES.inc(waves)
+
+
+def count_spill(reason: str) -> None:
+    _SPILLS.inc(reason=reason)
+
+
+def count_deferred(n: int) -> None:
+    if n > 0:
+        _DEFERRED.inc(n)
+
+
+def count_handoff() -> None:
+    _HANDOFFS.inc()
+
+
+def count_readback(nbytes: int) -> None:
+    if nbytes > 0:
+        _READBACK.inc(nbytes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +165,18 @@ def caps_for(n_seq: int, n_words: int, m: int,
 # Entry tuples use the host engine's queue spelling with the bound kept
 # positive: (bound, x, y, can_right, side, psup, psupx) — the checkpoint
 # "stack" rows of models/tsr.frontier_state.
+
+
+def resident_keys(n_seq: int, n_words: int, m: int,
+                  caps: ResidentCaps) -> List[str]:
+    """The shape keys a resident round records: the wide wave width and
+    (when distinct) the narrow late-wave width."""
+    out = [shapes.key_tsr_resident(n_seq, n_words, m, caps.km, caps.nb,
+                                   caps.ring)]
+    if caps.nb_late < caps.nb:
+        out.append(shapes.key_tsr_resident(n_seq, n_words, m, caps.km,
+                                           caps.nb_late, caps.ring))
+    return out
 
 
 def root_entries(sup_l: Sequence[int], minsup: int, num: int, den: int,
@@ -293,6 +354,11 @@ class Carry:
         """Host copies of the named buffers without their trash rows —
         the reference carry's arrays, dtypes and byte sizes."""
         return [getattr(self, n)[:-1].cpu().numpy() for n in names]
+
+    def nbytes(self, names: Sequence[str]) -> int:
+        """Bytes :meth:`arrays` would read back for these buffers."""
+        return sum(t[:-1].numel() * t.element_size()
+                   for t in (getattr(self, n) for n in names))
 
 
 def carry_from_state(state: dict, minsup: int,

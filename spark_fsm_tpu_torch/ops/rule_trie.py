@@ -45,6 +45,7 @@ import torch
 
 from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
 from spark_fsm_tpu_torch.models._common import to_device, to_host
+from spark_fsm_tpu_torch.utils import shapes
 from spark_fsm_tpu_torch.utils.canonical import (
     PatternResult, RuleResult, sort_patterns)
 
@@ -404,10 +405,38 @@ def decode_wave(trie: RuleTrie, n: int, m: int, M: int,
     return out
 
 
+def warm_geometry(F: int, D: int, W: int, M: int,
+                  device: DeviceLike = None) -> str:
+    """Score one geometry bucket with zero planes on ``device`` (the
+    prewarm's entry point: the first wave of a live artifact at
+    this geometry then finds the caching allocator warm) and record its
+    shape key."""
+    dev = resolve_device(device)
+    z = np.zeros(F, np.int32)
+    trie = RuleTrie(rules=[], lanes=0, F=F, D=D, digest="", built_ts=0.0)
+    for name, v in (("ante_tok", np.full((F, D), _DEAD, np.int32)),
+                    ("lane_item", z - 3), ("lane_slot", z),
+                    ("sel_rank", np.arange(F, dtype=np.int32)),
+                    ("lane_of_rank", np.arange(F, dtype=np.int32)),
+                    ("score_rank", z + _BIG), ("lane_sup", z),
+                    ("lane_supx", z)):
+        setattr(trie, name, to_device(v, dev))
+    q = np.full((W, D), _PAD, np.int32)
+    with (torch.cuda.device(dev) if dev.type == "cuda"
+          else contextlib.nullcontext()):
+        _, ev = to_host(score_device(trie, to_device(q, dev), M))
+        if ev is not None:
+            ev.synchronize()
+    key = shapes.key_predict(F, D, W, M)
+    shapes.record(key)
+    return key
+
+
 def score_wave(trie: RuleTrie, prefixes: Sequence[Sequence[int]],
                m: int, *, wave_pad: int = 0) -> List[List[dict]]:
     """Score a wave of observed prefixes on the trie's device; returns
-    per-request top-m entry lists in the Questor response spelling."""
+    per-request top-m entry lists in the Questor response spelling, and
+    records the wave's ``predict:`` shape key."""
     M = _next_pow2(max(int(m), 1))
     q = pack_wave(trie, prefixes, wave_pad)
     dev = trie.ante_tok.device
@@ -418,5 +447,6 @@ def score_wave(trie: RuleTrie, prefixes: Sequence[Sequence[int]],
         host, ev = to_host(score_device(trie, to_device(q, dev), M))
         if ev is not None:
             ev.synchronize()
+    shapes.record(shapes.key_predict(trie.F, trie.D, q.shape[0], M))
     return decode_wave(trie, len(prefixes), m, M,
                        *(h.numpy() for h in host))

@@ -107,11 +107,12 @@ on one device, resolved once at boot (``make_server``/``serve_background``
 ``device=``, CLI ``--device``; default ``cuda``, raising without a card;
 ``cpu`` for tests) and handed to the plugins, the engine caches, the
 stream miners and the predictor.  ``/admin/stats`` reports ``backend``
-``"cuda"`` or ``"cpu"`` and ``torch.cuda.device_count()``.  Not served
-yet (ROADMAP A13b): the boot prewarm (``/admin/prewarm`` answers 501;
-the ``prewarm`` and ``shape_keys_recorded`` stats are null and
-``/admin/shapes`` lists nothing enumerated), a device mesh and a
-multi-process boot; the config refuses their knobs.
+``"cuda"`` or ``"cpu"`` and ``torch.cuda.device_count()``.  The boot
+prewarm (``service/prewarm.py``) runs on the service's device before the
+server listens, after ``utils/jitcache.enable_compile_cache`` points the
+kernels' build directory; ``/admin/prewarm`` runs it on request.  Not
+served yet (ROADMAP A13b steps 5–7): a device mesh, a multi-process boot
+and the degraded-topology guard; the config refuses their knobs.
 """
 
 from __future__ import annotations
@@ -251,10 +252,21 @@ class FsmHandler(BaseHTTPRequestHandler):
                 self._send(200, json.dumps(
                     dataclasses.asdict(cfgmod.get_config())))
             elif task == "prewarm":
-                self._send(501, json.dumps({
-                    "status": "failure",
-                    "error": "prewarm is not served by spark_fsm_tpu_torch "
-                             "yet (ROADMAP A13b)"}))
+                # warm the declared workload envelope NOW (request params
+                # override the boot [prewarm] section field by field) —
+                # synchronous: the caller wants the first-use costs paid
+                # before traffic lands, and the report is per-key walls
+                from spark_fsm_tpu_torch.service import prewarm
+
+                spec = prewarm.spec_from_params(
+                    data or {}, cfgmod.get_config().prewarm)
+                report = prewarm.run(
+                    spec, mesh=cfgmod.get_mesh(),
+                    engine_kwargs=cfgmod.engine_kwargs(
+                        "pool_bytes", "node_batch", "pipeline_depth",
+                        "chunk", "recompute_chunk"),
+                    device=plugins.service_device())
+                self._send(200, json.dumps(report))
             elif task == "faults":
                 # chaos lab: gated on the BOOT config (not a request
                 # param) so a production deployment cannot be armed by
@@ -468,14 +480,18 @@ class FsmHandler(BaseHTTPRequestHandler):
                      "running": miner.running_count(),
                      "exit": want_exit}))
             elif task == "shapes":
-                # runtime-recorded shape keys; nothing is enumerated
-                # until the port has a prewarm, so there is no drift
+                # enumerated (last prewarm) vs runtime-recorded shape
+                # keys; "drift" lists observed geometries prewarm missed
+                from spark_fsm_tpu_torch.service import prewarm
                 from spark_fsm_tpu_torch.utils import shapes as shapereg
 
+                report = prewarm.last_report()
+                enumerated = report["enumerated"] if report else []
                 self._send(200, json.dumps({
-                    "enumerated": [],
+                    "enumerated": enumerated,
                     "recorded": shapereg.recorded(),
-                    "drift": None,
+                    "drift": (shapereg.drift(enumerated)
+                              if report else None),
                 }))
             else:
                 self._send(404, json.dumps(
@@ -516,8 +532,12 @@ def service_stats(master: Master) -> dict:
                      "stream_pushes", "stream_failures")
     }
     mesh_devices = cfgmod.get_config().engine.mesh_devices
+    from spark_fsm_tpu_torch.service import prewarm
     from spark_fsm_tpu_torch.service.devcache import (
         cspade_engine_cache, spade_engine_cache, tsr_engine_cache)
+    from spark_fsm_tpu_torch.utils import shapes as shapereg
+
+    report = prewarm.last_report()
 
     return {
         "jobs": counters,
@@ -573,9 +593,13 @@ def service_stats(master: Master) -> dict:
         # the per-tenant rollup tables live on /admin/usage
         "usage": (usage.stats() if usage.get() is not None else None),
         # warm-path observability: null until the port's engines record
-        # shape keys and the boot prewarm exists (ROADMAP A13b)
-        "shape_keys_recorded": None,
-        "prewarm": None,
+        # distinct device geometries seen, plus the last prewarm's
+        # per-key walls (if any ran)
+        "shape_keys_recorded": len(shapereg.recorded()),
+        "prewarm": (None if report is None else
+                    {"keys": report["keys"],
+                     "total_wall_s": report["total_wall_s"],
+                     "ts": report["ts"]}),
         # the canonical registry view (utils/obs.REGISTRY — what
         # GET /metrics exposes): the blocks above are documented ALIASES
         # of these fsm_* names for one release (docs/OPERATIONS.md
@@ -727,11 +751,35 @@ def main() -> None:
         cfg.service.remote_port = args.remote_port
     cfgmod.set_config(cfg)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
-    # set_config refused [distributed] and [prewarm] (ROADMAP A13b), so
-    # boot goes straight to the server
+    from spark_fsm_tpu_torch.utils.jitcache import enable_compile_cache
+
+    enable_compile_cache()  # the kernels' build directory, kept on disk
+    device = plugins.set_device(args.device)
+    if cfg.prewarm.enabled:
+        # boot prewarm on the service's device BEFORE accepting traffic:
+        # kernel builds, library loads, first launches and the allocator's
+        # pools at the declared envelope.  Synchronous by design — a
+        # not-yet-listening service is the honest signal that the
+        # deployment is still paying its first-use bill
+        from spark_fsm_tpu_torch.service import prewarm
+
+        spec = prewarm.spec_from_config(cfg.prewarm)
+        if spec is None:
+            print("prewarm enabled but the [prewarm] envelope is empty "
+                  "(set sequences/items or stream_batch_sequences)",
+                  flush=True)
+        else:
+            report = prewarm.run(
+                spec, mesh=cfgmod.get_mesh(),
+                engine_kwargs=cfgmod.engine_kwargs(
+                    "pool_bytes", "node_batch", "pipeline_depth",
+                    "chunk", "recompute_chunk"),
+                device=device)
+            print(f"prewarm: {len(report['keys'])} shape keys in "
+                  f"{report['total_wall_s']}s", flush=True)
     server = make_server(cfg.service.port, cfg.service.host,
                          miner_workers=cfg.service.miner_workers,
-                         device=args.device)
+                         device=device)
     # crash-restart recovery BEFORE accepting traffic: journal intents
     # from a dead incarnation are resubmitted (checkpointed — they
     # resume from the persisted frontier) or failed durably, so no

@@ -53,11 +53,23 @@ Disabled (`[fusion] enabled = false`, the default) every probe is one
 module-global read — the same pin as the fault registry and the flight
 recorder (scripts/bench_smoke.sh's byte-identical counters hold).
 
-Port: a copy of ``spark_fsm_tpu/service/fusion.py`` with its imports
-pointed at ``spark_fsm_tpu_torch``; the fused operands are concatenated
-and padded with ``torch.cat``/``torch.zeros`` on their own device.  No
-engine calls into the broker yet and ``[fusion] enabled`` is refused at
-boot (ROADMAP A13b).
+Port of ``spark_fsm_tpu/service/fusion.py``.  What differs:
+
+- the engine hands the broker its own evaluator: on CUDA the kernel
+  path's cap and lane with B2 (``ops/rule_support.rule_supports``), on
+  the CPU the plain path's cap, lane 32 and ``rule_supports_plain``.
+  The reference admits only its jnp path, because its folded Pallas
+  layout cannot be concatenated; B2 reads the engine layout, so a fused
+  wave on the card launches B2.  Each launch evaluates only its plan's
+  real lanes (``xy[:len(L.rows)]``), as the engine's own dispatch does;
+- the engine's prep stores are ``[M+1, S*W]`` with an all-ones last row,
+  the AND identity every -1 slot of ``xy`` stands for.  The fused store
+  (:func:`_fuse_preps`) is each distinct job's M real rows, zero rows up
+  to the pow2 bucket ``m_pad`` of the real rows' sum, then one all-ones
+  row; offsets count real rows only, so the shifted candidates, ``m_pad``
+  and the ``tsr-fused`` keys equal the reference's;
+- the plan's overhead is not recalibrated from the live drift gauge
+  (``ops/ragged_batch.py``: the factor is 1).
 """
 
 from __future__ import annotations
@@ -111,10 +123,6 @@ def configure(cfg) -> None:
     like the watchdog and the flight recorder; tests may call directly
     with a config.FusionConfig)."""
     global _on, _broker
-    if cfg is not None and cfg.enabled:
-        raise NotImplementedError(
-            "[fusion] enabled = true: not served by spark_fsm_tpu_torch "
-            "yet (ROADMAP A13b)")
     with _lock:
         if cfg is not None and cfg.enabled:
             if _broker is None:
@@ -149,12 +157,12 @@ class EvalWave:
 
     __slots__ = ("uid", "priority", "cands", "pools", "p1", "s1",
                  "eval_fn", "put", "cap", "lane", "n_seq", "n_words",
-                 "t_submit", "topology_epoch", "_event", "_sups",
+                 "point", "t_submit", "topology_epoch", "_event", "_sups",
                  "_supxs", "_report", "_error")
 
     def __init__(self, *, uid: str, priority: str, cands, pools,
                  p1, s1, eval_fn, put, cap, lane: int, n_seq: int,
-                 n_words: int):
+                 n_words: int, point: str = "jnp"):
         self.uid = uid
         self.priority = priority
         self.cands = cands
@@ -167,6 +175,9 @@ class EvalWave:
         self.lane = int(lane)
         self.n_seq = int(n_seq)
         self.n_words = int(n_words)
+        # the evaluator's fault-site label: "kernel" (B2, with the
+        # device.oom site) or "jnp" (the plain version)
+        self.point = point
         self.t_submit = time.monotonic()
         # topology epoch at submit (service/meshguard.py, None when the
         # plane is off): the broker re-checks at launch time — a row
@@ -520,7 +531,9 @@ class FusionBroker:
             if k not in offsets:
                 offsets[k] = off
                 uniq.append((w.p1, w.s1))
-                off += int(w.p1.shape[0])
+                # real rows only: each store's all-ones last row is
+                # dropped and the fused store gets one of its own
+                off += int(w.p1.shape[0]) - 1
         fpools: Dict[int, List[int]] = {}
         jobs: List[int] = []
         uid_ix: Dict[str, int] = {}  # lane tags carry JOB identity, not
@@ -601,19 +614,21 @@ class FusionBroker:
         # dispatcher thread has no current span for it to bind to
         with obs.span("fusion.plan", trace_id=w0.uid, jobs=len(waves)):
             RB.record_plan(plan)
-        arr, cols, est_s, measured_s = self._execute(
+        arr, cols, est_s, measured_s, leaves, halved = self._execute(
             plan, fcands, p1f, s1f, w0, trace_uid=w0.uid,
             fused=True, m_pad=m_pad)
         self._bump(fused_groups=1,
                    traffic_units=sum(L.traffic_units for L in plan))
-        self._attribute_fused(waves, plan, est_s, measured_s)
-        cross = sum(1 for L in plan if L.cross_job)
+        self._attribute_fused(waves, leaves, est_s, measured_s)
+        cross = sum(1 for L in leaves if L.cross_job)
         report_base = {
-            "fused_jobs": len(waves), "launches": len(plan),
+            "fused_jobs": len(waves), "launches": len(leaves),
             "cross_job_launches": cross,
             "traffic_units": sum(L.traffic_units for L in plan),
             "window_wait_s": round(wait_s, 6), "m_pad": m_pad,
         }
+        if halved:
+            report_base["degraded_launches"] = halved
         for wi, w in enumerate(waves):
             lo, hi = slices[wi]
             idx = cols[lo:hi]
@@ -626,7 +641,7 @@ class FusionBroker:
                 # the fused launch spans live on the leader's
                 with obs.span("fusion.joined", trace_id=w.uid,
                               leader=w0.uid, jobs=len(waves),
-                              launches=len(plan)):
+                              launches=len(leaves)):
                     pass
 
     @staticmethod
@@ -702,10 +717,8 @@ class FusionBroker:
         # strong-refs for key safety — once the owning jobs finish, the
         # cache is what keeps those alive, so they bill against the
         # budget too.
-        nbytes = (int(getattr(fused[0], "nbytes", 0))
-                  + int(getattr(fused[1], "nbytes", 0))
-                  + sum(int(getattr(a, "nbytes", 0))
-                        for pair in uniq for a in pair))
+        nbytes = (_nbytes(fused[0]) + _nbytes(fused[1])
+                  + sum(_nbytes(a) for pair in uniq for a in pair))
         with self._prep_lock:
             if (key not in self._prep_cache
                     and nbytes <= self._PREP_CACHE_BYTES // 2):
@@ -731,17 +744,19 @@ class FusionBroker:
         units = sum(L.traffic_units for L in plan)
         self._bump(traffic_units=units, alt_solo_launches=len(plan),
                    alt_solo_units=units)
-        arr, cols, est_s, measured_s = self._execute(
+        arr, cols, est_s, measured_s, leaves, halved = self._execute(
             plan, w.cands, w.p1, w.s1, w, trace_uid=w.uid, fused=False)
         # whole-plan attribution: a solo dispatch (window of one, or a
         # degraded re-dispatch) has exactly one owning job
-        usage.deposit(w.uid, launches=len(plan), traffic_units=units,
+        usage.deposit(w.uid, launches=len(leaves), traffic_units=units,
                       seconds_est=est_s, seconds_measured=measured_s)
+        report = {"fused_jobs": 1, "launches": len(leaves),
+                  "cross_job_launches": 0, "traffic_units": units,
+                  "window_wait_s": round(wait_s, 6)}
+        if halved:
+            report["degraded_launches"] = halved
         w.resolve(arr[0, cols].astype(np.int64),
-                  arr[1, cols].astype(np.int64),
-                  {"fused_jobs": 1, "launches": len(plan),
-                   "cross_job_launches": 0, "traffic_units": units,
-                   "window_wait_s": round(wait_s, 6)})
+                  arr[1, cols].astype(np.int64), report)
         self._bump(solo_waves=1)
         _WAVES_TOTAL.inc(engine="tsr", fused="false")
 
@@ -749,40 +764,62 @@ class FusionBroker:
                  trace_uid: str, fused: bool,
                  m_pad: Optional[int] = None):
         """Dispatch a plan against one prep pair and read it back —
-        the broker-side twin of TsrTPU._dispatch_eval_inner's jnp
-        branch, shared by the fused and solo paths so they cannot
-        drift."""
+        the broker-side twin of TsrTorch._dispatch_eval, shared by the
+        fused and solo paths so they cannot drift.  Each launch takes
+        its plan's real lanes only.  A device OOM halves the launch
+        (``RB.launch_halving``, the engine's own ladder); returns the
+        readback, the column map, the estimate and the wall, the leaf
+        launches that ran and the number of halvings."""
         parts: List[object] = []
         cols = np.empty(len(cands), np.int64)
         bufs: List[np.ndarray] = []
+        leaves: List[RB.Launch] = []
+        halved = 0
         base = 0
+
+        def launch(leaf):
+            # the engine's own fault sites: with fusion on this IS the
+            # real dispatch call site, and a device.dispatch or
+            # device.oom drill must fire here, not vacuously
+            faults.fault_site("device.dispatch", point=w0.point,
+                              km=str(leaf.km), width=str(leaf.width))
+            if w0.point == "kernel":
+                faults.fault_site("device.oom", point="kernel",
+                                  km=str(leaf.km), width=str(leaf.width))
+            xy = self._stager().take(leaf, cands)
+            return xy, w0.eval_fn(leaf.km)(p1, s1,
+                                           w0.put(xy[:len(leaf.rows)]))
+
+        def span(leaf):
+            return obs.span("fusion.launch", trace_id=trace_uid,
+                            km=leaf.km, width=leaf.width, jobs=leaf.n_jobs,
+                            fused=fused,
+                            predicted_s=round(RB.estimate_seconds(
+                                leaf.traffic_units, 1, w0.n_seq,
+                                w0.n_words), 6))
+
+        def on_halve(leaf):
+            nonlocal halved
+            halved += 1
+
         for L in plan:
-            with obs.span("fusion.launch", trace_id=trace_uid, km=L.km,
-                          width=L.width, jobs=L.n_jobs, fused=fused,
-                          predicted_s=round(RB.estimate_seconds(
-                              L.traffic_units, 1, w0.n_seq, w0.n_words),
-                              6)):
-                # same guard the direct jnp path wears (tsr.py): with
-                # fusion on this IS the real dispatch call site, and a
-                # device.dispatch drill must fire here, not vacuously
-                faults.fault_site("device.dispatch", point="jnp",
-                                  km=str(L.km), width=str(L.width))
-                fn = w0.eval_fn(L.km)
-                xy = self._stager().take(L, cands)
+            for leaf, (xy, part) in RB.launch_halving(L, launch, span,
+                                                      on_halve):
                 bufs.append(xy)
-                cols[L.rows] = base + np.arange(len(L.rows))
-                base += L.width
-                parts.append(fn(p1, s1, w0.put(xy)))
-            self._bump(launches=1,
-                       cross_job_launches=1 if L.cross_job else 0)
-            _LAUNCHES_TOTAL.inc(cross_job=str(L.cross_job).lower())
-            _JOBS_PER_LAUNCH.observe(L.n_jobs)
-            if fused and m_pad is not None:
-                shapes.record(shapes.key_tsr_fused(
-                    w0.n_seq, w0.n_words, m_pad, L.km, L.width))
-            else:
-                shapes.record(shapes.key_tsr_eval(
-                    w0.n_seq, w0.n_words, L.km, L.width))
+                cols[leaf.rows] = base + np.arange(len(leaf.rows))
+                base += len(leaf.rows)
+                parts.append(part)
+                leaves.append(leaf)
+                self._bump(launches=1,
+                           cross_job_launches=1 if leaf.cross_job else 0)
+                _LAUNCHES_TOTAL.inc(cross_job=str(leaf.cross_job).lower())
+                _JOBS_PER_LAUNCH.observe(leaf.n_jobs)
+                if fused and m_pad is not None:
+                    shapes.record(shapes.key_tsr_fused(
+                        w0.n_seq, w0.n_words, m_pad, leaf.km, leaf.width))
+                else:
+                    shapes.record(shapes.key_tsr_eval(
+                        w0.n_seq, w0.n_words, leaf.km, leaf.width))
         if len(parts) == 1:
             out = parts[0]
         else:
@@ -809,28 +846,34 @@ class FusionBroker:
                 family=("tsr-fused" if fused and m_pad is not None
                         else "tsr-eval"))
         self._stager().release(bufs)
-        return arr, cols, est_s, measured_s
+        return arr, cols, est_s, measured_s, leaves, halved
+
+
+def _nbytes(a) -> int:
+    """Bytes of a tensor or an array (0 for anything else)."""
+    if hasattr(a, "element_size"):
+        return int(a.element_size() * a.numel())
+    return int(getattr(a, "nbytes", 0))
 
 
 def _fuse_preps(uniq, m_pad: int, total_m: int):
-    """Concatenate the group's distinct prep pairs along the item axis
-    and zero-pad to the pow2 bucket.  Zero rows support nothing and no
-    fused candidate ever indexes them, so padding is semantically
-    inert; the pow2 bucket is what keeps the fused eval programs a
-    finite, prewarm-enumerable ladder (``tsr-fused`` keys)."""
+    """The fused ``[m_pad+1, S*W]`` prep pair: each distinct store's real
+    rows (its all-ones last row dropped) in group order, zero rows up to
+    the pow2 bucket ``m_pad`` of their sum ``total_m``, then one all-ones
+    row, the AND identity every -1 slot of a fused ``xy`` reads.  Zero
+    rows support nothing and no shifted candidate indexes them; the pow2
+    bucket keeps the fused geometries a finite, enumerable ladder
+    (``tsr-fused`` keys)."""
     import torch
 
-    p_parts = [p for p, _ in uniq]
-    s_parts = [s for _, s in uniq]
-    if m_pad > total_m:
-        shape = (m_pad - total_m,) + tuple(p_parts[0].shape[1:])
-        # bitmaps are int32 tensors holding the reference's uint32 bits
-        pad = torch.zeros(shape, dtype=p_parts[0].dtype,
-                          device=p_parts[0].device)
-        p_parts = p_parts + [pad]
-        s_parts = s_parts + [pad]
-    if len(p_parts) == 1:
-        return p_parts[0], s_parts[0]
+    ref = uniq[0][0]
+    tail = tuple(ref.shape[1:])
+    # bitmaps are int32 tensors holding the reference's uint32 bits
+    pad = torch.zeros((m_pad - total_m,) + tail, dtype=ref.dtype,
+                      device=ref.device)
+    ones = torch.full((1,) + tail, -1, dtype=ref.dtype, device=ref.device)
+    p_parts = [p[:-1] for p, _ in uniq] + [pad, ones]
+    s_parts = [s[:-1] for _, s in uniq] + [pad, ones]
     return torch.cat(p_parts, dim=0), torch.cat(s_parts, dim=0)
 
 
@@ -840,7 +883,7 @@ def _fuse_preps(uniq, m_pad: int, total_m: int):
 
 
 def submit_eval(*, cands, pools, p1, s1, eval_fn, put, cap, lane: int,
-                n_seq: int, n_words: int,
+                n_seq: int, n_words: int, point: str = "jnp",
                 priority: Optional[str] = None,
                 uid: Optional[str] = None) -> Optional[EvalWave]:
     """Hand one dispatch's candidate set to the fusion broker.  Returns
@@ -869,7 +912,7 @@ def submit_eval(*, cands, pools, p1, s1, eval_fn, put, cap, lane: int,
                 uid = f"eng-{id(anchor if anchor is not None else p1):x}"
     wave = EvalWave(uid=uid, priority=priority, cands=cands, pools=pools,
                     p1=p1, s1=s1, eval_fn=eval_fn, put=put, cap=cap,
-                    lane=lane, n_seq=n_seq, n_words=n_words)
+                    lane=lane, n_seq=n_seq, n_words=n_words, point=point)
     b.submit(wave)
     return wave
 

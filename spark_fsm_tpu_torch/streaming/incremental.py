@@ -76,6 +76,7 @@ from spark_fsm_tpu_torch.ops import pair_support as PS
 from spark_fsm_tpu_torch.ops.ragged_batch import next_pow2
 from spark_fsm_tpu_torch.parallel.mesh import all_reduce_sum, mesh_size
 from spark_fsm_tpu_torch.streaming.window import SlidingWindow
+from spark_fsm_tpu_torch.utils import shapes
 from spark_fsm_tpu_torch.utils.canonical import PatternResult, sort_patterns
 
 Key = Tuple[int, bool]  # (GLOBAL item id, is_s_extension)
@@ -166,6 +167,7 @@ class _BatchTokens:
         self.store: Optional[torch.Tensor] = None
         self._proj_key = None
         self._n_rows = 0
+        self.last_shape_key: Optional[str] = None
 
     def _project(self, needed: List[int], extra_rows: int) -> int:
         """Build (or reuse) this batch's store for the given GLOBAL item
@@ -191,6 +193,10 @@ class _BatchTokens:
             self.n_words)
         self._proj_key = key
         self._n_rows = n_rows
+        # a store (re)build fixes the sweep geometry: stamp and record it
+        self.last_shape_key = shapes.key_sweep(
+            self.n_seq, self.n_words, n_rows, ni_rows)
+        shapes.record(self.last_shape_key)
         return n_rows
 
     def store_bytes(self) -> int:
@@ -335,6 +341,14 @@ class IncrementalWindowMiner:
                 "repair": round(t_rep - t_sweep, 3),
                 "prune": round(time.monotonic() - t_rep, 3),
             }
+            # the freshest batch's store geometry and every live batch's
+            live_keys = sorted({st.last_shape_key
+                                for st in self._states.values()
+                                if st.last_shape_key})
+            if fresh and fresh[-1].last_shape_key:
+                self.stats["shape_key"] = fresh[-1].last_shape_key
+            if live_keys:
+                self.stats["sweep_shape_keys"] = live_keys
             self.stats["pushes"] += 1
             self.stats["mines"] += 1
             self.stats["evicted_batches"] = self.window.evicted_batches

@@ -53,7 +53,7 @@ class FaultInjected(RuntimeError):
 
 class InjectedOom(FaultInjected):
     """Injected device OOM.  The message carries RESOURCE_EXHAUSTED so
-    the engines' substring-based OOM detection (models/tsr._is_oom)
+    the engines' OOM detection (ops/ragged_batch.is_oom)
     treats it exactly like a real XLA allocation failure."""
 
     def __init__(self, site: str):

@@ -81,17 +81,25 @@ Key formats (the geometry axes that decide compiled shapes):
                                             the enumerator lists at the
                                             inner geometry
 
-Port: the registry half of ``spark_fsm_tpu/utils/shapes.py`` (the
-``key_*`` formats, :func:`record`, :func:`recorded`,
-:func:`reset_recorded` and :func:`drift`).  The enumerator
-(``WorkloadSpec``, ``enumerate_shapes``) belongs to the boot prewarm,
-which the port does not have yet.
+Port of ``spark_fsm_tpu/utils/shapes.py``.  On a CUDA card nothing
+compiles per shape: a key names the geometry an engine sizes its device
+buffers and launches at, spelled as the reference's XLA path spells it
+(its sequence axis, before the port pads to B1's 32-sequence tile:
+``models/_common.key_seq``), so both packages give equal keys for equal
+input and options.  The reference's ``use_pallas`` moves its geometry
+(Pallas sequence blocks); the port's kernels take any sequence count, so
+:func:`enumerate_shapes` lists the same set on either device, and the
+enumeration is the reference's without Pallas.  The one difference: the
+``tsr-fused`` ladder is listed on either device, because the port's
+fused waves launch B2 on the card where the reference's broker admits
+only its jnp path.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 # ----------------------------------------------------------------- formats
 
@@ -245,3 +253,232 @@ def drift(enumerated: Iterable[str]) -> List[str]:
     request (registry drift; surfaced by ``/admin/shapes``)."""
     known = set(enumerated)
     return sorted(k for k in recorded() if k not in known)
+
+
+# -------------------------------------------------------------- enumerator
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkloadSpec:
+    """The data geometry an operator expects to serve — everything the
+    enumerator needs to list the shape keys without mining.
+
+    ``n_sequences``/``n_items``/``n_words``: the batch ``/train``
+    envelope (sequence count, frequent-projection width at the service
+    support, bitmap word count).  ``constraints``: (maxgap, maxwindow)
+    pairs cSPADE requests will carry.  ``tsr``: also enumerate the TSR
+    engine's geometry.  ``stream_batch_sequences``/``stream_items``: the
+    incremental streaming envelope; ``sweep_row_buckets`` successive pow2
+    work-row buckets are listed per sweep geometry.  ``checkpointed``:
+    prewarm also runs the segmented (resumable) queue mine.
+    ``fusion_jobs``: list the ``tsr-fused`` ladder for groups of up to
+    this many concurrent TSR jobs (0 = fusion not served).
+    ``partition_parts``: >= 2 lists the ``tsr-part`` key and the per-part
+    inner ladder.  ``predict_*``: the prediction-serving envelope (lane
+    and depth floors, max fused wave, default top-m).  The reference's
+    ``max_tokens`` (the token-table bound of its store-build warm) has no
+    counterpart: the port builds stores without per-length programs.
+    """
+
+    n_sequences: int
+    n_items: int
+    n_words: int = 1
+    constraints: Tuple[Tuple[Optional[int], Optional[int]], ...] = ()
+    tsr: bool = False
+    fusion_jobs: int = 0
+    partition_parts: int = 0
+    stream_batch_sequences: int = 0
+    stream_items: int = 0
+    stream_seq_floor: int = 0  # must mirror [prewarm] stream_seq_floor
+    sweep_row_buckets: int = 4
+    checkpointed: bool = False
+    predict_lanes: int = 0
+    predict_depth: int = 0
+    predict_wave: int = 0
+    predict_topm: int = 0
+
+
+def enumerate_shapes(spec: WorkloadSpec, *, mesh=None,
+                     engine_kwargs: Optional[dict] = None,
+                     device=None) -> Dict[str, dict]:
+    """The finite set of service-default shape keys for ``spec`` under
+    the given boot knobs — a superset of what the router will run (the
+    queue engine, its classic fallback and the dense engine are all
+    listed).  Returns ``{shape_key: target}``, ``target`` carrying the
+    kind and geometry ``service/prewarm.py`` needs.  Calls the geometry
+    functions the engines' constructors call, so enumeration cannot drift
+    from construction.  ``device`` (None = CUDA) sizes the budgets, as an
+    engine on it would."""
+    from spark_fsm_tpu_torch.models import spade, spade_constrained
+    from spark_fsm_tpu_torch.models import spade_fused, spade_queue
+    from spark_fsm_tpu_torch.models import spam_bitmap, tsr
+    from spark_fsm_tpu_torch.models._common import (
+        I_TILE, device_hbm_budget, engine_device, next_pow2)
+    from spark_fsm_tpu_torch.ops import ragged_batch as RB
+
+    ekw = dict(engine_kwargs or {})
+    dev = engine_device(device, mesh)
+    out: Dict[str, dict] = {}
+
+    def add(key: str, **target) -> None:
+        out.setdefault(key, target)
+
+    ns, ni, nw = int(spec.n_sequences), int(spec.n_items), int(spec.n_words)
+    if ns > 0 and ni > 0:
+        ckw = {k: v for k, v in ekw.items()
+               if k in ("chunk", "node_batch", "pipeline_depth",
+                        "recompute_chunk", "pool_bytes")}
+        g = spade.classic_geometry(ns, ni, nw, device=dev, mesh=mesh, **ckw)
+        add(g["shape_key"], kind="classic", n_sequences=ns, n_items=ni,
+            n_words=nw)
+        q = spade_queue.queue_geometry(ns, ni, nw, device=dev, mesh=mesh)
+        add(q["shape_key"], kind="queue", n_sequences=ns, n_items=ni,
+            n_words=nw, checkpointed=bool(spec.checkpointed))
+        f = spade_fused.fused_geometry(ns, ni, nw, mesh=mesh)
+        add(f["shape_key"], kind="fused", n_sequences=ns, n_items=ni,
+            n_words=nw)
+        # the SPAM wave at the pure geometry, every dense-block pad the
+        # density split can produce (the item-tile ladder 0..ni_pad) and
+        # the sparse pair-launch pow2 widths
+        skw = {k: v for k, v in ekw.items()
+               if k in ("node_batch", "pipeline_depth", "pool_bytes")}
+        sg = spam_bitmap.spam_geometry(ns, ni, nw, device=dev, mesh=mesh,
+                                       **skw)
+        add(sg["shape_key"], kind="spam", n_sequences=ns, n_items=ni,
+            n_words=nw)
+        nd = 0
+        while nd <= sg["ni_pad"]:
+            add(key_spam_hybrid(sg["key_seq"], nw, sg["key_rows"],
+                                sg["node_batch"], sg["ni_pad"], nd),
+                kind="spam_hybrid", n_sequences=ns, n_items=ni, n_words=nw,
+                nd_pad=nd)
+            nd += sg["tile"]
+        w = 64
+        while w <= sg["chunk"]:
+            add(key_spam_pair(sg["key_seq"], nw, w),
+                kind="spam_pair", n_sequences=ns, n_items=ni, n_words=nw,
+                width=w)
+            w *= 2
+        for maxgap, maxwindow in spec.constraints:
+            cg = spade_constrained.cspade_geometry(
+                ns, ni, nw, maxgap=maxgap, maxwindow=maxwindow, device=dev,
+                mesh=mesh, **ckw)
+            add(cg["shape_key"], kind="cspade", n_sequences=ns, n_items=ni,
+                n_words=nw, maxgap=maxgap, maxwindow=maxwindow)
+        if spec.tsr:
+            tg = tsr.tsr_geometry(ns, mesh=mesh, n_words=nw)
+            # the eval-launch ladder the ragged packer can emit: lane floor
+            # 32 (the plain path; the kernel path's 128-lane launches are
+            # a subset) up to a pinned tsr_chunk, else the dispatch
+            # quantum the engine's width resolves to
+            tsr_chunk = int(ekw.get("tsr_chunk") or 0)
+            hi = tsr_chunk or RB.dispatch_quantum_lanes(tg["n_seq"], nw)
+            ladder = RB.superbatch_geometries(32, hi)
+            add(tg["shape_key"], kind="tsr", n_sequences=ns, n_items=ni,
+                n_words=nw, superbatch=ladder)
+            for km, width in ladder:
+                add(key_tsr_eval(tg["n_seq"], nw, km, width),
+                    kind="tsr_eval", km=km, width=width)
+            if mesh is None:
+                # the resident route's wave widths for every round of the
+                # iterative-deepening ladder whose caps fit the budget
+                from spark_fsm_tpu_torch.ops import resident_frontier as RF
+
+                budget = device_hbm_budget(dev)
+                m_res = min(int(ekw.get("item_cap")
+                                or tsr.ITEM_CAP_DEFAULT), ni)
+                while True:
+                    caps = RF.caps_for(tg["n_seq"], nw, m_res, budget)
+                    if caps is None:
+                        break
+                    widths = [caps.nb] + ([caps.nb_late]
+                                          if caps.nb_late < caps.nb else [])
+                    for nb in widths:
+                        add(key_tsr_resident(tg["n_seq"], nw, m_res,
+                                             caps.km, nb, caps.ring),
+                            kind="tsr_resident", n_sequences=ns,
+                            n_items=ni, n_words=nw, m=m_res, nb=nb,
+                            ring=caps.ring, km=caps.km)
+                    if m_res >= ni:
+                        break
+                    m_res = min(m_res * 2, ni)
+            if spec.partition_parts >= 2:
+                inner = _inner_row(mesh, spec.partition_parts)
+                if inner is not _PARTITION_SKIP:
+                    tgp = tsr.tsr_geometry(ns, mesh=inner, n_words=nw)
+                    hi_p = tsr_chunk or RB.dispatch_quantum_lanes(
+                        tgp["n_seq"], nw)
+                    ladder_p = RB.superbatch_geometries(32, hi_p)
+                    add(key_tsr_part(spec.partition_parts, tgp["n_seq"],
+                                     nw),
+                        kind="tsr_part", n_sequences=ns, n_items=ni,
+                        n_words=nw, parts=int(spec.partition_parts),
+                        superbatch=ladder_p)
+                    add(tgp["shape_key"], kind="tsr_inner")
+                    for km, width in ladder_p:
+                        add(key_tsr_eval(tgp["n_seq"], nw, km, width),
+                            kind="tsr_eval", km=km, width=width)
+            if spec.fusion_jobs >= 2 and mesh is None:
+                # groups of 2..fusion_jobs first-round prep stores
+                # concatenated and pow2-padded (service/fusion.py); the
+                # (km, width) set is the solo ladder (the broker's caps are
+                # minima of the engines')
+                m1 = min(tsr.ITEM_CAP_DEFAULT, ni)
+                fused_m = sorted({RB.next_pow2(j * m1)
+                                  for j in range(2, spec.fusion_jobs + 1)})
+                out[tg["shape_key"]]["fused_m"] = fused_m
+                for m_pad in fused_m:
+                    for km, width in ladder:
+                        add(key_tsr_fused(tg["n_seq"], nw, m_pad, km,
+                                          width),
+                            kind="tsr_fused", m_pad=m_pad, km=km,
+                            width=width)
+
+    if spec.stream_batch_sequences > 0 and spec.stream_items > 0:
+        from spark_fsm_tpu_torch.streaming import incremental
+
+        swg = incremental.sweep_geometry(
+            int(spec.stream_batch_sequences), nw, mesh=mesh,
+            seq_floor=int(spec.stream_seq_floor))
+        ni_rows = -(-max(int(spec.stream_items), 1) // I_TILE) * I_TILE
+        rows = next_pow2(ni_rows + 1)
+        for _ in range(max(1, int(spec.sweep_row_buckets))):
+            add(key_sweep(swg["n_seq"], swg["n_words"], rows, ni_rows),
+                kind="sweep",
+                batch_sequences=int(spec.stream_batch_sequences),
+                n_items=int(spec.stream_items), n_words=nw,
+                seq_floor=int(spec.stream_seq_floor),
+                ni_rows=ni_rows, n_rows=rows)
+            rows *= 2
+
+    if spec.predict_wave > 0 and spec.predict_lanes > 0:
+        # one scoring geometry per pow2 wave bucket at the declared floors
+        f_pad = next_pow2(max(int(spec.predict_lanes), 1))
+        d_pad = next_pow2(max(int(spec.predict_depth), 1))
+        m_pad = next_pow2(max(int(spec.predict_topm), 1))
+        w = 1
+        w_hi = next_pow2(max(int(spec.predict_wave), 1))
+        while w <= w_hi:
+            add(key_predict(f_pad, d_pad, w, m_pad),
+                kind="predict", lanes=f_pad, depth=d_pad, wave=w,
+                topm=m_pad)
+            w *= 2
+    return out
+
+
+def _inner_row(mesh, parts: int):
+    """The inner (per-row) mesh a partitioned mine's engines run on —
+    this rank's row, or None for the bare single-device route — or
+    ``_PARTITION_SKIP`` (logged) when the mesh cannot split ``parts``
+    ways, so an override that cannot split this topology does not fail
+    the whole enumeration."""
+    from spark_fsm_tpu_torch.parallel import partition as PN
+    from spark_fsm_tpu_torch.utils.obs import log_event
+
+    try:
+        rows = PN.submeshes(mesh, parts)
+    except ValueError as exc:
+        log_event("partition_config_invalid", reason=str(exc),
+                  at="enumerate_shapes")
+        return _PARTITION_SKIP
+    return next((r for r in rows if r is not None), None)

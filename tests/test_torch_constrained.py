@@ -223,8 +223,7 @@ def test_engine_at_pinned_geometry_equals_reference_engine(case):
     assert port.dtype == (torch.int16 if case == "int16" else torch.int8)
     want, got = ref.mine(), port.mine()
     assert patterns_text(got) == j_patterns_text(want)
-    assert port.stats == {k: v for k, v in ref.stats.items()
-                          if k != "shape_key"}
+    assert port.stats == ref.stats
     if case == "tiny_pool_recompute":
         assert port.pool_slots <= 32 and port.stats["recomputed_nodes"] > 0
 

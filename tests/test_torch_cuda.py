@@ -23,7 +23,14 @@ classic), SPAM and TSR mines equal the one-device mines, its queue waves
 with their all-reduce make no host sync, and a 2-rank gloo world whose
 ranks share the card equals the one-device mines too.  Two class
 partitions of each engine, mined in turn on the card, launch the route's
-kernel and equal the one-device mine.
+kernel and equal the one-device mine.  The fusion broker's fused store
+(two jobs' real rows, zero rows up to ``m_pad``, one all-ones row) gives
+B2 equal to its plain version, and two TSR jobs fused on the card equal
+their solo mines; after a prewarm at the mine's envelope, a first mine in
+the process records only enumerated keys and builds or loads no kernel
+library (``utils/jitcache.compile_counts``), and an injected OOM on a
+kernel launch, direct or the broker's fused one, halves it with the rules
+unchanged.
 """
 
 import numpy as np
@@ -705,3 +712,176 @@ def test_partitioned_mines_on_card_equal_one_device(card, name):
         assert kernel.launches > before, name
     if name == "tsr_resident":
         assert stats["resident_waves"] > 0
+
+
+# ------------------------------------------------------ the warm path
+
+
+def _tsr_prep(card, seed, n=3000):
+    db = synthetic_db(seed=seed, n_sequences=n, n_items=40,
+                      mean_itemsets=4.0)
+    eng = TsrTorch(build_vertical(db, min_item_support=1), 20, 0.5,
+                   device=card)
+    m = min(eng.item_cap, eng.vdb.n_items)
+    eng.chunk = eng._round_chunk(m)
+    return eng, eng._prep(m), m
+
+
+@pytest.mark.parametrize("km", [1, 2, 4])
+def test_fused_store_b2_equals_plain(card, km):
+    """B2 on a fused store (two jobs' rows, zero rows, the all-ones row)
+    equals its plain version on the same store, candidates spanning both
+    jobs' rows with -1 slots."""
+    from spark_fsm_tpu_torch.service import fusion
+
+    (_, (pa, sa), ma), (_, (pb, sb), mb) = (_tsr_prep(card, 3),
+                                           _tsr_prep(card, 4))
+    m_pad = RB.next_pow2(ma + mb)
+    pf, sf = fusion._fuse_preps([(pa, sa), (pb, sb)], m_pad, ma + mb)
+    assert pf.shape[0] == m_pad + 1 and bool((pf[-1] == -1).all())
+    assert bool((pf[ma + mb:m_pad] == 0).all())
+    rng = np.random.default_rng(km)
+    xy = rng.integers(0, ma + mb, size=(4096, 2, km)).astype(np.int32)
+    xy[rng.random(xy.shape) < 0.3] = -1
+    xy[:, :, 0] = np.abs(xy[:, :, 0])
+    xy_t = torch.from_numpy(xy).to(card)
+    got = RS.rule_supports(pf, sf, xy_t)
+    want = RS.rule_supports_plain(pf, sf, xy_t)
+    assert torch.equal(got, want)
+
+
+def test_fused_tsr_jobs_on_card_equal_solo(card):
+    import threading
+
+    from spark_fsm_tpu_torch import config as TC
+    from spark_fsm_tpu_torch.service import fusion
+    from spark_fsm_tpu_torch.utils import jobctl
+
+    dbs = [synthetic_db(seed=s, n_sequences=2000, n_items=30,
+                        mean_itemsets=4.0) for s in (5, 6)]
+    want = [rules_text(mine_tsr_torch(db, 30, 0.5, max_side=2,
+                                      device=card)) for db in dbs]
+    fusion.configure(TC.FusionConfig(enabled=True, window_ms=100.0))
+    b = fusion.broker()
+    try:
+        b.hold()
+        out = {}
+
+        def run(i):
+            uid = f"card-fuse-{i}"
+            with jobctl.activate(jobctl.register(uid)):
+                out[i] = rules_text(mine_tsr_torch(
+                    dbs[i], 30, 0.5, max_side=2, device=card))
+            jobctl.release(uid)
+
+        ts = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
+        for t in ts:
+            t.start()
+        while b.pending() < 2:
+            pass
+        launches0 = RS.rule_supports.launches
+        b.release()
+        for t in ts:
+            t.join(120)
+        assert [out[0], out[1]] == want
+        assert b.stats["cross_job_launches"] >= 1
+        assert RS.rule_supports.launches > launches0
+    finally:
+        b.release()
+        fusion.configure(None)
+
+
+def test_prewarmed_first_mine_builds_and_loads_nothing(card):
+    """After a prewarm at the envelope, a first TSR and SPADE mine record
+    only enumerated keys and build or load no kernel library.  The
+    libraries load once a process, so this holds only where the prewarm
+    paid the loads, in a fresh process (the test runs one)."""
+    import subprocess
+    import sys
+
+    code = r"""
+import torch
+from spark_fsm_tpu_torch.data.synth import synthetic_db
+from spark_fsm_tpu_torch.data.vertical import build_vertical
+from spark_fsm_tpu_torch.models.spade import mine_spade_torch
+from spark_fsm_tpu_torch.models.tsr import mine_tsr_torch
+from spark_fsm_tpu_torch.service import prewarm
+from spark_fsm_tpu_torch.utils import shapes
+from spark_fsm_tpu_torch.utils.jitcache import compile_counts
+db = synthetic_db(seed=9, n_sequences=3000, n_items=40, mean_itemsets=4.0)
+vdb = build_vertical(db, min_item_support=1)  # TSR's projection
+report = prewarm.run(shapes.WorkloadSpec(
+    n_sequences=len(db), n_items=vdb.n_items, n_words=vdb.n_words,
+    tsr=True), device="cuda")
+assert not [r for r in report["keys"] if "error" in r], report
+assert sum(r["fresh_compiles"] for r in report["keys"]) >= 3, report
+c0 = compile_counts()
+mine_spade_torch(db, 30, device="cuda")
+mine_tsr_torch(db, 20, 0.5, max_side=None, device="cuda")
+torch.cuda.synchronize()
+assert compile_counts() == c0, (compile_counts(), c0)
+assert shapes.drift(report["enumerated"]) == [], shapes.drift(report["enumerated"])
+print("OK")
+"""
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0 and "OK" in proc.stdout, proc.stderr[-3000:]
+
+
+def test_oom_drill_on_card_keeps_rules(card):
+    from spark_fsm_tpu_torch.utils import faults
+
+    db = synthetic_db(seed=11, n_sequences=3000, n_items=40,
+                      mean_itemsets=4.0)
+    vdb = build_vertical(db, min_item_support=1)
+    want = rules_text(TsrTorch(vdb, 30, 0.5, max_side=2, device=card).mine())
+    eng = TsrTorch(vdb, 30, 0.5, max_side=2, device=card)
+    with faults.injected("device.oom", nth=1):
+        got = rules_text(eng.mine())
+    assert got == want
+    assert eng.stats["degraded_launches"] >= 1
+
+
+def test_oom_on_a_fused_launch_on_card_keeps_rules(card):
+    """An injected OOM on the broker's first (cross-job) launch halves it
+    through the engine's ladder: both jobs' rules equal their solo mines'
+    and each job counts the halving."""
+    import threading
+
+    from spark_fsm_tpu_torch import config as TC
+    from spark_fsm_tpu_torch.service import fusion
+    from spark_fsm_tpu_torch.utils import faults, jobctl
+
+    vdbs = [build_vertical(synthetic_db(seed=s, n_sequences=2000, n_items=30,
+                                        mean_itemsets=4.0),
+                           min_item_support=1) for s in (5, 6)]
+    want = [rules_text(TsrTorch(v, 30, 0.5, max_side=2, device=card).mine())
+            for v in vdbs]
+    engs = [TsrTorch(v, 30, 0.5, max_side=2, device=card) for v in vdbs]
+    fusion.configure(TC.FusionConfig(enabled=True, window_ms=100.0))
+    b = fusion.broker()
+    try:
+        b.hold()
+        out = {}
+
+        def run(i):
+            uid = f"card-oom-{i}"
+            with jobctl.activate(jobctl.register(uid)):
+                out[i] = rules_text(engs[i].mine())
+            jobctl.release(uid)
+
+        with faults.injected("device.oom", nth=1):
+            ts = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
+            for t in ts:
+                t.start()
+            while b.pending() < 2:
+                pass
+            b.release()
+            for t in ts:
+                t.join(120)
+        assert [out[0], out[1]] == want
+        assert b.stats["cross_job_launches"] >= 1
+        assert all(e.stats.get("degraded_launches", 0) >= 1 for e in engs)
+    finally:
+        b.release()
+        fusion.configure(None)

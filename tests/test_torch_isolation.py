@@ -16,7 +16,9 @@ SPAM, TSR, cSPADE and incremental mines run again on a 1-rank gloo mesh
 (``parallel.mesh``, ``parallel.multihost``, ``parallel.launch``) and the
 SPADE, SPAM, TSR and cSPADE mines once more in two class partitions
 (``parallel.partition``), and the service boots on the CPU
-(``service.app``) and answers a TSR train, get and predict round trip."""
+(``service.app``), answers a TSR train, get and predict round trip and
+prewarms an envelope (``service.prewarm``, ``utils.shapes``' enumerator,
+``utils.jitcache``)."""
 
 import ast
 import os
@@ -116,7 +118,15 @@ assert model.deserialize_rules(post("/get/rules", uid="iso")["data"]["rules"]) =
 got = json.loads(post("/predict", uid="iso", items="3,1", m="3")["data"]["predictions"])
 assert got == predict_host(mine_tsr_cpu(db, 3, 0.5), [1, 3], 3), got
 assert post("/admin/stats")["backend"] == "cpu"
+report = post("/admin/prewarm", sequences="4", items="4", tsr="1")
+assert report["keys"] and not [r for r in report["keys"] if "error" in r], report
+listing = post("/admin/shapes")
+assert listing["enumerated"] == report["enumerated"] and isinstance(listing["drift"], list)
 srv.master.shutdown(); srv.shutdown()
+from spark_fsm_tpu_torch.utils import jitcache, shapes
+assert jitcache.enable_compile_counter() and jitcache.compile_counts()["count"] == 0
+assert jitcache.enable_compile_cache()
+assert shapes.enumerate_shapes(shapes.WorkloadSpec(n_sequences=4, n_items=4, tsr=True, fusion_jobs=2), device="cpu")
 for name in ("ops.extend_prune", "ops.spam_bitops", "models.spam_bitmap", "service.planner",
              "data.fasttok", "models.spade_queue", "models.spade_fused",
              "ops.resident_frontier", "ops.maxstart_torch", "ops.maxstart_np",
@@ -128,7 +138,8 @@ for name in ("ops.extend_prune", "ops.spam_bitops", "models.spam_bitmap", "servi
              "service.devcache", "service.store", "service.sources",
              "service.remote", "service.fusion", "service.meshguard",
              "service.resultcache", "service.lease", "streaming.consumer",
-             "streaming.kafka", "utils.obs", "utils.jobctl", "utils.shapes"):
+             "streaming.kafka", "utils.obs", "utils.jobctl", "utils.shapes",
+             "service.prewarm", "utils.jitcache"):
     assert "spark_fsm_tpu_torch." + name in names, name
 try:
     import jax  # noqa: F401

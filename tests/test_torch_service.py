@@ -29,6 +29,7 @@ from spark_fsm_tpu_torch import config as TC
 from spark_fsm_tpu_torch.data.spmf import format_spmf
 from spark_fsm_tpu_torch.data.synth import synthetic_db
 from spark_fsm_tpu_torch.service import app as TA
+from spark_fsm_tpu_torch.utils import shapes as TS
 
 # /status stats keys that legitimately differ between the two services
 EXCLUDED = {
@@ -39,9 +40,6 @@ EXCLUDED = {
               "the reference's have no such stat",
     "push_wall_s": "wall time of a stream push",
     "phase_s": "wall times of a stream push's stages",
-    "shape_key": "the port's engines record no shape key until the "
-                 "prewarm exists (ROADMAP A13b)",
-    "sweep_shape_keys": "the incremental miner's shape keys, as shape_key",
 }
 # the reference counts a whole-mine dispatch as one kernel launch; the
 # port's whole-mine engines launch B1 once a wave and count each launch
@@ -379,33 +377,50 @@ def test_admin_stats_name_the_port_backend(servers):
     ref, port = (json.loads(b) for _, b in _both(servers, "/admin/stats"))
     assert port["backend"] == "cpu"
     assert port["devices"] == torch.cuda.device_count()
-    assert port["prewarm"] is None and port["shape_keys_recorded"] is None
+    assert port["prewarm"] is None
+    assert port["shape_keys_recorded"] == len(TS.recorded())
     assert port["algorithms"] == ref["algorithms"]
     for block in ("store_cache", "cspade_cache", "tsr_cache"):
         assert set(port[block]) == set(ref[block])
     for endpoint in ("/admin/ping", "/admin/algorithms"):
         ref_body, port_body = _both(servers, endpoint)
         assert port_body == ref_body
-    code, body = _call(servers[1], "/admin/prewarm")
-    assert code == 501 and "A13b" in body
+    # the boot [prewarm] batch envelope is empty: both warm the /predict
+    # ladder of the [predict] defaults alone, key for key
+    reports = [json.loads(body) for code, body in
+               _both(servers, "/admin/prewarm")]
+    ref_r, port_r = ((r["enumerated"], r["backend"],
+                      [(row["shape_key"], row["kind"], row.get("error"))
+                       for row in r["keys"]]) for r in reports)
+    assert port_r == ref_r and port_r[0] and port_r[1] == "cpu"
 
 
 @pytest.mark.parametrize("section,value", [
     ("engine", {"mesh_devices": 2}),
     ("distributed", {"enabled": True}),
-    ("prewarm", {"enabled": True}),
-    ("fusion", {"enabled": True}),
     ("meshguard", {"enabled": True}),
 ])
 def test_unported_knobs_are_refused(section, value):
-    with pytest.raises(NotImplementedError, match="A13b"):
+    with pytest.raises(NotImplementedError, match="A13b steps 5–7"):
         TC.parse_config({section: value})
     cfg = TC.Config()
     setattr(cfg, section, dataclasses.replace(getattr(cfg, section), **value))
     saved = TC.get_config()
-    with pytest.raises(NotImplementedError, match="A13b"):
+    with pytest.raises(NotImplementedError, match="A13b steps 5–7"):
         TC.set_config(cfg)
     assert TC.get_config() is saved
+
+
+@pytest.mark.parametrize("section", ["prewarm", "fusion"])
+def test_warm_path_knobs_are_accepted(section):
+    """[prewarm] and [fusion] are served: the config takes them."""
+    saved = TC.get_config()
+    try:
+        cfg = TC.parse_config({section: {"enabled": True}})
+        TC.set_config(cfg)
+        assert getattr(TC.get_config(), section).enabled
+    finally:
+        TC.set_config(saved)
 
 
 def test_boot_without_a_device_resolves_cuda(monkeypatch):

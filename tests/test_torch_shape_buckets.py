@@ -3,8 +3,8 @@ port returns the reference's numbers over a grid with the buckets both
 ways (host arithmetic only), the routing tests judge the bucketed sequence
 axis as the reference's do, and SPADE (every route), SPAM, TSR (every
 ``resident`` value) and cSPADE mined with ``shape_buckets=True`` on the
-CPU give the reference's output, routing keys and stats (``shape_key``,
-which the port does not set, and its counter waits aside)."""
+CPU give the reference's output, routing keys and stats (the port's
+counter waits aside)."""
 
 import itertools
 import types
@@ -233,7 +233,7 @@ def test_spam_with_buckets_equals_reference(kw):
                              stats_out=stats, **kw)
     assert patterns_text(got) == j_patterns_text(want) == j_patterns_text(
         mine_spade(db, ms))
-    assert stats == {k: v for k, v in ref_stats.items() if k != "shape_key"}
+    assert stats == ref_stats
 
 
 @pytest.mark.parametrize("resident", ["auto", "always", "never"])
@@ -245,8 +245,7 @@ def test_tsr_with_buckets_equals_reference(resident):
     got = TT.mine_tsr_torch(db, 8, 0.5, max_side=None, resident=resident,
                             shape_buckets=True, device="cpu", stats_out=stats)
     assert rules_text(got) == j_rules_text(want)
-    assert ({k: v for k, v in stats.items() if k != "wait_s"}
-            == {k: v for k, v in ref_stats.items() if k != "shape_key"})
+    assert {k: v for k, v in stats.items() if k != "wait_s"} == ref_stats
     assert stats.get("resident", False) == (resident != "never")
 
 
@@ -264,6 +263,6 @@ def test_cspade_with_buckets_equals_reference():
     assert patterns_text(got) == j_patterns_text(want) == j_patterns_text(
         mine_cspade(db, ms, maxgap=3, maxwindow=6))
     assert ({k: v for k, v in stats.items() if k != "geometry"}
-            == {k: v for k, v in ref.stats.items() if k != "shape_key"})
+            == ref.stats)
     assert stats["recomputed_nodes"] > 0
     assert (ref.n_seq, ref.item_rows) == (256, 32)
