@@ -56,9 +56,11 @@ File format (TOML shown; JSON with the same nesting also accepted):
                                     # during an outage instead of 429
 
     [distributed]
-    enabled = false                 # true: jax.distributed.initialize at boot
-    coordinator_address = ""        # "" = JAX env vars / cloud auto-detect
-    # num_processes / process_id: omit for env-var/cloud auto-detect
+    enabled = false                 # true: this process is one rank of a
+                                    # torch.distributed world across hosts
+    coordinator_address = ""        # rank 0's "host:port"; "" = the
+                                    # MASTER_ADDR / MASTER_PORT env vars
+    # num_processes / process_id: omit for WORLD_SIZE / RANK
 
     [cluster]
     enabled = false                 # lease-fenced multi-replica mode: N
@@ -77,7 +79,8 @@ File format (TOML shown; JSON with the same nesting also accepted):
                                     # (0 = lease_ttl_s)
 
     [engine]
-    mesh_devices = 8                # 0 = single chip (no mesh)
+    mesh_devices = 8                # 0 = single chip (no mesh); N = a
+                                    # world of N ranks, one process each
     pool_bytes = 2147483648         # HBM slot-pool budget (default: adaptive, 35% of device HBM)
     node_batch = 256                # DFS nodes per device dispatch (default 1024, clamped to the pool)
     pipeline_depth = 4              # in-flight support readbacks
@@ -212,10 +215,11 @@ Unknown keys are rejected (a typo'd knob must not silently no-op).
 
 Port: a copy of ``spark_fsm_tpu/config.py`` with its imports pointed at
 ``spark_fsm_tpu_torch``.  Every section, default and validation rule is
-the reference's; :func:`refuse_unported` refuses the knobs whose planes
-the port does not serve yet (``[engine] mesh_devices > 0``,
-``[distributed]`` and ``[meshguard]`` enabled), and :func:`get_mesh` is
-always None.
+the reference's, and ``[distributed]`` also refuses a world it cannot
+form.  A mesh is a world of ranks, one process each
+(``service/launch.py`` starts it): ``[engine] mesh_devices = N`` on one
+host, or ``[distributed]`` across hosts; :func:`get_mesh` is this rank's
+``SeqMesh`` of that world.
 """
 
 from __future__ import annotations
@@ -582,10 +586,16 @@ class PlannerConfig:
 
 @dataclasses.dataclass
 class DistributedConfig:
-    """Multi-host (jax.distributed) wiring; all-defaults = single host.
+    """Multi-host wiring over ``torch.distributed``; all-defaults = single
+    host.
 
-    ``enabled`` with empty coordinator/counts defers to JAX's own env vars
-    and cloud auto-detection (see parallel/multihost.py).
+    ``enabled``: every host runs the service as one rank of one world
+    (``parallel/multihost.init_distributed``): ``process_id`` is its rank,
+    ``num_processes`` the world size and ``coordinator_address`` rank 0's
+    ``host:port`` rendezvous.  Empty ones default to torch's own
+    environment names (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
+    ``MASTER_PORT``).  The world is the service's mesh: ``[engine]
+    mesh_devices``, when set, must equal the world size.
     """
 
     enabled: bool = False
@@ -801,6 +811,20 @@ def parse_config(obj: Dict[str, Any]) -> Config:
             f"got {cfg.store.backend!r}")
     if cfg.engine.mesh_devices < 0:
         raise ConfigError("engine.mesh_devices must be >= 0")
+    d = cfg.distributed
+    if d.enabled and d.num_processes is not None:
+        if d.num_processes < 1:
+            raise ConfigError("distributed.num_processes must be >= 1")
+        if cfg.engine.mesh_devices not in (0, d.num_processes):
+            raise ConfigError(
+                f"engine.mesh_devices = {cfg.engine.mesh_devices} cannot "
+                f"form a world of distributed.num_processes = "
+                f"{d.num_processes} ranks (one process a rank)")
+        if d.process_id is not None and not (
+                0 <= d.process_id < d.num_processes):
+            raise ConfigError(
+                f"distributed.process_id = {d.process_id} is not a rank "
+                f"of a world of {d.num_processes}")
     if cfg.service.queue_depth < 0:
         raise ConfigError("service.queue_depth must be >= 0 (0 = unbounded)")
     if cfg.observability.trace_max_spans < 1:
@@ -977,25 +1001,7 @@ def parse_config(obj: Dict[str, Any]) -> Config:
             "usage.flush_every_s must be >= 0 (0 = flush every tick)")
     if cfg.usage.top_jobs < 1:
         raise ConfigError("usage.top_jobs must be >= 1")
-    refuse_unported(cfg)
     return cfg
-
-
-def refuse_unported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for a knob whose plane the port does
-    not serve yet (ROADMAP Queue A item A13b, steps 5–7): a device mesh or
-    a multi-process boot (the port's mesh is one process per rank, so a
-    service mesh needs a launcher) and the degraded-topology guard."""
-    refused = []
-    if cfg.engine.mesh_devices > 0:
-        refused.append("[engine] mesh_devices > 0")
-    for name in ("distributed", "meshguard"):
-        if getattr(cfg, name).enabled:
-            refused.append(f"[{name}] enabled = true")
-    if refused:
-        raise NotImplementedError(
-            f"{', '.join(refused)}: not served by spark_fsm_tpu_torch "
-            "yet (ROADMAP A13b steps 5–7)")
 
 
 def load_config(path: str) -> Config:
@@ -1022,6 +1028,7 @@ def load_config(path: str) -> Config:
 
 _lock = threading.Lock()
 _active = Config()
+_mesh_cache: Dict[int, Any] = {}
 
 
 def get_config() -> Config:
@@ -1030,7 +1037,6 @@ def get_config() -> Config:
 
 def set_config(cfg: Config) -> None:
     global _active
-    refuse_unported(cfg)
     with _lock:
         _active = cfg
     # the watchdog policy is process-global (engines read it at dispatch
@@ -1088,7 +1094,32 @@ def engine_kwargs(*names: str) -> Dict[str, Any]:
     return out
 
 
+def mesh_size() -> int:
+    """The ranks the boot config asks for: ``[engine] mesh_devices``, or
+    under ``[distributed]`` with it unset the world's size; 0 = no mesh."""
+    n = _active.engine.mesh_devices
+    if n > 0 or not _active.distributed.enabled:
+        return n
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(_active.distributed.num_processes or 0)
+
+
 def get_mesh():
-    """The boot-configured device mesh: always None (one device), since
-    :func:`set_config` refuses ``[engine] mesh_devices > 0``."""
-    return None
+    """This rank's sequence mesh (``parallel.mesh.SeqMesh`` over the
+    default world, on the service's device), or None for one device.  A
+    mesh needs its world: ``service/launch.py`` starts the ranks and
+    initializes it before the boot (``make_mesh`` raises otherwise, and
+    when the world's size is not the configured one)."""
+    n = mesh_size()
+    if n <= 0:
+        return None
+    with _lock:
+        if n not in _mesh_cache:
+            from spark_fsm_tpu_torch.parallel.mesh import make_mesh
+            from spark_fsm_tpu_torch.service.plugins import service_device
+
+            _mesh_cache[n] = make_mesh(n, device=service_device())
+        return _mesh_cache[n]

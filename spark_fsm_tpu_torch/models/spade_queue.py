@@ -361,7 +361,7 @@ class QueueSpadeTorch:
             return None  # the ring cannot hold the root level
         # deadline/cancel safe point before the whole mine's waves, where
         # the reference commits its one whole-mine dispatch
-        jobctl.check()
+        jobctl.check_shared(self.mesh)
         c = self.start(roots)
         reader = CounterReader(6, self.device)
         nb, nbl = cap.nb, self.nb_late
@@ -473,7 +473,7 @@ class QueueSpadeTorch:
 
         while True:
             # deadline/cancel safe point between segments
-            jobctl.check()
+            jobctl.check_shared(self.mesh)
             nbw = nbl if narrow else cap.nb
             ceil = cap.i_max * (ratio if narrow else 1)
             seg_bound_s = RB.estimate_seconds(nbw * budget, 1, self.n_seq,

@@ -253,7 +253,8 @@ class SpamBitmapTorch:
         for the whole (nodes x dense items x {s, i}) grid, plus, on a
         hybrid plan, pair launches for the sparse-item candidates; start
         the copies to the host."""
-        jobctl.check()  # launch-boundary safe point (cancel/deadline)
+        # launch-boundary safe point (cancel/deadline)
+        jobctl.check_shared(self.mesh)
         pairs0 = self.stats["pair_launches"]
         batch = [stack.pop() for _ in range(min(self.node_batch, len(stack)))]
         ensure_slots(self.store, self._pool, batch, stack,

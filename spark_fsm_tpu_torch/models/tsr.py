@@ -46,14 +46,18 @@ refuses a mesh, as the reference's does, so ``resident="auto"`` and
 by equivalence class, ``min(X)`` (``parallel/partition.py``): each
 partition seeds only its owned roots and starts its threshold at a
 conservative global floor, one exchange a deepening round merges the
-slices, and the exact global s_k filters the union.  A launch that
-fails raises: the reference's kernel-to-jnp downgrades, its resident-
-round fallback (``_resident_abandon``) and its meshguard adoption of a
-failed partition have no counterpart.  A device OOM on a kernel launch
-is the one fault the engine absorbs, as the reference's does: the launch
-re-plans at half width, down to ``RB.OOM_FLOOR_LANES`` (``RB.is_oom``
-knows ``torch.cuda.OutOfMemoryError``), on the direct path and in the
-fusion broker alike (``RB.launch_halving``).
+slices, and the exact global s_k filters the union.  Under the meshguard
+(``service/meshguard.py``) every engine stamps the topology epoch at
+construction and refuses a dispatch planned against an older one, and a
+partition whose row dies is adopted by a survivor
+(``partition.mine_on_rows``; on a world through the round's exchange).
+A launch that fails otherwise raises: the reference's kernel-to-jnp
+downgrades and its resident-round fallback (``_resident_abandon``) have
+no counterpart.  A device OOM on a kernel launch is the one fault the
+engine absorbs, as the reference's does: the launch re-plans at half
+width, down to ``RB.OOM_FLOOR_LANES`` (``RB.is_oom`` knows
+``torch.cuda.OutOfMemoryError``), on the direct path and in the fusion
+broker alike (``RB.launch_halving``).
 
 The service's planes sit at the reference's sites: every engine stamps
 and records its shape key (``utils/shapes.py``); with ``[fusion]`` on,
@@ -93,6 +97,7 @@ from spark_fsm_tpu_torch.parallel import partition as PN
 from spark_fsm_tpu_torch.parallel.mesh import (
     all_reduce_sum, mesh_size, pad_to_multiple)
 from spark_fsm_tpu_torch.service import fusion as FZ
+from spark_fsm_tpu_torch.service import meshguard as MGD
 from spark_fsm_tpu_torch.service import usage
 from spark_fsm_tpu_torch.utils import faults, jobctl, obs, shapes, watchdog
 from spark_fsm_tpu_torch.utils.canonical import RuleResult, sort_rules
@@ -321,6 +326,11 @@ class TsrTorch:
         self._sup_sorted = vdb.item_supports[order]
         if partition is not None:
             self.stats["partition"] = partition[1]
+        # the topology epoch at construction (None with the meshguard
+        # off): every dispatch checks it, so a dispatch planned before a
+        # row died is refused and the partitioned route rebuilds this
+        # engine against the surviving rows
+        self._topo_epoch = MGD.current_epoch()
 
     def _part_idx(self) -> Optional[int]:
         return None if self._partition is None else self._partition[1]
@@ -461,7 +471,9 @@ class TsrTorch:
         and a pinned chunk is honored as the cap.  Each launch carries
         only its plan's real lanes.  With ``[fusion]`` on and no mesh the
         whole wave goes to the cross-job broker instead, which plans it
-        with the same inputs; the ticket is the handle."""
+        with the same inputs; the ticket is the handle.  A dispatch planned
+        at an older topology epoch raises ``StaleTopology`` first."""
+        MGD.check_epoch(self._topo_epoch)
         n = len(cands)
         kms = np.empty(n, np.int32)
         for r, (x, y) in enumerate(cands):
@@ -843,7 +855,7 @@ class TsrTorch:
         while True:
             # deadline/cancel safe point between segments (a host-side
             # check, no device sync)
-            jobctl.check()
+            jobctl.check_shared(self.mesh)
             nbw = caps.nb_late if narrow else caps.nb
             # watchdog ceiling from the cost model: the segment streams
             # at most budget x nbw x km lane-units
@@ -1208,7 +1220,7 @@ class TsrTorch:
         last_ckpt = time.monotonic()
         while True:
             # deadline/cancel safe point between launches
-            jobctl.check()
+            jobctl.check_shared(self.mesh)
             while queue and len(inflight) < self.PIPELINE_DEPTH:
                 batch = pop_batch()
                 if not batch:
@@ -1318,7 +1330,7 @@ class TsrCPU(TsrTorch):
 
 class TsrPartitioned:
     """Equivalence-class partitioned TSR (the reference's
-    ``TsrPartitioned``, without its meshguard).
+    ``TsrPartitioned``).
 
     The candidates split by class, ``min(X)`` (invariant under both
     expansions): each partition's engine seeds only its owned roots, on
@@ -1335,7 +1347,14 @@ class TsrPartitioned:
     Checkpoints are composite (``partition.composite_state``): the merged
     rows plus the active partition's frontier in the engine's own
     ``frontier_state`` format, with the round's ``m`` and floor, bound to
-    the plan's fingerprint.  A partition that fails raises.
+    the plan's fingerprint.  Under the meshguard each owned row registers
+    its device for the guard's probe, and a partition whose row dies
+    resumes on its adopter from its last frontier snapshot with the
+    floor carried over (``partition.mine_on_rows``): without a mesh at
+    once, on a world after the round's exchange, with a second exchange
+    for the adopted rows (``partition.finish_round``, which also makes
+    every rank raise together when a row fails otherwise); a dead row's
+    parts stay on their adopter for the later rounds.
     ``record_metrics=False`` keeps a warm-up mine out of the
     ``fsm_partition_*`` families (prewarm's)."""
 
@@ -1346,18 +1365,28 @@ class TsrPartitioned:
         self.vdb = vdb
         self.k = int(k)
         self.minconf = float(minconf)
+        self._record = bool(record_metrics)
         self.plan = PN.plan_partitions(vdb.item_ids, vdb.item_supports,
-                                       parts, classes)
+                                       parts, classes, record=self._record)
         self.mesh = mesh
         self.meshes = PN.submeshes(mesh, parts)
         self.owned = PN.owned_parts(self.plan, mesh)
+        self._world = mesh is not None and self.plan.n_parts > 1
         self.item_cap = int(engine_kwargs.get("item_cap",
                                               ITEM_CAP_DEFAULT))
-        dev = engine_device(device, mesh)
+        self._device = engine_device(device, mesh)
+        # kept for the meshguard's rebuilds: an adopted part's engine is
+        # built again on its adopter's row with these
+        self._engine_kwargs = dict(engine_kwargs)
         self.engines: Dict[int, TsrTorch] = {
-            p: TsrTorch(vdb, k, minconf, device=dev, mesh=self.meshes[p],
-                        partition=(self.plan, p), **engine_kwargs)
-            for p in self.owned}
+            p: self._engine(p, p) for p in self.owned}
+        g = MGD.get()
+        if g is not None:
+            # the rows' devices for the guard's probe: this rank's own
+            # device on a mesh, none without one (the reference's rows
+            # that have no mesh of their own)
+            g.register_rows({p: (self._device,) if mesh is not None else ()
+                             for p in self.owned})
         self.stats: dict = {
             "partition_parts": int(parts),
             "partition_classes": int(classes),
@@ -1372,8 +1401,17 @@ class TsrPartitioned:
             int(parts), first.n_seq, vdb.n_words)
         if first._RECORD_SHAPES:
             shapes.record(self.stats["shape_key"])
-        if record_metrics:
+        if self._record:
             PN.count_mine("tsr")
+
+    def _engine(self, p: int, row: int) -> TsrTorch:
+        """Partition ``p``'s engine on ``row``'s mesh (on a world, this
+        rank's own row: the only one it runs)."""
+        if self._world:
+            row = PN.own_row(self.plan, self.mesh)
+        return TsrTorch(self.vdb, self.k, self.minconf, device=self._device,
+                        mesh=self.meshes[row], partition=(self.plan, p),
+                        **self._engine_kwargs)
 
     def frontier_fingerprint(self) -> dict:
         fp = self.engines[self.owned[0]].frontier_fingerprint()
@@ -1388,53 +1426,114 @@ class TsrPartitioned:
             self.frontier_fingerprint(), done, active_part,
             active_state, m=int(m), minsup=int(floor))
 
+    def _round_parts(self) -> List[int]:
+        """The parts this process mines this round: every part without a
+        mesh; on a world the parts homed on this rank's row (its own, and
+        after a row death the parts it adopted)."""
+        if not self._world:
+            return list(self.owned)
+        me = PN.own_row(self.plan, self.mesh)
+        return [p for p, row in sorted(PN.part_homes(self.plan).items())
+                if row == me]
+
     def _mine_round(self, m: int, floor: int, resume: Optional[dict],
                     checkpoint_cb, every_s: float):
-        """One deepening round: every owned partition mines its slice in
-        turn (each starting from the board's floor, which the slices
-        before it tightened), then ONE exchange merges the slices and
-        floors.  Returns (merged rows, the next floor)."""
+        """One deepening round: every part of this process mines its
+        slice in turn (each starting from the board's floor, which the
+        slices before it tightened), then ONE exchange merges the slices
+        and floors (two on a world where a row died this round: the
+        adopted slices have their own).  Returns (merged rows, the next
+        floor)."""
         board = PN.ThresholdBoard(self.k, floor)
         done, active_resume = PN.decode_composite(
             resume, self.frontier_fingerprint())
         for rows_p in done.values():
             board.merge(int(r[2]) for r in rows_p)
-        for p in self.owned:
-            if p in done:
-                continue  # completed before the resumed snapshot
+        guarded = MGD.get() is not None
+        orphans: list = []
+
+        def run(p, resume_state, row):
+            """Part ``p``'s rows mined from ``resume_state`` at the
+            board's floor, or None when it is orphaned on a world."""
+            # the part's latest snapshot, kept host-side even without a
+            # checkpoint sink: an adopter resumes mid-slice from it
+            last = {"fs": resume_state}
             cb = None
-            if checkpoint_cb is not None:
-                def cb(fs, p=p):
+            if checkpoint_cb is not None or guarded:
+                def cb(fs, p=p, last=last):
+                    last["fs"] = fs
+                    if checkpoint_cb is not None:
+                        checkpoint_cb(self._composite(
+                            m, board.floor(), done, p, fs))
+
+            def mine(row, attempt):
+                if attempt or p not in self.engines:
+                    # a fresh topology epoch and, after an adoption, the
+                    # adopter's row; the class restriction (plan, p), so
+                    # the resumed frontier and the merge, are unchanged
+                    self.engines[p] = self._engine(p, row)
+                return self.engines[p]._mine_restricted(
+                    m, resume=last["fs"], checkpoint_cb=cb,
+                    every_s=every_s, floor=board.floor())[0]
+
+            res_p = PN.mine_on_rows(self.plan, p, mine, world=self._world,
+                                    row=row)
+            if res_p is PN.ORPHANED:
+                orphans.append({"part": p, "fs": last["fs"]})
+                return None
+            rows = [[list(x), list(y), int(sup), int(supx)]
+                    for x, y, sup, supx in res_p]
+            board.merge(r[2] for r in rows)
+            return rows
+
+        parts = self._round_parts()
+        me = PN.own_row(self.plan, self.mesh) if self._world else None
+        failure = None
+        try:
+            for p in parts:
+                if p in done:
+                    continue  # completed before the resumed snapshot
+                rows = run(p, active_resume.get(p), p if me is None else me)
+                if rows is None:
+                    continue
+                done[p] = rows
+                if checkpoint_cb is not None:
+                    # part boundary: a resume starts past this slice
                     checkpoint_cb(self._composite(m, board.floor(), done,
-                                                  p, fs))
-            res_p, _ = self.engines[p]._mine_restricted(
-                m, resume=active_resume.get(p), checkpoint_cb=cb,
-                every_s=every_s, floor=board.floor())
-            done[p] = [[list(x), list(y), int(sup), int(supx)]
-                       for x, y, sup, supx in res_p]
-            board.merge(r[2] for r in done[p])
-            if checkpoint_cb is not None:
-                # part boundary: a resume starts past this slice
-                checkpoint_cb(self._composite(m, board.floor(), done,
-                                              None, None))
-        # contribute only owned parts: a resumed composite can carry
-        # other rows' slices, which their own rows contribute
-        own = set(self.owned)
-        payload = {"floor": board.floor(),
-                   "rows": [r for p in sorted(done) if p in own
-                            for r in done[p]]}
-        gathered = PN.exchange_objects(
-            payload, mesh=self.mesh, n_parts=self.plan.n_parts,
-            stats=self.stats)
-        rows_all = [r for g in gathered for r in g["rows"]]
-        # the next floor from a FRESH board over the merged rows (merging
-        # this board's own slice again would count its supports twice);
-        # the peers' floors are lower bounds too
+                                                  None, None))
+        except Exception as exc:
+            if not self._world:
+                raise
+            # every rank raises it together, after the exchange
+            failure = exc
+
+        def before_adopt(gathered):
+            # the adopter resumes each orphan at the floor of the rows
+            # merged so far
+            nonlocal board
+            board = self._next_board(board, gathered)
+
+        # contribute only this round's parts: a resumed composite can
+        # carry other rows' slices, which their own rows contribute
+        gathered = PN.finish_round(
+            {"floor": board.floor(),
+             "rows": [r for p in sorted(done) if p in parts
+                      for r in done[p]]},
+            failure, orphans, lambda p, fs: run(p, fs, me), plan=self.plan,
+            mesh=self.mesh, stats=self.stats, record=self._record,
+            before_adopt=before_adopt)
+        out = self._next_board(board, gathered)
+        return [r for g in gathered for r in g["rows"]], out.floor()
+
+    def _next_board(self, board, gathered: list):
+        """The floor after an exchange, from a FRESH board over the merged
+        rows (merging this board's own slice again would count its
+        supports twice); the peers' floors are lower bounds too."""
         out = PN.ThresholdBoard(
             self.k, max([board.floor()]
                         + [int(g.get("floor", 1)) for g in gathered]))
-        out.merge(int(r[2]) for r in rows_all)
-        return rows_all, out.floor()
+        out.merge(int(r[2]) for g in gathered for r in g["rows"])
+        return out
 
     def _merge(self, rows: list) -> Tuple[List[RuleResult], int]:
         """The exact global top-k filter over the union of the slices."""

@@ -25,6 +25,7 @@ reads them.
 
 from __future__ import annotations
 
+import datetime
 import time
 from typing import List, Optional, Tuple
 
@@ -32,8 +33,14 @@ import torch
 import torch.distributed as dist
 
 from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
+from spark_fsm_tpu_torch.parallel.multihost import world_timeout
 
 SEQ_AXIS = "seq"
+# the control group's wait: a service's follower waits for the leader's
+# next mesh call as long as the service idles, which can outlast the
+# world's timeout; a rank whose process dies closes its connections,
+# which ends the wait with an error
+CONTROL_TIMEOUT = datetime.timedelta(days=3650)
 
 
 def pad_to_multiple(n: int, k: int) -> int:
@@ -55,11 +62,38 @@ class SeqMesh:
         # n_parts -> each partition row's process group
         # (``partition.submeshes`` makes them once a mesh)
         self.row_groups: dict = {}
+        self._control = self._exchange = None
         self.reset_counters()
 
     def __repr__(self) -> str:
         return (f"SeqMesh(rank={self.rank}, size={self.size}, "
                 f"backend={self.backend!r}, device={self.device})")
+
+    def _host_groups(self) -> None:
+        """Make the mesh's two gloo groups for host objects, which never
+        stage through a card (a rank whose card failed can still join).
+        Made at the first call, which every rank of the world makes at
+        the same point (``new_group`` is collective over the world)."""
+        if self._control is None:
+            ranks = dist.get_process_group_ranks(self.group)
+            self._control = dist.new_group(ranks, backend="gloo",
+                                           timeout=CONTROL_TIMEOUT)
+            self._exchange = dist.new_group(ranks, backend="gloo",
+                                            timeout=world_timeout())
+
+    def control_group(self):
+        """The gloo group of the service's mesh calls
+        (``service/meshcall.py``), with ``CONTROL_TIMEOUT``: a follower
+        waits on it for the leader's next call."""
+        self._host_groups()
+        return self._control
+
+    def exchange_group(self):
+        """The gloo group of a partitioned mine's exchanges, with the
+        world's timeout: a row that never comes to the exchange ends the
+        others' wait with an error, not a hang."""
+        self._host_groups()
+        return self._exchange
 
     def reset_counters(self) -> None:
         self.all_reduces = 0

@@ -17,6 +17,7 @@ A backend that fails to start raises: NCCL is never retried on gloo.
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import Optional
 
@@ -25,6 +26,8 @@ import torch
 import torch.distributed as dist
 
 from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
+
+_timeout: Optional[datetime.timedelta] = None
 
 
 def init_distributed(backend: Optional[str] = None,
@@ -60,11 +63,17 @@ def init_distributed(backend: Optional[str] = None,
         world_size = int(os.environ["WORLD_SIZE"])
     if rank is None:
         rank = int(os.environ["RANK"])
-    import datetime
-
+    global _timeout
+    _timeout = datetime.timedelta(seconds=timeout_s)
     dist.init_process_group(
         backend, init_method=init_method, world_size=int(world_size),
-        rank=int(rank), timeout=datetime.timedelta(seconds=timeout_s))
+        rank=int(rank), timeout=_timeout)
+
+
+def world_timeout() -> datetime.timedelta:
+    """The world's collective timeout: what :func:`init_distributed` was
+    given, or torch's default for a world that a launcher started."""
+    return _timeout or dist.default_pg_timeout
 
 
 def shutdown_distributed() -> None:

@@ -31,17 +31,33 @@ device half follows the port's process model: one process per rank.
   its engines all-reduce inside the row; a row of one rank is ``None``
   (the bare single-device route on the rank's own device, the
   reference's rule for a one-local-device process).
-- The exchange is one ``all_gather_object`` over the whole mesh, to which
-  each row contributes once (its inner rank 0's payload).
+- The exchange is one ``all_gather_object`` over the mesh's exchange
+  group (``SeqMesh.exchange_group``: gloo, so it never stages through a
+  card and a rank whose card failed can still join it, with the world's
+  timeout), to which each row contributes once (its inner rank 0's
+  payload).
 
-Counters: the reference's ``fsm_partition_*`` registry families are the
-plain integers of :func:`tallies` here (the registry is the service
-plane's).  ``world_collectives`` counts the exchanges that crossed
-processes, the only collective of the partitioned path that spans rows.
+Counters: the reference's ``fsm_partition_*`` registry families
+(plans, exchange rounds, cross bytes, the latest imbalance, mines by
+algorithm); :func:`tallies` is a view of them, plus
+``world_collectives``, the exchanges that crossed processes.
 
-Not ported: the meshguard adoption loop of ``mine_partitioned_slices``
-(a slice that fails raises); :func:`replan_surviving` and
-:func:`adopters_for` are here for it.
+Topology survival (``service/meshguard.py``, when installed): a part
+whose dispatch fails device-shaped marks its row suspect, then dead; a
+dead row's slice is adopted by the :func:`adopters_for` survivor with its
+last frontier snapshot (kept host-side even without a checkpoint sink),
+the same class restriction and so the same merged answer.  Without a
+mesh the adopter mines it here at once, as the reference's single
+controller does.  On a world the rank of the dead row stops its device
+work; the exchange then carries each row's health (the guard's
+heartbeat payload), the orphaned part and its snapshot; every rank merges
+the health alike, the adopter row mines the part, and a second exchange
+merges its rows (no second exchange when no row failed).  Any other
+failure of a row on a world (a fault that is not device-shaped, a job
+abort, an adopter that fails too) travels in the exchange the row was
+bound for, and every rank raises together (:func:`finish_round`).  A
+process that dies cannot be adopted: the world's collectives fail with
+it, and the world's timeout ends the mine with an error.
 """
 
 from __future__ import annotations
@@ -54,27 +70,56 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-# ---------------------------------------------------------------- tallies
+from spark_fsm_tpu_torch.service import meshguard as MG
+from spark_fsm_tpu_torch.utils import jobctl, obs
+
+# ---------------------------------------------------------------- metrics
+
+_PLANS = obs.REGISTRY.counter(
+    "fsm_partition_plans_total",
+    "equivalence-class partition plans built (parallel/partition.py)")
+_EXCHANGES = obs.REGISTRY.counter(
+    "fsm_partition_exchange_rounds_total",
+    "cross-partition exchange rounds (threshold floor + result merge)")
+_CROSS_BYTES = obs.REGISTRY.counter(
+    "fsm_partition_cross_bytes_total",
+    "bytes exchanged across partitions (payload size)")
+_IMBALANCE = obs.REGISTRY.gauge(
+    "fsm_partition_imbalance_ratio",
+    "max/mean per-partition cost of the latest plan (1.0 = perfect)")
+_MINES = obs.REGISTRY.counter(
+    "fsm_partition_mines_total",
+    "partitioned mines run, by algorithm")
+for _algo in ("tsr", "spade", "cspade"):
+    _MINES.seed(algo=_algo)
+_IMBALANCE.set(0.0)
 
 _lock = threading.Lock()
-_tallies = {"plans": 0, "exchanges": 0, "cross_bytes": 0,
-            "world_collectives": 0, "imbalance": 0.0,
-            "mines": {"tsr": 0, "spade": 0, "spam": 0, "cspade": 0}}
+_world_collectives = 0
 
 
 def tallies() -> dict:
     """Partition plans built, exchange rounds, bytes exchanged, exchanges
     that crossed processes, the latest plan's imbalance and the
-    partitioned mines by algorithm, over the process's lifetime."""
+    partitioned mines by algorithm, over the process's lifetime (a view
+    of the ``fsm_partition_*`` registry families)."""
+    mines = {"tsr": 0, "spade": 0, "spam": 0, "cspade": 0}
+    snap = _MINES.snapshot()
+    for key, v in (snap.items() if isinstance(snap, dict) else ()):
+        if key:
+            mines[key.split("=", 1)[1]] = int(v)
     with _lock:
-        out = dict(_tallies)
-        out["mines"] = dict(_tallies["mines"])
-        return out
+        world = _world_collectives
+    return {"plans": int(_PLANS.total()),
+            "exchanges": int(_EXCHANGES.total()),
+            "cross_bytes": int(_CROSS_BYTES.total()),
+            "world_collectives": world,
+            "imbalance": float(_IMBALANCE.snapshot()),
+            "mines": mines}
 
 
 def count_mine(algo: str) -> None:
-    with _lock:
-        _tallies["mines"][algo] = _tallies["mines"].get(algo, 0) + 1
+    _MINES.inc(algo=algo)
 
 
 # ------------------------------------------------------------ class hash
@@ -177,9 +222,8 @@ def plan_partitions(item_ids, item_supports, n_parts: int,
         load[p] += costs[int(c)]
     plan = PartitionPlan(n_parts, n_classes, owner, load, costs)
     if record:
-        with _lock:
-            _tallies["plans"] += 1
-            _tallies["imbalance"] = plan.imbalance_ratio
+        _PLANS.inc()
+        _IMBALANCE.set(plan.imbalance_ratio)
     return plan
 
 
@@ -284,7 +328,7 @@ def owned_parts(plan: PartitionPlan, mesh=None) -> List[int]:
     mesh, its own row's on a mesh."""
     if mesh is None or plan.n_parts <= 1:
         return list(range(plan.n_parts))
-    return [mesh.rank // _inner(mesh, plan.n_parts)]
+    return [own_row(plan, mesh)]
 
 
 # --------------------------------------------------------------- exchange
@@ -299,12 +343,14 @@ def exchange_objects(payload, *, mesh=None, n_parts: int = 1,
     Without a mesh the caller already holds every partition's data: the
     exchange returns ``[payload]`` and counts the round and the payload's
     bytes (what would cross between partitions).  On a mesh it is one
-    ``all_gather_object`` over the mesh's group; each row contributes its
-    inner rank 0's payload, and the bytes are the sum of those payloads'.
+    ``all_gather_object`` over the mesh's exchange group; each row
+    contributes its inner rank 0's payload, and the bytes are the sum of
+    those payloads'.
 
     ``stats`` mirrors the round and byte counts into an engine's stats
     (``partition_exchanges``, ``partition_cross_bytes``); ``record=False``
-    leaves :func:`tallies` as it is."""
+    leaves the registry families as they are."""
+    global _world_collectives
     crossed = mesh is not None and n_parts > 1
     if not crossed:
         nbytes = len(json.dumps(payload).encode("utf-8"))
@@ -315,20 +361,174 @@ def exchange_objects(payload, *, mesh=None, n_parts: int = 1,
         inner = _inner(mesh, n_parts)
         gathered: list = [None] * mesh.size
         mine = payload if mesh.rank % inner == 0 else None
-        dist.all_gather_object(gathered, mine, group=mesh.group)
+        dist.all_gather_object(gathered, mine, group=mesh.exchange_group())
         merged = [g for g in gathered if g is not None]
         nbytes = sum(len(json.dumps(g).encode("utf-8")) for g in merged)
     if record:
+        _EXCHANGES.inc()
+        _CROSS_BYTES.inc(nbytes)
         with _lock:
-            _tallies["exchanges"] += 1
-            _tallies["cross_bytes"] += nbytes
-            _tallies["world_collectives"] += int(crossed)
+            _world_collectives += int(crossed)
     if stats is not None:
         stats["partition_exchanges"] = (
             stats.get("partition_exchanges", 0) + 1)
         stats["partition_cross_bytes"] = (
             stats.get("partition_cross_bytes", 0) + nbytes)
     return merged
+
+
+# ------------------------------------------------------- topology survival
+
+#: :func:`mine_on_rows`' answer when this rank's row died on a world: the
+#: part is orphaned, and the exchange hands it to its adopter
+ORPHANED = object()
+
+
+def mine_on_rows(plan: PartitionPlan, p: int, mine, *, world: bool,
+                 row: Optional[int] = None):
+    """Mine part ``p`` through ``mine(row, attempt)`` under the process's
+    meshguard (the reference's retry loops of ``mine_partitioned_slices``
+    and ``TsrPartitioned._mine_round``).  Without a guard a failure
+    raises.  With one, a device-shaped failure marks the row: a suspect
+    row tries again, a dead row's part moves to its :func:`adopters_for`
+    survivor (``attempt`` counts the tries, so the caller rebuilds its
+    engine); a ``StaleTopology`` refusal keeps the row's health and tries
+    again at the new epoch.  A failure that is not device-shaped, or
+    ``max_retries`` tries, raise.  On a ``world`` a dead row cannot hand
+    its part to another process here: the answer is :data:`ORPHANED`.
+    ``row`` is the row it starts on (default: the part's own)."""
+    guard = MG.get()
+    row, attempt = int(p if row is None else row), 0
+    while True:
+        try:
+            out = mine(row, attempt)
+            if guard is not None:
+                guard.note_row_ok(row)
+            return out
+        except Exception as exc:
+            if guard is None:
+                raise
+            attempt += 1
+            if attempt >= guard.max_retries:
+                raise
+            if isinstance(exc, MG.StaleTopology):
+                state = guard.state_of(row)
+            else:
+                state = guard.note_row_fault(row, exc)
+                if state is None:
+                    raise
+            if state == MG.DEAD:
+                if world:
+                    return ORPHANED
+                adopter = adopters_for(plan, guard.dead_rows()).get(row)
+                if adopter is None or adopter == row:
+                    raise
+                MG.note_replan(guard.dead_rows())
+                row = adopter
+
+
+def part_homes(plan: PartitionPlan) -> dict:
+    """``part -> row`` that mines it now: its own row, or for a part of a
+    dead row (the process guard's view) its adopter."""
+    guard = MG.get()
+    dead = guard.dead_rows() if guard is not None else frozenset()
+    homes = {p: p for p in range(plan.n_parts)}
+    if dead:
+        homes.update(adopters_for(plan, dead))
+    return homes
+
+
+class RowFailed(RuntimeError):
+    """Another row of the mesh failed in this round (the error it raised
+    travels in the exchange), so this rank leaves the mine too."""
+
+
+def _exchange_or_raise(payload: dict, failure, *, mesh, n_parts: int,
+                       stats: Optional[dict], record: bool) -> list:
+    """A world's exchange when this row's work may have ended on
+    ``failure`` (an exception, raised again after the exchange): every row
+    learns of it there and raises too, where it would otherwise wait in
+    the exchange until the world's timeout.  Another row's job abort
+    raises ``jobctl.RankAborted`` here, any other failure
+    :class:`RowFailed`."""
+    if failure is not None:
+        payload = dict(payload, failed={
+            "abort": isinstance(failure, jobctl.JobAborted),
+            "error": f"{type(failure).__name__}: {failure}"})
+    gathered = exchange_objects(payload, mesh=mesh, n_parts=n_parts,
+                                stats=stats, record=record)
+    if failure is not None:
+        raise failure
+    failed = [g["failed"] for g in gathered if g.get("failed")]
+    if failed and all(f["abort"] for f in failed):
+        raise jobctl.RankAborted("", "aborted by another row of the mesh")
+    if failed:
+        raise RowFailed("another row of the mesh failed: "
+                        + next(f["error"] for f in failed if not f["abort"]))
+    return gathered
+
+
+def finish_round(payload: dict, failure, orphans: list, adopt_part, *,
+                 plan: PartitionPlan, mesh, stats: Optional[dict],
+                 record: bool = True, before_adopt=None) -> list:
+    """The end of a round of partitioned slices: its exchange and, on a
+    world where a row died, the adoption of that row's parts.
+
+    ``payload`` is this row's contribution (a dict with ``rows``),
+    ``failure`` the exception that ended this rank's slices early (None
+    when they ran to the end) and ``orphans`` the parts it left to an
+    adopter, each with its last frontier.  Without a world a failure
+    raises at once.  On a world every rank joins every exchange whatever
+    happened, and a failure travels in it (:func:`_exchange_or_raise`).
+    Under a guard each row adds its health (``heartbeat_payload``: epoch
+    and dead rows) and its orphans, and every rank merges the health
+    alike, so all agree on each orphan's adopter.  When parts were
+    orphaned, ``before_adopt(gathered)`` runs on every rank, the adopter
+    row mines each of its parts through ``adopt_part(part, frontier)``
+    (its rows, or None when it is orphaned again) and a second exchange
+    merges them.  Returns every row's payload of both exchanges, in
+    order."""
+    world = mesh is not None and plan.n_parts > 1
+    kw = dict(mesh=mesh, n_parts=plan.n_parts, stats=stats, record=record)
+    if not world:
+        if failure is not None:
+            raise failure
+        return exchange_objects(payload, **kw)
+    guard = MG.get()
+    if guard is not None:
+        payload = dict(payload, health=guard.heartbeat_payload(),
+                       orphans=orphans)
+    gathered = _exchange_or_raise(payload, failure, **kw)
+    if guard is None:
+        return gathered
+    for g in gathered:
+        guard.merge_peer(g.get("health"))
+    orphaned = sorted((o for g in gathered for o in g.get("orphans", ())),
+                      key=lambda o: int(o["part"]))
+    if not orphaned:
+        return gathered
+    homes, me = part_homes(plan), own_row(plan, mesh)
+    rows: list = []
+    failure = None
+    try:
+        if before_adopt is not None:
+            before_adopt(gathered)
+        for o in orphaned:
+            if homes[int(o["part"])] == me:
+                MG.note_replan(guard.dead_rows())
+                got = adopt_part(int(o["part"]), o["fs"])
+                if got is None:
+                    raise RuntimeError(
+                        f"the adopter of part {o['part']} failed too")
+                rows.extend(got)
+    except Exception as exc:
+        failure = exc
+    return gathered + _exchange_or_raise({"rows": rows}, failure, **kw)
+
+
+def own_row(plan: PartitionPlan, mesh) -> int:
+    """This rank's row of ``mesh`` split into ``plan.n_parts`` rows."""
+    return mesh.rank // _inner(mesh, plan.n_parts)
 
 
 class ThresholdBoard:
@@ -441,27 +641,57 @@ def mine_partitioned_slices(*, plan: PartitionPlan, meshes: list,
     nested frontier carries the whole slice's results so far (the port
     merges a delta snapshot's earlier results in).  ``mesh`` is the mesh
     the rows split (None: every part here, in turn).  Returns the union
-    of every partition's rows.  A slice that fails raises."""
+    of every partition's rows.  Under the meshguard a dead row's slice is
+    adopted (:func:`mine_on_rows`; on a world through the exchange), and
+    the union stays the healthy run's."""
     done, active_resume = decode_composite(resume, fingerprint)
+    guarded = MG.get() is not None
+    world = mesh is not None and plan.n_parts > 1
     own = owned_parts(plan, mesh)
-    for p in own:
-        if p in done:
-            continue
+    orphans: list = []
+
+    def run(p, resume_state, row_mesh, row=None):
+        """Mine part ``p`` on ``row_mesh`` (row ``row``, default its own)
+        from ``resume_state``; None when the part is orphaned."""
+        last = {"fs": resume_state}
         part_cb = None
-        if checkpoint_cb is not None:
-            first = active_resume.get(p)
-            merged = list(first["results"]) if first is not None else []
+        if checkpoint_cb is not None or guarded:
+            merged = list(resume_state["results"]) if resume_state else []
 
             def part_cb(fs, p=p, merged=merged):
-                checkpoint_cb(composite_state(
-                    fingerprint, done, p, _whole_frontier(fs, merged)))
-        done[p] = list(mine_part(p, meshes[p], active_resume.get(p),
-                                 part_cb))
-        if checkpoint_cb is not None:
-            checkpoint_cb(composite_state(fingerprint, done, None, None))
+                last["fs"] = _whole_frontier(fs, merged)
+                if checkpoint_cb is not None:
+                    checkpoint_cb(composite_state(fingerprint, done, p,
+                                                  last["fs"]))
+        rows = mine_on_rows(
+            plan, p, lambda row, _attempt: mine_part(
+                p, row_mesh if world else meshes[row], last["fs"], part_cb),
+            world=world, row=row)
+        if rows is ORPHANED:
+            orphans.append({"part": p, "fs": last["fs"]})
+            return None
+        return list(rows)
+
+    failure = None
+    try:
+        for p in own:
+            if p in done:
+                continue
+            rows = run(p, active_resume.get(p), meshes[p])
+            if rows is None:
+                continue
+            done[p] = rows
+            if checkpoint_cb is not None:
+                checkpoint_cb(composite_state(fingerprint, done, None, None))
+    except Exception as exc:
+        if not world:
+            raise
+        failure = exc   # every rank raises it together, after the exchange
+    me = own_row(plan, mesh) if world else None
     # contribute only owned parts: a resumed composite can carry other
     # rows' slices, which their own rows contribute
-    gathered = exchange_objects(
+    gathered = finish_round(
         {"rows": [r for p in sorted(done) if p in own for r in done[p]]},
-        mesh=mesh, n_parts=plan.n_parts, stats=stats)
+        failure, orphans, lambda p, fs: run(p, fs, meshes[me], me),
+        plan=plan, mesh=mesh, stats=stats)
     return [r for g in gathered for r in g["rows"]]

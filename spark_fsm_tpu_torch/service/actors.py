@@ -10,7 +10,9 @@ reference's error contract.
 
 Port: a copy of ``spark_fsm_tpu/service/actors.py`` with its imports
 pointed at ``spark_fsm_tpu_torch``; the stream miners and the predictor
-run on the service's device (``plugins.service_device()``).
+run on the service's device (``plugins.service_device()``).  On a world
+of ranks an incremental stream's push is a mesh call
+(``service/meshcall.py``), as the device plugins' mines are.
 """
 
 from __future__ import annotations
@@ -28,9 +30,9 @@ from typing import Dict, List, Optional
 from spark_fsm_tpu_torch import config
 from spark_fsm_tpu_torch.ops import ragged_batch as RB
 from spark_fsm_tpu_torch.service import (autoscale, fairness, integrity, lease,
-                                   meshguard, model, obsplane, planner,
-                                   plugins, predictor, resultcache, sources,
-                                   storeguard, usage)
+                                   meshcall, meshguard, model, obsplane,
+                                   planner, plugins, predictor, resultcache,
+                                   sources, storeguard, usage)
 from spark_fsm_tpu_torch.service.model import ServiceRequest, ServiceResponse, Status
 from spark_fsm_tpu_torch.service.store import ResultStore
 from spark_fsm_tpu_torch.utils import envelope, faults, jobctl, obs
@@ -2151,17 +2153,23 @@ class Streamer:
             # buckets to the declared steady-state size so the first
             # pushes land on prewarmed shapes instead of compiling
             # throwaway small-bucket programs
+            make = dict(min_support=support, max_batches=mb,
+                        max_sequences=ms,
+                        seq_floor=config.get_config().prewarm.stream_seq_floor)
             miner = IncrementalWindowMiner(
-                support, max_batches=mb, max_sequences=ms,
                 device=plugins.service_device(), mesh=config.get_mesh(),
-                seq_floor=config.get_config().prewarm.stream_seq_floor)
+                **make)
         else:
+            make = None
             miner = WindowMiner(support, max_batches=mb, max_sequences=ms,
                                 mine=plugin_mine,
                                 device=plugins.service_device())
 
         return {
             "miner": miner,
+            # the incremental miner's arguments: on a world of ranks each
+            # push is a mesh call, and a follower makes its miner alike
+            "make": make,
             "kind": plugin.kind,
             "cfg": {"data": data, "max_batches": mb, "max_sequences": ms},
             # held across push + result sink + response-field reads
@@ -2211,6 +2219,8 @@ class Streamer:
             # persisted list with stale head entries (a crash between the
             # append and its trim) converges to the correct window.
             window.push(parse_spmf(text))
+        # a follower refills its miner alike at the first mesh-call push
+        state["refill"] = list(texts)
         sraw = self.store.get(f"fsm:stats:stream:{topic}")
         if sraw:
             # cumulative counters survive the restart; the refill pushes
@@ -2284,7 +2294,12 @@ class Streamer:
                                       topic=topic, sequences=len(batch)):
             try:
                 try:
-                    results = miner.push(batch)
+                    if state["make"] is None:
+                        results = miner.push(batch)
+                    else:
+                        results = meshcall.stream_push(
+                            topic, miner, text, batch, state["make"],
+                            state.pop("refill", []))
                 finally:
                     # persist the DELTA (append the batch, trim evictions to
                     # the live batch count) — the window mutates before the

@@ -22,7 +22,8 @@ Endpoints (POST, form- or JSON-encoded parameters):
   /index/{topic}      — alias of register (reference keeps both)
   /admin/ping         — liveness; /admin/algorithms — plugin listing;
   /admin/stats        — service metrics (job counters, backend, devices,
-                        per-cache counters, last prewarm walls);
+                        the mesh's ranks, per-cache counters, last
+                        prewarm walls);
   /admin/config       — the active boot config;
   /admin/prewarm      — AOT-compile the declared workload envelope NOW
                         (params override the boot [prewarm] section);
@@ -107,12 +108,16 @@ on one device, resolved once at boot (``make_server``/``serve_background``
 ``device=``, CLI ``--device``; default ``cuda``, raising without a card;
 ``cpu`` for tests) and handed to the plugins, the engine caches, the
 stream miners and the predictor.  ``/admin/stats`` reports ``backend``
-``"cuda"`` or ``"cpu"`` and ``torch.cuda.device_count()``.  The boot
-prewarm (``service/prewarm.py``) runs on the service's device before the
-server listens, after ``utils/jitcache.enable_compile_cache`` points the
-kernels' build directory; ``/admin/prewarm`` runs it on request.  Not
-served yet (ROADMAP A13b steps 5–7): a device mesh, a multi-process boot
-and the degraded-topology guard; the config refuses their knobs.
+``"cuda"`` or ``"cpu"``, ``devices`` (``torch.cuda.device_count()``, or
+on a mesh each rank's device) and ``mesh_devices`` (the mesh's ranks).
+The boot prewarm (``service/prewarm.py``) runs on the service's device
+before the server listens, after ``utils/jitcache.enable_compile_cache``
+points the kernels' build directory; ``/admin/prewarm`` runs it on
+request.  A mesh (``[engine] mesh_devices``, ``[distributed]``) is a
+world of ranks, one process each (``service/launch.py``): rank 0 serves
+everything here, and the other ranks bind no port and replay its mesh
+calls (``service/meshcall.py``: the device plugins' mines, the
+incremental streams' pushes, the prewarm).
 """
 
 from __future__ import annotations
@@ -256,16 +261,13 @@ class FsmHandler(BaseHTTPRequestHandler):
                 # override the boot [prewarm] section field by field) —
                 # synchronous: the caller wants the first-use costs paid
                 # before traffic lands, and the report is per-key walls
-                from spark_fsm_tpu_torch.service import prewarm
+                from spark_fsm_tpu_torch.service import meshcall, prewarm
 
                 spec = prewarm.spec_from_params(
                     data or {}, cfgmod.get_config().prewarm)
-                report = prewarm.run(
-                    spec, mesh=cfgmod.get_mesh(),
-                    engine_kwargs=cfgmod.engine_kwargs(
-                        "pool_bytes", "node_batch", "pipeline_depth",
-                        "chunk", "recompute_chunk"),
-                    device=plugins.service_device())
+                report = meshcall.prewarm(spec, cfgmod.engine_kwargs(
+                    "pool_bytes", "node_batch", "pipeline_depth",
+                    "chunk", "recompute_chunk"))
                 self._send(200, json.dumps(report))
             elif task == "faults":
                 # chaos lab: gated on the BOOT config (not a request
@@ -531,8 +533,7 @@ def service_stats(master: Master) -> dict:
         for name in ("jobs_submitted", "jobs_finished", "jobs_failed",
                      "stream_pushes", "stream_failures")
     }
-    mesh_devices = cfgmod.get_config().engine.mesh_devices
-    from spark_fsm_tpu_torch.service import prewarm
+    from spark_fsm_tpu_torch.service import meshcall, prewarm
     from spark_fsm_tpu_torch.service.devcache import (
         cspade_engine_cache, spade_engine_cache, tsr_engine_cache)
     from spark_fsm_tpu_torch.utils import shapes as shapereg
@@ -551,8 +552,10 @@ def service_stats(master: Master) -> dict:
         "cluster": (None if master.miner._lease is None
                     else master.miner._lease.stats()),
         "backend": plugins.service_device().type,
-        "devices": torch.cuda.device_count(),
-        "mesh_devices": mesh_devices,
+        # on a mesh: each rank's device, in rank order
+        "devices": (meshcall.devices() if meshcall.active()
+                    else torch.cuda.device_count()),
+        "mesh_devices": cfgmod.mesh_size(),
         "algorithms": sorted(plugins.ALGORITHMS),
         # repeat-/train device-store reuse (service/devcache.py); one
         # counter block per cache so a cSPADE hit is visible as such
@@ -754,14 +757,34 @@ def main() -> None:
     from spark_fsm_tpu_torch.utils.jitcache import enable_compile_cache
 
     enable_compile_cache()  # the kernels' build directory, kept on disk
-    device = plugins.set_device(args.device)
+    from spark_fsm_tpu_torch.service import launch
+
+    world = launch.plan(cfg, args.device)
+    if world is None:
+        _serve(cfg, plugins.set_device(args.device))
+    elif world.rank != 0:
+        # a [distributed] host's rank other than 0: no port, no Master
+        launch.follow(cfg, world, world.rank)
+    else:
+        end = launch.lead(cfg, world)
+        try:
+            print(f"mesh: rank 0 of a world of {world.size} "
+                  f"({world.backend})", flush=True)
+            _serve(cfg, plugins.service_device())
+        finally:
+            end()
+
+
+def _serve(cfg: cfgmod.Config, device) -> None:
+    """The boot on this process's device, then the serve loop until a
+    signal: what ``main`` runs on a one-process service and on rank 0."""
     if cfg.prewarm.enabled:
         # boot prewarm on the service's device BEFORE accepting traffic:
         # kernel builds, library loads, first launches and the allocator's
         # pools at the declared envelope.  Synchronous by design — a
         # not-yet-listening service is the honest signal that the
         # deployment is still paying its first-use bill
-        from spark_fsm_tpu_torch.service import prewarm
+        from spark_fsm_tpu_torch.service import meshcall, prewarm
 
         spec = prewarm.spec_from_config(cfg.prewarm)
         if spec is None:
@@ -769,12 +792,9 @@ def main() -> None:
                   "(set sequences/items or stream_batch_sequences)",
                   flush=True)
         else:
-            report = prewarm.run(
-                spec, mesh=cfgmod.get_mesh(),
-                engine_kwargs=cfgmod.engine_kwargs(
-                    "pool_bytes", "node_batch", "pipeline_depth",
-                    "chunk", "recompute_chunk"),
-                device=device)
+            report = meshcall.prewarm(spec, cfgmod.engine_kwargs(
+                "pool_bytes", "node_batch", "pipeline_depth",
+                "chunk", "recompute_chunk"))
             print(f"prewarm: {len(report['keys'])} shape keys in "
                   f"{report['total_wall_s']}s", flush=True)
     server = make_server(cfg.service.port, cfg.service.host,

@@ -47,9 +47,10 @@ build without the plane.
 
 Port: a copy of ``spark_fsm_tpu/service/meshguard.py`` with its imports
 pointed at ``spark_fsm_tpu_torch``; the row probe allocates a zero-size
-tensor on each device and synchronizes the card.  ``[meshguard] enabled``
-is refused at boot until the partitioned engines adopt a failed row
-(ROADMAP A13b).
+tensor on each device and synchronizes the card, and the card's own
+errors (torch's CUDA runtime errors and its OOM) are device-shaped where
+the reference names XLA's.  The partitioned routes adopt a dead row's
+slice (``parallel/partition.mine_on_rows``).
 """
 
 from __future__ import annotations
@@ -140,6 +141,9 @@ def _device_shaped(exc: BaseException) -> bool:
     except Exception:
         pass
     name = type(exc).__name__
+    if name in ("AcceleratorError", "OutOfMemoryError") or (
+            isinstance(exc, RuntimeError) and "CUDA error" in str(exc)):
+        return True   # the card's own errors (torch's CUDA runtime)
     return "XlaRuntimeError" in name or "RuntimeError" == name and (
         "RESOURCE_EXHAUSTED" in str(exc) or "device" in str(exc).lower())
 

@@ -31,19 +31,24 @@ the service's device, which the boot resolves once (:func:`set_device`;
 ``cuda`` unless the caller asks for the CPU).  On the card they launch
 the kernels or fail; nothing here falls back to a plain version.  The CPU
 plugins run the port's copies of the host miners.  The partition count
-reads the ``torch.distributed`` world size where the reference reads
-``jax.process_count()``.
+counts controller processes as the reference's ``jax.process_count()``
+does (:func:`_process_count`), and the mesh's ranks where the reference
+counts its devices.  On a world of ranks the device plugins are mesh
+calls (``service/meshcall.py``): the leader's call is replayed on every
+other rank, so their collectives meet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 from spark_fsm_tpu_torch import config
 from spark_fsm_tpu_torch.data.spmf import SequenceDB
 from spark_fsm_tpu_torch.device import DeviceLike, resolve_device
 from spark_fsm_tpu_torch.data.vertical import abs_minsup
+from spark_fsm_tpu_torch.service import meshcall
 from spark_fsm_tpu_torch.service.model import ServiceRequest
 from spark_fsm_tpu_torch.utils.canonical import PatternResult, RuleResult
 
@@ -67,11 +72,19 @@ def service_device():
 
 
 def _process_count() -> int:
+    """Controller processes, as the reference's ``jax.process_count()``
+    counts them: the hosts of a ``[distributed]`` world (one process a
+    host), else 1.  A one-host world of ``[engine] mesh_devices`` ranks
+    is the counterpart of the reference's single controller over that
+    many devices, whatever its process count."""
+    d = config.get_config().distributed
+    if not d.enabled:
+        return 1
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size()
-    return 1
+    return int(d.num_processes or 1)
 
 
 class UnknownAlgorithm(ValueError):
@@ -149,9 +162,9 @@ def resolved_partition_parts() -> int:
             bad = (f"parts={parts} != process_count={n_procs} "
                    "(multi-controller needs one partition per process)")
         elif n_procs == 1 and mesh is not None and parts > 1 \
-                and mesh.devices.size % parts:
+                and mesh.size % parts:
             bad = (f"parts={parts} does not divide the "
-                   f"{mesh.devices.size}-device mesh")
+                   f"{mesh.size}-device mesh")
         if bad:
             from spark_fsm_tpu_torch.utils.obs import log_event
 
@@ -160,8 +173,7 @@ def resolved_partition_parts() -> int:
         return parts if _classes_cover(parts, pc.classes) else 0
     if n_procs > 1:
         return n_procs if _classes_cover(n_procs, pc.classes) else 0
-    if mesh is not None and mesh.devices.size >= 2 \
-            and mesh.devices.size % 2 == 0:
+    if mesh is not None and mesh.size >= 2 and mesh.size % 2 == 0:
         return 2 if _classes_cover(2, pc.classes) else 0
     return 0
 
@@ -408,13 +420,26 @@ def _tsr_tpu(req: ServiceRequest, db: SequenceDB,
                           checkpoint=checkpoint, **kwargs)
 
 
+def _mesh_bound(fn: Callable[..., Results]) -> Callable[..., Results]:
+    """A device plugin's extract as a mesh call (``service/meshcall.py``):
+    on a world of ranks every rank mines the leader's request."""
+    @functools.wraps(fn)
+    def extract(req: ServiceRequest, db: SequenceDB,
+                stats: Optional[dict] = None, checkpoint=None) -> Results:
+        return meshcall.extract(fn, req, db, stats, checkpoint)
+
+    return extract
+
+
 ALGORITHMS: Dict[str, AlgorithmPlugin] = {
     "SPADE": AlgorithmPlugin("SPADE", "patterns", _spade_cpu),
-    "SPADE_TPU": AlgorithmPlugin("SPADE_TPU", "patterns", _spade_tpu),
+    "SPADE_TPU": AlgorithmPlugin("SPADE_TPU", "patterns",
+                                 _mesh_bound(_spade_tpu)),
     "SPAM": AlgorithmPlugin("SPAM", "patterns", _spam_cpu),
-    "SPAM_TPU": AlgorithmPlugin("SPAM_TPU", "patterns", _spam_tpu),
+    "SPAM_TPU": AlgorithmPlugin("SPAM_TPU", "patterns",
+                                _mesh_bound(_spam_tpu)),
     "TSR": AlgorithmPlugin("TSR", "rules", _tsr_cpu),
-    "TSR_TPU": AlgorithmPlugin("TSR_TPU", "rules", _tsr_tpu),
+    "TSR_TPU": AlgorithmPlugin("TSR_TPU", "rules", _mesh_bound(_tsr_tpu)),
     # AUTO's registry entry exists so listings ("/admin/algorithms",
     # the 400 body) include it; get_plugin builds the per-request
     # plugin below because AUTO's result KIND depends on the params

@@ -31,6 +31,11 @@ contextvar (set by ``Miner._loop`` around the run), so engine code
 calls :func:`check` with zero plumbing, exactly like obs spans.
 
 Port: a copy of ``spark_fsm_tpu/utils/jobctl.py`` with its imports pointed at ``spark_fsm_tpu_torch``.
+On a service's world of ranks (one process a rank) only the leader holds
+the jobs, so the engines' safe points call :func:`check_shared`: every
+rank takes rank 0's verdict and leaves the mine at the same launch
+boundary, where a rank left in a collective would wait out the world's
+timeout.
 """
 
 from __future__ import annotations
@@ -84,6 +89,11 @@ class JobLeaseLost(JobAborted):
     the lease is confirmed superseded."""
 
     code = "LEASE_LOST"
+
+
+class RankAborted(JobAborted):
+    """A follower rank's side of an abort that its leader decided at a
+    shared safe point (:func:`check_shared`)."""
 
 
 class JobControl:
@@ -328,6 +338,37 @@ def check() -> None:
     if not _active:
         return
     check_entry(_cur.get())
+
+
+_shared = False
+
+
+def share_with_ranks() -> None:
+    """Turn on the shared safe points of :func:`check_shared` (every rank
+    of a service's world, at boot)."""
+    global _shared
+    _shared = True
+
+
+def check_shared(mesh=None) -> None:
+    """:func:`check` at a safe point that every rank of ``mesh`` reaches
+    together.  On a service's world rank 0's verdict is every rank's (a
+    one-int reduce, ``parallel.mesh.rank0_decides``), and a rank that owes
+    no abort of its own raises :class:`RankAborted`; elsewhere, or without
+    a mesh, it is :func:`check`."""
+    if not _shared or mesh is None:
+        check()
+        return
+    from spark_fsm_tpu_torch.parallel.mesh import rank0_decides
+
+    owed = None
+    try:
+        check()
+    except JobAborted as exc:
+        owed = exc
+    if rank0_decides(owed is not None, mesh):
+        raise owed if owed is not None else RankAborted(
+            "", "aborted by rank 0 of the mesh")
 
 
 def current() -> Optional[JobControl]:

@@ -9,8 +9,8 @@ get the same requests over inputs made from a seed by the copied
 for the wall-clock fields, and ``/status`` envelopes equal but for the
 keys listed in ``EXCLUDED``.  Also: cancellation and ``deadline_s``
 abort a running CPU mine with the reference's status and error text,
-the knobs the port does not serve yet are refused, and a boot without
-``device`` resolves ``cuda`` and raises on a box without a card."""
+the mesh knobs are accepted, and a boot without ``device`` resolves
+``cuda`` and raises on a box without a card."""
 
 import dataclasses
 import json
@@ -400,15 +400,19 @@ def test_admin_stats_name_the_port_backend(servers):
     ("distributed", {"enabled": True}),
     ("meshguard", {"enabled": True}),
 ])
-def test_unported_knobs_are_refused(section, value):
-    with pytest.raises(NotImplementedError, match="A13b steps 5–7"):
-        TC.parse_config({section: value})
-    cfg = TC.Config()
-    setattr(cfg, section, dataclasses.replace(getattr(cfg, section), **value))
+def test_mesh_knobs_are_accepted(section, value):
+    """A mesh, a world across hosts and the meshguard are served: the
+    config takes each knob (the world itself starts at boot,
+    ``service/launch.py``)."""
+    cfg = TC.parse_config({section: value})
+    assert getattr(cfg, section) == dataclasses.replace(
+        getattr(TC.Config(), section), **value)
     saved = TC.get_config()
-    with pytest.raises(NotImplementedError, match="A13b steps 5–7"):
+    try:
         TC.set_config(cfg)
-    assert TC.get_config() is saved
+        assert TC.get_config() is cfg
+    finally:
+        TC.set_config(saved)
 
 
 @pytest.mark.parametrize("section", ["prewarm", "fusion"])
