@@ -11,12 +11,17 @@ Phases, one printed line each (any failure raises and exits non-zero):
   3. the pair-support kernel against its plain PyTorch version on the card,
      exact equality, W in {1, 2, 3} on ragged shapes and at the main
      path's launches, plus the candidate extraction of ``batch_supports``;
-  4. the kernel and its plain version timed with CUDA events at the
-     headline launch (P=2048, NI=360, S=77,504, W=1), at the queue
-     engine's wide and late waves (P=1024 and P=128, NI=384), at the
-     classic engine's first launch (P=720, NI=360) and at the stream
-     sweep's widest level (P=2048, NI=128, S=131,072), beside the least
-     time the card could take for the same work;
+     with the live-row hint (``n_live``, all-zero item rows after it) and
+     without: at SPAM's wave on a mesh (P = 2 x the SPAM engine's node
+     batch, NI=64, 17 live, S=990,016), at the stream sweep (17 live of
+     128), at n_live 0, NI and a ragged 37 of 64;
+  4. the kernel (with the hint its caller passes) and its plain version
+     timed with CUDA events at the headline launch (P=2048, NI=360,
+     S=77,504, W=1), at the queue engine's wide and late waves (P=1024 and
+     P=128, NI=384, 360 live), at the classic engine's first launch
+     (P=720, NI=360), at the stream sweep's widest level (P=2048, NI=128,
+     17 live, S=131,072) and at SPAM's wave on a mesh, beside the least
+     time the card could take for the same work over the live rows;
   5. the main path at full data size: ``mine_spade_torch`` on a
      BMS-WebView-2-shaped database (77,500 sequences) at minsup 0.1 %,
      which the router sends to the queue engine, byte-identical to the CPU
@@ -268,11 +273,16 @@ import time
 import numpy as np
 
 # Card peaks for the bound (H100 SXM data sheet, as in the repository's
-# measurement notes): 3.35 TB/s of device memory, and int32 work on the CUDA
-# cores at 64 lanes per SM per clock — a quarter of the 67 TFLOP/s fp32
-# rate, which counts 128 lanes and two operations per fused multiply-add.
+# measurement notes): 3.35 TB/s of device memory, and 32-bit integer work
+# on the CUDA cores at 128 lanes per SM per clock — half of the 67 TFLOP/s
+# fp32 rate, which counts 128 lanes and two operations per fused
+# multiply-add.  128 is the most any mix can dispatch (four schedulers, one
+# warp instruction a clock each); logic ops (LOP3) run on 64 of the lanes
+# and adds (VIADD, IMAD) on the others, so a mix of the two can reach it.
+# (64 lanes, the rate used before, is not a least time: B1's body of one
+# LOP3 and one add a pair ran above it.)
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 4
+INT32_OPS_PER_S = 67e12 / 2
 
 # (P, NI, S, W) of the timed launches: the headline launch; the main path's
 # queue waves, wide (2 x nb = 1024 rows) and late (2 x nb_late = 128 rows)
@@ -286,6 +296,13 @@ CLASSIC_LAUNCH = (720, 360, 77504, 1)
 # checks it) over the batch store's 128 item rows (17 live items padded to
 # the reference's I_TILE) and its bucketed 131,072 sequences
 STREAM_SWEEP = (2048, 128, 131072, 1)
+# live item rows (n_live) the callers pass at those launches: BMS's 360
+# frequent items, the stream's 17 present items; SPAM's wave on a mesh
+# (P set in main() from the engine's node batch, 17 live of NI = 64,
+# S = 990,016) passes MSNBC's 17 items
+PAIR_LIVE = {HEADLINE: 360, WIDE_WAVE: 360, LATE_WAVE: 360,
+             CLASSIC_LAUNCH: 360, STREAM_SWEEP: 17}
+SPAM_MESH_LIVE = 17
 # (C, km, M, S, W) of the timed rule-support launches: the TSR path's
 # headline launch (8192 candidates at km = 2 over the top 256 items of the
 # Kosarak-shaped database) and the same launch at km = 1
@@ -980,14 +997,18 @@ def rand_words(rng, *shape) -> np.ndarray:
     return w | (top.astype(np.uint32) << np.uint32(31))
 
 
-def pair_bound_ms(P: int, NI: int, S: int, W: int):
-    """Least time for one pair-support launch: each operand row read once
-    and the output written once, against the fewest integer operations the
-    function needs per pair and sequence: one three-input logic op per word
-    (AND folded into the running OR, the last one also setting the nonzero
-    predicate) and one predicated add, W + 1 in all."""
-    nbytes = (P + NI) * S * W * 4 + P * NI * 4
-    ops = P * NI * S * (W + 1)
+def pair_bound_ms(P: int, NI: int, S: int, W: int, n_live: int = None):
+    """Least time for one pair-support launch: each parent row and each
+    live item row read once and the [P, NI] output written once, against
+    the fewest integer operations the function needs per live pair and
+    sequence: one three-input logic op per word (AND folded into the
+    running OR, the last one also setting the nonzero predicate) and one
+    predicated add, W + 1 in all.  ``n_live`` (default NI) is how many
+    leading item rows can be nonzero; the rest are known zero and need no
+    work."""
+    n_live = NI if n_live is None else n_live
+    nbytes = (P + n_live) * S * W * 4 + P * NI * 4
+    ops = P * n_live * S * (W + 1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
@@ -2318,50 +2339,76 @@ def run(torch, oracles) -> int:
           flush=True)
 
     # 3. kernel == plain version, exactly, on ragged shapes and at the main
-    # path's launches
+    # path's launches; with the live-row hint at SPAM's mesh wave, the
+    # stream sweep, 0, NI and a ragged 37 of 64 (item rows past the hint
+    # all zero, as the engines' stores have them), and without it
+    spam_mesh_wave = (2 * spam_geometry(990000, 17, 1, device=dev)
+                      ["node_batch"], 64, 990016, 1)
+    PAIR_LIVE[spam_mesh_wave] = SPAM_MESH_LIVE
     rng = np.random.default_rng(0)
     worst = 0
     timed = {}
-    for (P, NI, S, W) in ((130, 77, 1001, 1), (67, 129, 517, 2),
-                          (3, 5, 4099, 3), LATE_WAVE, CLASSIC_LAUNCH,
-                          WIDE_WAVE, HEADLINE, STREAM_SWEEP):
+    for (P, NI, S, W, live) in (
+            (130, 77, 1001, 1, None), (67, 129, 517, 2, None),
+            (3, 5, 4099, 3, None), (64, 64, 4099, 1, 37),
+            (130, 64, 1001, 2, 0), (12, 64, 517, 1, 64),
+            (12, 64, 2053, 3, 17)) + tuple(
+                shape + (PAIR_LIVE[shape],) for shape in (
+                    LATE_WAVE, CLASSIC_LAUNCH, WIDE_WAVE, HEADLINE,
+                    STREAM_SWEEP, spam_mesh_wave)):
         pt = torch.from_numpy(rand_words(rng, P, S * W).view(np.int32)).to(dev)
         items = torch.from_numpy(
             rand_words(rng, NI + 7, S * W).view(np.int32)).to(dev)
-        got = PS.pair_supports(pt, items, NI, n_words=W)
-        want = PS.pair_supports_plain(pt, items, NI, n_words=W)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        check(err == 0, f"pair_supports != plain at P={P} NI={NI} S={S} "
-              f"W={W} (max abs err {err})")
+        if live is not None:
+            items[live:NI] = 0                  # all-zero pad item rows
         pref = torch.from_numpy(rng.integers(0, P, 999)).to(dev)
         item = torch.from_numpy(rng.integers(0, NI, 999)).to(dev)
-        gb = PS.batch_supports(pt, items, NI, pref, item, n_words=W)
-        wb = PS.batch_supports_plain(pt, items, NI, pref, item, n_words=W)
-        check(torch.equal(gb, wb), f"batch_supports != plain at W={W}")
-        worst = max(worst, err)
-        print(f"[check] pair_supports P={P} NI={NI} S={S} W={W}: equal to "
-              f"plain (max abs err {err}); batch_supports equal", flush=True)
-        if (P, NI, S, W) in (LATE_WAVE, CLASSIC_LAUNCH, WIDE_WAVE, HEADLINE,
-                             STREAM_SWEEP):
+        for hint in ((None,) if live is None else (live, None)):
+            got = PS.pair_supports(pt, items, NI, n_words=W, n_live=hint)
+            want = PS.pair_supports_plain(pt, items, NI, n_words=W,
+                                          n_live=hint)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            check(err == 0, f"pair_supports != plain at P={P} NI={NI} S={S} "
+                  f"W={W} n_live={hint} (max abs err {err})")
+            gb = PS.batch_supports(pt, items, NI, pref, item, n_words=W,
+                                   n_live=hint)
+            wb = PS.batch_supports_plain(pt, items, NI, pref, item,
+                                         n_words=W, n_live=hint)
+            check(torch.equal(gb, wb), f"batch_supports != plain at W={W} "
+                  f"n_live={hint}")
+            worst = max(worst, err)
+        print(f"[check] pair_supports P={P} NI={NI} S={S} W={W}"
+              + ("" if live is None else f" ({live} live rows, pad rows "
+                 f"zero), with n_live={live} and without") + f": equal to "
+              f"plain (max abs err {err}); batch_supports equal",
+              flush=True)
+        if (P, NI, S, W) in PAIR_LIVE:
             timed[(P, NI, S, W)] = (pt, items)
+        del pt, items
 
-    # 4. timing at every launch shape above; the kernels line reports the
-    # main path's wide queue wave
+    # 4. timing at every launch shape above, with the hint its caller
+    # passes, against the bound over the live rows: the device time a
+    # launch (zero-fill of the output included) of back-to-back launches;
+    # the kernels line reports the main path's wide queue wave, timed last
     pair_times = {}
     for shape in (LATE_WAVE, CLASSIC_LAUNCH, HEADLINE, STREAM_SWEEP,
-                  WIDE_WAVE):
+                  spam_mesh_wave, WIDE_WAVE):
         pt, items = timed.pop(shape)
         P, NI, S, W = shape
-        ms = time_ms(lambda: PS.pair_supports(pt, items, NI, n_words=W), 3, 20)
+        live = PAIR_LIVE[shape]
+        ms = launch_ms(lambda: PS.pair_supports(pt, items, NI, n_words=W,
+                                                n_live=live), 3, 20)
         plain_ms = time_ms(
-            lambda: PS.pair_supports_plain(pt, items, NI, n_words=W), 1, 10)
-        bound_ms, bound_by = pair_bound_ms(P, NI, S, W)
+            lambda: PS.pair_supports_plain(pt, items, NI, n_words=W,
+                                           n_live=live), 1, 10)
+        bound_ms, bound_by = pair_bound_ms(P, NI, S, W, live)
         pair_times[shape] = ms
         clocks = smi("clocks.sm,power.draw,temperature.gpu")
-        print(f"[time] pair_supports P={P} NI={NI} S={S} W={W}: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}, {100 * bound_ms / ms:.1f} % of it reached), "
+        print(f"[time] pair_supports P={P} NI={NI} n_live={live} S={S} W={W}: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms over the live rows ({bound_by}, "
+              f"{100 * bound_ms / ms:.1f} % of it reached), "
               f"library: none (no single PyTorch call counts 'any' per "
               f"sequence); after timing nvidia-smi sm clock, power, temp: "
               f"{clocks}", flush=True)
@@ -2406,8 +2453,9 @@ def run(torch, oracles) -> int:
     check(patterns_text(got) == text, "main-path mine differs from the oracle")
     check(patterns_text(got_warm) == text, "warm mine differs from the oracle")
     wide = stats["waves"] - stats["late_waves"]
-    main_bound_ms = (wide * pair_bound_ms(*WIDE_WAVE)[0]
-                     + stats["late_waves"] * pair_bound_ms(*LATE_WAVE)[0])
+    main_bound_ms = (
+        wide * pair_bound_ms(*WIDE_WAVE, vdb.n_items)[0]
+        + stats["late_waves"] * pair_bound_ms(*LATE_WAVE, vdb.n_items)[0])
     print(f"[mine] bms_webview2_like: {len(db)} sequences, {vdb.n_items} "
           f"frequent items, W={vdb.n_words}, minsup {minsup}: route "
           f"{stats['fused']!r}, {len(got)} patterns byte-identical to the "
@@ -3119,10 +3167,11 @@ def run(torch, oracles) -> int:
         swept_levels += len(widths)
         stream_b1 += b1
         # B1's bound over this push's launches: a level's parents, plain
-        # and transformed, against the new batch store's item rows
+        # and transformed, against the new batch store's live item rows
         st = list(inc._states.values())[-1]
         push_bound_ms = sum(pair_bound_ms(2 * w, st.ni_rows, st.n_seq,
-                                          st.n_words)[0] for w in widths)
+                                          st.n_words, st.n_present)[0]
+                            for w in widths)
         stream_bound_ms += push_bound_ms
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()

@@ -315,8 +315,10 @@ class FusedSpadeTorch:
         pt = prep_rows(self.store, torch.where(active, self.slots,
                                                self._scratch),
                        self.s_local, self.n_words)
+        # item rows past the real items are the store's zero pad rows
         pair = all_reduce_sum(PS.pair_supports(pt, self.store, ni,
-                                               n_words=self.n_words),
+                                               n_words=self.n_words,
+                                               n_live=self.n_items),
                               self.mesh).view(f, 2, ni)
         # row 2f: plain & item = i-ext; row 2f+1: transform & item = s-ext
         sup_i, sup_s = pair[:, 0], pair[:, 1]

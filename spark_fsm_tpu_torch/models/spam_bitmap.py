@@ -277,6 +277,7 @@ class SpamBitmapTorch:
         if self.nd_pad:
             # the wave's item rows past the real items are all zero: the
             # store's pad rows (pure bitmap) or the gather's -1 rows (hybrid)
+            n_live = self.n_dense if self._hybrid else self.n_items
             # every device wave routes through the fusion broker's
             # accounting and fault surface (one global read when it is off)
             if self.mesh is None:
@@ -284,14 +285,13 @@ class SpamBitmapTorch:
                     "spam", lambda: SB.wave_extend_prune(
                         pt, self._items, self.minsup,
                         torch.from_numpy(ud_rows), n_words=self.n_words,
-                        nd_pad=self.nd_pad,
-                        n_live=self.n_dense if self._hybrid else self.n_items),
+                        nd_pad=self.nd_pad, n_live=n_live),
                     nodes=len(batch), items=self.nd_pad)
             else:
                 sup, mask = fusion.dispatch_wave(
                     "spam", lambda: SB.wave_prune_sharded(
                         pt, self._items, self.minsup, n_words=self.n_words,
-                        nd_pad=self.nd_pad, mesh=self.mesh),
+                        nd_pad=self.nd_pad, mesh=self.mesh, n_live=n_live),
                     nodes=len(batch), items=self.nd_pad)
             self.stats["kernel_launches"] += 1
             self.stats["waves"] += 1

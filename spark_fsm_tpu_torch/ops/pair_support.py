@@ -5,7 +5,11 @@ parent rows ``pt`` (plain and s-ext-transformed rows interleaved) and the
 first ``n_item_rows`` rows of ``items`` (the engine's bitmap store, whose
 leading rows are the item id-lists).  Both operands are read in the
 engine's native flat layout ``[rows, S*W]`` (word minor), int32 words
-holding uint32 bits; no transpose is made.
+holding uint32 bits; no transpose is made.  ``n_live`` (default
+``n_item_rows``) is the number of leading item rows that can be nonzero:
+the engine's real items, whose pad rows after them are all zero.  Columns
+from ``n_live`` on are 0 and cost no work, in the kernel and in the plain
+version alike.
 
 Two versions of the same function live here:
 - the CUDA kernel ``csrc/pair_support.cu`` (built for sm_90a at first use,
@@ -28,15 +32,11 @@ import torch
 
 from spark_fsm_tpu_torch.ops import _build
 
-# The kernel's tiles (csrc/pair_support.cu): 64 x 64 output tiles, sequences
-# staged in chunks of at most 32 words.  The engine pads its sequence axis
-# to SEQ_TILE so every single-word stage is full; the kernel itself masks
-# any ragged P, NI and S.
-ROW_TILE = 64
-ITEM_TILE = 64
+# The engines pad their sequence axis to SEQ_TILE, so rows are 16-byte
+# aligned and the kernel (csrc/pair_support.cu, which picks its own tiles
+# and sequence splits) stages them with 16-byte copies; it masks any ragged
+# P, NI and S itself.
 SEQ_TILE = 32
-# blocks to aim for per SM when the sequence axis is split over gridDim.z
-_BLOCKS_PER_SM = 16
 # the plain version's [p_chunk, NI, S, W] temporary stays near this size
 _CHUNK_BYTES = 256 << 20
 
@@ -66,21 +66,37 @@ def check_operands(pt: torch.Tensor, items: torch.Tensor, n_item_rows: int,
         raise ValueError(f"n_item_rows={n_item_rows} outside 1..{items.shape[0]}")
 
 
+def live_rows(n_item_rows: int, n_live) -> int:
+    """``n_live`` checked against ``0..n_item_rows`` (None: all rows)."""
+    if n_live is None:
+        return n_item_rows
+    if isinstance(n_live, bool) or not isinstance(n_live, int):
+        raise TypeError(f"n_live must be an int, got {type(n_live)}")
+    if not 0 <= n_live <= n_item_rows:
+        raise ValueError(f"n_live={n_live} outside 0..{n_item_rows}")
+    return n_live
+
+
 def pair_supports_plain(pt: torch.Tensor, items: torch.Tensor,
-                        n_item_rows: int, n_words: int = 1) -> torch.Tensor:
-    """The plain PyTorch version: [P, n_item_rows] int32 supports.  Works
-    through P in chunks so the [p_chunk, NI, S, W] temporary stays near
+                        n_item_rows: int, n_words: int = 1,
+                        n_live: int | None = None) -> torch.Tensor:
+    """The plain PyTorch version: [P, n_item_rows] int32 supports, computed
+    over the first ``n_live`` item rows and zero after them.  Works through
+    P in chunks so the [p_chunk, n_live, S, W] temporary stays near
     ``_CHUNK_BYTES``."""
     check_operands(pt, items, n_item_rows, n_words)
+    n_live = live_rows(n_item_rows, n_live)
     P, SW = pt.shape
     S = SW // n_words
-    it = items[:n_item_rows].reshape(1, n_item_rows, S, n_words)
-    out = torch.empty(P, n_item_rows, dtype=torch.int32, device=pt.device)
-    pc = max(1, _CHUNK_BYTES // max(1, n_item_rows * SW * 4))
+    out = torch.zeros(P, n_item_rows, dtype=torch.int32, device=pt.device)
+    if n_live == 0:
+        return out
+    it = items[:n_live].reshape(1, n_live, S, n_words)
+    pc = max(1, _CHUNK_BYTES // max(1, n_live * SW * 4))
     for lo in range(0, P, pc):
         a = pt[lo:lo + pc].reshape(-1, 1, S, n_words)
-        hit = ((a & it) != 0).any(dim=-1)          # [pc, NI, S]
-        out[lo:lo + pc] = hit.sum(dim=-1, dtype=torch.int32)
+        hit = ((a & it) != 0).any(dim=-1)          # [pc, n_live, S]
+        out[lo:lo + pc, :n_live] = hit.sum(dim=-1, dtype=torch.int32)
     return out
 
 
@@ -89,48 +105,38 @@ def _kernel():
     lib = _build.load("pair_support")
     fn = lib.pair_support_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _n_splits(device: torch.device, P: int, NI: int, S: int) -> int:
-    """Sequence-axis splits (gridDim.z) so the grid holds about
-    _BLOCKS_PER_SM blocks per SM, with at least one stage per split."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    tiles = (-(-P // ROW_TILE)) * (-(-NI // ITEM_TILE))
-    want = -(-(_BLOCKS_PER_SM * sms) // tiles)
-    return max(1, min(want, -(-S // SEQ_TILE), 65535))
-
-
 def pair_supports(pt: torch.Tensor, items: torch.Tensor, n_item_rows: int,
-                  n_words: int = 1) -> torch.Tensor:
-    """[P, n_item_rows] int32 pair supports.  CUDA tensors launch the
-    kernel (and raise if it cannot be built or launched); CPU tensors take
-    :func:`pair_supports_plain`; any other device raises.  Each launch
-    adds one to ``pair_supports.launches``."""
+                  n_words: int = 1, n_live: int | None = None) -> torch.Tensor:
+    """[P, n_item_rows] int32 pair supports, zero from column ``n_live`` on.
+    CUDA tensors launch the kernel (and raise if it cannot be built or
+    launched); CPU tensors take :func:`pair_supports_plain`; any other
+    device raises.  Each launch adds one to ``pair_supports.launches``;
+    ``n_live = 0`` (and an empty P or S) returns zeros without one."""
     check_operands(pt, items, n_item_rows, n_words)
+    n_live = live_rows(n_item_rows, n_live)
     dev = pt.device
     if dev.type == "cpu":
-        return pair_supports_plain(pt, items, n_item_rows, n_words)
+        return pair_supports_plain(pt, items, n_item_rows, n_words, n_live)
     if dev.type != "cuda":
         raise ValueError(f"pair_supports runs on cuda (kernel) or cpu "
                          f"(plain version), got {dev}")
     P, SW = pt.shape
     S = SW // n_words
     out = torch.zeros(P, n_item_rows, dtype=torch.int32, device=dev)
-    if P == 0 or S == 0:
+    if P == 0 or S == 0 or n_live == 0:
         return out
     fn = _kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(pt.data_ptr(), items.data_ptr(), out.data_ptr(), P, n_item_rows,
-            S, n_words, _n_splits(dev, P, n_item_rows, S), stream)
+            n_live, S, n_words, stream)
     if rc != 0:
-        raise RuntimeError(
-            f"pair_support kernel launch failed: CUDA error {rc} (error 1, "
-            f"invalid value, is also a W={n_words} whose staged rows need "
-            f"more shared memory than a block may have)")
+        raise RuntimeError(f"pair_support kernel launch failed: CUDA error {rc}")
     pair_supports.launches += 1
     return out
 
@@ -146,16 +152,18 @@ def _extract(out: torch.Tensor, pref: torch.Tensor, item: torch.Tensor):
 
 def batch_supports(pt: torch.Tensor, items: torch.Tensor, n_item_rows: int,
                    pref: torch.Tensor, item: torch.Tensor,
-                   n_words: int = 1) -> torch.Tensor:
+                   n_words: int = 1, n_live: int | None = None) -> torch.Tensor:
     """Pair matrix + on-device candidate extraction: ``pref``/``item``
     index (parent-or-transform row, item row) per candidate; returns
     [n_candidates] int32 supports."""
-    return _extract(pair_supports(pt, items, n_item_rows, n_words), pref, item)
+    return _extract(pair_supports(pt, items, n_item_rows, n_words, n_live),
+                    pref, item)
 
 
 def batch_supports_plain(pt: torch.Tensor, items: torch.Tensor,
                          n_item_rows: int, pref: torch.Tensor,
-                         item: torch.Tensor, n_words: int = 1) -> torch.Tensor:
+                         item: torch.Tensor, n_words: int = 1,
+                         n_live: int | None = None) -> torch.Tensor:
     """:func:`batch_supports` through the plain version on any device."""
-    return _extract(pair_supports_plain(pt, items, n_item_rows, n_words),
-                    pref, item)
+    return _extract(pair_supports_plain(pt, items, n_item_rows, n_words,
+                                        n_live), pref, item)

@@ -50,11 +50,14 @@ def pad_items(n_items: int, tile: int = ITEM_TILE) -> int:
 
 
 def wave_supports(pt: torch.Tensor, store: torch.Tensor, n_words: int,
-                  ni_pad: int, mesh=None) -> torch.Tensor:
+                  ni_pad: int, mesh=None,
+                  n_live: int | None = None) -> torch.Tensor:
     """``sup[2*Bn, ni_pad]``: the support of every interleaved parent row
     AND every item row; s-extensions read ``sup[2b+1, i]``, i-extensions
-    ``sup[2b, i]``."""
-    return all_reduce_sum(PS.pair_supports(pt, store, ni_pad, n_words), mesh)
+    ``sup[2b, i]``.  ``n_live`` (default ``ni_pad``) is the number of
+    leading item rows that can be nonzero, as for :func:`wave_extend_prune`."""
+    return all_reduce_sum(PS.pair_supports(pt, store, ni_pad, n_words, n_live),
+                          mesh)
 
 
 def wave_extend_prune(pt: torch.Tensor, items: torch.Tensor, thr: int,
@@ -86,14 +89,15 @@ def wave_extend_prune(pt: torch.Tensor, items: torch.Tensor, thr: int,
 
 
 def wave_prune_sharded(pt: torch.Tensor, items: torch.Tensor, thr: int, *,
-                       n_words: int, nd_pad: int, mesh):
+                       n_words: int, nd_pad: int, mesh,
+                       n_live: int | None = None):
     """:func:`wave_extend_prune`'s ``(sup, mask)`` for this rank's block of
     the sequence axis (the reference's ``wave_extend_prune_fn(mesh)``):
     B1 (``pair_supports``: the kernel on CUDA, its plain version on the
     CPU) on the shard, the all-reduce, then the threshold and the pack.
     B3 never runs here: its in-kernel prune would threshold partial
-    counts."""
-    sup = wave_supports(pt, items, n_words, nd_pad, mesh)
+    counts.  ``n_live`` is :func:`wave_extend_prune`'s."""
+    sup = wave_supports(pt, items, n_words, nd_pad, mesh, n_live)
     alive = sup >= int(thr)
     return torch.where(alive, sup, 0), B.pack_seq_bits(alive)
 

@@ -312,7 +312,8 @@ def _warm_sweep(t: dict, dev, mesh) -> None:
     pt = prep_rows(st.store, [scratch] * 8, st.s_local, st.n_words)
     z = to_index(np.zeros(8, np.int64), dev)
     if miner.use_kernel:
-        PS.batch_supports(pt, st.store, st.ni_rows, z, z, n_words=st.n_words)
+        PS.batch_supports(pt, st.store, st.ni_rows, z, z, n_words=st.n_words,
+                          n_live=st.n_present)
     _sync(dev)
 
 

@@ -163,6 +163,8 @@ class _BatchTokens:
         # pushes while the frequent projection holds still (steady-state
         # repair then skips every store rebuild)
         self.row_of: Dict[int, int] = {}
+        # item rows: n_present live ones, zero pad rows up to ni_rows
+        self.n_present = 0
         self.ni_rows = 0
         self.store: Optional[torch.Tensor] = None
         self._proj_key = None
@@ -181,6 +183,7 @@ class _BatchTokens:
                 and self._n_rows >= n_rows):
             return self._n_rows
         self.row_of = {g: r for r, g in enumerate(present)}
+        self.n_present = len(present)
         self.ni_rows = ni_rows
         # unneeded items point past the store; the scatter drops them
         remap = np.full(max(self.n_local, 1), n_rows + 1, np.int64)
@@ -505,7 +508,8 @@ class IncrementalWindowMiner:
             sup = all_reduce_sum(
                 PS.batch_supports(pt, st.store, st.ni_rows,
                                   to_index(2 * refs + iss, dev),
-                                  to_index(items, dev), n_words=st.n_words),
+                                  to_index(items, dev), n_words=st.n_words,
+                                  n_live=st.n_present),
                 self.mesh)
             self.stats["kernel_launches"] += 1
             (host,), ev = to_host([sup])

@@ -5,8 +5,9 @@ conftest is left out):
 
     python3 -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Each kernel (B1 pair supports, B2 rule supports, B3 extension count +
-prune) is held against its plain version exactly, and the engines' mines
+Each kernel (B1 pair supports, on each of its tiles and with its
+live-row hint too; B2 rule supports; B3 extension count + prune) is held
+against its plain version exactly, and the engines' mines
 (SPADE's classic, queue and dense engines, TSR, SPAM) against the port's
 CPU oracles, with the kernels' launches counted.  One queue wave, one
 dense level and TSR's resident waves (wide and narrow) run under
@@ -86,6 +87,38 @@ def test_kernel_equals_plain(card, P, NI, S, W):
     torch.cuda.synchronize()
     assert PS.pair_supports.launches == before + 1
     assert torch.equal(got, PS.pair_supports_plain(pt, items, NI, n_words=W))
+
+
+# (P, NI, n_live, S, W) on each of the kernel's tiles: wide (P and n_live
+# >= 128), narrow (P or n_live <= 32; SPAM's wave, the stream's sweep) and
+# mid, at W = 1 and W > 1, 16-byte and 4-byte staging, ragged hints
+@pytest.mark.parametrize("P,NI,live,S,W", [
+    (256, 384, 360, 4096, 1), (130, 130, 129, 517, 2), (200, 150, 131, 1001, 3),
+    (12, 64, 17, 99_968, 1), (2048, 128, 17, 4096, 1), (12, 64, 17, 1001, 3),
+    (40, 64, 33, 4099, 1), (64, 64, 37, 2053, 2), (12, 64, 37, 40, 40),
+    (5, 70, 66, 7, 200)])
+def test_kernel_equals_plain_with_live_rows(card, P, NI, live, S, W):
+    rng = np.random.default_rng(P * 31 + live)
+    pt = _words(rng, P, S * W).to(card)
+    items = _words(rng, NI + 3, S * W).to(card)
+    items[live:NI] = 0
+    want = PS.pair_supports_plain(pt, items, NI, n_words=W, n_live=live)
+    before = PS.pair_supports.launches
+    for hint in (live, None):
+        got = PS.pair_supports(pt, items, NI, n_words=W, n_live=hint)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), hint
+    assert PS.pair_supports.launches == before + 2
+
+
+def test_no_live_row_launches_nothing(card):
+    pt = _words(np.random.default_rng(1), 40, 512).to(card)
+    before = PS.pair_supports.launches
+    got = PS.pair_supports(pt, pt, 40, n_live=0)
+    assert PS.pair_supports.launches == before
+    assert tuple(got.shape) == (40, 40) and not got.any()
+    PS.pair_supports(pt, pt, 40, n_live=1)
+    assert PS.pair_supports.launches == before + 1
 
 
 @pytest.mark.parametrize("kw,minsup_rel,cap", [
