@@ -252,6 +252,40 @@ Phases, one printed line each (any failure raises and exits non-zero):
      launches and peaks with the card's name and power limit.
      ``python3 chip_smoke.py --phase 25`` runs this phase alone on
      inputs made here through the library.
+ 26. the replicated service: replicas of ``spark_fsm_tpu_torch.service.app``
+     (``--device cuda``, each its own process, started through
+     ``chip_smoke.py --replica`` so the phase reads their B1/B2/B3 launch
+     counts and peaks) on one copied MiniRedis (``tests/_torch_miniredis.py``)
+     in this process, ``[cluster]`` leases of 2 s.  (a) Replicas A and B,
+     a 4 s delay armed on A's frontier saves (``/admin/faults``): phase
+     5's BMS SPADE checkpointed on A's queue route, phase 13's MSNBC SPAM
+     and the tenth's Kosarak TSR queued behind it and stolen by B; A is
+     killed -9 as the spine flush after its first frontier save lands
+     (taken from the store's writes, not a sleep); B adopts the drill only
+     after A's lease expires and resumes it; every body equal to the
+     earlier phase's by SHA-256, one terminal status each,
+     ``fsm_job_time_to_adoption_seconds`` read from B, ``/admin/trace`` on
+     B merging both replicas' spans, every journal intent, lease and
+     marker settled, B1 launched on A and B1, B2, B3 on B.  (b) One
+     replica (one worker, ``queue_depth`` 2, ``[storeguard]``, the store
+     behind ``utils/netproxy.NetProxy``): the drill and two fillers, three
+     more submits shed with 429 and an integer Retry-After, a kill -9 at
+     the drill's first frontier save, a reboot on the same store resumes
+     the drill to the same SHA-256 and fails the fillers durably
+     ("interrupted by restart"), the queue-depth gauge back to 0.  (c)
+     The rebooted replica mines the drill again and the proxy black-holes
+     the store as its first frontier save lands: the job stalls, never
+     fails; once the link is back the same replica reacquires it, replays
+     its spool to empty and finishes with the same SHA-256.  (d) ``python
+     -m spark_fsm_tpu_torch.service.fleet --initial 2`` (its default
+     ``--device cuda``), three BMS jobs, a desired count of 3 published,
+     the supervisor SIGKILLed as it boots the third replica and restarted
+     with ``--initial 0``: three live heartbeats, no replica booted twice,
+     every job settled once with parity.  ``[replica]`` lines print the
+     boots, each job's wall beside the library's, the time to adoption,
+     the stall and resume, each replica's launches and peak, with the
+     card's name and power limit.  ``python3 chip_smoke.py --phase 26``
+     runs this phase alone on inputs made here through the library.
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 and prints no result.
@@ -263,6 +297,7 @@ import hashlib
 import json
 import os
 import re
+import signal
 import socket
 import statistics
 import subprocess
@@ -358,6 +393,17 @@ MESH_STREAM_PUSHES = 5
 MESH_KOSARAK_SCALE = 0.1
 # phases 21 and 22: the class partitions of the partitioned mines
 PARTITION_PARTS = 2
+# phase 26: the replicated service.  Its replicas' configs, logs, launch
+# counts and FILE sources go under build/smoke/replica/
+ROOT = os.path.dirname(os.path.abspath(__file__))
+REPLICA_DIR = os.path.join(ROOT, "build", "smoke", "replica")
+REPLICA_TTL_S = 2.0
+REPLICA_RECOVER_S = 0.5
+# the per-save delay armed on replica A, whose first frontier save must
+# come after B has stolen both fillers (one heartbeat, a third of the TTL)
+REPLICA_SAVE_DELAY_S = 4.0
+# the longest any one wait of phase 26 may take before the phase fails
+REPLICA_WAIT_S = 240.0
 
 
 def digest(text: str) -> str:
@@ -2241,6 +2287,771 @@ def phase25_only(torch) -> int:
     return 0
 
 
+def replica_child(counts_path: str, args: list) -> int:
+    """``python3 chip_smoke.py --replica COUNTS ARGS...``: one replica of
+    phase 26, ``spark_fsm_tpu_torch.service.app``'s ``main()`` with ARGS
+    (phase 26 passes ``--device cuda``), beside a thread that rewrites
+    COUNTS every 0.1 s with the B1, B2 and B3 wrappers' launch counts and
+    the process's peak device memory, which the phase reads, after a
+    kill -9 too."""
+    import torch
+
+    from spark_fsm_tpu_torch.ops import extend_prune as EP
+    from spark_fsm_tpu_torch.ops import pair_support as PS
+    from spark_fsm_tpu_torch.ops import rule_support as RS
+    from spark_fsm_tpu_torch.service import app
+
+    def dump() -> None:
+        tmp = counts_path + ".tmp"
+        while True:
+            with open(tmp, "w") as fh:
+                json.dump({"b1": PS.pair_supports.launches,
+                           "b2": RS.rule_supports.launches,
+                           "b3": EP.extend_count_prune.launches,
+                           "peak": (torch.cuda.max_memory_allocated()
+                                    if torch.cuda.is_initialized() else 0)},
+                          fh)
+            os.replace(tmp, counts_path)
+            time.sleep(0.1)
+
+    threading.Thread(target=dump, daemon=True).start()
+    sys.argv = ["spark_fsm_tpu_torch.service.app", *args]
+    app.main()
+    return 0
+
+
+class Replica:
+    """A phase-26 replica in a fresh process on the card (``replica_child``
+    through ``chip_smoke.py --replica``); its boot config, log and launch
+    counts live under ``build/smoke/replica/``."""
+
+    def __init__(self, name: str, cfg: dict):
+        self.name = name
+        self.port = _free_port()
+        self.cfg_path = os.path.join(REPLICA_DIR, f"{name}.json")
+        self.log_path = os.path.join(REPLICA_DIR, f"{name}.log")
+        self.counts_path = os.path.join(REPLICA_DIR, f"{name}.counts.json")
+        with open(self.cfg_path, "w") as fh:
+            json.dump(cfg, fh)
+        if os.path.exists(self.counts_path):
+            os.remove(self.counts_path)
+        self.rid = self.boot_s = None
+        self.t0 = time.perf_counter()
+        with open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--replica",
+                 self.counts_path, "--config", self.cfg_path, "--device",
+                 "cuda", "--port", str(self.port)],
+                stdout=log, stderr=subprocess.STDOUT, cwd=ROOT)
+
+    def log(self) -> str:
+        with open(self.log_path) as fh:
+            return fh.read()
+
+    def ready(self) -> "Replica":
+        """Wait for the first answered ping; the replica id from the log."""
+        import urllib.error
+
+        while True:
+            try:
+                _http(self.port, "/admin/ping")
+                break
+            except (urllib.error.URLError, ConnectionError, OSError):
+                if (self.proc.poll() is not None
+                        or time.perf_counter() - self.t0 > 600):
+                    self.proc.kill()
+                    self.proc.wait()
+                    raise RuntimeError(f"replica {self.name} never answered:"
+                                       f"\n{self.log()[-3000:]}")
+                time.sleep(0.05)
+        self.boot_s = time.perf_counter() - self.t0
+        m = re.search(r"^cluster replica (\S+) ", self.log(), re.M)
+        check(m is not None, f"replica {self.name} printed no replica id")
+        self.rid = m.group(1)
+        return self
+
+    def counts(self) -> dict:
+        with open(self.counts_path) as fh:
+            return json.load(fh)
+
+    def kill(self) -> None:
+        self.proc.kill()
+        self.proc.wait()
+
+    def stop(self) -> int:
+        """SIGTERM (the drain), then wait; returns the exit code."""
+        if self.proc.poll() is None:
+            self.proc.terminate()
+        try:
+            return self.proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            return None
+
+
+def _trigger_redis():
+    """The copied MiniRedis (``tests/_torch_miniredis.py``) with a hook
+    called as each SET or RPUSH lands, before its reply is sent: phase 26
+    takes the moment of a kill or of a store outage from the writes of a
+    job's checkpoint, never from a sleep."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_miniredis import SnoopingMiniRedis
+
+    class TriggerRedis(SnoopingMiniRedis):
+        hook = None
+
+        def _dispatch(self, args):
+            reply = super()._dispatch(args)
+            hook = self.hook
+            if hook is not None and len(args) > 1 and \
+                    args[0].upper() in ("SET", "RPUSH"):
+                hook(args[0].upper(), args[1])
+            return reply
+
+    return TriggerRedis()
+
+
+class AtFirstSave:
+    """A TriggerRedis hook: runs ``act`` once, as ``uid``'s first frontier
+    save lands (``after_spine``: as the spine flush that follows it lands,
+    so the flight recorder holds the job's spans up to the save).  Unless
+    armed by then it runs nothing and records the miss."""
+
+    def __init__(self, uid: str, act, after_spine: bool = False,
+                 armed: bool = True):
+        self.uid, self.act, self.after_spine = uid, act, after_spine
+        self.saved = self.missed = False
+        self.armed = threading.Event()
+        if armed:
+            self.armed.set()
+        self.fired = threading.Event()
+        self.t = None
+
+    def __call__(self, cmd: str, key: str) -> None:
+        if self.fired.is_set():
+            return
+        if cmd == "SET" and key == f"fsm:frontier:{self.uid}":
+            self.saved = True
+            if self.after_spine:
+                return
+        elif not (cmd == "RPUSH" and key == f"fsm:trace:{self.uid}"
+                  and self.saved):
+            return
+        if self.armed.is_set():
+            self.act()
+            self.t = time.perf_counter()
+        else:
+            self.missed = True
+        self.fired.set()
+
+
+def _post_code(port: int, endpoint: str, **params) -> tuple:
+    """(HTTP status, Retry-After header, JSON body), 4xx answers too."""
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    url = f"http://127.0.0.1:{port}{endpoint}"
+    data = urllib.parse.urlencode(params).encode()
+    try:
+        with urllib.request.urlopen(url, data=data, timeout=600) as resp:
+            return resp.status, resp.headers.get("Retry-After"), \
+                json.loads(resp.read().decode())
+    except urllib.error.HTTPError as err:
+        return err.code, err.headers.get("Retry-After"), \
+            json.loads(err.read().decode())
+
+
+def _series(port: int, family: str, label: str = "") -> float:
+    """Sum of a ``/metrics`` family's samples whose labels hold ``label``."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=600) as resp:
+        text = resp.read().decode()
+    total, seen = 0.0, False
+    for line in text.splitlines():
+        m = re.match(rf"^{re.escape(family)}(\{{[^}}]*\}})?\s+(\S+)$", line)
+        if m and label in (m.group(1) or ""):
+            total += float(m.group(2))
+            seen = True
+    check(seen, f"{family} missing from /metrics on :{port}")
+    return total
+
+
+def _wait(cond, what: str, timeout: float = REPLICA_WAIT_S):
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        value = cond()
+        if value:
+            return value
+        time.sleep(0.05)
+    check(False, f"phase 26: timed out waiting for {what}")
+
+
+def _lease_holder(client, uid: str):
+    raw = client.get(f"fsm:lease:{uid}")
+    return None if raw is None else json.loads(raw).get("replica")
+
+
+def _terminals(client, uid: str) -> list:
+    """The terminal entries of a uid's status log: exactly one for a job
+    settled once (zero duplicated results)."""
+    return [e.partition(":")[2] for e in client.lrange(f"fsm:status:log:{uid}")
+            if e.partition(":")[2] in ("finished", "failure")]
+
+
+def _settled(client) -> bool:
+    """No journal intent, lease or admission marker left in the store."""
+    return not (client.keys("fsm:journal:*") + client.keys("fsm:admission:*")
+                + [k for k in client.keys("fsm:lease:*")
+                   if k != "fsm:lease:token"])
+
+
+def _finish_walls(port: int, t_submit: dict, want: dict) -> dict:
+    """Poll ``/status`` until every uid in ``t_submit`` is terminal; check
+    each finished with a ``/get`` body equal to ``want[uid]`` = (kind,
+    payload) by SHA-256; returns each submit-to-finished wall."""
+    walls: dict = {}
+    while len(walls) < len(t_submit):
+        for uid in t_submit:
+            if uid in walls:
+                continue
+            st = _http(port, f"/status/{uid}")
+            if st["status"] in ("finished", "failure"):
+                walls[uid] = time.perf_counter() - t_submit[uid]
+                check(st["status"] == "finished",
+                      f"{uid} failed: {st['data'].get('error')}")
+        check(time.perf_counter() - min(t_submit.values()) < REPLICA_WAIT_S,
+              f"phase 26: jobs unfinished: {sorted(set(t_submit) - set(walls))}")
+        time.sleep(0.05)
+    for uid, (kind, payload) in want.items():
+        body = _http(port, f"/get/{kind}", uid=uid)["data"][kind]
+        check(digest(body) == digest(payload),
+              f"/get/{kind} of {uid} differs from the library result by "
+              f"SHA-256")
+    return walls
+
+
+def _failover_drill(card: str, inp: dict, pool: int) -> None:
+    """Phase 26 (a): replicas A and B on one store; B steals A's queued
+    fillers, A dies by kill -9 right after its drill's first frontier save,
+    B adopts the drill once A's lease has expired and resumes it."""
+    from spark_fsm_tpu_torch.service.resp import RespClient
+
+    mini = _trigger_redis()
+    client = RespClient(port=mini.port)
+    base = {"fault_injection": True,
+            "store": {"backend": "redis", "host": "127.0.0.1",
+                      "port": mini.port},
+            "cluster": {"enabled": True, "lease_ttl_s": REPLICA_TTL_S,
+                        "recover_every_s": REPLICA_RECOVER_S},
+            "observability": {"trace": True, "spine_flush_spans": 8},
+            "engine": {"fused": "queue", "pool_bytes": pool}}
+    # B runs both fillers at once: its steal budget is its idle workers
+    a = Replica("a", dict(base, service={"miner_workers": 1,
+                                         "queue_depth": 8}))
+    b = Replica("b", dict(base, service={"miner_workers": 2,
+                                         "queue_depth": 8}))
+    try:
+        a.ready()
+        b.ready()
+        check(a.rid != b.rid, "two replicas took one replica id")
+        code, _, _ = _post_code(a.port, "/admin/faults", action="arm",
+                                site="checkpoint.save", every="1",
+                                delay_s=str(REPLICA_SAVE_DELAY_S), exc="none")
+        check(code == 200, "replica A refused the fault arm")
+        kill = AtFirstSave("r-bms", a.proc.kill, after_spine=True,
+                           armed=False)
+        mini.hook = kill
+        t_submit, want = {}, {}
+        for uid, params, kind, payload in (
+                ("r-bms", dict(algorithm="SPADE_TPU",
+                               support=str(inp["bms"][1]),
+                               path=inp["files"]["bms"], checkpoint="1",
+                               checkpoint_every_s="0"),
+                 "patterns", inp["bms payload"]),
+                ("r-spam", dict(algorithm="SPAM_TPU",
+                                support=str(inp["msnbc"][1]),
+                                path=inp["files"]["msnbc"]),
+                 "patterns", inp["msnbc payload"]),
+                ("r-tsr", dict(algorithm="TSR_TPU", k="100", minconf="0.5",
+                               max_side="2", path=inp["files"]["tenth"]),
+                 "rules", inp["tenth"][1])):
+            t_submit[uid] = time.perf_counter()
+            r = _http(a.port, "/train", uid=uid, source="FILE", **params)
+            check(r["status"] == "started", f"/train {uid} on A: {r}")
+            want[uid] = (kind, payload)
+        # B steals both fillers off A's admission namespace
+        _wait(lambda: all(_lease_holder(client, u) == b.rid
+                          or client.get(f"fsm:status:{u}") == "finished"
+                          for u in ("r-spam", "r-tsr")),
+              "B to steal both fillers")
+        t_stolen = time.perf_counter() - t_submit["r-tsr"]
+        kill.armed.set()
+        check(kill.fired.wait(REPLICA_WAIT_S), "A saved no frontier")
+        check(not kill.missed, "A's first frontier save landed before B "
+              "stole both fillers")
+        a.proc.wait()
+        a_counts = a.counts()
+        check(client.get("fsm:journal:r-bms") is not None
+              and _lease_holder(client, "r-bms") == a.rid,
+              "A's journal intent or lease on the drill is gone at the kill")
+        # B may adopt only once A's lease has expired
+        t_adopt = _wait(
+            lambda: (time.perf_counter() if client.get("fsm:status:r-bms")
+                     == "finished" or _lease_holder(client, "r-bms")
+                     == b.rid else None), "B to adopt the drill")
+        walls = _finish_walls(b.port, t_submit, want)
+        for uid in t_submit:
+            check(_terminals(client, uid) == ["finished"],
+                  f"{uid} settled {_terminals(client, uid)}")
+        n = _series(b.port, "fsm_job_time_to_adoption_seconds_count")
+        adoption_s = _series(b.port,
+                             "fsm_job_time_to_adoption_seconds_sum") / n
+        check(n >= 1 and 0.0 < adoption_s <=
+              REPLICA_TTL_S + REPLICA_RECOVER_S + REPLICA_SAVE_DELAY_S + 5.0,
+              f"B's fsm_job_time_to_adoption_seconds: {n} samples, mean "
+              f"{adoption_s}")
+        stolen = _series(b.port, "fsm_steal_attempts_total",
+                         'outcome="stolen"')
+        check(stolen >= 2, f"B stole {stolen} jobs")
+        merged = _http(b.port, "/admin/trace/r-bms")
+        reps = {s.get("replica") for s in merged.get("spans", [])}
+        check(merged.get("merged") and {a.rid, b.rid} <= reps,
+              f"/admin/trace/r-bms on B merges spans of {reps}")
+        _wait(lambda: _settled(client), "every journal intent and lease to "
+              "settle")
+        b_counts = b.counts()
+        check(a_counts["b1"] > 0 and b_counts["b1"] > 0
+              and b_counts["b2"] > 0 and b_counts["b3"] > 0,
+              f"launches on A {a_counts}, on B {b_counts}")
+        print(f"[replica] (a) failover: replicas A {a.rid} and B {b.rid} on "
+              f"one store, boots {a.boot_s:.3f} / {b.boot_s:.3f} s; B stole "
+              f"both fillers {t_stolen:.3f} s after the last submit "
+              f"(fsm_steal_attempts_total stolen {stolen:g}); A killed -9 "
+              f"as its first frontier save of r-bms landed; B adopted it "
+              f"{t_adopt - kill.t:.3f} s after the kill (lease ttl "
+              f"{REPLICA_TTL_S} s), fsm_job_time_to_adoption_seconds "
+              f"{adoption_s:.3f} s; /admin/trace/r-bms on B merges "
+              f"{len(merged['spans'])} spans of both replicas; every body "
+              f"SHA-256 == the library result's, one terminal status each, "
+              f"journal, leases and markers settled; card {card}",
+              flush=True)
+        for uid, lib in (("r-bms", inp["bms wall"]),
+                         ("r-spam", inp["msnbc wall"]),
+                         ("r-tsr", inp["tenth"][2])):
+            print(f"[replica] (a) {uid}: submit-to-finished {walls[uid]:.3f} "
+                  f"s against the library call's {lib} s (cold, warm); card "
+                  f"{card}", flush=True)
+        for rep, counts in ((a, a_counts), (b, b_counts)):
+            print(f"[replica] (a) replica {rep.name} ({rep.rid}): B1 "
+                  f"{counts['b1']}, B2 {counts['b2']}, B3 {counts['b3']} "
+                  f"launches, max_memory_allocated {counts['peak']} B; card "
+                  f"{card}", flush=True)
+    finally:
+        if a.proc.poll() is None:
+            a.kill()
+        rc = b.stop()
+        client.close()
+        mini.close()
+    check(rc == 0, f"replica B exited with {rc}:\n{b.log()[-2000:]}")
+
+
+def _restart_and_outage_drills(card: str, inp: dict, pool: int) -> None:
+    """Phase 26 (b) and (c): one replica with a queue of two behind a
+    NetProxy; a flood sheds, a kill -9 lands right after the drill's first
+    frontier save, and the reboot on the same store resumes it (b); the
+    rebooted replica then mines the drill again while the store is
+    black-holed at its first frontier save: the job stalls, and once the
+    link is restored the same replica reacquires it and finishes (c)."""
+    from spark_fsm_tpu_torch.service.resp import RespClient
+    from spark_fsm_tpu_torch.utils.netproxy import NetProxy
+
+    mini = _trigger_redis()
+    proxy = NetProxy("127.0.0.1", mini.port)
+    client = RespClient(port=mini.port)   # straight to the store
+    cfg = {"fault_injection": True,
+           "service": {"miner_workers": 1, "queue_depth": 2},
+           "store": {"backend": "redis", "host": "127.0.0.1",
+                     "port": proxy.port, "timeout_s": 1.0},
+           "cluster": {"enabled": True, "lease_ttl_s": REPLICA_TTL_S,
+                       "recover_every_s": REPLICA_RECOVER_S},
+           "storeguard": {"enabled": True, "probe_every_s": 0.25,
+                          "down_after": 1, "spool_max_entries": 4096,
+                          "stall_max_s": 120.0},
+           "engine": {"fused": "queue", "pool_bytes": pool}}
+    drill = dict(algorithm="SPADE_TPU", support=str(inp["bms"][1]),
+                 source="FILE", path=inp["files"]["bms"], checkpoint="1",
+                 checkpoint_every_s="0")
+    filler = dict(algorithm="SPADE", source="INLINE",
+                  sequences="1 -1 2 -2\n", support="1.0")
+    c = Replica("c", cfg)
+    c2 = None
+    try:
+        c.ready()
+        code, _, _ = _post_code(c.port, "/admin/faults", action="arm",
+                                site="checkpoint.save", every="1",
+                                delay_s="1.0", exc="none")
+        check(code == 200, "replica C refused the fault arm")
+        kill = AtFirstSave("r-restart", c.proc.kill, armed=False)
+        mini.hook = kill
+        t0 = time.perf_counter()
+        for uid, params in (("r-restart", drill), ("r-fill0", filler),
+                            ("r-fill1", filler)):
+            code, _, body = _post_code(c.port, "/train", uid=uid, **params)
+            check(code == 200 and body["status"] == "started",
+                  f"/train {uid}: {code} {body}")
+            if uid == "r-restart":   # the worker takes it: the queue is free
+                _wait(lambda: _series(c.port, "fsm_service_queue_depth")
+                      == 0, "C's worker to take r-restart")
+        hints = []
+        for i in range(3):
+            code, retry_after, body = _post_code(c.port, "/train",
+                                                 uid=f"r-shed{i}", **filler)
+            check(code == 429 and retry_after is not None
+                  and retry_after.isdigit() and int(retry_after) >= 1
+                  and body["data"]["retry_after_s"] == retry_after,
+                  f"shed {i}: {code} Retry-After {retry_after!r} {body}")
+            hints.append(int(retry_after))
+        depth = _series(c.port, "fsm_service_queue_depth")
+        kill.armed.set()
+        check(kill.fired.wait(REPLICA_WAIT_S), "C saved no frontier")
+        check(not kill.missed, "C's first frontier save landed before the "
+              "flood was shed")
+        c.proc.wait()
+        c_counts = c.counts()
+        c2 = Replica("c2", cfg).ready()   # the reboot on the same store
+        walls = _finish_walls(c2.port, {"r-restart": t0},
+                              {"r-restart": ("patterns",
+                                             inp["bms payload"])})
+        for uid in ("r-fill0", "r-fill1"):
+            _wait(lambda: client.get(f"fsm:status:{uid}") in (
+                "finished", "failure"), f"{uid} to settle")
+            st = _http(c2.port, f"/status/{uid}")
+            check(st["status"] == "failure" and "interrupted by restart"
+                  in st["data"].get("error", ""),
+                  f"{uid} after the restart: {st}")
+        for uid in ("r-restart", "r-fill0", "r-fill1"):
+            check(len(_terminals(client, uid)) == 1,
+                  f"{uid} settled {_terminals(client, uid)}")
+        check(all(client.get(f"fsm:status:r-shed{i}") is None
+                  for i in range(3)), "a shed submit left a status")
+        _wait(lambda: _settled(client), "the restart's journal and leases "
+              "to settle")
+        depth_after = _series(c2.port, "fsm_service_queue_depth")
+        check(depth == 2 and depth_after == 0,
+              f"queue-depth gauge {depth} before the kill, {depth_after} "
+              f"after the reboot")
+        print(f"[replica] (b) overload and kill-restart: replica C {c.rid} "
+              f"(one worker, queue_depth 2) booted in {c.boot_s:.3f} s took "
+              f"the checkpointed r-restart and two fillers, shed three more "
+              f"with 429 (Retry-After {hints} s); killed -9 as r-restart's "
+              f"first frontier save landed; the reboot C' {c2.rid} booted in "
+              f"{c2.boot_s:.3f} s, resumed r-restart after C's lease expired "
+              f"(patterns SHA-256 == phase 5's, submit-to-finished "
+              f"{walls['r-restart']:.3f} s against the library's "
+              f"{inp['bms wall']} s) and failed both fillers durably "
+              f"('interrupted by restart'); queue-depth gauge {depth:g} -> "
+              f"{depth_after:g}; C launched B1 {c_counts['b1']} times "
+              f"(peak {c_counts['peak']} B); card {card}", flush=True)
+
+        # (c) the store black-holed at the drill's first frontier save
+        def cut() -> None:
+            proxy.blackhole(True)
+
+        outage = AtFirstSave("r-outage", cut)
+        mini.hook = outage
+        t0 = time.perf_counter()
+        r = _http(c2.port, "/train", uid="r-outage", **drill)
+        check(r["status"] == "started", f"/train r-outage: {r}")
+        check(outage.fired.wait(REPLICA_WAIT_S), "r-outage saved no frontier")
+        mini.hook = None
+
+        def stalled():
+            sg = _http(c2.port, "/admin/health").get("storeguard") or {}
+            return sg if (sg.get("state") == "down"
+                          and sg.get("stalled_jobs", 0) >= 1) else None
+
+        sg = _wait(stalled, "r-outage to stall")
+        t_stall = time.perf_counter()
+        check(client.get("fsm:status:r-outage") not in ("finished", "failure"),
+              "r-outage reached a terminal status during the outage")
+        proxy.heal()
+        t_heal = time.perf_counter()
+        t_reacq = _wait(lambda: (time.perf_counter() if _lease_holder(
+            client, "r-outage") == c2.rid or client.get(
+            "fsm:status:r-outage") == "finished" else None),
+            "C' to reacquire r-outage")
+        walls = _finish_walls(c2.port, {"r-outage": t0},
+                              {"r-outage": ("patterns", inp["bms payload"])})
+        t_done = time.perf_counter()
+        check(_terminals(client, "r-outage") == ["finished"],
+              f"r-outage settled {_terminals(client, 'r-outage')}")
+        _wait(lambda: _settled(client), "the outage's journal and lease to "
+              "settle")
+        spool = _series(c2.port, "fsm_storeguard_spool_entries")
+        replays = _series(c2.port, "fsm_storeguard_replays_total",
+                          'outcome="ok"')
+        resumed = _series(c2.port, "fsm_storeguard_stalls_total",
+                          'outcome="resumed"')
+        check(spool == 0 and replays >= 1 and resumed >= 1,
+              f"spool {spool}, replays ok {replays}, stalls resumed "
+              f"{resumed}")
+        c2_counts = c2.counts()
+        check(c2_counts["b1"] > 0, f"C' launches {c2_counts}")
+        print(f"[replica] (c) store outage: the link to the store "
+              f"black-holed as r-outage's first frontier save landed; "
+              f"/admin/health (whose store reads wait out their timeouts "
+              f"during the outage) read the job stalled "
+              f"{t_stall - outage.t:.3f} s later (storeguard down, spool "
+              f"{sg.get('spool_entries')} entries), never failed; link "
+              f"restored after {t_heal - outage.t:.3f} s; C' "
+              f"reacquired the job {t_reacq - t_heal:.3f} s after the heal "
+              f"and finished it {t_done - t_heal:.3f} s after it (stall to "
+              f"resume {t_done - t_stall:.3f} s; submit-to-finished "
+              f"{walls['r-outage']:.3f} s), patterns SHA-256 == phase 5's, "
+              f"spool replayed ({replays:g} ok) and drained, stalls resumed "
+              f"{resumed:g}; C' launched B1 {c2_counts['b1']} times, peak "
+              f"{c2_counts['peak']} B; card {card}", flush=True)
+    finally:
+        proxy.heal()
+        if c.proc.poll() is None:
+            c.kill()
+        rc = c2.stop() if c2 is not None else 0
+        client.close()
+        proxy.close()
+        mini.close()
+    check(rc == 0, f"replica C' exited with {rc}:\n{c2.log()[-2000:]}")
+
+
+class Supervisor:
+    """``python -m spark_fsm_tpu_torch.service.fleet`` in a fresh process;
+    a thread keeps its output (which its replicas inherit) in a log and
+    harvests the replicas' pids and ports with each line's time."""
+
+    def __init__(self, name: str, cfg_path: str, *args):
+        self.log_path = os.path.join(REPLICA_DIR, f"{name}.log")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "spark_fsm_tpu_torch.service.fleet",
+             "--config", cfg_path, "--max", "4", "--poll", "0.5", *args],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            bufsize=1, cwd=ROOT)
+        self.lines, self.pids, self.ports = [], [], []
+        self.booted_t, self.served_t = [], []
+        threading.Thread(target=self._drain, daemon=True).start()
+
+    def _drain(self) -> None:
+        with open(self.log_path, "w") as log:
+            for line in self.proc.stdout:
+                log.write(line)
+                log.flush()
+                self.lines.append(line)
+                m = re.search(r"booted replica #\d+ \(pid (\d+)", line)
+                if m:
+                    self.pids.append(int(m.group(1)))
+                    self.booted_t.append(time.perf_counter())
+                m = re.search(r"service on http://[^:]+:(\d+)", line)
+                if m:
+                    self.ports.append(int(m.group(1)))
+                    self.served_t.append(time.perf_counter())
+
+
+def _alive(pid: int) -> bool:
+    """True while ``pid`` runs (an exited, unreaped orphan is a zombie)."""
+    try:
+        with open(f"/proc/{pid}/stat") as fh:
+            return fh.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _fleet_drill(card: str, inp: dict, pool: int) -> None:
+    """Phase 26 (d): the fleet supervisor boots two replicas, takes a
+    desired count of three, dies by SIGKILL mid-scale-up, and restarted
+    with ``--initial 0`` counts the orphans: three live heartbeats, no
+    duplicate, every accepted job settled once with parity."""
+    from spark_fsm_tpu_torch.service.fleet import live_heartbeats
+    from spark_fsm_tpu_torch.service.resp import RespClient
+
+    mini = _trigger_redis()
+    client = RespClient(port=mini.port)
+    cfg_path = os.path.join(REPLICA_DIR, "fleet.json")
+    with open(cfg_path, "w") as fh:
+        json.dump({
+            "service": {"port": 0, "miner_workers": 1, "queue_depth": 16},
+            "store": {"backend": "redis", "host": "127.0.0.1",
+                      "port": mini.port},
+            "cluster": {"enabled": True, "lease_ttl_s": REPLICA_TTL_S,
+                        "recover_every_s": REPLICA_RECOVER_S},
+            # the controller holds: the phase publishes the desired count
+            "autoscale": {"enabled": True, "min_replicas": 1,
+                          "max_replicas": 4, "hold_s": 3600.0,
+                          "cooldown_s": 3600.0},
+            "engine": {"pool_bytes": pool}}, fh)
+    sups = []
+    try:
+        t0 = time.perf_counter()
+        first = Supervisor("fleet-1", cfg_path, "--initial", "2")
+        sups.append(first)
+        _wait(lambda: len(first.ports) >= 2
+              and live_heartbeats(client) >= 2, "the fleet's first two "
+              "replicas")
+        check(all("--device cuda" in line for line in first.lines
+                  if "booted replica" in line),
+              "the supervisor did not pass --device cuda")
+        t_submit, want = {}, {}
+        for i, extra in enumerate(({}, {"checkpoint": "1",
+                                        "checkpoint_every_s": "0"}, {})):
+            uid = f"f-bms{i}"
+            t_submit[uid] = time.perf_counter()
+            r = _http(first.ports[i % 2], "/train", uid=uid,
+                      algorithm="SPADE_TPU", support=str(inp["bms"][1]),
+                      source="FILE", path=inp["files"]["bms"], **extra)
+            check(r["status"] == "started", f"/train {uid}: {r}")
+            want[uid] = ("patterns", inp["bms payload"])
+        client.set("fsm:autoscale:desired", json.dumps(
+            {"desired": 3, "dir": "up", "reason": "chip_smoke phase 26",
+             "leader": "chip_smoke", "seq": 1, "ts": round(time.time(), 3)}))
+        _wait(lambda: len(first.pids) >= 3, "the third replica's boot")
+        first.proc.kill()   # SIGKILL mid-scale-up
+        first.proc.wait()
+        walls = _finish_walls(first.ports[0], t_submit, want)
+        # the half-booted third replica finishes its boot alone; the
+        # restarted supervisor must count it (ROADMAP Queue C 6)
+        _wait(lambda: live_heartbeats(client) >= 3, "the orphaned third "
+              "replica's heartbeat")
+        second = Supervisor("fleet-2", cfg_path, "--initial", "0")
+        sups.append(second)
+        _wait(lambda: any("supervising 0 replicas" in line
+                          for line in second.lines), "the restarted "
+              "supervisor")
+        time.sleep(3.0)   # six polls
+        hb = live_heartbeats(client)
+        check(hb == 3 and not second.pids,
+              f"after the restart {hb} heartbeats, replicas booted by the "
+              f"restarted supervisor {second.pids}")
+        for uid in t_submit:
+            check(_terminals(client, uid) == ["finished"],
+                  f"{uid} settled {_terminals(client, uid)}")
+        _wait(lambda: _settled(client), "the fleet's journal and leases to "
+              "settle")
+        boots = [round(s - b, 3) for b, s in zip(first.booted_t,
+                                                 first.served_t)]
+        print(f"[replica] (d) fleet: `python -m "
+              f"spark_fsm_tpu_torch.service.fleet --initial 2` booted two "
+              f"replicas with --device cuda (boot to serving {boots} s, "
+              f"first ping {time.perf_counter() - t0:.1f} s into the "
+              f"drill); desired 3 published, the supervisor SIGKILLed as it "
+              f"booted the third; restarted with --initial 0 it counted "
+              f"{hb} live heartbeats and booted nothing; the three BMS jobs "
+              f"settled once each, bodies SHA-256 == phase 5's, "
+              f"submit-to-finished {[round(walls[u], 3) for u in t_submit]} "
+              f"s against the library's {inp['bms wall']} s; card {card}",
+              flush=True)
+    finally:
+        for sup in sups:
+            if sup.proc.poll() is None:
+                sup.proc.terminate()
+        for sup in sups:
+            try:
+                sup.proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                sup.proc.kill()
+                sup.proc.wait()
+        pids = [pid for sup in sups for pid in sup.pids]
+        for pid in pids:   # the killed supervisor's orphans
+            if _alive(pid):
+                os.kill(pid, signal.SIGTERM)
+        deadline = time.perf_counter() + 120
+        while any(_alive(p) for p in pids) and time.perf_counter() < deadline:
+            time.sleep(0.1)
+        for pid in pids:
+            if _alive(pid):
+                os.kill(pid, signal.SIGKILL)
+        client.close()
+        mini.close()
+
+
+def replica_phase(torch, card: str, inp: dict) -> None:
+    """Phase 26: the replicated service.  ``inp``: phase 5's database and
+    minsup (``bms``), serialization (``bms payload``) and walls (``bms
+    wall``); phase 13's (``msnbc``, ``msnbc payload``, ``msnbc wall``);
+    the tenth of phase 9's database with its rules' serialization and wall
+    (``tenth``)."""
+    from spark_fsm_tpu_torch.data.spmf import format_spmf
+    from spark_fsm_tpu_torch.models._common import auto_pool_bytes
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    os.makedirs(REPLICA_DIR, exist_ok=True)
+    # FILE sources: both replicas read them on this host (a body of
+    # 990,000 sequences inline would be parsed from the HTTP request);
+    # written before any replica boots, so this process does no long work
+    # while they hold leases
+    inp["files"] = {}
+    for name, db in (("bms", inp["bms"][0]), ("msnbc", inp["msnbc"][0]),
+                     ("tenth", inp["tenth"][0])):
+        inp["files"][name] = os.path.join(REPLICA_DIR, f"{name}.spmf")
+        with open(inp["files"][name], "w") as fh:
+            fh.write(format_spmf(db))
+    # co-located engines split the one card's pool: three at once in (a)
+    # (A's drill, B's two fillers) and (d) (three replicas)
+    pool = auto_pool_bytes(torch.device("cuda", 0))
+    print(f"[replica] phase 26 inputs written in "
+          f"{time.perf_counter() - t_phase:.1f} s; [engine] pool_bytes "
+          f"{pool // 3} a replica in (a) and (d), {pool} in (b) and (c)",
+          flush=True)
+    _failover_drill(card, inp, pool // 3)
+    _restart_and_outage_drills(card, inp, pool)
+    _fleet_drill(card, inp, pool // 3)
+    print(f"[replica] phase 26 {time.perf_counter() - t_phase:.1f} s; "
+          f"card {card}", flush=True)
+
+
+def phase26_only(torch) -> int:
+    """``python3 chip_smoke.py --phase 26``: the card, then phase 26 on
+    inputs made here through the library (the kernels build at their
+    first launch, before any replica boots)."""
+    from spark_fsm_tpu_torch.data.synth import (
+        bms_webview2_like, kosarak_like, msnbc_like)
+    from spark_fsm_tpu_torch.data.vertical import abs_minsup
+    from spark_fsm_tpu_torch.models.spade import mine_spade_torch
+    from spark_fsm_tpu_torch.models.spam_bitmap import mine_spam_torch
+    from spark_fsm_tpu_torch.models.tsr import mine_tsr_torch
+    from spark_fsm_tpu_torch.service import model as SM
+
+    card = smi("name,power.limit")
+    print(f"[card] nvidia-smi: {card} | torch: "
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
+          flush=True)
+    t0 = time.perf_counter()
+    inp = {}
+    for name, db, minsup, mine, ser in (
+            ("bms", bms_webview2_like(), 0.001, mine_spade_torch,
+             SM.serialize_patterns),
+            ("msnbc", msnbc_like(scale=1.0, fast=True), 0.005,
+             mine_spam_torch, SM.serialize_patterns)):
+        minsup = abs_minsup(minsup, len(db))
+        t1 = time.perf_counter()
+        got = mine(db, minsup)
+        torch.cuda.synchronize()
+        inp[name] = (db, minsup)
+        inp[f"{name} payload"] = ser(got)
+        inp[f"{name} wall"] = (round(time.perf_counter() - t1, 3),)
+    tenth = kosarak_like(scale=MESH_KOSARAK_SCALE, fast=True)
+    t1 = time.perf_counter()
+    rules = mine_tsr_torch(tenth, 100, 0.5, max_side=2)
+    torch.cuda.synchronize()
+    inp["tenth"] = (tenth, SM.serialize_rules(rules),
+                    round(time.perf_counter() - t1, 3))
+    print(f"[phase 26 only] inputs through the library in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    replica_phase(torch, card, inp)
+    print(f"card: {card}")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2252,6 +3063,10 @@ def main() -> int:
 
     if sys.argv[1:] == ["--phase", "25"]:
         return phase25_only(torch)
+    if sys.argv[1:] == ["--phase", "26"]:
+        return phase26_only(torch)
+    if sys.argv[1:2] == ["--replica"]:
+        return replica_child(sys.argv[2], sys.argv[3:])
 
     oracles = {scale: start_child(CSPADE_ORACLE, scale)
                for scale in GAZELLE_SCALES}
@@ -2684,8 +3499,10 @@ def run(torch, oracles) -> int:
     tpeak = torch.cuda.max_memory_allocated()
     check(rlaunches > 0, "the TSR path launched the rule-support kernel 0 times")
     check(len(rules) >= 100, f"the TSR mine returned {len(rules)} < k rules")
+    # warm: the engine again on the kept vertical DB (a second vertical
+    # build of this database is the smoke's costliest host stage to repeat)
     t0 = time.perf_counter()
-    rules_warm = mine_tsr_torch(db, 100, 0.5, max_side=2)
+    rules_warm = TsrTorch(vdb, 100, 0.5, max_side=2).mine()
     torch.cuda.synchronize()
     twarm_s = time.perf_counter() - t0
     text = rules_text(rules)
@@ -2700,7 +3517,8 @@ def run(torch, oracles) -> int:
     print(f"[mine] kosarak_like: {len(db)} sequences, {vdb.n_items} items, "
           f"W={vdb.n_words}, k=100 minconf=0.5 max_side=2: {len(rules)} rules "
           f"byte-identical to the host recount (the plain route is held on "
-          f"phase 21's tenth); cold {tcold_s:.3f} s, warm {twarm_s:.3f} s; "
+          f"phase 21's tenth); cold {tcold_s:.3f} s, warm (the engine on "
+          f"the kept vertical DB) {twarm_s:.3f} s; "
           f"rule-support launches {rlaunches}, "
           f"evaluated {tstats['evaluated']}, pruned_conf "
           f"{tstats['pruned_conf']}, deepening_rounds "
@@ -3383,6 +4201,7 @@ def run(torch, oracles) -> int:
                  solo["kosarak"], RULE_HEADLINE[:2])
     # 25. the service on a mesh
     bms_payload = predict_sets["spade"][2]
+    spam_payload = predict_sets["spam"][2]   # phase 26 holds it
     del predict_sets
     mesh_service_phase(torch, card, {
         "kos_vdb": part_inputs["kos_vdb"], "tsr": mesh_want["tsr"],
@@ -3395,7 +4214,15 @@ def run(torch, oracles) -> int:
         "world part tsr": tenth.get("world part tsr"),
         "stream texts": stream_spmf, "stream": stream_served,
         "stream batch": stream_shape[0], "stream items": stream_shape[1]})
-    del part_inputs, bms_db, kos_db, small_db, ms_db, tenth, stream_spmf
+    del kos_db, small_db, stream_spmf
+    # 26. the replicated service
+    replica_phase(torch, card, {
+        "bms": (bms_db, bms_minsup), "bms payload": bms_payload,
+        "bms wall": single_walls["spade auto"],
+        "msnbc": (ms_db, ms_minsup), "msnbc payload": spam_payload,
+        "msnbc wall": single_walls["spam"],
+        "tenth": (tenth["db"], tenth["payload"], tenth["wall"])})
+    del part_inputs, bms_db, ms_db, tenth
 
     print(json.dumps({"kernels": [pair_record, rule_record, {
         "name": "extend_prune", "route": "cuda",

@@ -426,9 +426,16 @@ class LeaseManager:
         memory + spool) and the journal-gated NX reacquire decides its
         fate when the store returns.  A replica that cannot prove the
         outage (store answers the probe) fences as before: when in
-        doubt, fence."""
+        doubt, fence.
+
+        A STALLED job's lease is not renewed: the spool replay re-takes
+        it under the spooled writes' own token and un-stalls the job.  A
+        renewal that saw the store back first would re-take the expired
+        lease under a fresh token, and the replay, gated on the spool's
+        token, would then refuse the writes and fence the job (the
+        reference renews it; ROADMAP Queue C 7)."""
         for h in list(self._held.values()):
-            if h.lost:
+            if h.lost or (h.ctl is not None and h.ctl.stalled):
                 continue
             try:
                 if self._verify(h):

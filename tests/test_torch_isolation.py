@@ -139,7 +139,7 @@ for name in ("ops.extend_prune", "ops.spam_bitops", "models.spam_bitmap", "servi
              "service.remote", "service.fusion", "service.meshguard",
              "service.resultcache", "service.lease", "streaming.consumer",
              "streaming.kafka", "utils.obs", "utils.jobctl", "utils.shapes",
-             "service.prewarm", "utils.jitcache"):
+             "service.prewarm", "utils.jitcache", "service.fleet"):
     assert "spark_fsm_tpu_torch." + name in names, name
 try:
     import jax  # noqa: F401
@@ -175,9 +175,22 @@ def _imported_names(path: Path):
             yield node.module
 
 
+def _smoke_helpers():
+    """The ``tests/_torch_*.py`` helpers that ``chip_smoke.py`` imports:
+    they run on the card's host, which has neither jax nor the
+    reference."""
+    names = {name for name in _imported_names(ROOT / "chip_smoke.py")
+             if name.startswith("_torch_")}
+    return sorted(ROOT / "tests" / f"{name}.py" for name in names)
+
+
 def test_no_source_line_imports_jax_or_the_reference():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    helpers = _smoke_helpers()
+    assert ROOT / "tests" / "_torch_miniredis.py" in helpers
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + helpers)
     assert len(files) > 10
+    assert PORT / "service" / "fleet.py" in files
     for path in files:
         for name in _imported_names(path):
             top = name.split(".")[0]
