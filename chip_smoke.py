@@ -286,6 +286,32 @@ Phases, one printed line each (any failure raises and exits non-zero):
      the stall and resume, each replica's launches and peak, with the
      card's name and power limit.  ``python3 chip_smoke.py --phase 26``
      runs this phase alone on inputs made here through the library.
+ 27. faults and bitrot.  (a) ``device.resident`` armed ``nth=1`` at its
+     segment dispatch, its counter readback and its records readback
+     around phase 15's 1 % Kosarak-shaped TSR (k=100, minconf 0.5,
+     ``max_side=None``, ``resident="always"``): each mine raises out of
+     ``mine_tsr_torch`` (the port has no resident-round fallback) with the
+     site's counters at 1/1; the unarmed mine's rules equal phase 15's by
+     SHA-256.  (b) A replica of ``spark_fsm_tpu_torch.service.app`` on the
+     copied MiniRedis (faults, ``[rescache]`` and the integrity scrubber
+     on): ``device.dispatch`` armed at B2's launch through
+     ``/admin/faults`` fails the tenth's TSR job cleanly (the error names
+     the site, nothing stored, journal and lease settled); disarmed, the
+     resubmit's rules equal the library's by SHA-256 and warm the result
+     cache.  (c) ``scripts/bitrot_smoke.py`` steps 1-6 on the card: phase
+     5's BMS SPADE checkpointed on the classic route (B1) and the replica
+     killed -9 as the checkpoint after two delta chunks lands; the last
+     delta byte-flipped, the cache entry truncated, a flipped journal
+     intent planted; the reboot's recovery line reports ``1
+     quarantined``, the drill heals to the last good chunk and finishes
+     with the library's patterns by SHA-256, the TSR resubmit mines cold
+     with the library's rules, the scrubber quarantines an intent planted
+     at rest, ``/admin/integrity`` lists the records, and the
+     ``fsm_integrity_*`` families are live.  ``[chaos]`` and ``[bitrot]``
+     lines print the walls, kill-to-ready, resume-to-finished, each
+     replica's launches and peak, with the card's name and power limit.
+     ``python3 chip_smoke.py --phase 27`` runs this phase alone on inputs
+     made here through the library.
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 and prints no result.
@@ -404,6 +430,16 @@ REPLICA_RECOVER_S = 0.5
 REPLICA_SAVE_DELAY_S = 4.0
 # the longest any one wait of phase 26 may take before the phase fails
 REPLICA_WAIT_S = 240.0
+# phase 27: faults and bitrot.  Its replicas' configs, logs and counts go
+# under build/smoke/bitrot/.  The checkpointed drill takes the classic
+# route at BITROT_NODE_BATCH nodes a batch, which saves a delta chunk a
+# batch (BMS-WebView-2 on the queue route saves one snapshot, inline in
+# the meta, so it has no delta chunk to rot), and is killed once
+# BITROT_CHUNKS have landed
+BITROT_DIR = os.path.join(ROOT, "build", "smoke", "bitrot")
+BITROT_SCRUB_S = 0.5
+BITROT_NODE_BATCH = 256
+BITROT_CHUNKS = 2
 
 
 def digest(text: str) -> str:
@@ -2325,12 +2361,12 @@ class Replica:
     through ``chip_smoke.py --replica``); its boot config, log and launch
     counts live under ``build/smoke/replica/``."""
 
-    def __init__(self, name: str, cfg: dict):
+    def __init__(self, name: str, cfg: dict, where: str = REPLICA_DIR):
         self.name = name
         self.port = _free_port()
-        self.cfg_path = os.path.join(REPLICA_DIR, f"{name}.json")
-        self.log_path = os.path.join(REPLICA_DIR, f"{name}.log")
-        self.counts_path = os.path.join(REPLICA_DIR, f"{name}.counts.json")
+        self.cfg_path = os.path.join(where, f"{name}.json")
+        self.log_path = os.path.join(where, f"{name}.log")
+        self.counts_path = os.path.join(where, f"{name}.counts.json")
         with open(self.cfg_path, "w") as fh:
             json.dump(cfg, fh)
         if os.path.exists(self.counts_path):
@@ -3052,6 +3088,352 @@ def phase26_only(torch) -> int:
     return 0
 
 
+def _resident_faults(torch, card: str, db, want: str) -> None:
+    """Phase 27 (a): ``device.resident`` armed ``nth=1`` at each of its
+    three points around the 1 % Kosarak-shaped TSR on the resident route:
+    every mine raises out of ``mine_tsr_torch`` with the site's counters
+    at 1/1; the unarmed mine's rules equal phase 15's by SHA-256."""
+    from spark_fsm_tpu_torch.models.tsr import mine_tsr_torch
+    from spark_fsm_tpu_torch.ops import rule_support as RS
+    from spark_fsm_tpu_torch.utils import faults
+    from spark_fsm_tpu_torch.utils.canonical import rules_text
+
+    def counters():
+        return dict(faults.counters().get("device.resident",
+                                          {"calls": 0, "injected": 0}))
+
+    rows = []
+    for point in ("segment", "readback", "records"):
+        was, b2 = counters(), RS.rule_supports.launches
+        stats: dict = {}
+        t0 = time.perf_counter()
+        try:
+            with faults.injected("device.resident", nth=1, match=point):
+                mine_tsr_torch(db, 100, 0.5, max_side=None,
+                               resident="always", stats_out=stats)
+            raised = None
+        except faults.FaultInjected as exc:
+            raised = exc
+        wall = time.perf_counter() - t0
+        now = counters()
+        moved = {k: now[k] - was[k] for k in ("calls", "injected")}
+        check(raised is not None and point in str(raised),
+              f"device.resident at {point!r} did not raise out of the mine")
+        check(moved == {"calls": 1, "injected": 1},
+              f"device.resident at {point!r}: counters moved {moved}")
+        check(stats.get("resident_fallbacks", 0) == 0,
+              f"a resident fallback at {point!r}: {stats}")
+        rows.append(f"{point} raised after {wall:.3f} s, "
+                    f"{RS.rule_supports.launches - b2} B2 launches")
+    torch.cuda.synchronize()
+    b2 = RS.rule_supports.launches
+    stats = {}
+    t0 = time.perf_counter()
+    got = mine_tsr_torch(db, 100, 0.5, max_side=None, resident="always",
+                         stats_out=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(stats.get("resident") is True
+          and stats.get("resident_fallbacks", 0) == 0,
+          f"the unarmed mine left the resident route: {stats}")
+    check(digest(rules_text(got)) == want,
+          "the unarmed 1 % resident mine differs from phase 15's by SHA-256")
+    print(f"[chaos] (a) device.resident nth=1 on the 1 % Kosarak-shaped TSR "
+          f"(k=100, minconf 0.5, resident='always'): {'; '.join(rows)}; "
+          f"each the site's counters 1/1, resident_fallbacks 0; unarmed "
+          f"{len(got)} rules SHA-256 == phase 15's in {wall:.3f} s, "
+          f"{RS.rule_supports.launches - b2} B2 launches; card {card}",
+          flush=True)
+
+
+class KillAfterChunks:
+    """A TriggerRedis hook: kills a replica as the checkpoint meta SET
+    that follows ``chunks`` delta appends of ``uid`` lands, so the meta
+    names every chunk in the list."""
+
+    def __init__(self, uid: str, chunks: int, act):
+        self.uid, self.chunks, self.act = uid, chunks, act
+        self.pushed = 0
+        self.fired = threading.Event()
+        self.t = None
+
+    def __call__(self, cmd: str, key: str) -> None:
+        if self.fired.is_set():
+            return
+        if cmd == "RPUSH" and key == f"fsm:frontier:results:{self.uid}":
+            self.pushed += 1
+        elif (cmd == "SET" and key == f"fsm:frontier:{self.uid}"
+              and self.pushed >= self.chunks):
+            self.act()
+            self.t = time.perf_counter()
+            self.fired.set()
+
+
+def _flip(value: str, at: int) -> str:
+    """One bit of bitrot at ``at``."""
+    return value[:at] + chr(ord(value[at]) ^ 0x01) + value[at + 1:]
+
+
+def _job_until_terminal(port: int, uid: str) -> dict:
+    def done():
+        st = _http(port, f"/status/{uid}")
+        return st if st["status"] in ("finished", "failure") else None
+
+    return _wait(done, f"{uid} to settle")
+
+
+def _bitrot_service(card: str, inp: dict, pool: int) -> None:
+    """Phase 27 (b) and (c): one replica of the port's service over the
+    copied MiniRedis, with faults enabled, the result cache and the
+    integrity scrubber on.  (b) ``device.dispatch`` at B2's launch fails a
+    TSR job cleanly; its resubmit warms the result cache.  (c)
+    ``scripts/bitrot_smoke.py`` steps 1-6: kill -9 the checkpointed BMS
+    drill after two delta chunks, rot the store, reboot, heal."""
+    from spark_fsm_tpu_torch.data.spmf import format_spmf
+    from spark_fsm_tpu_torch.service.resp import RespClient
+    from spark_fsm_tpu_torch.utils import envelope
+
+    os.makedirs(BITROT_DIR, exist_ok=True)
+    bms_path = os.path.join(BITROT_DIR, "bms.spmf")
+    with open(bms_path, "w") as fh:
+        fh.write(format_spmf(inp["bms"][0]))
+    tenth_text = format_spmf(inp["tenth"][0])
+    mini = _trigger_redis()
+    client = RespClient(port=mini.port)
+    cfg = {"fault_injection": True,
+           "service": {"miner_workers": 1, "queue_depth": 8},
+           "store": {"backend": "redis", "host": "127.0.0.1",
+                     "port": mini.port},
+           "cluster": {"enabled": True, "lease_ttl_s": REPLICA_TTL_S,
+                       "recover_every_s": REPLICA_RECOVER_S},
+           "rescache": {"enabled": True},
+           "integrity": {"scrub_every_s": BITROT_SCRUB_S,
+                         "scrub_batch": 128},
+           "engine": {"fused": "never", "node_batch": BITROT_NODE_BATCH,
+                      "pool_bytes": pool}}
+    tsr = dict(algorithm="TSR_TPU", source="INLINE", sequences=tenth_text,
+               k="100", minconf="0.5", max_side="2")
+    r1 = Replica("bitrot-1", cfg, BITROT_DIR)
+    r2 = None
+    try:
+        r1.ready()
+        # (b) device.dispatch at B2's launch, through /admin/faults
+        code, _, body = _post_code(r1.port, "/admin/faults", action="arm",
+                                   site="device.dispatch", every="1",
+                                   match="kernel")
+        check(code == 200, f"the replica refused the fault arm: {body}")
+        t0 = time.perf_counter()
+        r = _http(r1.port, "/train", uid="chaos-tsr", **tsr)
+        check(r["status"] == "started", f"/train chaos-tsr: {r}")
+        st = _job_until_terminal(r1.port, "chaos-tsr")
+        fail_s = time.perf_counter() - t0
+        err = st["data"].get("error", "")
+        check(st["status"] == "failure" and "'device.dispatch'" in err,
+              f"chaos-tsr under an armed device.dispatch: {st}")
+        check(client.get("fsm:rule:chaos-tsr") is None,
+              "the failed job stored rules")
+        _wait(lambda: client.get("fsm:journal:chaos-tsr") is None
+              and client.get("fsm:lease:chaos-tsr") is None,
+              "the failed job's journal and lease to settle")
+        check(_terminals(client, "chaos-tsr") == ["failure"],
+              f"chaos-tsr settled {_terminals(client, 'chaos-tsr')}")
+        fired = _series(r1.port, "fsm_fault_site_injected_total",
+                        'site="device.dispatch"')
+        code, _, body = _post_code(r1.port, "/admin/faults",
+                                   action="disarm", site="device.dispatch")
+        check(code == 200 and body["armed"] == {}, f"disarm: {body}")
+        t0 = time.perf_counter()
+        r = _http(r1.port, "/train", uid="warm-tsr", **tsr)
+        check(r["status"] == "started", f"/train warm-tsr: {r}")
+        walls = _finish_walls(r1.port, {"warm-tsr": t0},
+                              {"warm-tsr": ("rules", inp["tenth"][1])})
+        ekeys = _wait(lambda: client.keys("fsm:rescache:*"),
+                      "the result cache entry of warm-tsr")
+        check(len(ekeys) == 1, f"rescache keys {ekeys}")
+        ekey = ekeys[0]
+        print(f"[chaos] (b) device.dispatch (every launch at point "
+              f"'kernel') armed through /admin/faults on replica "
+              f"{r1.rid}: the tenth's Kosarak-shaped TSR job failed "
+              f"cleanly in {fail_s:.3f} s ({fired:g} injections, its "
+              f"retry included), error names the site, no rules stored, "
+              f"journal and lease settled, one terminal status; disarmed, "
+              f"the resubmit finished in {walls['warm-tsr']:.3f} s (the "
+              f"library's {inp['tenth'][2]} s) with rules SHA-256 == the "
+              f"library's, and warmed the result cache; card {card}",
+              flush=True)
+
+        # (c) the checkpointed drill, killed -9 after two delta chunks
+        kill = KillAfterChunks("rot-bms", BITROT_CHUNKS, r1.proc.kill)
+        mini.hook = kill
+        t_submit = time.perf_counter()
+        r = _http(r1.port, "/train", uid="rot-bms", algorithm="SPADE_TPU",
+                  support=str(inp["bms"][1]), source="FILE", path=bms_path,
+                  checkpoint="1", checkpoint_every_s="0")
+        check(r["status"] == "started", f"/train rot-bms: {r}")
+        check(kill.fired.wait(REPLICA_WAIT_S),
+              f"rot-bms persisted {kill.pushed} delta chunks, no kill")
+        mini.hook = None
+        r1.proc.wait()
+        counts1 = r1.counts()
+        chunks_key = "fsm:frontier:results:rot-bms"
+        chunks = client.lrange(chunks_key)
+        check(len(chunks) == BITROT_CHUNKS
+              and client.get("fsm:journal:rot-bms") is not None,
+              f"at the kill: {len(chunks)} chunks, journal "
+              f"{client.get('fsm:journal:rot-bms') is not None}")
+        # the service is dead: rot its durable state
+        client.ltrim(chunks_key, 0, len(chunks) - 2)
+        client.rpush(chunks_key, _flip(chunks[-1], len(chunks[-1]) - 10))
+        raw = client.get(ekey)
+        client.set(ekey, raw[: len(raw) // 2])
+        client.set("fsm:journal:poison-bitrot", _flip(envelope.wrap(
+            json.dumps({"incarnation": "ghost"})), 80))
+
+        r2 = Replica("bitrot-2", cfg, BITROT_DIR).ready()
+        t_ready = time.perf_counter()
+        m = re.search(r"^restart recovery: .*$", r2.log(), re.M)
+        check(m is not None and "1 quarantined" in m.group(0),
+              f"the reboot's recovery line: {m and m.group(0)}")
+        check(client.get("fsm:journal:poison-bitrot") is None
+              and client.get("fsm:quarantine:poison-bitrot"),
+              "the poison intent was not quarantined at boot")
+        walls = _finish_walls(r2.port, {"rot-bms": t_ready},
+                              {"rot-bms": ("patterns", inp["bms payload"])})
+        check(_terminals(client, "rot-bms") == ["finished"],
+              f"rot-bms settled {_terminals(client, 'rot-bms')}")
+        check(client.get("fsm:quarantine:frontier:results:rot-bms#1"),
+              f"the rotten delta is not quarantined: "
+              f"{client.keys('fsm:quarantine:*')}")
+        # the rotten cache entry is never served: a cold re-mine
+        t0 = time.perf_counter()
+        r = _http(r2.port, "/train", uid="rehit-tsr", **tsr)
+        check(r["status"] == "started", f"/train rehit-tsr: {r}")
+        rehit = _finish_walls(r2.port, {"rehit-tsr": t0},
+                              {"rehit-tsr": ("rules", inp["tenth"][1])})
+        stats = json.loads(envelope.unwrap(
+            client.get("fsm:stats:rehit-tsr"))[0] or "{}")
+        check("served_from_cache" not in stats,
+              f"the rotten cache entry was served: {stats}")
+        check(client.get("fsm:quarantine:" + ekey[len("fsm:"):]),
+              "the rotten cache entry is not quarantined")
+        # the scrubber: damage at rest, no reads
+        client.set("fsm:journal:rot-at-rest", _flip(envelope.wrap(
+            json.dumps({"incarnation": "x"})), 80))
+        t0 = time.perf_counter()
+        _wait(lambda: client.get("fsm:journal:rot-at-rest") is None
+              and client.get("fsm:quarantine:rot-at-rest"),
+              "the scrubber to quarantine the intent at rest", 60.0)
+        scrub_s = time.perf_counter() - t0
+        rep = _http(r2.port, "/admin/integrity")
+        surfaces = {row.get("surface") for row in rep["quarantine"]}
+        check(rep["enabled"] is True
+              and {"journal", "rescache", "checkpoint"} <= surfaces
+              and set(rep["counters"]) >= {"scans", "verified", "legacy",
+                                           "corrupt", "quarantined",
+                                           "repaired"},
+              f"/admin/integrity: {rep}")
+        families = {fam: _series(r2.port, f"fsm_integrity_{fam}_total")
+                    for fam in ("scans", "verified", "legacy", "corrupt",
+                                "quarantined", "repaired")}
+        check(families["scans"] >= 1 and families["verified"] >= 1
+              and families["quarantined"] >= 2,
+              f"fsm_integrity_* on /metrics: {families}")
+        _wait(lambda: _settled(client), "every journal intent and lease "
+              "to settle")
+        counts2 = r2.counts()
+        check(counts1["b1"] > 0 and counts2["b1"] > 0
+              and counts2["b2"] > 0,
+              f"launches {counts1} before the kill, {counts2} after")
+        print(f"[bitrot] (c) replica {r1.rid} killed -9 as rot-bms's "
+              f"checkpoint after {BITROT_CHUNKS} delta chunks landed "
+              f"({kill.t - t_submit:.3f} s after the submit; classic route, "
+              f"node_batch {BITROT_NODE_BATCH}); the last delta "
+              f"byte-flipped, the cache entry truncated, a flipped journal "
+              f"intent planted; the reboot {r2.rid} ready "
+              f"{t_ready - kill.t:.3f} s after the kill, its recovery line "
+              f"'{m.group(0)}'; the drill healed to the last good chunk "
+              f"and finished {walls['rot-bms']:.3f} s after the reboot "
+              f"(the library call's {inp['bms wall']} s, cold and warm) "
+              f"with patterns SHA-256 "
+              f"== the library's; the TSR resubmit mined cold in "
+              f"{rehit['rehit-tsr']:.3f} s with rules SHA-256 == the "
+              f"library's; the scrubber quarantined an intent at rest in "
+              f"{scrub_s:.3f} s; /admin/integrity lists "
+              f"{len(rep['quarantine'])} records over {sorted(surfaces)}; "
+              f"fsm_integrity_* {families}; card {card}", flush=True)
+        for rep_, counts in ((r1, counts1), (r2, counts2)):
+            print(f"[bitrot] replica {rep_.name} ({rep_.rid}): booted in "
+                  f"{rep_.boot_s:.3f} s; B1 {counts['b1']}, B2 "
+                  f"{counts['b2']}, B3 {counts['b3']} launches, "
+                  f"max_memory_allocated {counts['peak']} B; card {card}",
+                  flush=True)
+    finally:
+        mini.hook = None
+        if r1.proc.poll() is None:
+            r1.kill()
+        rc = r2.stop() if r2 is not None else 0
+        client.close()
+        mini.close()
+    check(rc == 0, f"replica bitrot-2 exited with {rc}:\n{r2.log()[-2000:]}")
+
+
+def fault_phase(torch, card: str, inp: dict) -> None:
+    """Phase 27: faults and bitrot.  ``inp``: phase 15's 1 % database and
+    its rules' digest (``tsr 1%``); phase 5's database, minsup,
+    serialization and walls (``bms``, ``bms payload``, ``bms wall``); the
+    tenth of phase 9's database with its rules' serialization and wall
+    (``tenth``)."""
+    from spark_fsm_tpu_torch.models._common import auto_pool_bytes
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    _resident_faults(torch, card, *inp["tsr 1%"])
+    t_a = time.perf_counter() - t_phase
+    _bitrot_service(card, inp, auto_pool_bytes(torch.device("cuda", 0)))
+    print(f"[chaos] phase 27 {time.perf_counter() - t_phase:.1f} s "
+          f"((a) {t_a:.1f} s); card {card}", flush=True)
+
+
+def phase27_only(torch) -> int:
+    """``python3 chip_smoke.py --phase 27``: the card, then phase 27 on
+    inputs made here through the library (the 1 % rules' digest from the
+    host loop, which phase 15 holds equal to the resident route's)."""
+    from spark_fsm_tpu_torch.data.synth import bms_webview2_like, kosarak_like
+    from spark_fsm_tpu_torch.data.vertical import abs_minsup
+    from spark_fsm_tpu_torch.models.spade import mine_spade_torch
+    from spark_fsm_tpu_torch.models.tsr import mine_tsr_torch
+    from spark_fsm_tpu_torch.service import model as SM
+    from spark_fsm_tpu_torch.utils.canonical import rules_text
+
+    card = smi("name,power.limit")
+    print(f"[card] nvidia-smi: {card} | torch: "
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
+          flush=True)
+    t0 = time.perf_counter()
+    small = kosarak_like(scale=0.01, fast=True)
+    small_want = digest(rules_text(mine_tsr_torch(
+        small, 100, 0.5, max_side=None, resident="never")))
+    bms = bms_webview2_like()
+    minsup = abs_minsup(0.001, len(bms))
+    t1 = time.perf_counter()
+    got = mine_spade_torch(bms, minsup)
+    torch.cuda.synchronize()
+    bms_s = round(time.perf_counter() - t1, 3)
+    tenth = kosarak_like(scale=MESH_KOSARAK_SCALE, fast=True)
+    t1 = time.perf_counter()
+    rules = mine_tsr_torch(tenth, 100, 0.5, max_side=2)
+    torch.cuda.synchronize()
+    tenth_s = round(time.perf_counter() - t1, 3)
+    print(f"[phase 27 only] inputs through the library in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    fault_phase(torch, card, {
+        "tsr 1%": (small, small_want), "bms": (bms, minsup),
+        "bms payload": SM.serialize_patterns(got), "bms wall": (bms_s,),
+        "tenth": (tenth, SM.serialize_rules(rules), tenth_s)})
+    print(f"card: {card}")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3065,6 +3447,8 @@ def main() -> int:
         return phase25_only(torch)
     if sys.argv[1:] == ["--phase", "26"]:
         return phase26_only(torch)
+    if sys.argv[1:] == ["--phase", "27"]:
+        return phase27_only(torch)
     if sys.argv[1:2] == ["--replica"]:
         return replica_child(sys.argv[2], sys.argv[3:])
 
@@ -4221,6 +4605,12 @@ def run(torch, oracles) -> int:
         "bms wall": single_walls["spade auto"],
         "msnbc": (ms_db, ms_minsup), "msnbc payload": spam_payload,
         "msnbc wall": single_walls["spam"],
+        "tenth": (tenth["db"], tenth["payload"], tenth["wall"])})
+    # 27. faults and bitrot on the engines and the service
+    fault_phase(torch, card, {
+        "tsr 1%": (part_inputs["tsr_small_db"], mesh_want["tsr 1%"]),
+        "bms": (bms_db, bms_minsup), "bms payload": bms_payload,
+        "bms wall": single_walls["spade auto"],
         "tenth": (tenth["db"], tenth["payload"], tenth["wall"])})
     del part_inputs, bms_db, ms_db, tenth
 

@@ -53,11 +53,13 @@ partition whose row dies is adopted by a survivor
 (``partition.mine_on_rows``; on a world through the round's exchange).
 A launch that fails otherwise raises: the reference's kernel-to-jnp
 downgrades and its resident-round fallback (``_resident_abandon``) have
-no counterpart.  A device OOM on a kernel launch is the one fault the
-engine absorbs, as the reference's does: the launch re-plans at half
-width, down to ``RB.OOM_FLOOR_LANES`` (``RB.is_oom`` knows
-``torch.cuda.OutOfMemoryError``), on the direct path and in the fusion
-broker alike (``RB.launch_halving``).
+no counterpart, so a ``device.resident`` fault (at a segment's dispatch,
+its counter readback or the round's records readback, the reference's
+three points) raises out of the mine.  A device OOM on a kernel launch
+is the one fault the engine absorbs, as the reference's does: the
+launch re-plans at half width, down to ``RB.OOM_FLOOR_LANES``
+(``RB.is_oom`` knows ``torch.cuda.OutOfMemoryError``), on the direct
+path and in the fusion broker alike (``RB.launch_halving``).
 
 The service's planes sit at the reference's sites: every engine stamps
 and records its shape key (``utils/shapes.py``); with ``[fusion]`` on,
@@ -843,13 +845,16 @@ class TsrTorch:
             """Waves until the frontier empties, a cap overflows or the
             segment's wave budget is spent; each counter read runs under
             the watchdog.  Returns the last counters."""
+            def read():
+                faults.fault_site("device.resident", point="readback")
+                return reader.read(carry.ctr)
+
             c = ctr
             while c[4] > c[3] and not c[1] and c[2] < wave_end:
                 RF.wave(carry, p1, s1, sup_items, num, den, self.k,
                         max_side_t, nbw, self.n_words, evaluate)
-                c = watchdog.run_with_deadline(
-                    lambda: reader.read(carry.ctr), deadline,
-                    site="tsr.resident")
+                c = watchdog.run_with_deadline(read, deadline,
+                                               site="tsr.resident")
             return c
 
         while True:
@@ -866,6 +871,8 @@ class TsrTorch:
             with obs.span("tsr.resident", point="segment", nb=nbw,
                           budget=budget, narrow=narrow,
                           bound_s=round(bound_s, 6)):
+                faults.fault_site("device.resident", point="segment",
+                                  nb=str(nbw))
                 # a segment carries this round's device state: it never
                 # waits in a fusion window (dispatch_wave is the broker's
                 # accounting and fault surface only)
@@ -934,8 +941,12 @@ class TsrTorch:
                           / _RESIDENT_READBACK_FLOOR_BPS)
         with obs.span("tsr.resident", point="readback", records=n_rec,
                       deferred=n_def, bound_s=round(rb_est_s, 6)):
+            def read_records():
+                faults.fault_site("device.resident", point="records")
+                return carry.arrays(names)
+
             arrs = watchdog.run_with_deadline(
-                lambda: carry.arrays(names), watchdog.deadline_s(rb_est_s),
+                read_records, watchdog.deadline_s(rb_est_s),
                 site="tsr.resident")
         self._count_readback(arrs)
         results = RF.unpack_results(*arrs[:3], n_rec, minsup)

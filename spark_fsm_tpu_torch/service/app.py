@@ -742,6 +742,9 @@ def main() -> None:
     parser.add_argument("--device", default=None,
                         help="the device the engines run on: cuda "
                              "(default; fails without a card) or cpu")
+    parser.add_argument("--replica-id", default=None,
+                        help="[cluster] replica_id of this replica (the "
+                             "fleet supervisor names its children)")
     args = parser.parse_args()
     cfg = cfgmod.load_config(args.config) if args.config else cfgmod.Config()
     if args.port is not None:
@@ -752,6 +755,8 @@ def main() -> None:
         cfg.service.miner_workers = args.miner_workers
     if args.remote_port is not None:
         cfg.service.remote_port = args.remote_port
+    if args.replica_id is not None:
+        cfg.cluster.replica_id = args.replica_id
     cfgmod.set_config(cfg)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     from spark_fsm_tpu_torch.utils.jitcache import enable_compile_cache

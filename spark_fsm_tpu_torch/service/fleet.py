@@ -17,10 +17,15 @@ supervisor never rewrites the device).  The rest is the reference's:
   bus), read through the port's ``config.py``;
 - it polls ``fsm:autoscale:desired`` and boots a replica (one a poll)
   while the live count is below the desired count, bounded by
-  ``--max``.  Live = max(own alive children, un-expired
-  ``fsm:replica:*`` heartbeat records, counted by cursor SCAN, never
-  KEYS): a restarted supervisor counts the replicas its predecessor
-  orphaned and supplies only the deficit;
+  ``--max``.  Live = the un-expired ``fsm:replica:*`` heartbeat records
+  (counted by cursor SCAN, never KEYS), plus this supervisor's own
+  children that are alive but have no record yet (still booting): a
+  restarted supervisor counts the replicas its predecessor orphaned and
+  supplies only the deficit, and a boot longer than a poll is not
+  booted twice.  The reference counts max(own children, heartbeats),
+  which boots a duplicate beside heartbeating orphans while its own
+  replica boots; here every child gets its ``--replica-id`` from the
+  supervisor, so its record can be looked up;
 - it reaps exited children: a scale-down victim drains and exits on its
   own (the supervisor kills nothing), and an exited replica below the
   desired count is replaced;
@@ -45,6 +50,7 @@ import signal
 import subprocess
 import sys
 import time
+import uuid
 from typing import List, Optional
 
 
@@ -52,11 +58,15 @@ def log(msg: str) -> None:
     print(f"fleet: {msg}", flush=True)
 
 
-def boot_replica(cfg_path: str, n: int, device: str) -> subprocess.Popen:
+def boot_replica(cfg_path: str, n: int, device: str,
+                 replica_id: str) -> subprocess.Popen:
     proc = subprocess.Popen([sys.executable, "-m",
                              "spark_fsm_tpu_torch.service.app",
-                             "--config", str(cfg_path), "--device", device])
-    log(f"booted replica #{n} (pid {proc.pid}, --device {device})")
+                             "--config", str(cfg_path), "--device", device,
+                             "--replica-id", replica_id])
+    proc.replica_id = replica_id
+    log(f"booted replica #{n} (pid {proc.pid}, --device {device}, "
+        f"replica {replica_id})")
     return proc
 
 
@@ -69,6 +79,13 @@ def live_heartbeats(client) -> int:
         n += len(batch)
         if cursor == "0":
             return n
+
+
+def booting(client, children: list) -> int:
+    """Own children alive without a ``fsm:replica:{id}`` record yet: the
+    replicas still booting, which no heartbeat counts."""
+    return sum(1 for proc in children
+               if client.get(f"fsm:replica:{proc.replica_id}") is None)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -107,6 +124,8 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     children: list = []
     seq = 0
+    # this supervisor's children are {tag}-{n}: unique across restarts
+    tag = uuid.uuid4().hex[:8]
     stopping: list = []
 
     def _term(signum, frame):
@@ -117,7 +136,8 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     for _ in range(initial):
         seq += 1
-        children.append(boot_replica(args.config, seq, args.device))
+        children.append(boot_replica(args.config, seq, args.device,
+                                     f"{tag}-{seq}"))
     desired = max(initial, 1)
     log(f"supervising {initial} replicas (ceiling {ceiling}), acting "
         f"on fsm:autoscale:desired")
@@ -144,17 +164,16 @@ def main(argv: Optional[List[str]] = None) -> int:
             except Exception as exc:
                 log(f"desired-record read failed: {exc}")
             try:
-                hb = live_heartbeats(client)
+                live = live_heartbeats(client) + booting(client, children)
             except Exception as exc:
                 log(f"heartbeat scan failed: {exc}")
-                hb = 0
+                live = len(children)
             # one boot a poll: a fresh replica has no heartbeat record
-            # until its boot ends, and booting the whole deficit at once
-            # would count it twice on the next poll
-            if (max(len(children), hb) < min(desired, ceiling)
-                    and len(children) < ceiling):
+            # until its boot ends; it counts as booting until then
+            if live < min(desired, ceiling) and len(children) < ceiling:
                 seq += 1
-                children.append(boot_replica(args.config, seq, args.device))
+                children.append(boot_replica(args.config, seq, args.device,
+                                             f"{tag}-{seq}"))
     finally:
         log("stopping fleet")
         for proc in children:

@@ -39,7 +39,13 @@ in ``stats``'s counters:
   slots, candidates, tokens and the remap exists for XLA's compile cache;
   ``kernel_launches`` still counts the reference's events;
 - ``stats`` omits ``shape_key`` and ``sweep_shape_keys`` (the shape
-  registry is not ported).
+  registry is not ported);
+- a sweep whose widest level needs more work rows than the top of the
+  ``SWEEP_ROW_BUCKETS`` pow2 buckets a prewarm enumerates is swept in
+  pieces, depth first, so its store keeps an enumerated shape key (the
+  reference builds the wider store and records a key its prewarm never
+  warmed); a sweep that fits runs level by level, launch for launch as
+  the reference's.
 
 With a ``mesh`` (``parallel.mesh.SeqMesh``) every rank keeps its block of
 each batch's sequence axis: it uploads only the tokens of that block, and
@@ -80,6 +86,11 @@ from spark_fsm_tpu_torch.utils import shapes
 from spark_fsm_tpu_torch.utils.canonical import PatternResult, sort_patterns
 
 Key = Tuple[int, bool]  # (GLOBAL item id, is_s_extension)
+
+# the pow2 work-row buckets a sweep geometry's prewarm lists
+# (``utils/shapes.enumerate_shapes``): a sweep never builds a store past
+# the top one, so every store it builds has an enumerated shape key
+SWEEP_ROW_BUCKETS = shapes.WorkloadSpec.sweep_row_buckets
 
 
 def sweep_geometry(batch_sequences: int, n_words_raw: int, *,
@@ -171,12 +182,18 @@ class _BatchTokens:
         self._n_rows = 0
         self.last_shape_key: Optional[str] = None
 
+    def item_rows(self, needed: List[int]) -> int:
+        """The item rows a projection on ``needed`` gives this batch's
+        store: its present items, padded to ``I_TILE``."""
+        n = sum(1 for g in needed if g in self.item_counts)
+        return pad_to_multiple(max(n, 1), I_TILE)
+
     def _project(self, needed: List[int], extra_rows: int) -> int:
         """Build (or reuse) this batch's store for the given GLOBAL item
         set + ``extra_rows`` work rows; items absent from the batch get no
         row (their patterns are zero-support here).  Returns its rows."""
         present = [g for g in needed if g in self.item_counts]
-        ni_rows = pad_to_multiple(max(len(present), 1), I_TILE)
+        ni_rows = self.item_rows(needed)
         n_rows = next_pow2(ni_rows + extra_rows + 1)
         key = (tuple(present), ni_rows)
         if (self.store is not None and self._proj_key == key
@@ -413,7 +430,6 @@ class IncrementalWindowMiner:
             node.total += c
 
         # parents per level = tracked nodes with tracked children
-        cur: List[Tuple[_TNode, int]] = []
         lcap = 0
         lvl_nodes = [n for n in self._root.values() if n.children]
         probe = lvl_nodes
@@ -421,9 +437,17 @@ class IncrementalWindowMiner:
             lcap = max(lcap, len(probe))
             probe = [c for n in probe for c in n.children.values()
                      if c.children]
-        st._project(f1, 2 * max(lcap, 1))
-        region = [st.ni_rows, st.ni_rows + max(lcap, 1)]
+        # two work regions of one level's parents each; a level wider than
+        # the top prewarmed row bucket allows is swept in pieces
+        width = max(lcap, 1)
+        ni_rows = st.item_rows(f1)
+        top = next_pow2(ni_rows + 1) << (SWEEP_ROW_BUCKETS - 1)
+        if ni_rows + 2 * width + 1 > top:
+            width = (top - ni_rows - 1) // 2
+        st._project(f1, 2 * width)
+        region = [st.ni_rows, st.ni_rows + width]
 
+        cur: List[Tuple[_TNode, int]] = []
         for node in lvl_nodes:
             g = node.steps[0][0]
             row = st.row_of.get(g)
@@ -435,8 +459,15 @@ class IncrementalWindowMiner:
 
         pend: List[Tuple[torch.Tensor, List[_TNode]]] = []
         event = None
-        depth = 0
-        while cur:
+
+        def descend(cur: List[Tuple[_TNode, int]], depth: int) -> None:
+            """Count the children of ``cur`` (parents at store rows), then
+            materialize the children that are parents themselves into this
+            depth's work region, ``width`` at a time, and descend into each
+            piece.  ``pt`` holds copies of the parents' rows, so a deeper
+            level may reuse their region, and a level that fits one piece
+            is swept level by level, as the reference sweeps it."""
+            nonlocal event
             pt = prep_rows(st.store, [slot for _, slot in cur], st.s_local,
                            st.n_words)
             self.stats["kernel_launches"] += 1
@@ -445,9 +476,7 @@ class IncrementalWindowMiner:
             items: List[int] = []
             iss: List[bool] = []
             meta: List[_TNode] = []
-            mat: List[Tuple[int, int, bool, int]] = []
-            nxt: List[Tuple[_TNode, int]] = []
-            out_base = region[depth % 2]
+            kids: List[Tuple[int, int, bool, _TNode]] = []
             for b, (node, _) in enumerate(cur):
                 for (g, s), child in node.children.items():
                     jrow = st.row_of.get(g)
@@ -459,9 +488,7 @@ class IncrementalWindowMiner:
                     iss.append(s)
                     meta.append(child)
                     if child.children:
-                        out = out_base + len(nxt)
-                        mat.append((b, jrow, s, out))
-                        nxt.append((child, out))
+                        kids.append((b, jrow, s, child))
             if refs:
                 for host, ev, sub in self._supports_dispatch(
                         st, pt, np.asarray(refs, np.int64),
@@ -470,15 +497,22 @@ class IncrementalWindowMiner:
                     pend.append((host, sub))
                     event = ev if ev is not None else event
                 self.stats["sweep_candidates"] += len(refs)
-            if mat:
-                # the parents' rows were copied into pt; writes land in
-                # this depth's work region, never in the item rows
-                m = np.asarray(mat, np.int64)
+            out_base = region[depth % 2]
+            for lo in range(0, len(kids), width):
+                piece = kids[lo:lo + width]
+                # writes land in this depth's work region, never in the
+                # item rows
+                m = np.asarray([(b, j, s, out_base + i)
+                                for i, (b, j, s, _) in enumerate(piece)],
+                               np.int64)
                 self.stats["kernel_launches"] += materialize_rows(
                     st.store, pt, m[:, 0], m[:, 1], m[:, 2], m[:, 3],
                     self.support_chunk)
-            cur = nxt
-            depth += 1
+                descend([(c, out_base + i)
+                         for i, (*_, c) in enumerate(piece)], depth + 1)
+
+        if cur:
+            descend(cur, 0)
         return pend, event
 
     @staticmethod

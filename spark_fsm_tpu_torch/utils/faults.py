@@ -81,9 +81,10 @@ KNOWN_SITES = (
                          # injection must DEGRADE to unfused per-job
                          # dispatch, never lose a wave
     "device.resident",   # resident-frontier segment dispatch/readback
-                         # (models/tsr._mine_resident) — injection must
-                         # fall back to the host-driven path with full
-                         # parity, never lose the frontier
+                         # (models/tsr._mine_resident) — the port has no
+                         # resident-round fallback: injection raises out
+                         # of the mine, and a checkpointed mine resumes
+                         # its last persisted frontier with full parity
     "lease.acquire",     # per-job lease acquisition at admission
                          # (service/lease.py) — injection must be a clean
                          # synchronous 503 with ZERO journal/store trace

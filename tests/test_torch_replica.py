@@ -13,7 +13,9 @@
   (``scripts/fleet_smoke.py``'s drill: boot two, publish a desired count
   of three, SIGKILL the supervisor mid-scale-up, restart it with
   ``--initial 0``; the fleet converges to three live heartbeats with no
-  duplicate and every accepted job settles once with parity), its
+  duplicate and every accepted job settles once with parity; then, with
+  one orphan gone, a restarted supervisor boots the third replica itself
+  and counts it while it boots, so no fourth is booted), its
   refusal of a store that is not ``redis``, and a default ``--device
   cuda`` that it passes on unchanged, so a replica without a card fails
   its boot."""
@@ -113,6 +115,12 @@ def test_port_adopts_a_reference_replicas_checkpointed_mine(monkeypatch):
         stats = json.loads(T.envelope.unwrap(store.get("fsm:stats:move"))[0])
         assert stats["fused"] == "queue" and stats["resumed_nodes"] > 0
         assert store.journal_uids() == []
+        # the lease is released after the terminal status lands: wait for
+        # the release itself, not the status
+        deadline = time.time() + 10.0
+        while (time.time() < deadline
+               and store.peek("fsm:lease:move") is not None):
+            time.sleep(0.05)
         assert store.peek("fsm:lease:move") is None
         assert [s for _, s in store.status_log("move")
                 if s in ("finished", "failure")] == ["finished"]
@@ -277,6 +285,25 @@ def test_fleet_restart_mode_converges_without_duplicates(tmp_path):
             assert text_of(T, client.get(f"fsm:pattern:{uid}")) == want
         assert client.keys("fsm:journal:*") == []
         assert client.keys("fsm:admission:*") == []
+
+        # the racing case (ROADMAP Queue C 6): two heartbeating orphans,
+        # and the third replica booted by a restarted supervisor itself,
+        # whose boot outlasts several polls: the supervisor counts its
+        # booting child and boots no fourth
+        second.stop()
+        os.kill(first.pids[-1], signal.SIGTERM)
+        _wait_for(lambda: live() == 2, BOOT_TIMEOUT_S,
+                  "one orphan to leave the fleet")
+        third = _Fleet(cfg, "--initial", "0", "--device", "cpu")
+        fleets.append(third)
+        _wait_for(lambda: third.pids, BOOT_TIMEOUT_S,
+                  "the restarted supervisor's boot")
+        t_boot = time.time()
+        _wait_for(lambda: live() >= 3, BOOT_TIMEOUT_S,
+                  "the booted replica's heartbeat")
+        assert time.time() - t_boot > 0.3  # longer than one --poll
+        time.sleep(2.0)  # several polls
+        assert live() == 3 and len(third.pids) == 1, third.lines
     finally:
         for fleet in fleets:
             fleet.stop()

@@ -18,7 +18,8 @@ leader ends a mine on every rank (the next job runs at once, long before
 the world's timeout), ``/admin/stats`` reports the world, a
 ``[distributed]`` boot of one process a "host", worlds that cannot form
 are refused, an idle world outlasts its timeout, a stream wider than the
-prewarmed sweep rows drifts in both packages (Queue C 5), the
+prewarmed sweep rows drifts in the reference and not in the port, whose
+miner splits the wide sweep (Queue C 5), the
 ``fsm_partition_*`` families are the reference's, and the partition
 resolver counts what the reference counts (repairs R1 and R2: the mesh's
 rank count, and controller processes, not ranks).
@@ -226,21 +227,24 @@ def test_world_stream_equals_reference(worlds, reference):
 
 
 def test_stream_prewarm_covers_a_wide_sweep(monkeypatch):
-    """Queue C 5, open in both packages: a stream whose tracked tree's
-    widest level outgrows the 4 work-row buckets the ``[prewarm]``
-    envelope warms (an MSNBC-shaped stream at minsup 0.5 %) drifts: the
-    port's incremental miner records a sweep key beyond both packages'
-    enumeration (the same keys: the miners record the reference's keys,
-    ``tests/test_torch_shapes.py``).  A spec of five buckets
-    (``WorkloadSpec.sweep_row_buckets``, the reference's field, which
-    neither package's config sets) covers it."""
+    """Queue C 5: a stream whose tracked tree's widest level outgrows the
+    4 work-row buckets the ``[prewarm]`` envelope warms (an MSNBC-shaped
+    stream at minsup 0.5 %).  The reference's incremental miner builds the
+    wider store and drifts; the port's sweeps that level in pieces inside
+    the top enumerated bucket, so it records no key beyond the
+    enumeration, which stays the reference's.  The patterns after every
+    push are byte-equal between the two miners."""
     from spark_fsm_tpu.service import prewarm as JW
+    from spark_fsm_tpu.streaming.incremental import \
+        IncrementalWindowMiner as JMiner
     from spark_fsm_tpu.utils import shapes as JS
+    from spark_fsm_tpu.utils.canonical import patterns_text as j_text
     from spark_fsm_tpu_torch.data.synth import msnbc_like
     from spark_fsm_tpu_torch.service import prewarm as TW
     from spark_fsm_tpu_torch.streaming.incremental import \
         IncrementalWindowMiner
     from spark_fsm_tpu_torch.utils import shapes as TS
+    from spark_fsm_tpu_torch.utils.canonical import patterns_text
 
     db = msnbc_like(scale=0.001, fast=True)
     per = len(db) // 4
@@ -248,17 +252,20 @@ def test_stream_prewarm_covers_a_wide_sweep(monkeypatch):
     section = {"enabled": True, "stream_batch_sequences": per,
                "stream_seq_floor": per, "stream_items": items}
     monkeypatch.setattr(TS, "_recorded", {})
+    monkeypatch.setattr(JS, "_recorded", {})
     miner = IncrementalWindowMiner(0.005, max_batches=5, seq_floor=per,
                                    device="cpu")
+    j_miner = JMiner(0.005, max_batches=5, seq_floor=per)
     for i in range(4):
-        miner.push(db[i * per:(i + 1) * per])
+        batch = db[i * per:(i + 1) * per]
+        assert patterns_text(miner.push(batch)) == j_text(
+            j_miner.push(batch)), f"push {i + 1}"
     spec = TW.spec_from_config(TC.parse_config({"prewarm": section}).prewarm)
     enumerated = TS.enumerate_shapes(spec, device="cpu")
     j_spec = JW.spec_from_config(JC.parse_config({"prewarm": section}).prewarm)
     assert sorted(JS.enumerate_shapes(j_spec)) == sorted(enumerated)
-    assert TS.drift(enumerated) == ["sweep:s256w1r4096i128"]
-    spec = dataclasses.replace(spec, sweep_row_buckets=5)
-    assert TS.drift(TS.enumerate_shapes(spec, device="cpu")) == []
+    assert TS.drift(enumerated) == []
+    assert JS.drift(enumerated) == ["sweep:s256w1r4096i128"]
 
 
 def test_cancel_on_the_leader_ends_the_mine_on_every_rank(worlds):
