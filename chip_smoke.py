@@ -312,6 +312,38 @@ Phases, one printed line each (any failure raises and exits non-zero):
      replica's launches and peak, with the card's name and power limit.
      ``python3 chip_smoke.py --phase 27`` runs this phase alone on inputs
      made here through the library.
+ 28. the planes at size, on phase 27's inputs: one child of
+     ``spark_fsm_tpu_torch.service.app`` (``chip_smoke.py --replica``,
+     ``--device cuda``, one Miner worker) with ``[rescache]``, ``[usage]``
+     (``flush_every_s`` 0), ``[fusion]``, ``[fairness]`` (tenants acme and
+     globex), ``[cluster]`` on the in-proc store, tracing and faults on.
+     (a) ``scripts/rescache_smoke.py``'s story at size: acme mines the
+     tenth's TSR cold; while it runs, an identical pair of the 1 %
+     database's TSR coalesces, leader and follower, into one mine (an
+     entry is keyed by dataset and algorithm, so a pair on the tenth
+     would replace the cold entry); the repeat is an exact hit, a smaller k
+     a dominated serve, and BMS SPADE at 0.1 % then 0.2 % a dominated
+     SPADE serve; every body SHA-256 == a library mine at its own
+     parameters.  (b) ``scripts/usage_smoke.py``'s: per-tenant
+     ``fsm_usage_launches_total`` sums exactly to
+     ``fsm_fusion_launches_total`` (and traffic to the broker's), beside
+     the child's own B2 count; ``/admin/usage`` serves both tenants' rows
+     (acme's avoided seconds > 0) and the top jobs.  (c)
+     ``scripts/obs_smoke.py``'s: ``/metrics`` parses, every fault site and
+     retry policy has its series; the cold TSR job's merged dump has its
+     job and mine spans, ``tsr.prep`` + ``tsr.launch`` spans ==
+     ``kernel_launches``, ``fusion.launch`` spans == ``fusion_launches``,
+     each launch span with ``predicted_s`` and a duration, the lifecycle
+     marks; the BMS job's dump has ``queue.dispatch`` and
+     ``queue.readback``; ``/admin/cluster`` and ``/admin/slo`` answer for
+     the jobs just run.  (d) ``device.oom`` armed through
+     ``/admin/faults`` around the 1 % TSR job: rules equal the library's,
+     the event on the launch span with two half-width children (the
+     broker's ``fusion.launch``, fusion being on), and the same drill on
+     the library's direct path (``tsr.launch`` ``point="kernel"``).
+     ``[planes]`` lines print the walls and counts with the card's name
+     and power limit.  ``python3 chip_smoke.py --phase 28`` runs this
+     phase alone on inputs made here through the library.
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 and prints no result.
@@ -440,6 +472,15 @@ BITROT_DIR = os.path.join(ROOT, "build", "smoke", "bitrot")
 BITROT_SCRUB_S = 0.5
 BITROT_NODE_BATCH = 256
 BITROT_CHUNKS = 2
+# phase 28: the planes at size.  Its child's config, log, counts and FILE
+# sources go under build/smoke/planes/.  The coalesced pair mines the 1 %
+# database (a cache entry is keyed by the dataset and the algorithm, so a
+# pair on the tenth would replace the cold job's entry and its repeat
+# would no longer be an exact hit); the dominated TSR serve asks a smaller
+# k, the dominated SPADE serve twice phase 5's relative minsup
+PLANES_DIR = os.path.join(ROOT, "build", "smoke", "planes")
+PLANES_DOM_K = 50
+PLANES_DOM_MINSUP = 0.002
 
 
 def digest(text: str) -> str:
@@ -3394,10 +3435,19 @@ def fault_phase(torch, card: str, inp: dict) -> None:
           f"((a) {t_a:.1f} s); card {card}", flush=True)
 
 
-def phase27_only(torch) -> int:
-    """``python3 chip_smoke.py --phase 27``: the card, then phase 27 on
-    inputs made here through the library (the 1 % rules' digest from the
-    host loop, which phase 15 holds equal to the resident route's)."""
+def _phase_card(torch) -> str:
+    """Phase 1 of a phase run alone: the card's name and power limit."""
+    card = smi("name,power.limit")
+    print(f"[card] nvidia-smi: {card} | torch: "
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
+          flush=True)
+    return card
+
+
+def _fault_inputs(torch) -> dict:
+    """Phase 27's inputs made through the library (the 1 % rules' digest
+    from the host loop, which phase 15 holds equal to the resident
+    route's)."""
     from spark_fsm_tpu_torch.data.synth import bms_webview2_like, kosarak_like
     from spark_fsm_tpu_torch.data.vertical import abs_minsup
     from spark_fsm_tpu_torch.models.spade import mine_spade_torch
@@ -3405,11 +3455,6 @@ def phase27_only(torch) -> int:
     from spark_fsm_tpu_torch.service import model as SM
     from spark_fsm_tpu_torch.utils.canonical import rules_text
 
-    card = smi("name,power.limit")
-    print(f"[card] nvidia-smi: {card} | torch: "
-          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
-          flush=True)
-    t0 = time.perf_counter()
     small = kosarak_like(scale=0.01, fast=True)
     small_want = digest(rules_text(mine_tsr_torch(
         small, 100, 0.5, max_side=None, resident="never")))
@@ -3424,12 +3469,439 @@ def phase27_only(torch) -> int:
     rules = mine_tsr_torch(tenth, 100, 0.5, max_side=2)
     torch.cuda.synchronize()
     tenth_s = round(time.perf_counter() - t1, 3)
+    return {"tsr 1%": (small, small_want), "bms": (bms, minsup),
+            "bms payload": SM.serialize_patterns(got), "bms wall": (bms_s,),
+            "tenth": (tenth, SM.serialize_rules(rules), tenth_s)}
+
+
+def phase27_only(torch) -> int:
+    """``python3 chip_smoke.py --phase 27``: the card, then phase 27 on
+    inputs made here through the library."""
+    card = _phase_card(torch)
+    t0 = time.perf_counter()
+    inp = _fault_inputs(torch)
     print(f"[phase 27 only] inputs through the library in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    fault_phase(torch, card, {
-        "tsr 1%": (small, small_want), "bms": (bms, minsup),
-        "bms payload": SM.serialize_patterns(got), "bms wall": (bms_s,),
-        "tenth": (tenth, SM.serialize_rules(rules), tenth_s)})
+    fault_phase(torch, card, inp)
+    print(f"card: {card}")
+    return 0
+
+
+_SAMPLE_RE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^{}]*\})?\s+(\S+)$')
+
+
+def parse_prometheus(text: str) -> dict:
+    """``/metrics`` as ``{family: {label string: value}}`` (the reference's
+    ``scripts/obs_smoke.py`` parser): every sample line is ``name[{labels}]
+    value`` with a numeric value, and every family has a ``# TYPE`` line;
+    anything else raises."""
+    families: dict = {}
+    types: dict = {}
+    for lineno, line in enumerate(text.splitlines(), 1):
+        if not line.strip():
+            continue
+        if line.startswith("# TYPE "):
+            name, _, kind = line[len("# TYPE "):].partition(" ")
+            types[name] = kind.strip()
+            continue
+        if line.startswith("#"):
+            continue
+        m = _SAMPLE_RE.match(line)
+        check(m is not None, f"/metrics line {lineno} malformed: {line!r}")
+        families.setdefault(m.group(1), {})[m.group(2) or ""] = float(
+            m.group(3))
+    for fam in families:
+        base = re.sub(r"_(bucket|count|sum)$", "", fam)
+        check(fam in types or base in types,
+              f"/metrics family {fam} has samples but no # TYPE line")
+    return families
+
+
+def check_histograms(families: dict) -> None:
+    """Every histogram series ends at +Inf and its buckets are cumulative."""
+    for fam, rows in families.items():
+        if not fam.endswith("_bucket"):
+            continue
+        by_series: dict = {}
+        for labels, value in rows.items():
+            le = re.search(r'le="([^"]*)"', labels)
+            check(le is not None, f"{fam}{labels}: a bucket without le=")
+            rest = re.sub(r',?le="[^"]*"', "", labels)
+            by_series.setdefault(rest, []).append(
+                (float("inf") if le.group(1) == "+Inf"
+                 else float(le.group(1)), value))
+        for rest, pairs in by_series.items():
+            pairs.sort()
+            counts = [v for _, v in pairs]
+            check(pairs[-1][0] == float("inf") and counts == sorted(counts),
+                  f"{fam}{rest}: buckets not cumulative to +Inf")
+
+
+def _stats_of(port: int, uid: str) -> dict:
+    return json.loads(_http(port, f"/status/{uid}")["data"].get("stats")
+                      or "{}")
+
+
+def _launch_spans(spans: list, site: str) -> list:
+    return [s for s in spans if s["site"] == site]
+
+
+def _oom_children(spans: list) -> tuple:
+    """The launch span that took the ``resource_exhausted`` event and its
+    half-width children (launch spans whose parent it is)."""
+    hit = [s for s in spans for e in s.get("events", ())
+           if e["name"] == "resource_exhausted"]
+    check(len(hit) >= 1, f"no resource_exhausted event in the dump "
+          f"({sorted({s['site'] for s in spans})})")
+    parent = hit[0]
+    kids = [s for s in spans if s.get("parent_id") == parent["span_id"]
+            and s["site"] == parent["site"]]
+    check(len(kids) == 2 and all(
+        k["attrs"]["width"] == parent["attrs"]["width"] // 2 for k in kids),
+        f"the OOM'd launch's children: {[k['attrs'] for k in kids]} under "
+        f"{parent['attrs']}")
+    return parent, kids
+
+
+def _planes_reuse(card: str, port: int, paths: dict, inp: dict,
+                  want: dict) -> dict:
+    """Phase 28 (a): result reuse at size; returns the walls."""
+    tsr = dict(algorithm="TSR_TPU", source="FILE", path=paths["tenth"],
+               k="100", minconf="0.5", max_side="2")
+    t_submit = {}
+    for uid, tenant, where in (("acme-cold", "acme", "tenth"),
+                               ("globex-lead", "globex", "small"),
+                               ("globex-follow", "globex", "small")):
+        t_submit[uid] = time.perf_counter()
+        r = _http(port, "/train", uid=uid, tenant=tenant,
+                  **dict(tsr, path=paths[where]))
+        check(r["status"] == "started", f"/train {uid}: {r}")
+    inflight = _http(port, "/admin/rescache")
+    walls = _finish_walls(port, t_submit, {
+        "acme-cold": ("rules", inp["tenth"][1]),
+        "globex-lead": ("rules", want["pair"]),
+        "globex-follow": ("rules", want["pair"])})
+    stats = {uid: _stats_of(port, uid) for uid in t_submit}
+    check("served_from_cache" not in stats["acme-cold"]
+          and "served_from_cache" not in stats["globex-lead"],
+          f"a cold job was served: {stats}")
+    check(stats["globex-follow"].get("coalesced_into") == "globex-lead",
+          f"the follower did not coalesce: {stats['globex-follow']}")
+    # the entries publish after FINISHED: wait for them, not the status
+    _wait(lambda: (_http(port, "/admin/rescache")["entries"] or 0) >= 2,
+          "the cold and the pair's cache entries")
+    served = {}
+    for uid, params, kind, payload in (
+            ("acme-hit", tsr, "rules", inp["tenth"][1]),
+            ("acme-dom", dict(tsr, k=str(PLANES_DOM_K)), "rules",
+             want["dom"]),
+            ("bms-cold", dict(algorithm="SPADE_TPU", source="FILE",
+                              path=paths["bms"],
+                              support=str(inp["bms"][1])), "patterns",
+             inp["bms payload"]),
+            ("bms-dom", dict(algorithm="SPADE_TPU", source="FILE",
+                             path=paths["bms"],
+                             support=str(want["bms minsup"])), "patterns",
+             want["bms dom"])):
+        if uid == "bms-dom":
+            _wait(lambda: (_http(port, "/admin/rescache")["entries"]
+                           or 0) >= 3, "bms-cold's cache entry")
+        t0 = time.perf_counter()
+        r = _http(port, "/train", uid=uid, tenant="acme", **params)
+        check(r["status"] == "started", f"/train {uid}: {r}")
+        walls.update(_finish_walls(port, {uid: t0}, {uid: (kind, payload)}))
+        served[uid] = _stats_of(port, uid).get("served_from_cache")
+    check(served == {"acme-hit": "exact", "acme-dom": "dominated",
+                     "bms-cold": None, "bms-dom": "dominated"},
+          f"served modes {served}")
+    fams = parse_prometheus(_metrics_text(port))
+    counts = {f: sum(fams[f"fsm_rescache_{f}_total"].values())
+              for f in ("hits", "misses", "coalesced", "dominated_serves")}
+    check(counts["hits"] >= 1 and counts["coalesced"] >= 1
+          and counts["dominated_serves"] >= 2,
+          f"fsm_rescache_* after the drill: {counts}")
+    print(f"[planes] (a) result reuse over HTTP (one Miner worker, FILE "
+          f"sources): the tenth's Kosarak-shaped TSR (k=100, minconf 0.5, "
+          f"max_side=2) cold for acme {walls['acme-cold']:.3f} s (the "
+          f"library's {inp['tenth'][2]} s); while it ran, an identical "
+          f"pair of the 1 % database's TSR (the same parameters) for "
+          f"globex coalesced, leader "
+          f"{walls['globex-lead']:.3f} s, follower "
+          f"{walls['globex-follow']:.3f} s (in flight at submit: "
+          f"{inflight.get('inflight_followers')} follower); the repeat an "
+          f"exact hit in {walls['acme-hit']:.3f} s; k={PLANES_DOM_K} "
+          f"dominated in {walls['acme-dom']:.3f} s; BMS SPADE at 0.1 % "
+          f"cold {walls['bms-cold']:.3f} s (the library's "
+          f"{inp['bms wall'][0]} s), at {PLANES_DOM_MINSUP:.1%} dominated "
+          f"in {walls['bms-dom']:.3f} s; every body SHA-256 == the "
+          f"library mine at its own parameters; fsm_rescache_* {counts}; "
+          f"card {card}", flush=True)
+    return walls
+
+
+def _metrics_text(port: int) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=600) as resp:
+        return resp.read().decode()
+
+
+def _planes_usage(card: str, port: int, counts, stage: str) -> dict:
+    """Phase 28 (b): per-tenant usage against the broker's counters and
+    the B2 wrapper's own count; returns the sums."""
+    fams = parse_prometheus(_metrics_text(port))
+    usage_launches = fams["fsm_usage_launches_total"]
+    fusion = sum(fams["fsm_fusion_launches_total"].values())
+    per_tenant = {t: sum(v for k, v in usage_launches.items()
+                         if f'tenant="{t}"' in k)
+                  for t in ("acme", "globex", "default")}
+    traffic = sum(fams["fsm_usage_traffic_units_total"].values())
+    broker = _http(port, "/admin/stats")["fusion"]
+    check(sum(usage_launches.values()) == fusion,
+          f"usage launches {per_tenant} != fsm_fusion_launches_total "
+          f"{fusion}")
+    check(traffic == broker.get("traffic_units"),
+          f"usage traffic {traffic} != the broker's "
+          f"{broker.get('traffic_units')}")
+    time.sleep(0.3)  # one more write of the child's counts
+    b2 = counts()["b2"]
+    print(f"[planes] (b) usage {stage}: fsm_usage_launches_total per "
+          f"tenant {per_tenant} sums to {sum(usage_launches.values()):g} == "
+          f"fsm_fusion_launches_total {fusion:g}; traffic units {traffic:g} "
+          f"== the broker's; the B2 wrapper's own launches in the child "
+          f"{b2}; card {card}", flush=True)
+    return {"usage": sum(usage_launches.values()), "fusion": fusion,
+            "b2": b2}
+
+
+def _planes_recorder(card: str, port: int) -> None:
+    """Phase 28 (c): the flight recorder and the cluster plane."""
+    from spark_fsm_tpu_torch.utils import faults, retry
+
+    fams = parse_prometheus(_metrics_text(port))
+    check_histograms(fams)
+    for fam, sites in (("fsm_fault_site_calls_total", faults.KNOWN_SITES),
+                       ("fsm_fault_site_injected_total", faults.KNOWN_SITES),
+                       ("fsm_retry_attempts_total", retry.KNOWN_SITES)):
+        got = {m.group(1) for k in fams.get(fam, {})
+               for m in [re.search(r'site="([^"]*)"', k)] if m}
+        check(set(sites) <= got,
+              f"{fam}: no series for {sorted(set(sites) - got)}")
+    stats = _stats_of(port, "acme-cold")
+    dump = _http(port, "/admin/trace/acme-cold")
+    spans = dump["spans"]
+    sites = {}
+    for s in spans:
+        sites[s["site"]] = sites.get(s["site"], 0) + 1
+    check(sites.get("job", 0) >= 1 and sites.get("job.mine", 0) >= 1,
+          f"acme-cold's dump lacks the job or mine span: {sites}")
+    check(sites.get("tsr.prep", 0) + sites.get("tsr.launch", 0)
+          == stats["kernel_launches"],
+          f"acme-cold: tsr.prep + tsr.launch spans {sites} != "
+          f"kernel_launches {stats['kernel_launches']}")
+    check(sites.get("fusion.launch", 0) == stats.get("fusion_launches", 0),
+          f"acme-cold: fusion.launch spans {sites.get('fusion.launch')} != "
+          f"fusion_launches {stats.get('fusion_launches')}")
+    launches = (_launch_spans(spans, "tsr.launch")
+                + _launch_spans(spans, "fusion.launch"))
+    check(launches and all("predicted_s" in s["attrs"]
+                           and s.get("duration_s") is not None
+                           for s in launches),
+          "a launch span without predicted_s or a duration")
+    check(sites.get("tsr.dispatch", 0) >= 1, f"no tsr.dispatch: {sites}")
+    marks = {m: sites.get(f"lifecycle.{m}", 0)
+             for m in ("admitted", "started", "settled")}
+    check(dump.get("merged") is True and all(marks.values()),
+          f"acme-cold's merged timeline marks {marks}")
+    bms = {}
+    for s in _http(port, "/admin/trace/bms-cold")["spans"]:
+        bms[s["site"]] = bms.get(s["site"], 0) + 1
+    check(bms.get("queue.dispatch") == 1 and bms.get("queue.readback", 0)
+          >= 1, f"bms-cold's dump {bms}")
+    cluster = _http(port, "/admin/cluster")
+    check(cluster.get("enabled") is True
+          and cluster["totals"]["replicas"] == 1
+          and any(r.get("self") for r in cluster["replicas"]),
+          f"/admin/cluster {cluster}")
+    slo = _http(port, "/admin/slo")
+    e2e = slo["priorities"]["normal"]["e2e"]
+    check(e2e["count"] >= 7 and "p99" in e2e
+          and slo["tenants"]["acme"]["count"] >= 1
+          and slo["tenants"]["globex"]["count"] >= 1,
+          f"/admin/slo {slo}")
+    print(f"[planes] (c) flight recorder: /metrics parsed ({len(fams)} "
+          f"families, histograms cumulative), every fault site "
+          f"({len(faults.KNOWN_SITES)}) and retry policy "
+          f"({len(retry.KNOWN_SITES)}) has its series; acme-cold's merged "
+          f"dump {dict(sorted(sites.items()))}: tsr.prep + tsr.launch == "
+          f"kernel_launches {stats['kernel_launches']}, fusion.launch == "
+          f"fusion_launches {stats.get('fusion_launches')}, each launch "
+          f"span with predicted_s and a duration, lifecycle marks {marks}; "
+          f"bms-cold's dump {dict(sorted(bms.items()))}; /admin/cluster "
+          f"{cluster['totals']}; /admin/slo normal e2e {e2e}, tenants "
+          f"acme {slo['tenants']['acme']}, globex "
+          f"{slo['tenants']['globex']}; card {card}", flush=True)
+
+
+def _planes_oom(torch, card: str, port: int, paths: dict, inp: dict) -> None:
+    """Phase 28 (d): ``device.oom`` armed through ``/admin/faults`` around
+    the 1 % TSR job, then the same drill on the library's direct path in
+    this process."""
+    from spark_fsm_tpu_torch.models.tsr import mine_tsr_torch
+    from spark_fsm_tpu_torch.service import model as SM
+    from spark_fsm_tpu_torch.utils import faults, obs
+    from spark_fsm_tpu_torch.utils.canonical import rules_text
+
+    small, small_want = inp["tsr 1%"]
+    code, _, body = _post_code(port, "/admin/faults", action="arm",
+                               site="device.oom", nth="1")
+    check(code == 200, f"the child refused the fault arm: {body}")
+    t0 = time.perf_counter()
+    r = _http(port, "/train", uid="oom-small", algorithm="TSR_TPU",
+              source="FILE", path=paths["small"], k="100", minconf="0.5",
+              resident="never")
+    check(r["status"] == "started", f"/train oom-small: {r}")
+    st = _job_until_terminal(port, "oom-small")
+    wall = time.perf_counter() - t0
+    check(st["status"] == "finished",
+          f"oom-small failed: {st['data'].get('error')}")
+    _post_code(port, "/admin/faults", action="disarm", site="device.oom")
+    got = rules_text(SM.deserialize_rules(
+        _http(port, "/get/rules", uid="oom-small")["data"]["rules"]))
+    check(digest(got) == small_want,
+          "oom-small's rules differ from the library's by SHA-256")
+    stats = _stats_of(port, "oom-small")
+    check(stats.get("degraded_launches", 0) >= 1,
+          f"oom-small degraded no launch: {stats}")
+    parent, kids = _oom_children(
+        _http(port, "/admin/trace/oom-small")["spans"])
+    # the same drill on the direct path (no broker): the event lands on
+    # B2's own launch span
+    obs.configure_tracing(True, max_spans=1 << 15, max_jobs=4)
+    lib: dict = {}
+    try:
+        with faults.injected("device.oom", nth=1), obs.trace("planes-oom"):
+            rules = mine_tsr_torch(small, 100, 0.5, max_side=None,
+                                   resident="never", stats_out=lib)
+        torch.cuda.synchronize()
+        lparent, lkids = _oom_children(obs.trace_dump("planes-oom")["spans"])
+    finally:
+        obs.configure_tracing(False)
+        obs.clear_traces()
+    check(digest(rules_text(rules)) == small_want
+          and lib.get("degraded_launches", 0) >= 1,
+          f"the library's OOM drill: {lib.get('degraded_launches')} "
+          f"degraded launches")
+    check(lparent["site"] == "tsr.launch"
+          and lparent["attrs"]["point"] == "kernel",
+          f"the library's OOM landed on {lparent['site']} "
+          f"{lparent['attrs']}")
+    print(f"[planes] (d) device.oom nth=1 armed through /admin/faults: the "
+          f"1 % Kosarak-shaped TSR job (k=100, minconf 0.5, "
+          f"resident='never') finished in {wall:.3f} s with rules SHA-256 "
+          f"== the library's, degraded_launches "
+          f"{stats['degraded_launches']}; the event on its "
+          f"{parent['site']} span (km {parent['attrs']['km']}, width "
+          f"{parent['attrs']['width']}) with children of width "
+          f"{[k['attrs']['width'] for k in kids]}; the library's direct "
+          f"path: tsr.launch point=kernel width "
+          f"{lparent['attrs']['width']} -> "
+          f"{[k['attrs']['width'] for k in lkids]}, degraded_launches "
+          f"{lib['degraded_launches']}, rules SHA-256 == the library's; "
+          f"card {card}", flush=True)
+
+
+def planes_phase(torch, card: str, inp: dict) -> None:
+    """Phase 28: result reuse, usage metering and the flight recorder with
+    its cluster plane, in one child of the port's service on the card.
+    ``inp`` is phase 27's."""
+    from spark_fsm_tpu_torch.data.spmf import format_spmf
+    from spark_fsm_tpu_torch.data.vertical import abs_minsup
+    from spark_fsm_tpu_torch.models._common import auto_pool_bytes
+    from spark_fsm_tpu_torch.models.spade import mine_spade_torch
+    from spark_fsm_tpu_torch.models.tsr import mine_tsr_torch
+    from spark_fsm_tpu_torch.service import model as SM
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    os.makedirs(PLANES_DIR, exist_ok=True)
+    paths = {}
+    for name, db in (("tenth", inp["tenth"][0]), ("bms", inp["bms"][0]),
+                     ("small", inp["tsr 1%"][0])):
+        paths[name] = os.path.join(PLANES_DIR, f"{name}.spmf")
+        with open(paths[name], "w") as fh:
+            fh.write(format_spmf(db))
+    cfg = {"fault_injection": True,
+           "observability": {"trace": True, "trace_max_spans": 1 << 15,
+                             "spine_flush_spans": 8,
+                             "spine_max_chunks": 1 << 14},
+           "cluster": {"enabled": True, "lease_ttl_s": 5.0},
+           "rescache": {"enabled": True},
+           "usage": {"enabled": True, "flush_every_s": 0.0},
+           "fusion": {"enabled": True},
+           "fairness": {"enabled": True,
+                        "weights": {"acme": 2.0, "globex": 1.0}},
+           "engine": {"pool_bytes": auto_pool_bytes(
+               torch.device("cuda", 0))}}
+    child = Replica("planes", cfg, PLANES_DIR)
+    try:
+        # the library mines at the requests' own parameters, while the
+        # child boots
+        t0 = time.perf_counter()
+        tenth = inp["tenth"][0]
+        bms_dom = abs_minsup(PLANES_DOM_MINSUP, len(inp["bms"][0]))
+        want = {"pair": SM.serialize_rules(mine_tsr_torch(
+                    inp["tsr 1%"][0], 100, 0.5, max_side=2)),
+                "dom": SM.serialize_rules(mine_tsr_torch(
+                    tenth, PLANES_DOM_K, 0.5, max_side=2)),
+                "bms minsup": bms_dom,
+                "bms dom": SM.serialize_patterns(mine_spade_torch(
+                    inp["bms"][0], bms_dom))}
+        torch.cuda.synchronize()
+        lib_s = time.perf_counter() - t0
+        child.ready()
+        _planes_reuse(card, child.port, paths, inp, want)
+        usage1 = _planes_usage(card, child.port, child.counts,
+                               "after the TSR and SPADE jobs")
+        rep = _http(child.port, "/admin/usage")
+        tenants = rep.get("tenants", {})
+        check(rep.get("enabled") is True and rep.get("top_jobs")
+              and all(tenants.get(t, {}).get("launches", 0) > 0
+                      for t in ("acme", "globex"))
+              and tenants["acme"].get("avoided_device_seconds", 0) > 0,
+              f"/admin/usage {json.dumps(rep)[:2000]}")
+        print(f"[planes] (b) /admin/usage: acme {tenants['acme']}, globex "
+              f"{tenants['globex']}, top jobs "
+              f"{[j.get('uid') for j in rep['top_jobs']]}; card {card}",
+              flush=True)
+        _planes_recorder(card, child.port)
+        _planes_oom(torch, card, child.port, paths, inp)
+        usage2 = _planes_usage(card, child.port, child.counts,
+                               "after the OOM job")
+        counts = child.counts()
+    finally:
+        rc = child.stop()
+    check(rc == 0, f"the planes child exited with {rc}:\n"
+          f"{child.log()[-2000:]}")
+    print(f"[planes] the child booted in {child.boot_s:.3f} s (the library "
+          f"mines beside its boot {lib_s:.3f} s); B1 {counts['b1']}, B2 "
+          f"{counts['b2']}, B3 {counts['b3']} launches (usage "
+          f"{usage1['usage']:g} / {usage2['usage']:g} launches, broker "
+          f"{usage1['fusion']:g} / {usage2['fusion']:g}), "
+          f"max_memory_allocated {counts['peak']} B; phase 28 "
+          f"{time.perf_counter() - t_phase:.1f} s; card {card}", flush=True)
+
+
+def phase28_only(torch) -> int:
+    """``python3 chip_smoke.py --phase 28``: the card, then phase 28 on
+    phase 27's inputs made here through the library."""
+    card = _phase_card(torch)
+    t0 = time.perf_counter()
+    inp = _fault_inputs(torch)
+    print(f"[phase 28 only] inputs through the library in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    planes_phase(torch, card, inp)
     print(f"card: {card}")
     return 0
 
@@ -3449,6 +3921,8 @@ def main() -> int:
         return phase26_only(torch)
     if sys.argv[1:] == ["--phase", "27"]:
         return phase27_only(torch)
+    if sys.argv[1:] == ["--phase", "28"]:
+        return phase28_only(torch)
     if sys.argv[1:2] == ["--replica"]:
         return replica_child(sys.argv[2], sys.argv[3:])
 
@@ -4607,12 +5081,15 @@ def run(torch, oracles) -> int:
         "msnbc wall": single_walls["spam"],
         "tenth": (tenth["db"], tenth["payload"], tenth["wall"])})
     # 27. faults and bitrot on the engines and the service
-    fault_phase(torch, card, {
+    fault_inp = {
         "tsr 1%": (part_inputs["tsr_small_db"], mesh_want["tsr 1%"]),
         "bms": (bms_db, bms_minsup), "bms payload": bms_payload,
         "bms wall": single_walls["spade auto"],
-        "tenth": (tenth["db"], tenth["payload"], tenth["wall"])})
-    del part_inputs, bms_db, ms_db, tenth
+        "tenth": (tenth["db"], tenth["payload"], tenth["wall"])}
+    fault_phase(torch, card, fault_inp)
+    # 28. result reuse, usage and the flight recorder at size
+    planes_phase(torch, card, fault_inp)
+    del part_inputs, bms_db, ms_db, tenth, fault_inp
 
     print(json.dumps({"kernels": [pair_record, rule_record, {
         "name": "extend_prune", "route": "cuda",

@@ -61,7 +61,7 @@ from spark_fsm_tpu_torch.models._common import (
     copy_rows_drop, decode_frontier, device_axes, device_hbm_budget,
     encode_frontier, engine_device, frontier_fingerprint, key_seq,
     nonzero_static, pad_to_multiple, prep_rows, recompute_rows,
-    scatter_build_store, shard_width)
+    scatter_build_store, shard_width, to_host)
 from spark_fsm_tpu_torch.models.spade_fused import (
     decode_records, expand, root_state)
 from spark_fsm_tpu_torch.ops import pair_support as PS
@@ -74,6 +74,9 @@ from spark_fsm_tpu_torch.utils.canonical import PatternResult, sort_patterns
 
 # ring slots a resume refills per join-chain fold launch
 _REFILL_GROUP = 256
+# records the one-shot route reads with its final counters (the
+# reference's single-roundtrip prefix, spade_queue.py PREFETCH)
+_PREFETCH = 4096
 
 
 def queue_geometry(n_sequences: int, n_items: int, n_words: int, *,
@@ -197,6 +200,14 @@ class _Carry:
     records: torch.Tensor   # [r_cap + 1, 3] (parent record, item, is-s)
     recsup: torch.Tensor    # [r_cap + 1] supports
     ctr: torch.Tensor
+
+
+def _host(*tensors) -> List[np.ndarray]:
+    """Numpy copies of ``tensors``, read in one transfer."""
+    host, ev = to_host(list(tensors))
+    if ev is not None:
+        ev.synchronize()
+    return [t.numpy() for t in host]
 
 
 class QueueSpadeTorch:
@@ -338,13 +349,17 @@ class QueueSpadeTorch:
         c.ctr = torch.stack([new_head, new_tail, oflow.long(), wave + 1,
                              rec_count + n_emit, n_cand])
 
-    def _finish(self, c: _Carry, n_rec: int, waves: int,
-                n_cand: int) -> List[PatternResult]:
+    def _finish(self, c: _Carry, n_rec: int, waves: int, n_cand: int,
+                rec: Optional[np.ndarray] = None,
+                sup: Optional[np.ndarray] = None) -> List[PatternResult]:
+        """Decode the mine's records; ``rec``/``sup`` are the records
+        already on the host (the one-shot route's readback), else all
+        ``n_rec`` are fetched here."""
         self.stats["waves"] = waves
         self.stats["candidates"] = n_cand
         self.stats["kernel_launches"] = waves  # one B1 launch a wave
-        rec = c.records[:n_rec].cpu().numpy()
-        sup = c.recsup[:n_rec].cpu().numpy()
+        if rec is None:
+            rec, sup = _host(c.records[:n_rec], c.recsup[:n_rec])
         results, _ = decode_records(self.vdb.item_ids, rec, sup)
         self.stats["patterns"] = len(results)
         return sort_patterns(results)
@@ -410,14 +425,33 @@ class QueueSpadeTorch:
             # fuses; it routes through the broker's accounting and fault
             # surface (one global read when the broker is off)
             ctr, late = FZ.dispatch_wave("queue", run, point="oneshot")
-        head, tail, oflow, wave, n_rec, n_cand = ctr
+        # the result's readback, where the reference reads its whole-mine
+        # dispatch: the final counters with a prefix of the records in one
+        # transfer (the counters only after an overflow: the record buffer
+        # is garbage), the records past the prefix in a second read
+        done = not ctr[2] and ctr[1] <= ctr[0]
+        n_pre = min(ctr[4], _PREFETCH) if done else 0
+        with obs.span("queue.readback", bound_s=round(bound_s, 6)):
+            ctr, rec, sup = watchdog.run_with_deadline(
+                lambda: _host(c.ctr, c.records[:n_pre], c.recsup[:n_pre]),
+                deadline, site="queue.readback")
+        head, tail, oflow, wave, n_rec, n_cand = ctr.tolist()
         self.stats["late_waves"] = late
         self.stats["wait_s"] = reader.wait_s
         self.stats["candidates"] = n_cand
         if oflow or tail > head:
             self._overflow(wave)
             return None  # the record buffer is garbage
-        return self._finish(c, n_rec, wave, n_cand)
+        if n_rec > n_pre:
+            with obs.span("queue.readback", point="big_fetch",
+                          n_fetch=n_rec - n_pre):
+                more = watchdog.run_with_deadline(
+                    lambda: _host(c.records[n_pre:n_rec],
+                                  c.recsup[n_pre:n_rec]),
+                    deadline, site="queue.readback")
+            rec = np.concatenate([rec, more[0]])
+            sup = np.concatenate([sup, more[1]])
+        return self._finish(c, n_rec, wave, n_cand, rec, sup)
 
     # ------------------------------------------------ checkpointed path
 

@@ -384,13 +384,16 @@ class TsrTorch:
         int32 stores with the all-ones pad row last.  The ``[m, S, W]``
         rows are scatter-built on the device from the token slice; the
         dense rows never exist on the host.  Under a mesh the rows are
-        this rank's block of the sequence axis."""
-        ti, ts, tw, tm = self._round_tokens(m)
-        b = scatter_tokens(ti, ts, tw, tm, m, self.s_local, self.n_words,
-                           self.device).view(m, self.s_local, self.n_words)
-        p1 = self._with_pad(B.prefix_or_incl(b))
-        s1 = self._with_pad(B.suffix_or_incl(b))
-        self.stats["kernel_launches"] += 1
+        this rank's block of the sequence axis.  One ``tsr.prep`` span a
+        prep, so every ``kernel_launches`` increment has its span."""
+        with obs.span("tsr.prep", m=m):
+            ti, ts, tw, tm = self._round_tokens(m)
+            b = scatter_tokens(ti, ts, tw, tm, m, self.s_local,
+                               self.n_words, self.device).view(
+                                   m, self.s_local, self.n_words)
+            p1 = self._with_pad(B.prefix_or_incl(b))
+            s1 = self._with_pad(B.suffix_or_incl(b))
+            self.stats["kernel_launches"] += 1
         return p1, s1
 
     def _with_pad(self, rows: torch.Tensor) -> torch.Tensor:
@@ -474,8 +477,22 @@ class TsrTorch:
         only its plan's real lanes.  With ``[fusion]`` on and no mesh the
         whole wave goes to the cross-job broker instead, which plans it
         with the same inputs; the ticket is the handle.  A dispatch planned
-        at an older topology epoch raises ``StaleTopology`` first."""
+        at an older topology epoch raises ``StaleTopology`` first.
+
+        The dispatch runs under one ``tsr.dispatch`` span; the launch
+        spans nest under it, and a wave handed to the broker continues
+        under ``fusion.launch``/``fusion.readback``."""
         MGD.check_epoch(self._topo_epoch)
+        with obs.span("tsr.dispatch", candidates=len(cands)) as sp:
+            handle = self._dispatch_eval_inner(p1, s1, cands)
+            if isinstance(handle, FZ.EvalWave):
+                sp.set(fusion=True)
+            else:
+                est_s, n_launch = handle[4], handle[6]
+                sp.set(launches=n_launch, predicted_s=round(est_s, 6))
+        return handle
+
+    def _dispatch_eval_inner(self, p1, s1, cands):
         n = len(cands)
         kms = np.empty(n, np.int32)
         for r, (x, y) in enumerate(cands):
@@ -516,7 +533,8 @@ class TsrTorch:
             fn = self._eval_fn(0)
             for L in plan:
                 with obs.span("tsr.launch", point="jnp", km=L.km,
-                              width=L.width):
+                              width=L.width,
+                              predicted_s=self._launch_estimate(L)):
                     faults.fault_site("device.dispatch", point="jnp",
                                       km=str(L.km), width=str(L.width),
                                       **self._fault_ctx())
@@ -560,8 +578,10 @@ class TsrTorch:
 
         for leaf, (xy, part) in RB.launch_halving(
                 L, launch,
-                span=lambda leaf: obs.span("tsr.launch", point="kernel",
-                                           km=leaf.km, width=leaf.width),
+                span=lambda leaf: obs.span(
+                    "tsr.launch", point="kernel", km=leaf.km,
+                    width=leaf.width,
+                    predicted_s=self._launch_estimate(leaf)),
                 on_halve=self._count_halving):
             xy_bufs.append(xy)
             self._count_launch(leaf)
@@ -569,6 +589,12 @@ class TsrTorch:
             parts.append(part)
             base += len(leaf.rows)
         return base
+
+    def _launch_estimate(self, L) -> float:
+        """The planner's wall estimate of one launch, rounded for its
+        span."""
+        return round(RB.estimate_seconds(L.traffic_units, 1, self.n_seq,
+                                         self.n_words), 6)
 
     def _count_halving(self, L) -> None:
         self.stats["degraded_launches"] = (

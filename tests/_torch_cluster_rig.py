@@ -35,7 +35,9 @@ def _namespace(root) -> types.SimpleNamespace:
         "faults": "utils.faults", "envelope": "utils.envelope",
         "canonical": "utils.canonical", "spmf": "data.spmf",
         "synth": "data.synth", "vertical": "data.vertical",
-        "oracle": "models.oracle",
+        "oracle": "models.oracle", "resultcache": "service.resultcache",
+        "usage": "service.usage", "fusion": "service.fusion",
+        "obsplane": "service.obsplane",
     }
     ns = types.SimpleNamespace(
         name="port" if root is spark_fsm_tpu_torch else "reference")
@@ -46,6 +48,81 @@ def _namespace(root) -> types.SimpleNamespace:
 
 PKGS = {"reference": _namespace(spark_fsm_tpu),
         "port": _namespace(spark_fsm_tpu_torch)}
+
+
+class Twins:
+    """Records of scenarios run once on each package's namespace (``ns``,
+    name -> namespace): :meth:`held` runs ``scenario(P, *args)`` and the
+    port's record must equal the reference's (run then if the reference's
+    case did not run in this process).  With ``families`` (name prefixes)
+    the record also holds the registry families the scenario moved."""
+
+    def __init__(self, ns: dict, families: tuple = ()):
+        self.ns, self.families, self.records = ns, tuple(families), {}
+
+    def run(self, pkg: str, scenario, *args) -> dict:
+        P = self.ns[pkg]
+        before = self._families(P)
+        rec = scenario(P, *args)
+        if self.families:
+            rec["moved"] = moved(before, self._families(P))
+        return rec
+
+    def held(self, pkg: str, scenario, *args) -> dict:
+        key = (scenario.__name__,) + args
+        rec = self.run(pkg, scenario, *args)
+        self.records.setdefault(key, {})[pkg] = rec
+        if pkg == "port":
+            ref = self.records[key].get("reference")
+            if ref is None:
+                ref = self.run("reference", scenario, *args)
+            assert rec == ref
+        return rec
+
+    def _families(self, P) -> dict:
+        if not self.families:
+            return {}
+        return {k: v for k, v in P.obs.REGISTRY.snapshot().items()
+                if k.startswith(self.families)}
+
+
+def moved(before: dict, after: dict) -> dict:
+    """What each family (a number, or a dict of labelled samples) moved
+    by between two registry snapshots; families that did not move are
+    left out.  Histogram samples (dicts) compare their ``count``."""
+    out = {}
+    for fam, now in after.items():
+        was = before.get(fam, {} if isinstance(now, dict) else 0)
+        if isinstance(now, dict):
+            d = {}
+            for lab, v in now.items():
+                w = was.get(lab, 0)
+                if isinstance(v, dict):
+                    v = v.get("count", 0)
+                    w = w.get("count", 0) if isinstance(w, dict) else w
+                if v != w:
+                    d[lab] = v - w
+        else:
+            d = now - was
+        if d:
+            out[fam] = d
+    return out
+
+
+def assert_covers(names, *reference_files) -> None:
+    """Every ``test_*`` function of the reference's ``reference_files``
+    (under ``tests/``) has a twin of the same name among ``names``."""
+    import ast
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ours = {n for n in names if n.startswith("test_")}
+    for ref in reference_files:
+        with open(os.path.join(here, ref)) as fh:
+            tree = ast.parse(fh.read())
+        want = {f.name for f in tree.body if isinstance(f, ast.FunctionDef)
+                and f.name.startswith("test_")}
+        assert want <= ours, (ref, sorted(want - ours))
 
 
 class PortOnCpu:

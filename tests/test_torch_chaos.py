@@ -34,7 +34,7 @@ import types
 import numpy as np
 import pytest
 
-from _torch_cluster_rig import NAMES, PKGS, PortOnCpu
+from _torch_cluster_rig import NAMES, PKGS, PortOnCpu, Twins
 
 CHAOS_SEED = int(os.environ.get("SPARKFSM_CHAOS_SEED", "1299827"))
 SCENARIO_DEADLINE_S = 300.0
@@ -115,22 +115,9 @@ def _bounded(P, fn):
                                         site="chaos.suite")
 
 
-_RECORDS: dict = {}
-
-
-def _held(pkg, scenario, *args):
-    """Run ``scenario(P, *args)`` for ``pkg``; the port's record must equal
-    the reference's (run here when the reference's case did not run in
-    this process)."""
-    key = (scenario.__name__,) + args
-    rec = scenario(C[pkg], *args)
-    _RECORDS.setdefault(key, {})[pkg] = rec
-    if pkg == "port":
-        ref = _RECORDS[key].get("reference")
-        if ref is None:
-            ref = scenario(C["reference"], *args)
-        assert rec == ref
-    return rec
+# run ``scenario(P, *args)`` for a package; the port's record must equal
+# the reference's
+_held = Twins(C).held
 
 
 def _delta(P, site, before):

@@ -18,7 +18,7 @@ import types
 
 import pytest
 
-from _torch_cluster_rig import NAMES, PKGS, PortOnCpu
+from _torch_cluster_rig import NAMES, PKGS, PortOnCpu, Twins
 
 
 def _ns(name):
@@ -44,42 +44,9 @@ def _on_cpu():
         yield
 
 
-_RECORDS: dict = {}
-
-
-def _held(pkg, scenario):
-    """Run ``scenario`` on ``pkg`` and record the integrity counters it
-    moved; the port's record must equal the reference's."""
-    P = C[pkg]
-    before = _integrity_counters(P)
-    rec = scenario(P)
-    rec["counters"] = _moved(before, _integrity_counters(P))
-    _RECORDS.setdefault(scenario.__name__, {})[pkg] = rec
-    if pkg == "port":
-        ref = _RECORDS[scenario.__name__].get("reference")
-        if ref is None:
-            ref = _held("reference", scenario)
-        assert rec == ref
-    return rec
-
-
-def _integrity_counters(P):
-    return {k: v for k, v in P.obs.REGISTRY.snapshot().items()
-            if k.startswith("fsm_integrity_")}
-
-
-def _moved(before, after):
-    out = {}
-    for fam, now in after.items():
-        was = before.get(fam, {} if isinstance(now, dict) else 0)
-        if isinstance(now, dict):
-            d = {lab: v - was.get(lab, 0) for lab, v in now.items()
-                 if v != was.get(lab, 0)}
-        else:
-            d = now - was
-        if d:
-            out[fam] = d
-    return out
+# the port's record must equal the reference's, with the integrity
+# counters each scenario moved
+_held = Twins(C, families=("fsm_integrity_",)).held
 
 
 def _quarantined(P, store):
@@ -237,7 +204,7 @@ def _spine_scenario(P):
 @pytest.mark.parametrize("pkg", NAMES)
 def test_merged_timeline_skips_and_counts_corrupt_chunks(pkg):
     assert {k: v for k, v in _held(pkg, _spine_scenario).items()
-            if k != "counters"} == {"corrupt": 2, "chunks": 1, "spans": [1],
+            if k != "moved"} == {"corrupt": 2, "chunks": 1, "spans": [1],
                                     "last": 2.0}
 
 
