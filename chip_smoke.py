@@ -132,8 +132,9 @@ Phases, one printed line each (any failure raises and exits non-zero):
      and through the plain evaluator, byte-identical; then a 1-rank NCCL
      world and a 2-rank gloo world whose ranks share the card.  Every rank mines, through the entry points with ``mesh=``:
      phase 5's BMS-WebView-2-shaped SPADE through ``auto`` (the queue
-     engine) and ``fused="never"``, phase 13's MSNBC-shaped SPAM (B1 on
-     the shard, the all-reduce, the threshold; B3 never), a tenth of
+     engine) and ``fused="never"``, MSNBC-shaped SPAM on a tenth of
+     phase 13's database (B1 on the shard, the all-reduce, the
+     threshold; B3 never), a tenth of
      phase 9's Kosarak-shaped TSR (B2; the host loop, never the resident
      route; held against a one-device mine of that tenth),
      phase 16's full-size Gazelle-shaped cSPADE and the first five pushes
@@ -141,7 +142,11 @@ Phases, one printed line each (any failure raises and exits non-zero):
      answer must equal the earlier phase's text (SHA-256 of the canonical
      text) on every rank.  Co-located ranks take the one-device pool
      budget divided by the ranks on the card, and the sum of their peaks
-     must fit the card.  ``[mesh]`` lines print per world and mine the
+     must fit the card.  Both worlds mine the SPAM path, its partitioned
+     SPAM and the stream's pushes on a tenth of phase 13's database, each
+     held against a one-device mine of that tenth, to keep the smoke
+     inside its time limit.  ``[mesh]`` lines print per world and mine
+     the
      route, each rank's B1/B2 launches and kernel time (CUDA events
      around each launch), the all-reduces' count and time, each rank's
      wall beside the one-device wall of the earlier phase, and each
@@ -344,6 +349,53 @@ Phases, one printed line each (any failure raises and exits non-zero):
      ``[planes]`` lines print the walls and counts with the card's name
      and power limit.  ``python3 chip_smoke.py --phase 28`` runs this
      phase alone on inputs made here through the library.
+ 29. the elastic fleet: three replicas (``chip_smoke.py --replica``,
+     ``--device cuda``, the engine pool split three ways), each reaching
+     one copied ``SnoopingMiniRedis`` through its own
+     ``utils/netproxy.NetProxy`` from boot, with ``[fairness]``
+     (``tenant_depth`` 4), ``[autoscale]`` (3 to 4 replicas), the store
+     guard, 2 s leases, faults and tracing on.  Every job is phase 5's
+     BMS-WebView-2-shaped SPADE at 0.1 % from a FILE source, every body
+     held to phase 5's by SHA-256.  (a) The tenant ``flood`` submits ten
+     jobs to A: those past its cap shed with 429 and a Retry-After whose
+     error names the tenant; the tenant ``quiet``'s three are admitted
+     meanwhile and finish.  (b) Four jobs on each replica, a tenant a
+     replica: the leader publishes a desired count of the live replicas
+     plus one, read through ``/admin/autoscale``.  (c) Four low-priority
+     jobs to C, then ``/admin/drain?exit=1``: C exits 0, A and B steal
+     its queue, each job settles once, ``/admin/cluster`` shrinks to two.
+     (d) ``tests/_torch_storm.py``'s round, seed 7001 and eight steps,
+     over A and B and their proxies, with phase 5's job and the same
+     database at 0.2 % as its templates; healed, the checker holds one
+     terminal status per accepted job, every finished body's text equal
+     to the library's, lease tokens that never fall, and no journal
+     intent, lease, admission marker or spool entry left.  (e) The
+     ``fsm_autoscale_*``, ``fsm_tenant_*``, ``fsm_replica_drains_*`` and
+     ``fsm_storeguard_*`` families are live on A and B.  ``[fleet]``
+     lines print the boots, each job's wall beside the library's, the
+     sheds, the decision and drain walls, the storm's events and
+     accounting, each replica's launches and peak.  ``python3
+     chip_smoke.py --phase 29`` runs this phase alone;
+ 30. the sources, the remote entry and the stream consumer: one child of
+     the service (``--remote-port`` set, ``[rescache]`` off).  (a) Phase
+     5's database as a sqlite ``clicks`` table read through a registered
+     field spec (``table=`` and ``query=``), as a Piwik ecommerce export
+     and as documents served by ``tests/_torch_minies.py`` (pages of
+     10,000): each ``/train`` of ``SPADE_TPU`` at 0.1 % gives a body equal
+     by SHA-256 to phase 5's.  (b) Over the actor protocol's socket: train
+     -> status -> get of phase 21's tenth Kosarak-shaped TSR (k = 100,
+     minconf 0.5, ``max_side=2``), its rules equal to the library's by
+     SHA-256; a ``get:prediction`` equal to ``predict_host``; a malformed
+     line, after which the connection still answers.  (c) Phase 17's
+     stream through a fake ``poll()``-shaped consumer (two partitions,
+     one multiline SPMF record a micro-batch, one poison record),
+     ``KafkaFetch(on_bad="skip")`` and ``PollConsumer`` into the port's
+     ``IncrementalWindowMiner``: the window after polls 1, 5 and 10 equal
+     to phase 17's by SHA-256, the poison record counted and
+     dead-lettered.  ``[sources]`` lines print the rows, each job's
+     ``dataset_s`` and ``mine_s`` beside the library's mine, the walls a
+     poll beside phase 17's pushes and B1's launches.  ``python3
+     chip_smoke.py --phase 30`` runs this phase alone.
 Then one JSON line with every kernel's numbers, and as the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 and prints no result.
@@ -351,6 +403,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import os
@@ -449,6 +502,10 @@ MESH_STREAM_PUSHES = 5
 # phase 21's Kosarak-shaped TSR: a tenth of phase 9's database (the
 # reduce's cost shows at that size; phases 9 and 22 mine the full one)
 MESH_KOSARAK_SCALE = 0.1
+# both worlds mine their MSNBC-shaped SPAM, partitioned SPAM and stream
+# pushes on a tenth of phase 13's database, held against one-device mines
+# of that tenth (phase 13 mines the full one, phase 22 partitions it)
+MESH_MSNBC_SCALE = 0.1
 # phases 21 and 22: the class partitions of the partitioned mines
 PARTITION_PARTS = 2
 # phase 26: the replicated service.  Its replicas' configs, logs, launch
@@ -481,6 +538,28 @@ BITROT_CHUNKS = 2
 PLANES_DIR = os.path.join(ROOT, "build", "smoke", "planes")
 PLANES_DOM_K = 50
 PLANES_DOM_MINSUP = 0.002
+# phase 29: the elastic fleet.  Its replicas' configs, logs, counts and
+# FILE source go under build/smoke/fleet/.  The storm's second job
+# template mines phase 5's database at phase 28's dominated minsup
+FLEET_DIR = os.path.join(ROOT, "build", "smoke", "fleet")
+FLEET_DOM_MINSUP = PLANES_DOM_MINSUP
+FLEET_STORM_SEED = 7001
+# phase 30: the sources, the remote entry and the stream consumer.  Its
+# child's files go under build/smoke/sources/; the poison record rides
+# the fourth poll
+SOURCES_DIR = os.path.join(ROOT, "build", "smoke", "sources")
+SOURCES_ES_PAGE = 10000
+STREAM_POISON_POLL = 3
+
+
+T_START = time.perf_counter()
+
+
+def clock(phase: int) -> None:
+    """One line as each phase of the whole run begins: the seconds since
+    the script started, so the log shows where the run's wall goes."""
+    print(f"[clock] phase {phase} begins at "
+          f"{time.perf_counter() - T_START:.1f} s", flush=True)
 
 
 def digest(text: str) -> str:
@@ -600,7 +679,7 @@ def mesh_rank(mesh, plan: dict) -> dict:
                                    partition_parts=parts, stats_out=st)
             return patterns_text(res), st
         run("part spade auto", spade_part)
-    db = gen("msnbc", lambda: msnbc_like(scale=1.0, fast=True))
+    db = gen("msnbc", lambda: msnbc_like(scale=MESH_MSNBC_SCALE, fast=True))
     minsup = abs_minsup(0.005, len(db))
 
     def spam(**kw):
@@ -643,6 +722,39 @@ def mesh_rank(mesh, plan: dict) -> dict:
     return out
 
 
+def _msnbc_tenth_texts(torch) -> dict:
+    """One-device mines of the mesh worlds' tenth of phase 13's database:
+    SPAM's digest and the first pushes' digests of phase 17's stream cut
+    the same way, with their walls."""
+    from spark_fsm_tpu_torch.data.synth import msnbc_like
+    from spark_fsm_tpu_torch.data.vertical import abs_minsup
+    from spark_fsm_tpu_torch.models.spam_bitmap import mine_spam_torch
+    from spark_fsm_tpu_torch.streaming import IncrementalWindowMiner
+    from spark_fsm_tpu_torch.utils.canonical import patterns_text
+
+    db = msnbc_like(scale=MESH_MSNBC_SCALE, fast=True)
+    minsup = abs_minsup(0.005, len(db))
+    out = {"want": {}, "walls": {}}
+    t0 = time.perf_counter()
+    got = mine_spam_torch(db, minsup)
+    torch.cuda.synchronize()
+    out["walls"]["spam"] = (round(time.perf_counter() - t0, 3),)
+    out["want"]["spam"] = digest(patterns_text(got))
+    per = len(db) // STREAM_PUSHES
+    inc = IncrementalWindowMiner(STREAM_MINSUP, max_batches=STREAM_KEEP)
+    for push in range(1, MESH_STREAM_PUSHES + 1):
+        t0 = time.perf_counter()
+        got = inc.push(db[(push - 1) * per:push * per])
+        torch.cuda.synchronize()
+        out["walls"][f"stream push {push}"] = (
+            round(time.perf_counter() - t0, 3),)
+        out["want"][f"stream push {push}"] = digest(patterns_text(got))
+    print(f"[mesh] msnbc_like(scale={MESH_MSNBC_SCALE}) on one device "
+          f"for the worlds: SPAM and {MESH_STREAM_PUSHES} pushes, walls "
+          f"{out['walls']}", flush=True)
+    return out
+
+
 def mesh_phase(torch, want: dict, single_walls: dict, card: str,
                bms_db, tenth: dict) -> dict:
     """Phase 21: both mesh worlds on the card, every rank's answers held
@@ -653,16 +765,19 @@ def mesh_phase(torch, want: dict, single_walls: dict, card: str,
     Returns the mesh path's B1 and B2 launches (rank 0 of each world)."""
     from spark_fsm_tpu_torch.data.synth import kosarak_like
     from spark_fsm_tpu_torch.models.tsr import mine_tsr_torch
+    from spark_fsm_tpu_torch.ops import rule_support as RS
     from spark_fsm_tpu_torch.parallel.launch import spawn_world
     from spark_fsm_tpu_torch.service import model as SM
     from spark_fsm_tpu_torch.utils.canonical import rules_text
 
     t_phase = time.perf_counter()
     db = kosarak_like(scale=MESH_KOSARAK_SCALE, fast=True)
+    b2 = RS.rule_supports.launches
     t0 = time.perf_counter()
     rules = mine_tsr_torch(db, 100, 0.5, max_side=2)
     torch.cuda.synchronize()
     wall = round(time.perf_counter() - t0, 3)
+    b2 = RS.rule_supports.launches - b2
     text = rules_text(rules)
     t0 = time.perf_counter()
     plain = rules_text(mine_tsr_torch(db, 100, 0.5, max_side=2,
@@ -677,8 +792,11 @@ def mesh_phase(torch, want: dict, single_walls: dict, card: str,
     want = dict(want, tsr=digest(text))
     single_walls = dict(single_walls, tsr=(wall,))
     tenth.update(db=db, payload=SM.serialize_rules(rules), wall=wall,
-                 digest=digest(text))
+                 digest=digest(text), b2=b2)
     del db, text, rules, plain
+    small = _msnbc_tenth_texts(torch)
+    want = dict(want, **small["want"])
+    single_walls = dict(single_walls, **small["walls"])
     total = torch.cuda.get_device_properties(0).total_memory
     torch.cuda.empty_cache()
     launched = {}
@@ -1049,9 +1167,12 @@ def partition_phase(torch, inputs: dict, want: dict, single_walls: dict,
     return launched
 
 
-def start_child(script: str, *args) -> subprocess.Popen:
+def start_child(script: str, *args, nice: int = 10) -> subprocess.Popen:
+    """A CPU oracle in a child process, niced by default: it runs beside
+    the card phases, which are on the smoke's critical path."""
     return subprocess.Popen(
-        [sys.executable, "-c", script, *map(str, args)],
+        [sys.executable, "-c", f"import os; os.nice({nice})\n" + script,
+         *map(str, args)],
         cwd=os.path.dirname(os.path.abspath(__file__)),
         stdout=subprocess.PIPE, text=True)
 
@@ -1088,6 +1209,63 @@ print(f"{time.perf_counter() - t0:.3f}")
 print(patterns_text(res), end="")
 """
 SPADE_ORACLES = (("bms", 0.001), ("msnbc", 0.005))
+# TSR's copied CPU oracle (mine_tsr_cpu, k=100, minconf 0.5) on the 1 %
+# Kosarak-shaped database of phases 10 (max_side 2) and 15 (max_side
+# None), in child processes started at the top: the wall first, then the
+# canonical rule text
+TSR_ORACLE = r"""
+import sys, time
+from spark_fsm_tpu_torch.data.synth import kosarak_like
+from spark_fsm_tpu_torch.models.tsr import mine_tsr_cpu
+from spark_fsm_tpu_torch.utils.canonical import rules_text
+side = None if sys.argv[1] == "None" else int(sys.argv[1])
+db = kosarak_like(scale=0.01, fast=True)
+t0 = time.perf_counter()
+res = mine_tsr_cpu(db, 100, 0.5, max_side=side)
+print(f"{time.perf_counter() - t0:.3f}")
+print(rules_text(res), end="")
+"""
+TSR_ORACLE_SIDES = (2, None)
+# phases 5, 9 and 13's full-size databases, made from their seeds in a
+# child process started at the top (their generators are pure Python;
+# BMS-WebView-2's alone takes about 20 s) and pickled, in the order the
+# phases need them, under DATA_DIR; one line a database: its name and
+# its generator's wall
+DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "smoke", "data")
+DATA_MAKER = r"""
+import os, pickle, sys, time
+from spark_fsm_tpu_torch.data.synth import (
+    bms_webview2_like, kosarak_like, msnbc_like)
+for name, make in (("bms", bms_webview2_like),
+                   ("kosarak", lambda: kosarak_like(scale=1.0, fast=True)),
+                   ("msnbc", lambda: msnbc_like(scale=1.0, fast=True))):
+    t0 = time.perf_counter()
+    db = make()
+    gen_s = time.perf_counter() - t0
+    path = os.path.join(sys.argv[1], name + ".pkl")
+    with open(path + ".tmp", "wb") as fh:
+        pickle.dump(db, fh, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(path + ".tmp", path)
+    print(name, f"{gen_s:.3f}", flush=True)
+"""
+
+
+def take_made(proc: subprocess.Popen, name: str) -> tuple:
+    """The database ``name`` from the DATA_MAKER child, once it has
+    announced it (the child makes them in the phases' order): (database,
+    the generator's wall in the child)."""
+    import pickle
+
+    line = proc.stdout.readline().split()
+    check(line[:1] == [name], f"the data child announced {line}, not "
+          f"{name} (exit code {proc.poll()})")
+    gc.disable()   # millions of fresh tuples: no collection while loading
+    try:
+        with open(os.path.join(DATA_DIR, f"{name}.pkl"), "rb") as fh:
+            return pickle.load(fh), float(line[1])
+    finally:
+        gc.enable()
 
 
 def collect_oracle(proc: subprocess.Popen, what: str):
@@ -1099,9 +1277,13 @@ def collect_oracle(proc: subprocess.Popen, what: str):
     return float(secs), text
 
 
-def check(cond: bool, msg: str) -> None:
+def check(cond: bool, msg) -> None:
+    """Fail the run unless ``cond``.  ``msg`` is the text, or a function
+    that makes it: a costly diagnosis (a CPU re-mine to diff against) is
+    then made only when the check fails."""
     if not cond:
-        raise RuntimeError(f"chip_smoke check failed: {msg}")
+        raise RuntimeError("chip_smoke check failed: "
+                           + (msg() if callable(msg) else msg))
 
 
 def smi(query: str) -> str:
@@ -1111,13 +1293,20 @@ def smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def rand_words(rng, *shape) -> np.ndarray:
-    """Sparse-ish uint32 words, with bit 31 forced on in a tenth of them."""
-    w = (rng.integers(0, 2**32, shape, dtype=np.uint32)
-         & rng.integers(0, 2**32, shape, dtype=np.uint32)
-         & rng.integers(0, 2**32, shape, dtype=np.uint32))
-    top = rng.random(shape) < 0.1
-    return w | (top.astype(np.uint32) << np.uint32(31))
+def rand_words(gen, *shape):
+    """Sparse-ish 32-bit words (int32 holding a uint32's bits), with bit
+    31 forced on in a tenth of them, made where the torch generator
+    ``gen`` lives: on the card, the largest operands take milliseconds
+    where numpy took seconds."""
+    import torch
+
+    def uniform():
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int32,
+                             device=gen.device, generator=gen)
+
+    top = torch.rand(shape, device=gen.device, generator=gen) < 0.1
+    return (uniform() & uniform() & uniform()) | torch.bitwise_left_shift(
+        top.to(torch.int32), 31)
 
 
 def pair_bound_ms(P: int, NI: int, S: int, W: int, n_live: int = None):
@@ -1836,12 +2025,17 @@ def _b2_on(torch, p1, s1, rows: int, C: int, km: int, seed: int):
 
 def fusion_phase(torch, card: str, kos_db, kos_vdb, kos_payload: str,
                  kos_digest: str, ms_db, ms_payload: str,
-                 solo_launches: dict, headline: tuple) -> None:
-    """Phase 24 (b) and (c).  ``kos_*``: phase 9's Kosarak-shaped database,
-    vertical DB, library result's serialization and the SHA-256 of its
-    rule text; ``ms_*``: phase 13's MSNBC-shaped database and its TSR
-    library result (k=100, minconf 0.5, ``max_side=2``); ``headline``:
-    (C, km) of phase 8's headline launch."""
+                 solo_b2: int, headline: tuple) -> None:
+    """Phase 24 (b) and (c).  The fused pairs mine tenths, as phase 21's
+    worlds do (at full size each job spent most of its wall building its
+    vertical DB): ``kos_db``, ``kos_payload`` and ``solo_b2`` are phase
+    21's tenth of the Kosarak-shaped database, its library result's
+    serialization and that mine's B2 launches; ``ms_*`` a tenth of phase
+    13's MSNBC-shaped database and its TSR library result (k=100, minconf
+    0.5, ``max_side=2``).  ``kos_vdb`` and ``kos_digest``: phase 9's
+    full-size vertical DB and the SHA-256 of its rule text, for the
+    full-size fused store and the OOM drill on the kernel path;
+    ``headline``: (C, km) of phase 8's headline launch."""
     from spark_fsm_tpu_torch import config as TC
     from spark_fsm_tpu_torch.models.tsr import TsrTorch
     from spark_fsm_tpu_torch.ops import rule_support as RS
@@ -1876,12 +2070,12 @@ def fusion_phase(torch, card: str, kos_db, kos_vdb, kos_payload: str,
         wall, delta, cross, b2 = _fused_pair(
             torch, srv.server_port, b, ("fuse-a", "fuse-b"),
             dict(tsr, db="kosarak"), kos_payload)
-        print(f"[fusion] two kosarak_like TSR jobs at once (k=100, minconf "
-              f"0.5, max_side=2), both bodies equal phase 9's library result "
-              f"by SHA-256; release-to-both-finished {wall:.3f} s; broker "
-              f"{delta}; cross-job launches {cross}; B2 launches {b2} "
-              f"against the solo job's {solo_launches.get('b2')} in phase "
-              f"23; card {card}", flush=True)
+        print(f"[fusion] two kosarak_like(scale={MESH_KOSARAK_SCALE}) TSR "
+              f"jobs at once (k=100, minconf 0.5, max_side=2), both bodies "
+              f"equal phase 21's library result by SHA-256; "
+              f"release-to-both-finished {wall:.3f} s; broker {delta}; "
+              f"cross-job launches {cross}; B2 launches {b2} against the "
+              f"library mine's {solo_b2}; card {card}", flush=True)
         # the MSNBC-shaped pair: 17 items, so a wave's candidates leave
         # its launches part-filled and the cost model fuses
         kept.clear()
@@ -1895,8 +2089,9 @@ def fusion_phase(torch, card: str, kos_db, kos_vdb, kos_payload: str,
         err, _ = _b2_on(torch, pf, sf, total_m, C, km, 24)
         check(err == 0, f"B2 on the broker's fused store != plain (max abs "
               f"err {err})")
-        print(f"[fusion] two msnbc_like TSR jobs at once (k=100, minconf "
-              f"0.5, max_side=2), both bodies equal the library result by "
+        print(f"[fusion] two msnbc_like(scale={MESH_MSNBC_SCALE}) TSR jobs "
+              f"at once (k=100, minconf 0.5, max_side=2), both bodies equal "
+              f"the library result by "
               f"SHA-256; release-to-both-finished {wall:.3f} s; broker "
               f"{delta}; cross-job launches {cross}; B2 launches {b2}; a "
               f"fused store the broker built (M={pf.shape[0] - 1}, "
@@ -1917,7 +2112,8 @@ def fusion_phase(torch, card: str, kos_db, kos_vdb, kos_payload: str,
               f"launch: cross-job launches {cross}, degraded_launches "
               f"{halved}")
         print(f"[fusion] OOM drill on a fused launch: device.oom injected on "
-              f"the broker's first launch of the msnbc_like pair; "
+              f"the broker's first launch of the msnbc_like(scale="
+              f"{MESH_MSNBC_SCALE}) pair; "
               f"degraded_launches {halved}, cross-job launches {cross}, both "
               f"bodies equal the library result by SHA-256; "
               f"release-to-both-finished {wall:.3f} s; broker {delta}; B2 "
@@ -2121,11 +2317,11 @@ def _world_drill_phase(card: str, want: str, healthy) -> None:
           flush=True)
 
 
-def _serve_world(card: str, inp: dict, texts: list) -> None:
-    """Phase 25 (b), second half: a service booted with ``[engine]
-    mesh_devices = 2`` through the launcher (two ranks sharing the card),
-    the BMS SPADE and the tenth-of-Kosarak TSR as ``/train`` jobs and the
-    stream's first pushes."""
+def _world_service_boot(inp: dict) -> tuple:
+    """Phase 25 (b)'s service with ``[engine] mesh_devices = 2``: its FILE
+    sources written, then the service booted through the launcher (two
+    ranks sharing the card).  Returns ``_service_child``'s (process,
+    port, boot wall, log path) and the sources' paths."""
     from spark_fsm_tpu_torch.data.spmf import format_spmf
     from spark_fsm_tpu_torch.models._common import auto_pool_bytes
 
@@ -2141,12 +2337,33 @@ def _serve_world(card: str, inp: dict, texts: list) -> None:
             fh.write(format_spmf(db))
     # co-located ranks split the one-device pool budget, as in phase 21
     pool = auto_pool_bytes(torch.device("cuda", 0)) // 2
-    proc, port, boot_s, log_path = _service_child("mesh-world", {
-        "engine": {"mesh_devices": 2, "pool_bytes": pool}})
+    return _service_child("mesh-world", {
+        "engine": {"mesh_devices": 2, "pool_bytes": pool}}) + (files,)
+
+
+def _stop_service(proc: subprocess.Popen):
+    """SIGTERM to a service child (rank 0 ends its world), then wait;
+    returns the exit code, None if it had to be killed."""
+    proc.terminate()
+    try:
+        return proc.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        return None
+
+
+def _serve_world(card: str, inp: dict, texts: list, booting) -> None:
+    """Phase 25 (b), second half: the service that ``booting`` (a future
+    of ``_world_service_boot``, started with the phase) booted takes the
+    BMS SPADE and the tenth-of-Kosarak TSR as ``/train`` jobs and the
+    stream's first pushes."""
+    proc, port, boot_s, log_path, files = booting.result()
     try:
         print(f"[world] service with [engine] mesh_devices = 2 booted "
-              f"through the launcher in {boot_s:.3f} s (two ranks on the "
-              f"card, gloo; rank 1 binds no port)", flush=True)
+              f"through the launcher in {boot_s:.3f} s, beside (a) and the "
+              f"drill's world (two ranks on the card, gloo; rank 1 binds no "
+              f"port)", flush=True)
         for uid, params, get, want, lib_s in (
                 ("world-bms", dict(algorithm="SPADE_TPU",
                                    support=str(inp["bms"][1]), source="FILE",
@@ -2190,13 +2407,7 @@ def _serve_world(card: str, inp: dict, texts: list) -> None:
               f"devices {admin['devices']}, backend {admin['backend']!r}",
               flush=True)
     finally:
-        proc.terminate()
-        try:
-            rc = proc.wait(timeout=120)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-            rc = None
+        rc = _stop_service(proc)
     with open(log_path) as fh:
         log = fh.read()
     check(rc == 0, f"the world service exited with {rc}:\n{log[-2000:]}")
@@ -2290,12 +2501,23 @@ def mesh_service_phase(torch, card: str, inp: dict) -> None:
     with its library serialization and wall (``tenth``); phase 17's
     batches' SPMF texts (``stream texts``), each push's serialization
     digest and wall (``stream``), the batch size and item count."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t_phase = time.perf_counter()
     texts = inp["stream texts"]
-    _adoption_one_process(torch, card, inp)
-    torch.cuda.empty_cache()
-    _world_drill_phase(card, inp["tenth"][3], inp["world part tsr"])
-    _serve_world(card, inp, texts)
+    # (b)'s service boots while (a) and the drill's world run
+    boot = ThreadPoolExecutor(1)
+    booting = boot.submit(_world_service_boot, inp)
+    boot.shutdown(wait=False)
+    try:
+        _adoption_one_process(torch, card, inp)
+        torch.cuda.empty_cache()
+        _world_drill_phase(card, inp["tenth"][3], inp["world part tsr"])
+    except BaseException:
+        if booting.exception() is None:
+            _stop_service(booting.result()[0])
+        raise
+    _serve_world(card, inp, texts, booting)
     torch.cuda.empty_cache()
     _stream_service(torch, card, inp, texts)
     print(f"[meshguard] phase 25 {time.perf_counter() - t_phase:.1f} s; "
@@ -2402,7 +2624,8 @@ class Replica:
     through ``chip_smoke.py --replica``); its boot config, log and launch
     counts live under ``build/smoke/replica/``."""
 
-    def __init__(self, name: str, cfg: dict, where: str = REPLICA_DIR):
+    def __init__(self, name: str, cfg: dict, where: str = REPLICA_DIR,
+                 extra: tuple = ()):
         self.name = name
         self.port = _free_port()
         self.cfg_path = os.path.join(where, f"{name}.json")
@@ -2418,7 +2641,7 @@ class Replica:
             self.proc = subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--replica",
                  self.counts_path, "--config", self.cfg_path, "--device",
-                 "cuda", "--port", str(self.port)],
+                 "cuda", "--port", str(self.port), *extra],
                 stdout=log, stderr=subprocess.STDOUT, cwd=ROOT)
 
     def log(self) -> str:
@@ -2732,6 +2955,7 @@ def _failover_drill(card: str, inp: dict, pool: int) -> None:
         rc = b.stop()
         client.close()
         mini.close()
+        _heartbeats((a, b), "phase 26 (a)")
     check(rc == 0, f"replica B exited with {rc}:\n{b.log()[-2000:]}")
 
 
@@ -2850,6 +3074,10 @@ def _restart_and_outage_drills(card: str, inp: dict, pool: int) -> None:
             return sg if (sg.get("state") == "down"
                           and sg.get("stalled_jobs", 0) >= 1) else None
 
+        # /admin/health's store reads wait out their timeouts during the
+        # outage, so it is read once C' has logged the stall: a read
+        # begun earlier could end just before it and cost one more
+        _wait(lambda: '"storeguard_stall"' in c2.log(), "C' to log the stall")
         sg = _wait(stalled, "r-outage to stall")
         t_stall = time.perf_counter()
         check(client.get("fsm:status:r-outage") not in ("finished", "failure"),
@@ -3050,6 +3278,63 @@ def _fleet_drill(card: str, inp: dict, pool: int) -> None:
         mini.close()
 
 
+def _host_load(tag: str) -> None:
+    """Print the host's load and its busiest processes: the replica
+    phases' leases last 2 s, so a host busy elsewhere shows here."""
+    top = subprocess.run(
+        ["ps", "-eo", "pid,ppid,pcpu,rss,etime,args", "--sort=-pcpu"],
+        capture_output=True, text=True).stdout.splitlines()[:6]
+    print(f"[host] {tag}: load average {os.getloadavg()}, {os.cpu_count()} "
+          f"cores; busiest: " + " | ".join(line.strip()[:120]
+                                           for line in top[1:]), flush=True)
+
+
+class _GcPauses:
+    """This process's garbage collections while installed: it serves the
+    replicas' store, which answers nobody while a collection runs."""
+
+    def __init__(self):
+        self.n, self.longest, self._t0 = 0, 0.0, None
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.n += 1
+            self.longest = max(self.longest, time.perf_counter() - self._t0)
+            self._t0 = None
+
+    def install(self) -> "_GcPauses":
+        if self not in gc.callbacks:
+            gc.callbacks.append(self)
+        return self
+
+
+STORE_GC = _GcPauses()
+
+
+def _heartbeats(reps, tag: str) -> None:
+    """Print each replica's late heartbeats (the port logs a beat that
+    comes later than half the lease TTL after the one before, with the
+    wall of the tick before it) beside the store process's collections."""
+    parts = []
+    for rep in reps:
+        late = []
+        for line in rep.log().splitlines():
+            if '"lease_heartbeat_late"' in line:
+                try:
+                    ev = json.loads(line[line.index("{"):])
+                except ValueError:
+                    continue
+                late.append((ev["gap_s"], ev["tick_s"]))
+        parts.append(f"{rep.name} {len(late)} late" + (
+            "" if not late else
+            f", longest gap {max(late)[0]} s after a {max(late)[1]} s tick"))
+    print(f"[host] {tag} heartbeats: {'; '.join(parts)}; the store's "
+          f"process collected garbage {STORE_GC.n} times, the longest "
+          f"{STORE_GC.longest:.3f} s", flush=True)
+
+
 def replica_phase(torch, card: str, inp: dict) -> None:
     """Phase 26: the replicated service.  ``inp``: phase 5's database and
     minsup (``bms``), serialization (``bms payload``) and walls (``bms
@@ -3061,6 +3346,8 @@ def replica_phase(torch, card: str, inp: dict) -> None:
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
+    _host_load("phase 26")
+    STORE_GC.install()
     os.makedirs(REPLICA_DIR, exist_ok=True)
     # FILE sources: both replicas read them on this host (a body of
     # 990,000 sequences inline would be parsed from the HTTP request);
@@ -3906,6 +4193,627 @@ def phase28_only(torch) -> int:
     return 0
 
 
+def _storm_helpers():
+    """``tests/_torch_storm.py`` and ``tests/_torch_minies.py`` (neither
+    imports jax or the reference)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _torch_minies
+    import _torch_storm
+
+    return _torch_storm, _torch_minies
+
+
+def _fleet_cfg(store_port: int, pool: int) -> dict:
+    """A phase-29 replica: ``scripts/autoscale_smoke.py``'s [fairness] and
+    [autoscale] beside ``scripts/storm_smoke.py``'s store guard, leases,
+    faults and tracing, the store reached at ``store_port``."""
+    return {"fault_injection": True,
+            "service": {"port": 0, "miner_workers": 1, "queue_depth": 16},
+            "store": {"backend": "redis", "host": "127.0.0.1",
+                      "port": store_port, "timeout_s": 1.0},
+            # the leader counts the rows of heartbeats younger than one
+            # heartbeat (at least 0.5 s): beats of 0.25 s keep a busy
+            # replica's row in its view
+            "cluster": {"enabled": True, "lease_ttl_s": REPLICA_TTL_S,
+                        "heartbeat_s": 0.25,
+                        "recover_every_s": REPLICA_RECOVER_S},
+            "storeguard": {"enabled": True, "probe_every_s": 0.25,
+                           "down_after": 1, "spool_max_entries": 4096,
+                           "stall_max_s": 120.0},
+            "observability": {"trace": True, "spine_flush_spans": 8},
+            "fairness": {"enabled": True, "tenant_depth": 4},
+            "autoscale": {"enabled": True, "min_replicas": 3,
+                          "max_replicas": 4, "up_queue_per_worker": 1.0,
+                          "hold_s": 0.5, "cooldown_s": 2.0,
+                          "decide_every_s": 0.25, "leader_ttl_s": 1.0,
+                          "drain_timeout_s": 120.0},
+            "engine": {"fused": "queue", "pool_bytes": pool}}
+
+
+def _submit_all(port: int, jobs: list, job: dict) -> tuple:
+    """POST each (uid, extra parameters) in ``jobs`` to ``port``'s /train
+    with ``job``'s parameters: (submit times of the admitted uids, the
+    sheds as (uid, Retry-After, error))."""
+    t_submit, sheds = {}, []
+    for uid, extra in jobs:
+        t = time.perf_counter()
+        code, retry_after, body = _post_code(port, "/train", uid=uid,
+                                             **job, **extra)
+        if code == 429:
+            sheds.append((uid, retry_after, body["data"].get("error", "")))
+        else:
+            check(code == 200 and body["status"] == "started",
+                  f"/train {uid}: {code} {body}")
+            t_submit[uid] = t
+    return t_submit, sheds
+
+
+def _fleet_walls(port: int, t_submit: dict, payload: str) -> list:
+    """Each uid's submit-to-finished wall, every body SHA-256 == payload."""
+    walls = _finish_walls(port, t_submit, {u: ("patterns", payload)
+                                           for u in t_submit})
+    return [round(walls[u], 3) for u in t_submit]
+
+
+def fleet_boot(torch, inp: dict) -> dict:
+    """Phase 29's FILE source, store (a SnoopingMiniRedis served from
+    this process), one NetProxy a replica and the three replicas,
+    started and not waited for: the whole run starts them before phase
+    28, so they boot beside it.  ``inp``: phase 5's database
+    (``bms``)."""
+    from spark_fsm_tpu_torch.data.spmf import format_spmf
+    from spark_fsm_tpu_torch.models._common import auto_pool_bytes
+    from spark_fsm_tpu_torch.service.resp import RespClient
+    from spark_fsm_tpu_torch.utils.netproxy import NetProxy
+
+    os.makedirs(FLEET_DIR, exist_ok=True)
+    path = os.path.join(FLEET_DIR, "bms.spmf")
+    with open(path, "w") as fh:
+        fh.write(format_spmf(inp["bms"][0]))
+    pool = auto_pool_bytes(torch.device("cuda", 0)) // 3
+    mini = _trigger_redis()
+    proxies = [NetProxy("127.0.0.1", mini.port) for _ in range(3)]
+    reps = [Replica(f"fleet-{n}", _fleet_cfg(p.port, pool), FLEET_DIR)
+            for n, p in zip("abc", proxies)]
+    return {"path": path, "pool": pool, "mini": mini, "proxies": proxies,
+            "client": RespClient(port=mini.port),   # straight to the store
+            "reps": reps}
+
+
+def fleet_stop(fleet: dict) -> list:
+    """Stop what :func:`fleet_boot` started; the replicas' exit codes."""
+    rcs = [r.stop() for r in fleet["reps"]]
+    for p in fleet["proxies"]:
+        p.close()
+    fleet["client"].close()
+    fleet["mini"].close()
+    return rcs
+
+
+def fleet_phase(torch, card: str, inp: dict, fleet: dict = None) -> None:
+    """Phase 29: the elastic fleet (A19, then A20, on one fleet).  ``inp``:
+    phase 5's database and minsup (``bms``), serialization (``bms
+    payload``) and library walls (``bms wall``); ``fleet``:
+    :func:`fleet_boot`'s result when the fleet was started earlier."""
+    from spark_fsm_tpu_torch.data.vertical import abs_minsup
+    from spark_fsm_tpu_torch.models.spade import mine_spade_torch
+    from spark_fsm_tpu_torch.service import model as SM
+    from spark_fsm_tpu_torch.utils.canonical import patterns_text
+
+    storm, _ = _storm_helpers()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    _host_load("phase 29")
+    STORE_GC.install()
+    early = fleet is not None
+    fleet = fleet or fleet_boot(torch, inp)
+    bms, minsup = inp["bms"]
+    path, pool, client = fleet["path"], fleet["pool"], fleet["client"]
+    mini, proxies, reps = fleet["mini"], fleet["proxies"], fleet["reps"]
+    A, B, C = reps
+    lib = inp["bms wall"]
+    try:
+        # the storm's second template, phase 28's dominated minsup: its
+        # library text, mined while the replicas boot
+        dom = abs_minsup(FLEET_DOM_MINSUP, len(bms))
+        t0 = time.perf_counter()
+        dom_text = patterns_text(mine_spade_torch(bms, dom))
+        torch.cuda.synchronize()
+        dom_s = time.perf_counter() - t0
+        for r in reps:
+            r.ready()
+        _wait(lambda: _http(A.port, "/admin/cluster").get(
+            "totals", {}).get("replicas") == 3, "the fleet of three")
+        print(f"[fleet] phase 29: replicas a, b, c (--device cuda, pool "
+              f"{pool} B each, each behind its own NetProxy to one "
+              f"SnoopingMiniRedis) answered "
+              f"{[round(r.boot_s, 3) for r in reps]} s after their start"
+              f"{' (beside phase 28)' if early else ''}; ids "
+              f"{[r.rid for r in reps]}; the 0.2 % library mine "
+              f"{dom_s:.3f} s; card {card}", flush=True)
+        job = dict(algorithm="SPADE_TPU", source="FILE", path=path,
+                   support=str(minsup))
+
+        # (a) fairness: flood's ten past its cap of 4 shed with its own
+        # Retry-After; quiet's three are admitted and served with parity
+        t_a, sheds = _submit_all(A.port, [
+            (f"flood-{i}", {"tenant": "flood"}) for i in range(10)], job)
+        check(sheds, "the flood tenant never hit its cap")
+        for uid, retry_after, error in sheds:
+            check(retry_after is not None and retry_after.isdigit()
+                  and int(retry_after) >= 1 and "tenant 'flood'" in error,
+                  f"shed {uid}: Retry-After {retry_after!r} {error!r}")
+        t_q, quiet_sheds = _submit_all(A.port, [
+            (f"quiet-{i}", {"tenant": "quiet"}) for i in range(3)], job)
+        check(not quiet_sheds, f"the quiet tenant was shed: {quiet_sheds}")
+        walls = _fleet_walls(A.port, {**t_a, **t_q}, inp["bms payload"])
+        print(f"[fleet] (a) fairness: flood admitted {len(t_a)} and shed "
+              f"{len(sheds)} (429, Retry-After {[s[1] for s in sheds]} s, "
+              f"\"{sheds[0][2][:60]}...\"); quiet admitted 3 during the "
+              f"flood; every body SHA-256 == phase 5's; submit-to-finished "
+              f"flood {walls[:len(t_a)]} s, quiet {walls[len(t_a):]} s "
+              f"against the library's {lib} s; card {card}", flush=True)
+
+        # (b) scale-up: four jobs on each replica, a tenant a replica
+        seq0 = max(int((_http(r.port, "/admin/autoscale").get("desired")
+                        or {}).get("seq", 0)) for r in reps)
+        t_load = time.perf_counter()
+        t_b = {}
+        for name, r in zip("ABC", reps):
+            got, shed_b = _submit_all(r.port, [
+                (f"load-{name}-{i}", {"tenant": f"bulk{name}"})
+                for i in range(4)], job)
+            check(not shed_b, f"load on {name} was shed: {shed_b}")
+            t_b.update(got)
+        decision = None
+        while decision is None:
+            for r in reps:
+                d = _http(r.port, "/admin/autoscale").get("desired") or {}
+                if d.get("dir") == "up" and int(d.get("seq", 0)) > seq0:
+                    decision = d
+                    break
+            check(time.perf_counter() - t_load < REPLICA_WAIT_S,
+                  "no scale-up decision under the load")
+            time.sleep(0.05)
+        decide_s = time.perf_counter() - t_load
+        check(decision["desired"] == decision["replicas"] + 1
+              and 2 <= decision["replicas"] <= 3
+              and decision["desired"] <= 4,
+              f"the scale-up decision {decision}")
+        walls = _fleet_walls(A.port, t_b, inp["bms payload"])
+        print(f"[fleet] (b) scale-up: leader {decision['leader']} published "
+              f"desired {decision['desired']} over {decision['replicas']} "
+              f"live replicas ({decision['reason']!r}) {decide_s:.3f} s "
+              f"after the first load submit; the 12 load jobs' bodies "
+              f"SHA-256 == phase 5's, submit-to-finished {walls} s; "
+              f"card {card}", flush=True)
+
+        # (c) forced scale-down: C drains its queue to A and B and exits
+        steals0 = sum(_series(r.port, "fsm_steal_attempts_total",
+                              'outcome="stolen"') for r in (A, B))
+        t_c, shed_c = _submit_all(C.port, [
+            (f"drain-{i}", {"tenant": "quiet", "priority": "low"})
+            for i in range(4)], job)
+        check(not shed_c, f"the drain jobs were shed: {shed_c}")
+        t_drain = time.perf_counter()
+        code, _, body = _post_code(C.port, "/admin/drain", exit="1")
+        check(code == 200 and body["status"] == "draining",
+              f"/admin/drain: {code} {body}")
+        try:
+            rc = C.proc.wait(timeout=REPLICA_WAIT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        drain_s = time.perf_counter() - t_drain
+        check(rc == 0, f"the drained replica C exited with {rc}:\n"
+              f"{C.log()[-2000:]}")
+        walls = _fleet_walls(A.port, t_c, inp["bms payload"])
+        for uid in t_c:
+            check(_terminals(client, uid) == ["finished"],
+                  f"{uid} settled {_terminals(client, uid)}")
+        steals = sum(_series(r.port, "fsm_steal_attempts_total",
+                             'outcome="stolen"') for r in (A, B)) - steals0
+        _wait(lambda: _http(A.port, "/admin/cluster").get(
+            "totals", {}).get("replicas") == 2, "the fleet view of two")
+        c_counts = C.counts()
+        print(f"[fleet] (c) forced scale-down: C took 4 low-priority jobs, "
+              f"drained and exited rc 0 {drain_s:.3f} s after the drain "
+              f"request; A and B stole {steals:g}; each job settled once, "
+              f"bodies SHA-256 == phase 5's, submit-to-finished {walls} s; "
+              f"/admin/cluster shows 2 replicas; C launched B1 "
+              f"{c_counts['b1']} times, peak {c_counts['peak']} B; "
+              f"card {card}", flush=True)
+
+        # (d) the seeded storm on the survivors and their proxies
+        templates = [(job, patterns_text(SM.deserialize_patterns(
+                          inp["bms payload"]))),
+                     (dict(job, support=str(dom)), dom_text)]
+        accepted, oracles = set(), {}
+        t_storm = time.perf_counter()
+
+        def say(msg):
+            print(f"[fleet] (d) {msg}", flush=True)
+
+        shed_d, events = storm.storm_round(
+            proxies[:2], [A.port, B.port], FLEET_STORM_SEED, templates,
+            accepted, oracles, log=say)
+        out = storm.check_invariants(
+            client, accepted, oracles, [A.port, B.port], mini.lease_sets,
+            f"seed {FLEET_STORM_SEED}", log=say, quiesce_s=REPLICA_WAIT_S)
+        check(out["parity_ok"] >= 1, f"no storm job finished: {out}")
+        check(not client.keys("fsm:admission:*"),
+              "an admission marker was left after the storm")
+        print(f"[fleet] (d) storm seed {FLEET_STORM_SEED}, "
+              f"{storm.STORM_STEPS} steps over A and B: events {events}; "
+              f"accepted {out['accepted']}, shed {shed_d}; every accepted "
+              f"job settled once, every finished body's text == the "
+              f"library's (SHA-256) ({out['parity_ok']}), lease tokens "
+              f"never fell ({out['lease_sets']} lease writes), zero journal "
+              f"intents, leases, admission markers and spool entries; "
+              f"fence rejections {out['fence_rejections']}, replays ok "
+              f"{out['replays_ok']}, replays refused "
+              f"{out['replays_refused']}, stalls {out['stalls']}; the round "
+              f"and its checks {time.perf_counter() - t_storm:.1f} s; card "
+              f"{card}", flush=True)
+
+        # (e) the planes' families on the survivors
+        fams = ("fsm_autoscale_leader", "fsm_autoscale_desired_replicas",
+                "fsm_autoscale_evals_total", "fsm_autoscale_decisions_total",
+                "fsm_tenant_queue_depth", "fsm_tenant_admitted_total",
+                "fsm_tenant_sheds_total", "fsm_tenant_dequeued_total",
+                "fsm_replica_drains_total", "fsm_storeguard_probes_total",
+                "fsm_storeguard_spool_entries", "fsm_storeguard_replays_total",
+                "fsm_storeguard_stalls_total",
+                "fsm_storeguard_transitions_total")
+        for r in (A, B):
+            text = storm.scrape(r.port)
+            for fam in fams:
+                storm.series_sum(text, fam)
+        flood_sheds = _series(A.port, "fsm_tenant_sheds_total",
+                              'tenant="flood"')
+        check(flood_sheds >= len(sheds),
+              f"fsm_tenant_sheds_total{{tenant=flood}} {flood_sheds}")
+        counts = [r.counts() for r in (A, B)]
+    finally:
+        rcs = fleet_stop(fleet)
+        _heartbeats(reps, "phase 29")
+    check(rcs[:2] == [0, 0], f"the survivors exited with {rcs[:2]}")
+    print(f"[fleet] (e) {len(fams)} fsm_autoscale_*, fsm_tenant_*, "
+          f"fsm_replica_drains_* and fsm_storeguard_* families live on A "
+          f"and B (flood sheds on A {flood_sheds:g}); launches B1/B2/B3 "
+          f"and peak: A {counts[0]}, B {counts[1]}, C {c_counts}; phase 29 "
+          f"{time.perf_counter() - t_phase:.1f} s; card {card}", flush=True)
+
+
+def _bms_inputs(torch) -> dict:
+    """Phase 5's database, minsup, serialization and wall, through the
+    library."""
+    from spark_fsm_tpu_torch.data.synth import bms_webview2_like
+    from spark_fsm_tpu_torch.data.vertical import abs_minsup
+    from spark_fsm_tpu_torch.models.spade import mine_spade_torch
+    from spark_fsm_tpu_torch.service import model as SM
+
+    bms = bms_webview2_like()
+    minsup = abs_minsup(0.001, len(bms))
+    t1 = time.perf_counter()
+    got = mine_spade_torch(bms, minsup)
+    torch.cuda.synchronize()
+    return {"bms": (bms, minsup), "bms payload": SM.serialize_patterns(got),
+            "bms wall": (round(time.perf_counter() - t1, 3),)}
+
+
+def phase29_only(torch) -> int:
+    """``python3 chip_smoke.py --phase 29``: the card, then phase 29 on
+    phase 5's inputs made here through the library."""
+    card = _phase_card(torch)
+    t0 = time.perf_counter()
+    inp = _bms_inputs(torch)
+    print(f"[phase 29 only] inputs through the library in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    fleet_phase(torch, card, inp)
+    print(f"card: {card}")
+    return 0
+
+
+class _PollRecord:
+    """A record of a ``poll()``-shaped consumer: its value and offset."""
+
+    def __init__(self, value, offset):
+        self.value, self.offset = value, offset
+
+
+class _FakePolls:
+    """kafka-python's ``poll()`` shape over a list of polls."""
+
+    def __init__(self, polls):
+        self._polls = list(polls)
+
+    def poll(self, timeout_ms=None):
+        return self._polls.pop(0) if self._polls else {}
+
+
+def _sources_jobs(card: str, port: int, inp: dict) -> None:
+    """Phase 30 (a): phase 5's database as a sqlite table (``table=`` and
+    ``query=``), a Piwik export and Elasticsearch documents, each trained
+    over HTTP and held to phase 5's body by SHA-256."""
+    _, minies = _storm_helpers()
+    bms, minsup = inp["bms"]
+    t0 = time.perf_counter()
+    clicks = os.path.join(SOURCES_DIR, "clicks.sqlite")
+    piwik = os.path.join(SOURCES_DIR, "piwik.sqlite")
+    for f in (clicks, piwik):
+        if os.path.exists(f):
+            os.remove(f)
+    minies.write_clicks(clicks, bms)
+    minies.write_piwik(piwik, bms)
+    docs = minies.es_docs(bms)
+    write_s = time.perf_counter() - t0
+    r = _http(port, "/register/item", group="grp")
+    check(r["status"] == "finished", f"/register/item: {r}")
+    job = dict(algorithm="SPADE_TPU", support=str(minsup))
+    with minies.serve() as es_url:
+        minies.MiniES.docs = docs
+        for name, params in (
+                ("sql table", dict(source="JDBC", db=clicks, table="clicks")),
+                ("sql query", dict(source="JDBC", db=clicks,
+                                   query="SELECT * FROM clicks")),
+                ("piwik", dict(source="PIWIK", db=piwik, idsite="1")),
+                ("elastic", dict(source="ELASTIC", url=es_url,
+                                 index="clicks",
+                                 page_size=str(SOURCES_ES_PAGE)))):
+            uid = "src-" + name.replace(" ", "-")
+            st, wall = _train_wait(port, uid, **job, **params)
+            stats = json.loads(st["data"]["stats"])
+            body = _http(port, "/get/patterns", uid=uid)["data"]["patterns"]
+            check(digest(body) == digest(inp["bms payload"]),
+                  f"the {name} source's body differs from phase 5's by "
+                  f"SHA-256")
+            check(stats.get("sequences") == len(bms),
+                  f"the {name} source read {stats.get('sequences')} "
+                  f"sequences")
+            print(f"[sources] (a) {name}: {len(docs)} rows, "
+                  f"{stats['sequences']} sequences; body SHA-256 == phase "
+                  f"5's; submit-to-finished {wall:.3f} s (dataset_s "
+                  f"{stats.get('dataset_s')}, mine_s {stats.get('mine_s')}) "
+                  f"against the library's mine {inp['bms wall']} s; "
+                  f"card {card}", flush=True)
+    print(f"[sources] (a) the three layouts written in {write_s:.1f} s "
+          f"(ELASTIC page_size {SOURCES_ES_PAGE}: "
+          f"{-(-len(docs) // SOURCES_ES_PAGE)} pages)", flush=True)
+
+
+def _remote_entry(card: str, remote_port: int, inp: dict) -> None:
+    """Phase 30 (b): train -> status -> get of the tenth's TSR over the
+    actor protocol's socket, a prediction task, a malformed line."""
+    from spark_fsm_tpu_torch.data.spmf import format_spmf
+    from spark_fsm_tpu_torch.ops.rule_trie import predict_host
+    from spark_fsm_tpu_torch.service import model as SM
+    from spark_fsm_tpu_torch.service.remote import RemoteClient
+
+    tenth, payload, lib_s = inp["tenth"][:3]
+    path = os.path.join(SOURCES_DIR, "tenth.spmf")
+    with open(path, "w") as fh:
+        fh.write(format_spmf(tenth))
+    client = RemoteClient(port=remote_port, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        resp = client.request("train", {
+            "algorithm": "TSR_TPU", "source": "FILE", "path": path,
+            "k": "100", "minconf": "0.5", "max_side": "2"})
+        check(resp["status"] == "started", f"remote train: {resp}")
+        uid = resp["data"]["uid"]
+        while True:
+            st = client.request("status", {"uid": uid})
+            if st["status"] in ("finished", "failure"):
+                break
+            time.sleep(0.02)
+        wall = time.perf_counter() - t0
+        check(st["status"] == "finished", f"remote TSR job: {st}")
+        got = client.request("get:rules", {"uid": uid})
+        check(digest(got["data"]["rules"]) == digest(payload),
+              "the socket's rules differ from the library's by SHA-256")
+        rules = SM.deserialize_rules(payload)
+        # the antecedent whose prefix has the most candidates
+        prefix = max((sorted(r[0]) for r in rules), key=lambda p: (
+            len(predict_host(rules, p, 1 << 30)), p))
+        pred = client.request("get:prediction", {
+            "uid": uid, "items": ",".join(map(str, prefix))})
+        check(pred["status"] == "finished", f"remote prediction: {pred}")
+        want = predict_host(rules, prefix, 1 << 30)
+        check(json.loads(pred["data"]["predictions"]) == want,
+              f"the socket's prediction at {prefix} differs from "
+              f"predict_host's")
+        client._file.write(b"this is not json\n")
+        client._file.flush()
+        bad = json.loads(client._file.readline())
+        check(bad["status"] == "failure"
+              and "malformed" in bad["data"]["error"],
+              f"the malformed line's reply {bad}")
+        after = client.request("status", {"uid": uid})
+        check(after["task"] == "status" and after["status"] == "finished",
+              f"the connection after the malformed line: {after}")
+    finally:
+        client.close()
+    print(f"[sources] (b) remote entry: TSR_TPU k=100 minconf 0.5 "
+          f"max_side=2 on the tenth ({len(tenth)} sequences, FILE) over the "
+          f"socket train -> status -> get in {wall:.3f} s against the "
+          f"library's {lib_s} s; {len(rules)} rules SHA-256 == the "
+          f"library's; get:prediction at {prefix}: {len(want)} candidates "
+          f"== predict_host's; a malformed line failed cleanly and the "
+          f"connection answered after it; card {card}", flush=True)
+
+
+def _stream_consumer(torch, card: str, inp: dict) -> None:
+    """Phase 30 (c): phase 17's stream through a fake poll()-shaped
+    consumer, ``KafkaFetch(on_bad="skip")`` and ``PollConsumer`` into the
+    port's ``IncrementalWindowMiner`` on the card."""
+    from spark_fsm_tpu_torch.ops import pair_support as PS
+    from spark_fsm_tpu_torch.streaming.consumer import PollConsumer
+    from spark_fsm_tpu_torch.streaming.incremental import (
+        IncrementalWindowMiner)
+    from spark_fsm_tpu_torch.streaming.kafka import KafkaFetch
+    from spark_fsm_tpu_torch.utils.canonical import patterns_text
+
+    texts, want, push_walls = (inp["stream texts"], inp["stream digests"],
+                               inp["stream walls"])
+    polls = []
+    for i, text in enumerate(texts):
+        poll = {f"p{i % 2}": [_PollRecord(text.encode(), i)]}
+        if i == STREAM_POISON_POLL:
+            poll[f"p{(i + 1) % 2}"] = [_PollRecord(b"\xff poison", i)]
+        polls.append(poll)
+    fetch = KafkaFetch(_FakePolls(polls), on_bad="skip")
+    inc = IncrementalWindowMiner(STREAM_MINSUP, max_batches=STREAM_KEEP)
+    walls, b1, held = [], [], []
+    t_poll = [time.perf_counter()]
+
+    def push(batch):
+        PS.pair_supports.launches = 0
+        got = inc.push(batch)
+        torch.cuda.synchronize()
+        b1.append(PS.pair_supports.launches)
+        return got
+
+    def on_result(patterns):
+        walls.append(round(time.perf_counter() - t_poll[0], 3))
+        n = len(walls)
+        if n in want:
+            check(digest(patterns_text(patterns)) == want[n],
+                  f"poll {n}: the consumer's window differs from phase "
+                  f"17's by SHA-256")
+            held.append(n)
+        t_poll[0] = time.perf_counter()
+
+    pc = PollConsumer(fetch, push, poll_interval_s=0, on_result=on_result)
+    t_poll[0] = time.perf_counter()
+    pc.run(max_polls=len(polls))
+    check(pc.stats["batches"] == len(polls) and held == sorted(want),
+          f"the consumer pushed {pc.stats['batches']} batches, held "
+          f"{held}")
+    ring = fetch.stats["dead_letters"]
+    check(fetch.stats["bad_records"] == 1 and len(ring) == 1
+          and ring[0]["offset"] == STREAM_POISON_POLL,
+          f"the poison record: {fetch.stats}")
+    check(sum(b1) > 0, f"B1 launches a poll {b1}")
+    print(f"[sources] (c) stream consumer: {len(polls)} polls over two "
+          f"partitions, one multiline SPMF record a micro-batch; the "
+          f"window after polls {held} SHA-256 == phase 17's; the poison "
+          f"record counted (bad_records 1) and dead-lettered "
+          f"({ring[0]['partition']} offset {ring[0]['offset']}); wall a "
+          f"poll {walls} s (parse and push, beside the child's jobs) "
+          f"against phase 17's push "
+          f"{push_walls} s; B1 launches a poll {b1}; card {card}",
+          flush=True)
+
+
+def sources_child(torch) -> tuple:
+    """Start (not wait for) phase 30's child of the service, with
+    ``--remote-port`` set and ``[rescache]`` off; (child, its remote
+    port)."""
+    from spark_fsm_tpu_torch.models._common import auto_pool_bytes
+
+    os.makedirs(SOURCES_DIR, exist_ok=True)
+    remote_port = _free_port()
+    child = Replica("sources", {
+        "cluster": {"enabled": True, "lease_ttl_s": 5.0},
+        "rescache": {"enabled": False},
+        "engine": {"pool_bytes": auto_pool_bytes(torch.device("cuda", 0))}},
+        SOURCES_DIR, extra=("--remote-port", str(remote_port)))
+    return child, remote_port
+
+
+def sources_phase(torch, card: str, inp: dict, started=None) -> None:
+    """Phase 30: the sources, the remote entry and the stream consumer.
+    ``inp``: phase 5's (``bms``, ``bms payload``, ``bms wall``), phase 21's
+    tenth (``tenth``: database, rules' serialization, wall), phase 17's
+    batches as SPMF (``stream texts``), its window digests after pushes 1,
+    5 and 10 (``stream digests``) and its push walls (``stream walls``).
+    ``started``: :func:`sources_child`'s result when the child was started
+    earlier (it then boots beside phases 28 and 29)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    child, remote_port = started or sources_child(torch)
+
+    try:
+        child.ready()
+
+        def served():
+            _sources_jobs(card, child.port, inp)
+            _remote_entry(card, remote_port, inp)
+
+        # the child's jobs and the consumer in this process overlap: the
+        # host work of each runs in its own process
+        with ThreadPoolExecutor(1) as pool:
+            jobs = pool.submit(served)
+            _stream_consumer(torch, card, inp)
+            jobs.result()
+        counts = child.counts()
+    finally:
+        rc = child.stop()
+    check(rc == 0, f"the sources child exited with {rc}:\n"
+          f"{child.log()[-2000:]}")
+    check(counts["b1"] > 0 and counts["b2"] > 0,
+          f"the sources child's launches {counts}")
+    print(f"[sources] the child answered {child.boot_s:.3f} s after its "
+          f"start{' (beside phases 28 and 29)' if started else ''}; B1 "
+          f"{counts['b1']}, B2 {counts['b2']}, B3 {counts['b3']} launches, "
+          f"max_memory_allocated {counts['peak']} B; phase 30 "
+          f"{time.perf_counter() - t_phase:.1f} s; card {card}", flush=True)
+
+
+def _stream_inputs(torch) -> dict:
+    """Phase 17's batches as SPMF, and the incremental window's digests
+    after pushes 1, 5 and 10 with every push's wall, through the
+    library."""
+    from spark_fsm_tpu_torch.data.spmf import format_spmf
+    from spark_fsm_tpu_torch.data.synth import msnbc_like
+    from spark_fsm_tpu_torch.streaming.incremental import (
+        IncrementalWindowMiner)
+    from spark_fsm_tpu_torch.utils.canonical import patterns_text
+
+    db = msnbc_like(scale=1.0, fast=True)
+    per = len(db) // STREAM_PUSHES
+    batches = [db[i * per:(i + 1) * per if i < STREAM_PUSHES - 1 else len(db)]
+               for i in range(STREAM_PUSHES)]
+    del db
+    inc = IncrementalWindowMiner(STREAM_MINSUP, max_batches=STREAM_KEEP)
+    digests, walls = {}, []
+    for push, batch in enumerate(batches, 1):
+        t0 = time.perf_counter()
+        got = inc.push(batch)
+        torch.cuda.synchronize()
+        walls.append(round(time.perf_counter() - t0, 3))
+        if push in STREAM_ORACLE_PUSHES:
+            digests[push] = digest(patterns_text(got))
+    return {"stream texts": [format_spmf(b) for b in batches],
+            "stream digests": digests, "stream walls": walls}
+
+
+def phase30_only(torch) -> int:
+    """``python3 chip_smoke.py --phase 30``: the card, then phase 30 on
+    inputs made here through the library."""
+    from spark_fsm_tpu_torch.data.synth import kosarak_like
+    from spark_fsm_tpu_torch.models.tsr import mine_tsr_torch
+    from spark_fsm_tpu_torch.service import model as SM
+
+    card = _phase_card(torch)
+    t0 = time.perf_counter()
+    inp = _bms_inputs(torch)
+    tenth = kosarak_like(scale=MESH_KOSARAK_SCALE, fast=True)
+    t1 = time.perf_counter()
+    rules = mine_tsr_torch(tenth, 100, 0.5, max_side=2)
+    torch.cuda.synchronize()
+    inp["tenth"] = (tenth, SM.serialize_rules(rules),
+                    round(time.perf_counter() - t1, 3))
+    inp.update(_stream_inputs(torch))
+    print(f"[phase 30 only] inputs through the library in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    sources_phase(torch, card, inp)
+    print(f"card: {card}")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3923,16 +4831,26 @@ def main() -> int:
         return phase27_only(torch)
     if sys.argv[1:] == ["--phase", "28"]:
         return phase28_only(torch)
+    if sys.argv[1:] == ["--phase", "29"]:
+        return phase29_only(torch)
+    if sys.argv[1:] == ["--phase", "30"]:
+        return phase30_only(torch)
     if sys.argv[1:2] == ["--replica"]:
         return replica_child(sys.argv[2], sys.argv[3:])
 
-    oracles = {scale: start_child(CSPADE_ORACLE, scale)
-               for scale in GAZELLE_SCALES}
-    oracles.update({name: start_child(SPADE_ORACLE, name, rel)
+    os.makedirs(DATA_DIR, exist_ok=True)
+    oracles = {"data": start_child(DATA_MAKER, DATA_DIR, nice=0)}
+    oracles.update({scale: start_child(CSPADE_ORACLE, scale)
+                    for scale in GAZELLE_SCALES})
+    # phase 5 reads the BMS oracle within a minute: it is not niced
+    oracles.update({name: start_child(SPADE_ORACLE, name, rel,
+                                      nice=0 if name == "bms" else 10)
                     for name, rel in SPADE_ORACLES})
     oracles.update({("stream", push): start_child(
         STREAM_ORACLE, push, STREAM_PUSHES, STREAM_KEEP, STREAM_MINSUP)
         for push in STREAM_ORACLE_PUSHES})
+    oracles.update({("tsr", side): start_child(TSR_ORACLE, side)
+                    for side in TSR_ORACLE_SIDES})
     try:
         return run(torch, oracles)
     finally:
@@ -3948,8 +4866,7 @@ def run(torch, oracles) -> int:
     from spark_fsm_tpu_torch.data import fasttok
     from spark_fsm_tpu_torch.data.spmf import format_spmf
     from spark_fsm_tpu_torch.data.synth import (
-        bms_webview2_like, gazelle_like, kosarak_like, msnbc_like,
-        synthetic_db)
+        gazelle_like, kosarak_like, msnbc_like, synthetic_db)
     from spark_fsm_tpu_torch.data.vertical import (
         abs_minsup, build_vertical, dataset_stats)
     from spark_fsm_tpu_torch.models.oracle import mine_spade
@@ -3980,6 +4897,7 @@ def run(torch, oracles) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
+    clock(1)
     # 1. the card
     card = smi("name,power.limit")
     kind = torch.cuda.get_device_name(0)
@@ -3987,6 +4905,7 @@ def run(torch, oracles) -> int:
     print(f"[card] nvidia-smi: {card} | torch: {kind} x{count} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
+    clock(2)
     # 2. build: one nvcc per source and the tokenizer's gcc, all started
     # together
     sources = ("pair_support", "rule_support", "extend_prune")
@@ -4011,6 +4930,7 @@ def run(torch, oracles) -> int:
              else f" (native build failed: {fasttok.reason() or tok_err})"),
           flush=True)
 
+    clock(3)
     # 3. kernel == plain version, exactly, on ragged shapes and at the main
     # path's launches; with the live-row hint at SPAM's mesh wave, the
     # stream sweep, 0, NI and a ragged 37 of 64 (item rows past the hint
@@ -4019,6 +4939,8 @@ def run(torch, oracles) -> int:
                       ["node_batch"], 64, 990016, 1)
     PAIR_LIVE[spam_mesh_wave] = SPAM_MESH_LIVE
     rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
     worst = 0
     timed = {}
     for (P, NI, S, W, live) in (
@@ -4029,9 +4951,8 @@ def run(torch, oracles) -> int:
                 shape + (PAIR_LIVE[shape],) for shape in (
                     LATE_WAVE, CLASSIC_LAUNCH, WIDE_WAVE, HEADLINE,
                     STREAM_SWEEP, spam_mesh_wave)):
-        pt = torch.from_numpy(rand_words(rng, P, S * W).view(np.int32)).to(dev)
-        items = torch.from_numpy(
-            rand_words(rng, NI + 7, S * W).view(np.int32)).to(dev)
+        pt = rand_words(gen, P, S * W)
+        items = rand_words(gen, NI + 7, S * W)
         if live is not None:
             items[live:NI] = 0                  # all-zero pad item rows
         pref = torch.from_numpy(rng.integers(0, P, 999)).to(dev)
@@ -4060,6 +4981,7 @@ def run(torch, oracles) -> int:
             timed[(P, NI, S, W)] = (pt, items)
         del pt, items
 
+    clock(4)
     # 4. timing at every launch shape above, with the hint its caller
     # passes, against the bound over the live rows: the device time a
     # launch (zero-fill of the output included) of back-to-back launches;
@@ -4074,7 +4996,7 @@ def run(torch, oracles) -> int:
                                                 n_live=live), 3, 20)
         plain_ms = time_ms(
             lambda: PS.pair_supports_plain(pt, items, NI, n_words=W,
-                                           n_live=live), 1, 10)
+                                           n_live=live), 1, 3)
         bound_ms, bound_by = pair_bound_ms(P, NI, S, W, live)
         pair_times[shape] = ms
         clocks = smi("clocks.sm,power.draw,temperature.gpu")
@@ -4088,11 +5010,10 @@ def run(torch, oracles) -> int:
         del pt, items
     torch.cuda.empty_cache()
 
+    clock(5)
     # 5. the main path at full data size: the router's choice, the queue
     # engine, with B1 launched once per wave
-    t0 = time.perf_counter()
-    db = bms_webview2_like()
-    gen_s = time.perf_counter() - t0
+    db, gen_s = take_made(oracles["data"], "bms")
     minsup = abs_minsup(0.001, len(db))
     vdb = build_vertical(db, min_item_support=minsup)
     geo = queue_geometry(vdb.n_sequences, vdb.n_items, vdb.n_words,
@@ -4139,8 +5060,8 @@ def run(torch, oracles) -> int:
           f"ms), candidates {stats['candidates']}, ring {geo['caps'].ring}, "
           f"store {store_bytes} B, counter waits {stats['wait_s']:.4f} s "
           f"cold / {wstats['wait_s']:.4f} s warm, max_memory_allocated "
-          f"{peak} B; host: generator {gen_s:.1f} s, oracle {oracle_s:.1f} s "
-          "(child process)",
+          f"{peak} B; host: generator {gen_s:.1f} s, oracle {oracle_s:.1f} "
+          f"s (child processes)",
           flush=True)
     # phase 21 holds the mesh mines against this phase's text and walls
     mesh_want = {"spade auto": digest(text), "spade never": digest(text)}
@@ -4162,8 +5083,8 @@ def run(torch, oracles) -> int:
     c_launches = PS.pair_supports.launches
     check(cstats["fused"] is False and c_launches > 0,
           f"the classic route: {cstats['fused']!r}, {c_launches} launches")
-    check(patterns_text(got) == text, "the classic engine differs from the "
-          "oracle:\n" + diff_patterns(mine_spade(db, minsup), got))
+    check(patterns_text(got) == text, lambda: "the classic engine differs "
+          "from the oracle:\n" + diff_patterns(mine_spade(db, minsup), got))
     single_walls["spade never"] = (round(classic_s, 3),)
     print(f"[mine] bms_webview2_like fused='never': {len(got)} patterns "
           f"byte-identical to the oracle; {classic_s:.3f} s, pair-support "
@@ -4184,8 +5105,8 @@ def run(torch, oracles) -> int:
     check(PS.pair_supports.launches == dstats["levels"] > 0,
           f"{PS.pair_supports.launches} launches for {dstats['levels']} "
           f"levels")
-    check(patterns_text(got) == text, "the dense engine differs from the "
-          "oracle:\n" + diff_patterns(mine_spade(db, minsup), got))
+    check(patterns_text(got) == text, lambda: "the dense engine differs "
+          "from the oracle:\n" + diff_patterns(mine_spade(db, minsup), got))
     print(f"[mine] bms_webview2_like fused='dense': {len(got)} patterns "
           f"byte-identical to the oracle; {dense_s:.3f} s, levels "
           f"{dstats['levels']} = pair-support launches, candidates "
@@ -4261,6 +5182,7 @@ def run(torch, oracles) -> int:
     del want_low, vdb
     torch.cuda.empty_cache()
 
+    clock(6)
     # 6. multiword mine
     db = synthetic_db(seed=8, n_sequences=120, n_items=12, mean_itemsets=40.0,
                       max_itemsets=80)
@@ -4290,6 +5212,7 @@ def run(torch, oracles) -> int:
     del db, got, want, vdb
     torch.cuda.empty_cache()
 
+    clock(7)
     # 7. rule-support kernel == plain version, exactly
     rworst = 0
     shapes = [(C, km, 24, S, W) for (C, S, W) in ((77, 1001, 1), (130, 517, 2),
@@ -4318,6 +5241,7 @@ def run(torch, oracles) -> int:
         del p1, s1, xy, got_r, want_r
     torch.cuda.empty_cache()
 
+    clock(8)
     # 8. timing at the resident waves, at km = 1 and at the headline launch;
     # the kernels line reports the headline launch, timed last
     for i, shape in enumerate((RULE_RESIDENT_LATE, RULE_RESIDENT_WIDE,
@@ -4340,10 +5264,9 @@ def run(torch, oracles) -> int:
         del p1, s1, xy
     torch.cuda.empty_cache()
 
+    clock(9)
     # 9. the TSR path at full data size
-    t0 = time.perf_counter()
-    db = kosarak_like(scale=1.0, fast=True)
-    gen_s = time.perf_counter() - t0
+    db, gen_s = take_made(oracles["data"], "kosarak")
     vdb = tokenizer_times("kosarak_like", db, 1, sample=10)   # the recount's
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4381,7 +5304,8 @@ def run(torch, oracles) -> int:
           f"evaluated {tstats['evaluated']}, pruned_conf "
           f"{tstats['pruned_conf']}, deepening_rounds "
           f"{tstats['deepening_rounds']}, {km_stats}; "
-          f"max_memory_allocated {tpeak} B; host: generator {gen_s:.1f} s, "
+          f"max_memory_allocated {tpeak} B; host: generator {gen_s:.1f} s "
+          f"(child process), "
           f"recount {recount_s:.1f} s", flush=True)
     kos_vdb = vdb   # phase 15 mines it again
     service_dbs = {"kosarak": db}   # phase 23 serves it
@@ -4392,6 +5316,7 @@ def run(torch, oracles) -> int:
     del db, rules, rules_warm, vdb
     torch.cuda.empty_cache()
 
+    clock(10)
     # 10. the TSR path against the copied CPU oracle
     for name, db, k, minconf, side in (
             ("kosarak_like(scale=0.01)", kosarak_like(scale=0.01, fast=True),
@@ -4404,8 +5329,10 @@ def run(torch, oracles) -> int:
         got_t = mine_tsr_torch(db, k, minconf, max_side=side)
         torch.cuda.synchronize()
         n_l = RS.rule_supports.launches - before
-        want_t = mine_tsr_cpu(db, k, minconf, max_side=side)
-        check(rules_text(got_t) == rules_text(want_t),
+        want_text = (collect_oracle(oracles[("tsr", side)], name)[1]
+                     if name.startswith("kosarak") else
+                     rules_text(mine_tsr_cpu(db, k, minconf, max_side=side)))
+        check(rules_text(got_t) == want_text,
               f"TSR mine of {name} differs from mine_tsr_cpu")
         check(n_l > 0, f"the TSR mine of {name} launched the kernel 0 times")
         print(f"[mine] {name}: W={n_words}, {len(got_t)} rules byte-identical "
@@ -4420,9 +5347,10 @@ def run(torch, oracles) -> int:
         "ms": rms, "plain_ms": rplain_ms, "bound_ms": rbound_ms,
         "bound_by": rbound_by, "library_ms": None,
     }
-    del db, got_t, want_t
+    del db, got_t
     torch.cuda.empty_cache()
 
+    clock(11)
     # 11. extension-count-prune kernel == plain version, exactly
     nb = spam_geometry(990000, 17, 1, device=dev)["node_batch"]
     msnbc_wave = (2 * nb, 64, 990016, 1)
@@ -4432,9 +5360,8 @@ def run(torch, oracles) -> int:
                                    (128, 64, 26, 517, 3), (14, 128, 90, 77503, 1),
                                    msnbc_wave[:2] + (17,) + msnbc_wave[2:],
                                    BMS_WAVE[:2] + (26,) + BMS_WAVE[2:]):
-        pt = torch.from_numpy(rand_words(rng, P, S * W).view(np.int32)).to(dev)
-        items = torch.from_numpy(
-            rand_words(rng, NI + 3, S * W).view(np.int32)).to(dev)
+        pt = rand_words(gen, P, S * W)
+        items = rand_words(gen, NI + 3, S * W)
         items[n_items:NI] = 0                   # all-zero pad item rows
         counts = PS.pair_supports(pt, items, NI, n_words=W)
         # the median over the live item lanes: pad lanes count 0
@@ -4464,6 +5391,7 @@ def run(torch, oracles) -> int:
             ewaves[(P, NI, S, W)] = (pt, items, median, n_items)
         del pt, items, counts, sup, mask, want_s, want_m
 
+    clock(12)
     # 12. timing at the BMS dense wave and at the MSNBC wave: without the
     # live-row hint at the median count (against the bound over all NI
     # lanes), then with it at threshold 1 and at the median (against the
@@ -4493,10 +5421,9 @@ def run(torch, oracles) -> int:
         del pt, items
     torch.cuda.empty_cache()
 
+    clock(13)
     # 13. the SPAM path at full data size
-    t0 = time.perf_counter()
-    db = msnbc_like(scale=1.0, fast=True)
-    gen_s = time.perf_counter() - t0
+    db, gen_s = take_made(oracles["data"], "msnbc")
     minsup = abs_minsup(0.005, len(db))
     tokenizer_times("msnbc_like", db, minsup, sample=10)
     decision = choose_patterns_engine(dataset_stats(db, min_item_support=minsup))
@@ -4543,7 +5470,8 @@ def run(torch, oracles) -> int:
           f"{sstats['wave_survivors']}, diffset_nodes {sstats['diffset_nodes']}, "
           f"engine launches {sstats['kernel_launches']}, recomputed_nodes "
           f"{sstats['recomputed_nodes']}; max_memory_allocated {speak} B; host: "
-          f"generator {gen_s:.1f} s, oracle {oracle_s:.1f} s (child process)",
+          f"generator {gen_s:.1f} s, oracle {oracle_s:.1f} s (child "
+          f"processes)",
           flush=True)
     mesh_want["spam"] = digest(text)
     single_walls["spam"] = (round(scold_s, 3), round(swarm_s, 3))
@@ -4554,6 +5482,7 @@ def run(torch, oracles) -> int:
     del db, got, got_warm, got_spade
     torch.cuda.empty_cache()
 
+    clock(14)
     # 14. the SPAM path on the hybrid plan, and a multiword SPAM mine
     EP.extend_count_prune.launches = 0
     hstats: dict = {}
@@ -4596,6 +5525,7 @@ def run(torch, oracles) -> int:
     del db, got, want
     torch.cuda.empty_cache()
 
+    clock(15)
     # 15. TSR's resident-frontier route at full data size
     m0 = min(256, kos_vdb.n_items)   # the first deepening round's top-m
     probe = TsrTorch(kos_vdb, 100, 0.5, max_side=None)
@@ -4710,10 +5640,8 @@ def run(torch, oracles) -> int:
     n_l = RS.rule_supports.launches - before
     check(s1.get("resident") is True,
           f"auto at 1 % size did not take the resident route: {s1}")
-    t0 = time.perf_counter()
-    want_t = mine_tsr_cpu(db, 100, 0.5, max_side=None)
-    cpu_s = time.perf_counter() - t0
-    text = rules_text(want_t)
+    cpu_s, text = collect_oracle(oracles[("tsr", None)],
+                                 "1 % Kosarak TSR max_side=None")
     check(rules_text(got_t) == text,
           "the 1 % resident mine differs from mine_tsr_cpu")
     # the user's default request at this size on both routes, warm, in
@@ -4735,7 +5663,8 @@ def run(torch, oracles) -> int:
     del eng, got_r, small_vdb
     print(f"[mine] kosarak_like(scale=0.01) max_side=None: auto took the "
           f"resident route; {len(got_t)} rules byte-identical to "
-          f"mine_tsr_cpu; {small_s:.3f} s (mine_tsr_cpu {cpu_s:.1f} s); "
+          f"mine_tsr_cpu; {small_s:.3f} s (mine_tsr_cpu {cpu_s:.1f} s, child "
+          f"process); "
           f"{ {k: s1.get(k, 0) for k in route_keys} }, rule-support "
           f"launches {n_l}; warm mines in turns (vertical DB built), auto "
           f"{[round(w, 4) for w in small_walls['auto']]} s, host loop "
@@ -4745,8 +5674,9 @@ def run(torch, oracles) -> int:
     tsr_small_db, tsr_small_text = db, text   # phases 19 and 22 mine it
     tsr_small_payload = SM.serialize_rules(got_t)   # phase 24 serves it
     mesh_want["tsr 1%"] = digest(text)
-    del db, got_t, want_t
+    del db, got_t
 
+    clock(16)
     # 16. constrained SPADE against the copied oracle, full size and 10 %
     for scale in GAZELLE_SCALES:
         db = gazelle_like(scale=scale, fast=True)
@@ -4793,15 +5723,14 @@ def run(torch, oracles) -> int:
         del db, got, got_warm, vdb
         torch.cuda.empty_cache()
 
+    clock(17)
     # 17. streaming windows at full size: the incremental miner (B1 once
     # a swept level) and the re-mine miner, byte-identical after every push
-    t0 = time.perf_counter()
-    db = msnbc_like(scale=1.0, fast=True)
+    db = part_inputs["msnbc"][0]   # phase 13's database, cut in batches
     per = len(db) // STREAM_PUSHES
     batches = [db[i * per:(i + 1) * per if i < STREAM_PUSHES - 1 else len(db)]
                for i in range(STREAM_PUSHES)]
     del db
-    gen_s = time.perf_counter() - t0
     inc = IncrementalWindowMiner(STREAM_MINSUP, max_batches=STREAM_KEEP)
     check(inc.use_kernel, "the incremental miner on the card does not use B1")
     remine_routes = []
@@ -4815,6 +5744,7 @@ def run(torch, oracles) -> int:
 
     rem = WindowMiner(STREAM_MINSUP, max_batches=STREAM_KEEP, mine=remine)
     stream_texts, widest, swept_levels, stream_b1 = {}, 0, 0, 0
+    stream_digests = {}
     # phase 25 serves the stream again: each push's serialization digest
     # and the library's push wall
     stream_served = {}
@@ -4864,6 +5794,7 @@ def run(torch, oracles) -> int:
               + diff_patterns(want, got))
         if push in STREAM_ORACLE_PUSHES:
             stream_texts[push] = text
+            stream_digests[push] = digest(text)   # phase 30 holds them
         stream_served[push] = (digest(SM.serialize_patterns(got)), inc_s)
         if push <= MESH_STREAM_PUSHES:
             mesh_want[f"stream push {push}"] = digest(text)
@@ -4896,7 +5827,7 @@ def run(torch, oracles) -> int:
           f"the widest sweep level ({widest} parents) makes P={sweep_p}, not "
           f"phase 4's {STREAM_SWEEP[0]}")
     print(f"[stream] msnbc_like: {STREAM_PUSHES} pushes of {per} sequences, "
-          f"window {STREAM_KEEP}, generator {gen_s:.1f} s; B1 launched "
+          f"window {STREAM_KEEP}, phase 13's database; B1 launched "
           f"{stream_b1} times over {swept_levels} swept levels (bound summed "
           f"over them {stream_bound_ms:.3f} ms); widest level "
           f"{widest} parents (P = {sweep_p} at the reference's pow2 width); "
@@ -4910,6 +5841,7 @@ def run(torch, oracles) -> int:
     del batches, inc, rem, got, want
     torch.cuda.empty_cache()
 
+    clock(18)
     # 18. the repair fold and multiword batches on the card
     rng = np.random.default_rng(MW_STREAM["seed"])
     mw_batches = [synthetic_db(seed=int(rng.integers(1 << 30)),
@@ -4959,6 +5891,7 @@ def run(torch, oracles) -> int:
           f"left the frequent set", flush=True)
     del kern, gath, mw_batches
 
+    clock(19)
     # 19. shape_buckets=True on the card, against the oracle texts above
     bstats: dict = {}
     got = mine_spade_torch(bms_db, bms_minsup, shape_buckets=True,
@@ -5000,25 +5933,29 @@ def run(torch, oracles) -> int:
     del got, got_t, bms_db, stream_first, tsr_small_db, cspade_small
     del kos_vdb
 
+    clock(20)
     # 20. prediction scoring over the rule sets of phases 9, 5 and 13
     predict_phase(torch, dev, [predict_sets[k] for k in ("tsr", "spade",
                                                          "spam")])
 
+    clock(21)
     # 21. sequence meshes on the card
     tenth: dict = {}
     mesh_phase(torch, mesh_want, single_walls, card, mesh_bms, tenth)
     del mesh_bms
 
+    clock(22)
     # 22. class-partitioned mines at full size in this process
     part_walls: dict = {}
     partition_phase(torch, part_inputs, mesh_want, single_walls, card,
                     part_walls)
 
+    clock(23)
     # 23. the service over HTTP on the full-size databases above
     (bms_db, bms_minsup), (ms_db, ms_minsup), (gz_db, gz_minsup) = (
         part_inputs[k] for k in ("bms", "msnbc", "gazelle"))
-    kos_db = service_dbs.pop("kosarak")   # phase 24 fuses it
-    solo = service_phase(torch, card, [
+    kos_db = service_dbs.pop("kosarak")
+    service_phase(torch, card, [
         ("kosarak", kos_db,
          dict(algorithm="TSR_TPU", k="100", minconf="0.5", max_side="2"),
          "rules", predict_sets["tsr"][2], single_walls["tsr"], "b2"),
@@ -5038,6 +5975,7 @@ def run(torch, oracles) -> int:
             ("bms", predict_sets["spade"]))})
     del gz_db
 
+    clock(24)
     # 24. the warm and fused service
     bms_vdb = build_vertical(bms_db, min_item_support=bms_minsup)
     small_db = part_inputs["tsr_small_db"]
@@ -5052,11 +5990,14 @@ def run(torch, oracles) -> int:
         dict(sequences=len(small_db), items=small_vdb.n_items,
              words=small_vdb.n_words, tsr=True)))
     del bms_vdb, small_vdb
-    ms_rules = SM.serialize_rules(mine_tsr_torch(ms_db, 100, 0.5,
+    ms_tenth = msnbc_like(scale=MESH_MSNBC_SCALE, fast=True)
+    ms_rules = SM.serialize_rules(mine_tsr_torch(ms_tenth, 100, 0.5,
                                                  max_side=2))
-    fusion_phase(torch, card, kos_db, part_inputs["kos_vdb"],
-                 predict_sets["tsr"][2], mesh_want["tsr"], ms_db, ms_rules,
-                 solo["kosarak"], RULE_HEADLINE[:2])
+    fusion_phase(torch, card, tenth["db"], part_inputs["kos_vdb"],
+                 tenth["payload"], mesh_want["tsr"], ms_tenth, ms_rules,
+                 tenth["b2"], RULE_HEADLINE[:2])
+    del ms_tenth
+    clock(25)
     # 25. the service on a mesh
     bms_payload = predict_sets["spade"][2]
     spam_payload = predict_sets["spam"][2]   # phase 26 holds it
@@ -5072,7 +6013,13 @@ def run(torch, oracles) -> int:
         "world part tsr": tenth.get("world part tsr"),
         "stream texts": stream_spmf, "stream": stream_served,
         "stream batch": stream_shape[0], "stream items": stream_shape[1]})
-    del kos_db, small_db, stream_spmf
+    del kos_db, small_db
+    # phases 26-30 serve their replicas' store (a MiniRedis) from this
+    # process: a full collection over the earlier phases' databases (tens
+    # of millions of tuples) stalls it for seconds, past a replica's 2 s
+    # lease, so those objects leave the collector's view
+    gc.freeze()
+    clock(26)
     # 26. the replicated service
     replica_phase(torch, card, {
         "bms": (bms_db, bms_minsup), "bms payload": bms_payload,
@@ -5080,6 +6027,7 @@ def run(torch, oracles) -> int:
         "msnbc": (ms_db, ms_minsup), "msnbc payload": spam_payload,
         "msnbc wall": single_walls["spam"],
         "tenth": (tenth["db"], tenth["payload"], tenth["wall"])})
+    clock(27)
     # 27. faults and bitrot on the engines and the service
     fault_inp = {
         "tsr 1%": (part_inputs["tsr_small_db"], mesh_want["tsr 1%"]),
@@ -5087,9 +6035,35 @@ def run(torch, oracles) -> int:
         "bms wall": single_walls["spade auto"],
         "tenth": (tenth["db"], tenth["payload"], tenth["wall"])}
     fault_phase(torch, card, fault_inp)
-    # 28. result reuse, usage and the flight recorder at size
-    planes_phase(torch, card, fault_inp)
-    del part_inputs, bms_db, ms_db, tenth, fault_inp
+    clock(28)
+    # 28. result reuse, usage and the flight recorder at size; phase 29's
+    # replicas and phase 30's child boot beside it
+    fleet = fleet_boot(torch, fault_inp)
+    started = sources_child(torch)
+    try:
+        planes_phase(torch, card, fault_inp)
+    except BaseException:
+        fleet_stop(fleet)
+        started[0].stop()
+        raise
+    clock(29)
+    # 29. the elastic fleet: fairness, scale-up, a drain, a seeded storm
+    try:
+        fleet_phase(torch, card, fault_inp, fleet)
+    except BaseException:
+        started[0].stop()
+        raise
+    clock(30)
+    # 30. the sources, the remote entry and the stream consumer
+    sources_phase(torch, card, dict(
+        fault_inp, **{"stream texts": stream_spmf,
+                      "stream digests": stream_digests,
+                      "stream walls": [round(stream_served[p][1], 3)
+                                       for p in sorted(stream_served)]}),
+                  started)
+    del part_inputs, bms_db, ms_db, tenth, fault_inp, stream_spmf
+    print(f"[clock] every phase done at {time.perf_counter() - T_START:.1f} "
+          f"s", flush=True)
 
     print(json.dumps({"kernels": [pair_record, rule_record, {
         "name": "extend_prune", "route": "cuda",

@@ -351,11 +351,11 @@ class StoreCheckpoint:
 
     def _save(self, state: dict) -> None:
         g = self._guard
-        outage = g is not None and g.is_down()
+        outage = g is not None and g.skip_fence(self.uid)
         if self._lease is not None and not outage:
             # during a PROVEN outage the fence is deferred to the
-            # spool's replay gate (journal-gated NX reacquire under the
-            # same token) — verifying against an unreachable store here
+            # spool's replay gate (the journal-gated NX reacquire) —
+            # verifying against an unreachable store here
             # would just fence a job the outage semantics say may stall
             self._lease.fence(self.uid)  # raises JobLeaseLost when stale
         faults.fault_site("checkpoint.save", uid=self.uid)
@@ -1625,10 +1625,21 @@ class Miner:
                     # no guard): run the job anyway — if a thief
                     # actually won the marker, the fencing token
                     # refuses the loser's commits; wasting one
-                    # mine beats stranding the queue
+                    # mine beats stranding the queue.  The marker is
+                    # retried at release and on each heartbeat, so no
+                    # phantom entry is left for a steal scan
+                    # (ROADMAP Queue C 10)
                     log_event("retract_admission_failed",
                               uid=req.uid, error=str(exc))
-                    claimed = True
+                    self._lease.note_unretracted(req.uid)
+                    # a thief that won the DEL overwrites the lease: its
+                    # token on the store means the job is its (the drop
+                    # below); otherwise run, proving the lease on the
+                    # store at every fence, a failure's included, as a
+                    # thief may still claim the marker (ROADMAP Queue
+                    # C 12)
+                    self._lease.distrust(req.uid)
+                    claimed = self._lease.held_by_us(req.uid) is not False
             if not claimed:
                 # the admission marker is GONE: an idle peer won
                 # the atomic DEL claim and owns the job (lease +
@@ -1782,10 +1793,13 @@ class Miner:
         jobctl.check()
         g = self._guard
         gate = ("none" if ctl is not None and ctl.ephemeral else None)
-        if self._lease is not None and (g is None or not g.is_down()):
+        if self._lease is not None and (g is None
+                                        or not g.skip_fence(req.uid)):
             # the fence is skipped only during a PROVEN outage — the
             # spool's replay gate re-proves the token before any
-            # deferred write lands (docs/DESIGN.md "Spool replay")
+            # deferred write lands (docs/DESIGN.md "Spool replay"), and
+            # a write that lands directly once the store is back proves
+            # the lease first (ROADMAP Queue C 13)
             self._lease.fence(req.uid)
         if self._rescache is not None:
             # content-addressed dataset fingerprint, once per load:
@@ -1831,15 +1845,15 @@ class Miner:
         if u:
             stats["usage"] = u
         with obs.span("job.sink", results=len(results)):
-            outage = g is not None and g.is_down()
+            outage = g is not None and g.skip_fence(req.uid)
             if self._lease is not None and not outage:
                 # the split-brain gate: a stale holder that somehow
                 # mined to completion (expired mid-run, adopter already
                 # re-running) must NOT commit its result set over the
                 # adopter's — raises JobLeaseLost, terminal, fenced.
                 # During a PROVEN outage the same gate moves to the
-                # spool replay (journal-gated NX reacquire under the
-                # same token) — refused there, these writes are dropped
+                # spool replay (the journal-gated NX reacquire) —
+                # refused there, these writes are dropped
                 # and counted, never committed over the adopter's
                 self._lease.fence(req.uid)
             if g is None:

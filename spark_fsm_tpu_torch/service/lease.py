@@ -64,6 +64,7 @@ Port: a copy of ``spark_fsm_tpu/service/lease.py`` with its imports pointed at `
 from __future__ import annotations
 
 import json
+import sys
 import threading
 import time
 import uuid
@@ -106,6 +107,10 @@ _HEARTBEATS_TOTAL = obs.REGISTRY.counter(
     "heartbeat records published by this replica")
 
 _TOKEN_KEY = "fsm:lease:token"
+# the longest the heartbeat thread waits for the GIL after each store
+# reply while workers run Python (ROADMAP Queue C 14): CPython's default
+# switch interval is 5 ms
+HEARTBEAT_SWITCH_S = 0.001
 
 
 class LeaseHeld(RuntimeError):
@@ -193,6 +198,17 @@ class LeaseManager:
         # a KEYS storm against the shared store
         self._peers_cache: tuple = (-1e18, [])
         self._held: Dict[str, _Held] = {}
+        # admission markers of jobs this replica dequeued whose marker
+        # DEL failed on a store blip the guard had not proven (the
+        # worker runs the job anyway): retried at every release and on
+        # every heartbeat until one lands (ROADMAP Queue C 10).  The
+        # lock orders the retries against a re-publish of the same uid
+        self._unretracted: set = set()
+        self._adm_lock = threading.Lock()
+        # held uids whose every fence proves the lease on the store, not
+        # the local TTL: the marker DEL failed, so a thief may claim the
+        # job at any time (ROADMAP Queue C 12)
+        self._distrusted: set = set()
         self._miner = None  # set by start(); duck-typed (Miner)
         self._recover: Optional[Callable[[], object]] = None
         self._next_recover = 0.0
@@ -389,7 +405,8 @@ class LeaseManager:
         h = self._held.get(uid)
         if h is None:
             return
-        if not h.lost and self._clock() < h.expires:
+        if (not h.lost and self._clock() < h.expires
+                and uid not in self._distrusted):
             return
         if not h.lost:
             try:
@@ -428,10 +445,11 @@ class LeaseManager:
         outage (store answers the probe) fences as before: when in
         doubt, fence.
 
-        A STALLED job's lease is not renewed: the spool replay re-takes
-        it under the spooled writes' own token and un-stalls the job.  A
-        renewal that saw the store back first would re-take the expired
-        lease under a fresh token, and the replay, gated on the spool's
+        A STALLED job's lease is not renewed: the spool replay proves
+        the spool's token is still the job's, re-takes the lease under a
+        fresh token and un-stalls the job.  A renewal that saw the store
+        back first would re-take the expired lease under a fresh token
+        the spool does not know, and the replay, gated on the spool's
         token, would then refuse the writes and fence the job (the
         reference renews it; ROADMAP Queue C 7)."""
         for h in list(self._held.values()):
@@ -460,7 +478,8 @@ class LeaseManager:
         h = self._held.get(uid)
         if h is None:
             return True
-        if not h.lost and self._clock() < h.expires:
+        if (not h.lost and self._clock() < h.expires
+                and uid not in self._distrusted):
             return True
         key = self._lease_key(uid)
         try:
@@ -488,24 +507,31 @@ class LeaseManager:
         _FENCE_REJECTED_TOTAL.inc()
         return False
 
-    def reacquire_for_spool(self, uid: str, token: Optional[int]) -> bool:
+    def reacquire_for_spool(self, uid: str,
+                            token: Optional[int]) -> Optional[int]:
         """The write-behind spool's replay gate (service/storeguard.py):
         may the spooled writes for ``uid`` — taken under fencing
         ``token`` before/during the outage — land now?
 
-        True in exactly two cases: the store lease STILL carries our
-        token (the outage was shorter than the TTL), or the lease
+        Returns the token the replay now holds the lease under, in
+        exactly two cases: the store lease STILL carries ``token`` (the
+        outage was shorter than the TTL; ``token`` itself), or the lease
         expired UNCLAIMED and the journal intent still names this
-        replica — then one atomic NX re-take under the SAME token
-        resumes the epoch (nobody else ever held the uid in between,
-        so token monotonicity is preserved: same holder, same token).
-        Any other state means the lease was legitimately taken during
-        the outage — the adopter owns the uid's keys and the replay
-        must be REFUSED.
-        Transport errors propagate (the guard re-enters DOWN and keeps
-        the spool)."""
+        replica — then one atomic NX re-take resumes the job under a
+        FRESH token, which the caller keeps as the spool's token (a
+        replay that resumes after a flap then finds its own token on the
+        lease).  Not the spool's own: a later token may have been
+        written for the uid meanwhile and be gone again (this replica's
+        renewal re-take whose reply was lost as the store went away, a
+        thief whose resubmit failed and released), and a re-take under
+        the older token would make the uid's tokens fall (ROADMAP Queue
+        C 11; the reference re-takes under the spool's token).  None in
+        any other state: the lease was legitimately taken during the
+        outage — the adopter owns the uid's keys and the replay must be
+        REFUSED.  Transport errors propagate (the guard re-enters DOWN
+        and keeps the spool)."""
         if token is None:
-            return False
+            return None
         key = self._lease_key(uid)
         with self._verify_lock:
             t0 = self._clock()
@@ -517,14 +543,14 @@ class LeaseManager:
                         if h is not None and h.token == token:
                             h.expires = t0 + self.lease_ttl_s
                             h.lost = False
-                        return True
+                        return int(token)
                     raw = None  # expired between the read and the renew
                 else:
                     _FENCE_REJECTED_TOTAL.inc()
                     h = self._held.get(uid)
                     if h is not None and h.token == token:
                         self._mark_lost(h, "outage_superseded")
-                    return False
+                    return None
             if not self._journal_ours(uid):
                 # adopted (and possibly finished + settled) elsewhere
                 # during the outage — the uid's keys are the adopter's
@@ -532,23 +558,24 @@ class LeaseManager:
                 h = self._held.get(uid)
                 if h is not None and h.token == token:
                     self._mark_lost(h, "outage_adopted")
-                return False
-            if self._store.set_px(key, self._payload(int(token)),
+                return None
+            take = int(self._store.incr(_TOKEN_KEY))
+            if self._store.set_px(key, self._payload(take),
                                   self._ttl_ms, nx=True):
                 h = self._held.get(uid)
                 if h is not None:
-                    h.token = int(token)
+                    h.token = take
                     h.expires = t0 + self.lease_ttl_s
                     h.lost = False
                 _REACQUIRED_TOTAL.inc()
                 log_event("lease_reacquired_for_replay", uid=uid,
-                          token=token)
-                return True
+                          token=token, take=take)
+                return take
             _FENCE_REJECTED_TOTAL.inc()
             h = self._held.get(uid)
             if h is not None and h.token == token:
                 self._mark_lost(h, "outage_claimed")
-            return False
+            return None
 
     def release_token(self, uid: str, token: int) -> None:
         """Compare-and-delete by EXPLICIT token — the spool replay's
@@ -566,10 +593,14 @@ class LeaseManager:
     def release(self, uid: str) -> None:
         """Terminal-status release: compare-and-delete (best effort —
         the TTL reaps anything this misses, and the fencing token keeps
-        even a misdelete harmless)."""
+        even a misdelete harmless).  A marker the dequeue could not
+        retract goes first, while the lease still bars a re-admission
+        of the uid."""
+        self.sweep_unretracted()
         with self._lock:
             h = self._held.pop(uid, None)
             _HELD.set(len(self._held))
+            self._distrusted.discard(uid)
         if h is None:
             return
         key = self._lease_key(uid)
@@ -586,6 +617,7 @@ class LeaseManager:
         with self._lock:
             self._held.pop(uid, None)
             _HELD.set(len(self._held))
+            self._distrusted.discard(uid)
 
     def attached_ctl(self, uid: str) -> Optional[jobctl.JobControl]:
         """The control object bound at attach time — the victim-drop
@@ -639,8 +671,11 @@ class LeaseManager:
 
     def publish_admission(self, uid: str) -> None:
         """Mirror a QUEUED job into this replica's admission namespace —
-        the steal scan's menu."""
-        self._store.set(self._adm_key(uid), "1")
+        the steal scan's menu.  The marker is live again, so a retry of
+        an earlier incarnation's failed retraction is dropped."""
+        with self._adm_lock:
+            self._store.set(self._adm_key(uid), "1")
+            self._unretracted.discard(uid)
 
     def retract_admission(self, uid: str) -> bool:
         """Atomically claim the queued job for LOCAL execution (the
@@ -654,6 +689,60 @@ class LeaseManager:
         post-heal thief racing the replayed DEL loses either way:
         whoever loses the arbiter is fenced by token."""
         guard.delete(uid, self._adm_key(uid))
+
+    def note_unretracted(self, uid: str) -> None:
+        """The dequeue's marker DEL failed and the job runs anyway (an
+        unproven store blip): keep the marker for
+        :meth:`sweep_unretracted`.  This replica alone writes its
+        namespace, so deleting its own marker of a dequeued job is
+        always safe; a thief that won the DEL meanwhile still owns the
+        job, and its larger token fences this replica's run."""
+        with self._adm_lock:
+            self._unretracted.add(uid)
+
+    def held_by_us(self, uid: str) -> Optional[bool]:
+        """Does the store's lease on ``uid`` carry this replica's token?
+        None when it cannot say (no local record, an expired lease, or a
+        store that does not answer)."""
+        h = self._held.get(uid)
+        if h is None:
+            return None
+        try:
+            raw = self._store.peek(self._lease_key(uid))
+        except Exception:
+            return None
+        if raw is None:
+            return None
+        return int(self._parse(raw).get("token", -1)) == h.token
+
+    def distrust(self, uid: str) -> None:
+        """Make every :meth:`fence` and :meth:`settle_for_failure` of
+        ``uid`` until its release prove the lease against the store
+        instead of trusting the local TTL: after a marker DEL this
+        replica could not prove, a thief may claim the job and overwrite
+        the lease with a larger token (ROADMAP Queue C 12)."""
+        self._distrusted.add(uid)
+
+    def sweep_unretracted(self) -> int:
+        """Retry the marker DELs :meth:`note_unretracted` kept; returns
+        how many landed.  Stops at the first failure (the store is
+        still away; the next heartbeat or release retries)."""
+        if not self._unretracted:
+            return 0
+        done = 0
+        with self._adm_lock:
+            for uid in sorted(self._unretracted):
+                try:
+                    self._store.delete(self._adm_key(uid))
+                except Exception as exc:
+                    log_event("retract_admission_retry_failed", uid=uid,
+                              error=str(exc))
+                    break
+                self._unretracted.discard(uid)
+                done += 1
+                log_event("retract_admission_retried", uid=uid,
+                          replica=self.replica_id)
+        return done
 
     def admission_claimed(self, uid: str) -> bool:
         """Has a thief already claimed this queued job's marker?  The
@@ -988,14 +1077,34 @@ class LeaseManager:
         self._recover = recover
         if self.heartbeat_s <= 0 or self._thread is not None:
             return
+        # a tick is a dozen or more store round trips, and the thread
+        # takes the GIL back after each reply only when a CPU-bound
+        # worker (a FILE source's parse) hands it over, once a switch
+        # interval: at 5 ms a tick took 1.3 s on an H100 host and the
+        # renewals came 2 s apart, a whole 2 s lease (ROADMAP Queue C
+        # 14; the reference keeps the default).  Process-wide, as the
+        # interval is
+        if sys.getswitchinterval() > HEARTBEAT_SWITCH_S:
+            sys.setswitchinterval(HEARTBEAT_SWITCH_S)
         self._thread = threading.Thread(
             target=self._loop, daemon=True,
             name=f"fsm-lease-{self.replica_id[:8]}")
         self._thread.start()
 
     def _loop(self) -> None:
+        # a beat that comes later than half the TTL after the one before
+        # is logged with the earlier tick's own wall: a long tick is a
+        # slow store or pass, a short one a thread that did not get to
+        # run (the leases of this replica lapse past the TTL)
+        last, tick_s = time.monotonic(), 0.0
         while not self._stop.wait(self.heartbeat_s):
+            t0 = time.monotonic()
+            if t0 - last > self.lease_ttl_s / 2:
+                log_event("lease_heartbeat_late", replica=self.replica_id,
+                          gap_s=round(t0 - last, 3),
+                          tick_s=round(tick_s, 3), ttl_s=self.lease_ttl_s)
             self.tick()
+            last, tick_s = t0, time.monotonic() - t0
 
     def tick(self) -> None:
         """One heartbeat: publish load, renew held leases, and (on
@@ -1014,6 +1123,7 @@ class LeaseManager:
             self.publish_heartbeat()
         except Exception as exc:
             log_event("lease_heartbeat_failed", error=str(exc))
+        self.sweep_unretracted()  # logs its own store failures
         try:
             self.renew_all()
         except Exception as exc:

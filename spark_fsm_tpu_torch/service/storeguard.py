@@ -20,8 +20,10 @@ the durable-write paths and that fate:
 - **Write-behind spool**: while DOWN, a running job's fenced writes
   (checkpoint deltas, result sink, statuses, spine chunks) append to a
   bounded per-job local spool instead of raising.  On store return the
-  spool replays IN ORDER under the SAME fencing token: the replay gate
-  is one journal-gated NX reacquire (:meth:`~spark_fsm_tpu_torch.service.
+  spool replays IN ORDER once the replay gate proves the spool's
+  fencing token is still the job's: the lease still carries it, or it
+  expired unclaimed and one journal-gated NX reacquire re-takes it under
+  a fresh token (:meth:`~spark_fsm_tpu_torch.service.
   lease.LeaseManager.reacquire_for_spool`) — if the lease was
   legitimately taken during the outage (an adopter owns the uid now),
   the replay is REFUSED and counted, preserving the earlier work
@@ -175,6 +177,10 @@ class StoreGuard:
         # same uid must not read it as foreign (an ephemeral job
         # spanning two outages would otherwise refuse itself)
         self._own_none_uids: set = set()
+        # uids whose job skipped its lease fence while the store was
+        # DOWN (:meth:`skip_fence`): the first of its writes that goes
+        # straight to the store again proves the lease first
+        self._unfenced: set = set()
         # id(ctl) -> (ctl, stalled_since) — strong refs until unstall
         self._stalled: Dict[int, Tuple[object, float]] = {}
         self._lock = threading.RLock()
@@ -189,6 +195,24 @@ class StoreGuard:
 
     def is_down(self) -> bool:
         return self._state == DOWN
+
+    def skip_fence(self, uid: str) -> bool:
+        """May a job skip its lease fence at this point?  True during a
+        PROVEN outage (DOWN): its writes spool and the replay gate
+        re-proves its token, and should the store come back before its
+        next write, that write proves the lease before it lands
+        (:meth:`_write`).  False: fence as usual.  Without the second
+        half a job whose fence was skipped wrote its next status
+        straight to a store that had come back, after an adopter had
+        settled the uid (ROADMAP Queue C 13; the reference only reads
+        :meth:`is_down`)."""
+        with self._lock:
+            if self._state != DOWN:
+                return False
+            if len(self._unfenced) > 4096:
+                self._unfenced.clear()
+            self._unfenced.add(uid)
+            return True
 
     def _to(self, state: str, why: str = "") -> None:
         if state == self._state:
@@ -371,8 +395,16 @@ class StoreGuard:
     def _write(self, uid: str, entry: Tuple, gate: Optional[str]) -> bool:
         """Apply (False) or spool (True) one durable write.  A uid with
         a PENDING spool keeps spooling even after the store is back —
-        in-order is the invariant, and only the replay may drain it."""
+        in-order is the invariant, and only the replay may drain it.
+        The first direct write of a job that skipped its fence in an
+        outage fences it first (raises ``JobLeaseLost`` when an adopter
+        took the uid meanwhile)."""
         if self._state != DOWN and uid not in self._spools:
+            if uid in self._unfenced:
+                with self._lock:
+                    self._unfenced.discard(uid)
+                if self._mgr is not None:
+                    self._mgr.fence(uid)
             try:
                 self._apply(entry)
                 self._note_ok()
@@ -526,8 +558,8 @@ class StoreGuard:
                 if self._is_transport(exc):
                     self._to(DOWN, why="reacquire transport failure")
                     return "again"
-                owned = False
-            if not owned:
+                owned = None
+            if owned is None:
                 # the lease was legitimately taken during the outage:
                 # an adopter owns the uid's keys — refusing the replay
                 # IS the no-double-commit invariant (each refusal a
@@ -535,6 +567,10 @@ class StoreGuard:
                 _DROPPED.inc(n=len(spool.entries), why="refused")
                 jobctl.fence_lost(self._ctl_of(spool.uid))
                 return "refused"
+            # the token the lease now carries (a fresh one after a
+            # re-take): a flap mid-replay re-enters the gate with it
+            spool.token = owned
+            self._unfenced.discard(spool.uid)
         while spool.entries:
             entry = spool.entries[0]
             try:

@@ -11,6 +11,7 @@ on.  The two packages keep separate module state (registries, job
 control, the installed store guard), so the runs do not see each other.
 """
 
+import contextlib
 import threading
 import time
 import types
@@ -37,7 +38,10 @@ def _namespace(root) -> types.SimpleNamespace:
         "synth": "data.synth", "vertical": "data.vertical",
         "oracle": "models.oracle", "resultcache": "service.resultcache",
         "usage": "service.usage", "fusion": "service.fusion",
-        "obsplane": "service.obsplane",
+        "obsplane": "service.obsplane", "autoscale": "service.autoscale",
+        "fairness": "service.fairness", "remote": "service.remote",
+        "kafka": "streaming.kafka", "consumer": "streaming.consumer",
+        "incremental": "streaming.incremental",
     }
     ns = types.SimpleNamespace(
         name="port" if root is spark_fsm_tpu_torch else "reference")
@@ -138,6 +142,17 @@ class PortOnCpu:
 
     def __exit__(self, *exc):
         PKGS["port"].plugins._device = self._saved
+
+
+@contextlib.contextmanager
+def restored(module, name):
+    """Put ``module.name`` back after a scenario that replaces it (a
+    scenario takes no fixture, so that its record's key is its name)."""
+    real = getattr(module, name)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
 
 
 def req(P, uid, **extra):

@@ -186,7 +186,9 @@ def _smoke_helpers():
 
 def test_no_source_line_imports_jax_or_the_reference():
     helpers = _smoke_helpers()
-    assert ROOT / "tests" / "_torch_miniredis.py" in helpers
+    for name in ("_torch_miniredis.py", "_torch_storm.py",
+                 "_torch_minies.py"):
+        assert ROOT / "tests" / name in helpers
     files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
              + helpers)
     assert len(files) > 10

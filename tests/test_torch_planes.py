@@ -164,6 +164,8 @@ def test_oom_on_a_fused_launch_halves_it():
             for k, db in dbs.items()}
     FZ.configure(TC.FusionConfig(enabled=True, window_ms=250.0))
     b = FZ.broker()
+    # the process keeps one broker, whose counters run across tests
+    s0 = dict(b.stats)
     b.hold()
     engs = {k: _kernel_path(db, 10, max_side=2) for k, db in dbs.items()}
     out = {}
@@ -182,8 +184,9 @@ def test_oom_on_a_fused_launch_halves_it():
             assert not t.is_alive(), "fused mine wedged"
     for k in dbs:
         assert rules_text(out[k]) == rules_text(want[k])
-    assert b.stats["cross_job_launches"] >= 1
-    assert b.stats["degraded"] == 0  # absorbed by the ladder, no re-dispatch
+    assert b.stats["cross_job_launches"] - s0["cross_job_launches"] >= 1
+    # absorbed by the ladder, no re-dispatch
+    assert b.stats["degraded"] == s0["degraded"]
     assert engs["a"].stats.get("degraded_launches", 0) >= 1
     assert engs["b"].stats.get("degraded_launches", 0) >= 1
 

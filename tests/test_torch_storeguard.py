@@ -223,7 +223,13 @@ def test_replay_gate_same_token_reacquire_and_adopted_refusal(pkg):
     store.cut = False
     g.tick()
     assert g.drained() and store.raw("fsm:pattern:u1") == "[1]"
-    assert json.loads(store.peek("fsm:lease:u1"))["token"] == tok
+    retaken = json.loads(store.peek("fsm:lease:u1"))["token"]
+    if pkg == "port":
+        # the port re-takes an expired lease under a fresh token, so the
+        # uid's tokens never fall (ROADMAP Queue C 11)
+        assert retaken > tok and mgr.token_of("u1") == retaken
+    else:
+        assert retaken == tok
     mgr.release("u1")
     store.journal_clear("u1")
 
@@ -607,7 +613,8 @@ def _renewal_before_replay(P):
         lease = json.loads(store.peek("fsm:lease:u1") or "{}")
         return {"stalled": stalled, "pattern": store.raw("fsm:pattern:u1"),
                 "lost": ctl.lease_lost, "still_stalled": ctl.stalled,
-                "same_token": lease.get("token") == tok}
+                "same_token": lease.get("token") == tok,
+                "held": lease.get("token") == mgr.token_of("u1")}
     finally:
         P.jobctl.release("u1")
 
@@ -616,10 +623,12 @@ def test_renewal_before_the_replay_keeps_the_spools_token():
     """ROADMAP Queue C 7: the reference's renewal re-takes the expired
     lease under a fresh token, so its replay, gated on the spool's token,
     is refused and the job fenced; the port's renewal leaves a stalled
-    job's lease to the replay, which re-takes it under the same token."""
+    job's lease to the replay, which proves the spool's token is the
+    job's last and re-takes the lease for the job under a fresh token
+    (Queue C 11: a re-take never lowers the uid's token)."""
     assert _renewal_before_replay(PKGS["reference"]) == {
         "stalled": True, "pattern": None, "lost": True,
-        "still_stalled": False, "same_token": False}
+        "still_stalled": False, "same_token": False, "held": True}
     assert _renewal_before_replay(PKGS["port"]) == {
         "stalled": True, "pattern": "[1]", "lost": False,
-        "still_stalled": False, "same_token": True}
+        "still_stalled": False, "same_token": False, "held": True}
