@@ -22,6 +22,7 @@ import numpy as np
 
 from spark_fsm_tpu_torch.data.fasttok import tokenize
 from spark_fsm_tpu_torch.data.spmf import SequenceDB
+from spark_fsm_tpu_torch.utils import obs
 
 WORD_BITS = 32
 
@@ -186,12 +187,21 @@ def build_vertical(
     renumbered).
 
     ``pad_sequences_to`` pads the sequence axis with all-zero sequences;
-    ``word_multiple`` pads n_words up.
+    ``word_multiple`` pads n_words up.  Traced, the build is one
+    ``vertical.build`` span.
     """
     n_seq = len(db)
     if n_seq == 0:
         raise ValueError("empty sequence database")
+    with obs.span("vertical.build", sequences=n_seq):
+        return _build_vertical(db, min_item_support, pad_sequences_to,
+                               word_multiple)
 
+
+def _build_vertical(db: SequenceDB, min_item_support: int,
+                    pad_sequences_to: Optional[int],
+                    word_multiple: int) -> VerticalDB:
+    n_seq = len(db)
     seq_lengths, counts, raw_items = tokenize(db)
     n_itemsets_total = len(counts)
     # position (itemset index within its sequence) per itemset, then per token

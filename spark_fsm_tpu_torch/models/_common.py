@@ -36,6 +36,7 @@ from spark_fsm_tpu_torch.ops import bitops_torch as B
 from spark_fsm_tpu_torch.ops import pair_support as PS
 from spark_fsm_tpu_torch.ops.ragged_batch import next_pow2
 from spark_fsm_tpu_torch.device import resolve_device
+from spark_fsm_tpu_torch.utils import obs
 from spark_fsm_tpu_torch.parallel.mesh import (  # noqa: F401 (re-export)
     mesh_size, pad_to_multiple, rank0_decides, shard_bounds)
 
@@ -132,11 +133,12 @@ def scatter_build_store(vdb, n_rows: int, n_seq: int, n_words: int,
     block: ``[n_rows, shard_width(n_seq, mesh) * n_words]`` from the
     tokens whose sequence lies in :func:`shard_bounds` (the reference's
     ``_store_builder`` shard scatter)."""
-    toks = (vdb.tok_item, vdb.tok_seq, vdb.tok_word, vdb.tok_mask)
-    if mesh is not None:
-        toks = shard_tokens(*toks, n_seq, mesh)
-        n_seq = shard_width(n_seq, mesh)
-    return scatter_tokens(*toks, n_rows, n_seq, n_words, device)
+    with obs.span("store.build", rows=n_rows, tokens=len(vdb.tok_item)):
+        toks = (vdb.tok_item, vdb.tok_seq, vdb.tok_word, vdb.tok_mask)
+        if mesh is not None:
+            toks = shard_tokens(*toks, n_seq, mesh)
+            n_seq = shard_width(n_seq, mesh)
+        return scatter_tokens(*toks, n_rows, n_seq, n_words, device)
 
 
 def shard_tokens(ti: np.ndarray, ts: np.ndarray, tw: np.ndarray,

@@ -44,6 +44,12 @@ partition seeds only its owned roots and the slices union to the whole
 set.  Each slice routes queue -> classic (the dense engine has no root
 slice); the composite checkpoint nests the active slice's frontier.  Not
 ported: shape-key registration (ROADMAP Queue A item 13).
+
+Traced (``utils/obs``), :func:`mine_spade_torch` is a ``mine.spade`` span
+(a trace of its own outside a job) and a classic mine a ``spade.mine``
+span: ``spade.roots``, then each batch's ``spade.dispatch`` (``slots``,
+``prep``, ``candidates``, ``supports``) and ``spade.resolve`` (``wait``,
+``prune``, ``materialize``), then ``mine.sort``.
 """
 
 from __future__ import annotations
@@ -71,7 +77,7 @@ from spark_fsm_tpu_torch.models.spade_queue import (
 from spark_fsm_tpu_torch.ops import pair_support as PS
 from spark_fsm_tpu_torch.parallel import partition as PN
 from spark_fsm_tpu_torch.parallel.mesh import all_reduce_sum, mesh_size
-from spark_fsm_tpu_torch.utils import shapes
+from spark_fsm_tpu_torch.utils import obs, shapes
 from spark_fsm_tpu_torch.utils.canonical import Pattern, PatternResult, sort_patterns
 
 Step = Tuple[int, bool]  # (item index, is_s_extension)
@@ -218,8 +224,9 @@ class SpadeTorch:
     def _prep(self, batch: List[_Node]) -> torch.Tensor:
         """The batch's interleaved plain/transformed parent rows, sized to
         the live batch (the kernel takes any row count)."""
-        pt = prep_rows(self.store, [n.slot for n in batch], self.s_local,
-                       self.n_words)
+        with obs.span("spade.prep", launches=1):
+            pt = prep_rows(self.store, [n.slot for n in batch], self.s_local,
+                           self.n_words)
         self.stats["kernel_launches"] += 1
         return pt
 
@@ -230,13 +237,14 @@ class SpadeTorch:
         copy into a pinned host tensor and record an event behind it.
         Returns ``(supports, event_or_None)``."""
         self.stats["candidates"] += len(ref)
-        sup = PS.batch_supports(pt, self.store, self.n_items,
-                                to_index(2 * ref + iss, self.device),
-                                to_index(item, self.device),
-                                n_words=self.n_words)
-        all_reduce_sum(sup, self.mesh)
-        self.stats["kernel_launches"] += 1
-        (host,), ev = to_host([sup])
+        with obs.span("spade.supports", candidates=len(ref)):
+            sup = PS.batch_supports(pt, self.store, self.n_items,
+                                    to_index(2 * ref + iss, self.device),
+                                    to_index(item, self.device),
+                                    n_words=self.n_words)
+            all_reduce_sum(sup, self.mesh)
+            self.stats["kernel_launches"] += 1
+            (host,), ev = to_host([sup])
         return host, ev
 
     # ---------------------------------------------------------------- mine
@@ -254,36 +262,44 @@ class SpadeTorch:
     def _dispatch(self, stack: List[_Node]):
         """Pop a node batch, dispatch its supports, start the host copy.
         Returns everything the resolve step needs."""
-        batch = [stack.pop() for _ in range(min(self.node_batch, len(stack)))]
-        ensure_slots(self.store, self._pool, batch, stack,
-                     first_pool_slot=self.n_items, group=self.recompute_chunk,
-                     n_seq=self.s_local, n_words=self.n_words,
-                     stats=self.stats)
-        pt = self._prep(batch)
+        with obs.span("spade.dispatch") as dsp:
+            batch = [stack.pop()
+                     for _ in range(min(self.node_batch, len(stack)))]
+            dsp.set(nodes=len(batch))
+            with obs.span("spade.slots") as sp:
+                before = self.stats["kernel_launches"]
+                ensure_slots(self.store, self._pool, batch, stack,
+                             first_pool_slot=self.n_items,
+                             group=self.recompute_chunk,
+                             n_seq=self.s_local, n_words=self.n_words,
+                             stats=self.stats)
+                sp.set(launches=self.stats["kernel_launches"] - before)
+            pt = self._prep(batch)
 
-        # Flat candidate list for the whole batch (ref = index in batch).
-        cand_item: List[int] = []
-        cand_iss: List[bool] = []
-        cand_ref: List[int] = []
-        spans: List[Tuple[int, int, int]] = []  # (s_lo, s_hi == i_lo, i_hi)
-        for b_idx, node in enumerate(batch):
-            n_itemsets = sum(1 for _, s in node.steps if s)
-            allow_s = (self.max_pattern_itemsets is None
-                       or n_itemsets < self.max_pattern_itemsets)
-            s_lo = len(cand_ref)
-            if allow_s:
-                for i in node.s_list:
-                    cand_ref.append(b_idx); cand_item.append(i); cand_iss.append(True)
-            s_hi = len(cand_ref)
-            for i in node.i_list:
-                cand_ref.append(b_idx); cand_item.append(i); cand_iss.append(False)
-            spans.append((s_lo, s_hi, len(cand_ref)))
+            # Flat candidate list for the whole batch (ref = index in batch).
+            with obs.span("spade.candidates"):
+                cand_item: List[int] = []
+                cand_iss: List[bool] = []
+                cand_ref: List[int] = []
+                spans: List[Tuple[int, int, int]] = []  # (s_lo, s_hi == i_lo, i_hi)
+                for b_idx, node in enumerate(batch):
+                    n_itemsets = sum(1 for _, s in node.steps if s)
+                    allow_s = (self.max_pattern_itemsets is None
+                               or n_itemsets < self.max_pattern_itemsets)
+                    s_lo = len(cand_ref)
+                    if allow_s:
+                        for i in node.s_list:
+                            cand_ref.append(b_idx); cand_item.append(i); cand_iss.append(True)
+                    s_hi = len(cand_ref)
+                    for i in node.i_list:
+                        cand_ref.append(b_idx); cand_item.append(i); cand_iss.append(False)
+                    spans.append((s_lo, s_hi, len(cand_ref)))
+                arrays = (np.array(cand_ref, np.int64),
+                          np.array(cand_item, np.int64),
+                          np.array(cand_iss, np.int64))
 
-        sup, ev = (
-            self._supports_dispatch(pt, np.array(cand_ref, np.int64),
-                                    np.array(cand_item, np.int64),
-                                    np.array(cand_iss, np.int64))
-            if cand_ref else (None, None))
+            sup, ev = (self._supports_dispatch(pt, *arrays)
+                       if cand_ref else (None, None))
         return batch, pt, cand_item, cand_iss, spans, sup, ev
 
     def _resolve(self, inflight, stack: List[_Node],
@@ -292,48 +308,54 @@ class SpadeTorch:
         surviving children, push them on the DFS stack."""
         batch, pt, cand_item, cand_iss, spans, sup, ev = inflight
         minsup = self.minsup
-        if sup is None:
-            sups = np.empty(0, np.int32)
-        else:
-            if ev is not None:
-                ev.synchronize()
-            sups = sup.numpy()
+        with obs.span("spade.resolve", nodes=len(batch)):
+            with obs.span("spade.wait"):
+                if sup is None:
+                    sups = np.empty(0, np.int32)
+                else:
+                    if ev is not None:
+                        ev.synchronize()
+                    sups = sup.numpy()
 
-        children: List[_Node] = []
-        mat_ref: List[int] = []; mat_item: List[int] = []
-        mat_iss: List[int] = []; mat_child: List[int] = []
-        for b_idx, (node, (s_lo, s_hi, i_hi)) in enumerate(zip(batch, spans)):
-            n_itemsets = sum(1 for _, s in node.steps if s)
-            s_items = [cand_item[k] for k in range(s_lo, s_hi) if sups[k] >= minsup]
-            i_items = [cand_item[k] for k in range(s_hi, i_hi) if sups[k] >= minsup]
-            for k in range(s_lo, i_hi):
-                if sups[k] < minsup:
-                    continue
-                it, is_s = cand_item[k], cand_iss[k]
-                steps = node.steps + ((it, is_s),)
-                results.append((self._pattern_of(steps), int(sups[k])))
-                src = s_items if is_s else i_items
-                child_i = [j for j in src if j > it]
-                child_itemsets = n_itemsets + (1 if is_s else 0)
-                child_allow_s = (self.max_pattern_itemsets is None
-                                 or child_itemsets < self.max_pattern_itemsets)
-                if not ((s_items and child_allow_s) or child_i):
-                    continue  # leaf: no possible extensions
-                child = _Node(steps, None, s_items, child_i)
-                slot = self._alloc()
-                if slot is not None:
-                    child.slot = slot
-                    mat_ref.append(b_idx); mat_item.append(it)
-                    mat_iss.append(int(is_s)); mat_child.append(slot)
-                children.append(child)
-        if mat_child:
-            self.stats["kernel_launches"] += materialize_rows(
-                self.store, pt, np.array(mat_ref, np.int64),
-                np.array(mat_item, np.int64), np.array(mat_iss, np.int64),
-                np.array(mat_child, np.int64), self.chunk)
-        stack.extend(reversed(children))
-        for node in batch:
-            self._free_slot(node.slot)
+            with obs.span("spade.prune") as sp:
+                children: List[_Node] = []
+                mat_ref: List[int] = []; mat_item: List[int] = []
+                mat_iss: List[int] = []; mat_child: List[int] = []
+                for b_idx, (node, (s_lo, s_hi, i_hi)) in enumerate(zip(batch, spans)):
+                    n_itemsets = sum(1 for _, s in node.steps if s)
+                    s_items = [cand_item[k] for k in range(s_lo, s_hi) if sups[k] >= minsup]
+                    i_items = [cand_item[k] for k in range(s_hi, i_hi) if sups[k] >= minsup]
+                    for k in range(s_lo, i_hi):
+                        if sups[k] < minsup:
+                            continue
+                        it, is_s = cand_item[k], cand_iss[k]
+                        steps = node.steps + ((it, is_s),)
+                        results.append((self._pattern_of(steps), int(sups[k])))
+                        src = s_items if is_s else i_items
+                        child_i = [j for j in src if j > it]
+                        child_itemsets = n_itemsets + (1 if is_s else 0)
+                        child_allow_s = (self.max_pattern_itemsets is None
+                                         or child_itemsets < self.max_pattern_itemsets)
+                        if not ((s_items and child_allow_s) or child_i):
+                            continue  # leaf: no possible extensions
+                        child = _Node(steps, None, s_items, child_i)
+                        slot = self._alloc()
+                        if slot is not None:
+                            child.slot = slot
+                            mat_ref.append(b_idx); mat_item.append(it)
+                            mat_iss.append(int(is_s)); mat_child.append(slot)
+                        children.append(child)
+                sp.set(children=len(children))
+            with obs.span("spade.materialize", rows=len(mat_child)) as sp:
+                launches = materialize_rows(
+                    self.store, pt, np.array(mat_ref, np.int64),
+                    np.array(mat_item, np.int64), np.array(mat_iss, np.int64),
+                    np.array(mat_child, np.int64), self.chunk) if mat_child else 0
+                self.stats["kernel_launches"] += launches
+                sp.set(launches=launches)
+                stack.extend(reversed(children))
+                for node in batch:
+                    self._free_slot(node.slot)
 
     def frontier_fingerprint(self) -> dict:
         """Identity of the (vdb, minsup) a frontier checkpoint binds to —
@@ -360,6 +382,10 @@ class SpadeTorch:
             every ``checkpoint_every_s`` seconds (the in-flight pipeline is
             drained first so the snapshot is consistent).
         """
+        with obs.span("spade.mine"):
+            return self._mine(resume, checkpoint_cb, checkpoint_every_s)
+
+    def _mine(self, resume, checkpoint_cb, checkpoint_every_s):
         minsup = self.minsup
         # every mine starts from a whole slot pool (a repeat mine on a
         # cached engine must not inherit the last one's free list or its
@@ -368,23 +394,24 @@ class SpadeTorch:
                                     self.n_items + self.pool_slots))
         stack: List[_Node] = []
         results: List[PatternResult]
-        if resume is not None:
-            results, stack = decode_frontier(
-                resume, self.frontier_fingerprint(), _Node)
-            self.stats["resumed_nodes"] = len(stack)
-        else:
-            results = []
-            root_items = [i for i in range(self.n_items)
-                          if int(self.vdb.item_supports[i]) >= minsup]
-            seed = set(PN.owned_roots(root_items, self.vdb.item_ids,
-                                      self._partition))
-            for i in reversed(root_items):
-                if i not in seed:
-                    continue  # another partition's class slice
-                results.append((self._pattern_of(((i, True),)),
-                                int(self.vdb.item_supports[i])))
-                stack.append(_Node(((i, True),), i, root_items,
-                                   [j for j in root_items if j > i]))
+        with obs.span("spade.roots"):
+            if resume is not None:
+                results, stack = decode_frontier(
+                    resume, self.frontier_fingerprint(), _Node)
+                self.stats["resumed_nodes"] = len(stack)
+            else:
+                results = []
+                root_items = [i for i in range(self.n_items)
+                              if int(self.vdb.item_supports[i]) >= minsup]
+                seed = set(PN.owned_roots(root_items, self.vdb.item_ids,
+                                          self._partition))
+                for i in reversed(root_items):
+                    if i not in seed:
+                        continue  # another partition's class slice
+                    results.append((self._pattern_of(((i, True),)),
+                                    int(self.vdb.item_supports[i])))
+                    stack.append(_Node(((i, True),), i, root_items,
+                                       [j for j in root_items if j > i]))
 
         # Software-pipelined DFS: up to pipeline_depth batches in flight.
         # Resolving out of strict DFS order only permutes enumeration order;
@@ -407,7 +434,8 @@ class SpadeTorch:
                 last_ckpt = time.monotonic()
 
         self.stats["patterns"] = len(results)
-        return sort_patterns(results)
+        with obs.span("mine.sort", patterns=len(results)):
+            return sort_patterns(results)
 
 
 _FUSED = ("auto", "always", "never", "queue", "dense")
@@ -457,20 +485,22 @@ def mine_spade_torch(
     dev = engine_device(device, mesh)
     if fused not in _FUSED:
         raise ValueError(f"fused must be one of {_FUSED}, got {fused!r}")
-    vdb = build_vertical(db, min_item_support=minsup_abs)
-    if vdb.n_items == 0:
-        return []
-    if partition_parts and int(partition_parts) > 1:
-        return _mine_spade_partitioned(
-            vdb, minsup_abs, device=dev, mesh=mesh,
-            parts=int(partition_parts), classes=int(partition_classes),
-            max_pattern_itemsets=max_pattern_itemsets, stats_out=stats_out,
-            checkpoint=checkpoint, fused=fused, shape_buckets=shape_buckets,
-            **kwargs)
-    return _route_spade(vdb, minsup_abs, device=dev, mesh=mesh,
-                        max_pattern_itemsets=max_pattern_itemsets,
-                        stats_out=stats_out, checkpoint=checkpoint,
-                        fused=fused, shape_buckets=shape_buckets, **kwargs)
+    with obs.mine_trace("mine.spade", minsup=int(minsup_abs), fused=fused):
+        vdb = build_vertical(db, min_item_support=minsup_abs)
+        if vdb.n_items == 0:
+            return []
+        if partition_parts and int(partition_parts) > 1:
+            return _mine_spade_partitioned(
+                vdb, minsup_abs, device=dev, mesh=mesh,
+                parts=int(partition_parts), classes=int(partition_classes),
+                max_pattern_itemsets=max_pattern_itemsets,
+                stats_out=stats_out, checkpoint=checkpoint, fused=fused,
+                shape_buckets=shape_buckets, **kwargs)
+        return _route_spade(vdb, minsup_abs, device=dev, mesh=mesh,
+                            max_pattern_itemsets=max_pattern_itemsets,
+                            stats_out=stats_out, checkpoint=checkpoint,
+                            fused=fused, shape_buckets=shape_buckets,
+                            **kwargs)
 
 
 def _route_spade(

@@ -36,6 +36,11 @@ supports are all-reduced (SUM) before the prune (the reference's
 ``psum``).  ``partition_parts > 1`` mines equivalence-class slices
 (:func:`_mine_cspade_partitioned`): a pattern's class is its first item,
 and the constraints change support counting, not the class structure.
+
+Traced (``utils/obs``), :func:`mine_cspade_torch` is a ``mine.cspade``
+span, construction a ``cspade.engine`` span (``store.build`` and the
+pool's zero-fill ``cspade.pool`` inside it) and a mine the classic
+engine's set of spans under ``cspade.*``.
 """
 
 from __future__ import annotations
@@ -59,7 +64,7 @@ from spark_fsm_tpu_torch.ops import maxstart_torch as MS
 from spark_fsm_tpu_torch.parallel import partition as PN
 from spark_fsm_tpu_torch.parallel.mesh import (
     all_reduce_sum, mesh_size, pad_to_multiple)
-from spark_fsm_tpu_torch.utils import shapes
+from spark_fsm_tpu_torch.utils import obs, shapes
 from spark_fsm_tpu_torch.utils.canonical import (
     Pattern, PatternResult, sort_patterns)
 
@@ -167,40 +172,43 @@ class ConstrainedSpadeTorch:
         self.maxgap = maxgap
         self.maxwindow = maxwindow
         self.max_pattern_itemsets = max_pattern_itemsets
-        n_items, n_words = vdb.n_items, vdb.n_words
-        g = cspade_geometry(
-            vdb.n_sequences, n_items, n_words, maxgap=maxgap,
-            maxwindow=maxwindow, device=self.device, mesh=mesh,
-            chunk=chunk, node_batch=node_batch,
-            pipeline_depth=pipeline_depth, recompute_chunk=recompute_chunk,
-            pool_bytes=pool_bytes, shape_buckets=shape_buckets)
-        self.n_items, self.n_seq, self.n_words = n_items, g["n_seq"], n_words
-        self.item_rows = g["item_rows"]
-        self.n_pos = g["n_pos"]
-        self.dtype = g["dtype"]
-        self.chunk = g["chunk"]
-        self.recompute_chunk = g["recompute_chunk"]
-        self.pipeline_depth = g["pipeline_depth"]
-        self.node_batch = g["node_batch"]
-        self.pool_slots = g["pool_slots"]
-        # the item bitmaps scatter-built on the device, viewed as words
-        # (rows past n_items, under shape_buckets, stay all-zero and are
-        # never indexed), and the state pool
-        # this rank's block of the sequence axis (all of it without a mesh)
-        self.s_local = shard_width(self.n_seq, mesh)
-        self._words = scatter_build_store(
-            vdb, self.item_rows, self.n_seq, n_words, self.device,
-            mesh).view(self.item_rows, self.s_local, n_words)
-        self.pool = torch.zeros((self.pool_slots, self.s_local, self.n_pos),
-                                dtype=self.dtype, device=self.device)
-        self._pool_alloc = SlotPool(range(self.pool_slots))
-        # s_candidates vs i_candidates: under maxgap the s-side is all
-        # root items per node, so its share is the cost of that constraint
-        self.stats = {"candidates": 0, "s_candidates": 0, "i_candidates": 0,
-                      "kernel_launches": 0, "recomputed_nodes": 0,
-                      "reclaimed_slots": 0, "patterns": 0,
-                      "shape_key": g["shape_key"]}
-        shapes.record(g["shape_key"])
+        with obs.span("cspade.engine"):
+            n_items, n_words = vdb.n_items, vdb.n_words
+            g = cspade_geometry(
+                vdb.n_sequences, n_items, n_words, maxgap=maxgap,
+                maxwindow=maxwindow, device=self.device, mesh=mesh,
+                chunk=chunk, node_batch=node_batch,
+                pipeline_depth=pipeline_depth, recompute_chunk=recompute_chunk,
+                pool_bytes=pool_bytes, shape_buckets=shape_buckets)
+            self.n_items, self.n_seq, self.n_words = n_items, g["n_seq"], n_words
+            self.item_rows = g["item_rows"]
+            self.n_pos = g["n_pos"]
+            self.dtype = g["dtype"]
+            self.chunk = g["chunk"]
+            self.recompute_chunk = g["recompute_chunk"]
+            self.pipeline_depth = g["pipeline_depth"]
+            self.node_batch = g["node_batch"]
+            self.pool_slots = g["pool_slots"]
+            # the item bitmaps scatter-built on the device, viewed as words
+            # (rows past n_items, under shape_buckets, stay all-zero and are
+            # never indexed), and the state pool
+            # this rank's block of the sequence axis (all of it without a mesh)
+            self.s_local = shard_width(self.n_seq, mesh)
+            self._words = scatter_build_store(
+                vdb, self.item_rows, self.n_seq, n_words, self.device,
+                mesh).view(self.item_rows, self.s_local, n_words)
+            with obs.span("cspade.pool", slots=self.pool_slots):
+                self.pool = torch.zeros(
+                    (self.pool_slots, self.s_local, self.n_pos),
+                    dtype=self.dtype, device=self.device)
+            self._pool_alloc = SlotPool(range(self.pool_slots))
+            # s_candidates vs i_candidates: under maxgap the s-side is all
+            # root items per node, so its share is the cost of that constraint
+            self.stats = {"candidates": 0, "s_candidates": 0, "i_candidates": 0,
+                          "kernel_launches": 0, "recomputed_nodes": 0,
+                          "reclaimed_slots": 0, "patterns": 0,
+                          "shape_key": g["shape_key"]}
+            shapes.record(g["shape_key"])
 
     # ------------------------------------------------------- device steps
 
@@ -228,11 +236,12 @@ class ConstrainedSpadeTorch:
             else:
                 slots[i] = n.slot
         dev = self.device
-        m = torch.where(torch.from_numpy(is_root).to(dev)[:, None, None],
-                        self._root_states(to_index(roots, dev)),
-                        self.pool.index_select(0, to_index(slots, dev)))
-        self.stats["kernel_launches"] += 1
-        return m, MS.prev_max(m, self.maxgap)
+        with obs.span("cspade.prep", launches=1):
+            m = torch.where(torch.from_numpy(is_root).to(dev)[:, None, None],
+                            self._root_states(to_index(roots, dev)),
+                            self.pool.index_select(0, to_index(slots, dev)))
+            self.stats["kernel_launches"] += 1
+            return m, MS.prev_max(m, self.maxgap)
 
     def _children(self, m, pm, ref: np.ndarray, item: np.ndarray,
                   iss: np.ndarray):
@@ -249,10 +258,13 @@ class ConstrainedSpadeTorch:
     def _supports(self, m, pm, ref, item, iss):
         """Windowed supports of the candidates (all-reduced on a mesh) with
         the host copy started; returns ``(supports, event_or_None)``."""
-        (host,), ev = to_host([all_reduce_sum(torch.cat([
-            MS.support(c, self.maxwindow)
-            for _, _, c in self._children(m, pm, ref, item, iss)]),
-            self.mesh)])
+        with obs.span("cspade.supports", candidates=len(ref)) as sp:
+            before = self.stats["kernel_launches"]
+            (host,), ev = to_host([all_reduce_sum(torch.cat([
+                MS.support(c, self.maxwindow)
+                for _, _, c in self._children(m, pm, ref, item, iss)]),
+                self.mesh)])
+            sp.set(launches=self.stats["kernel_launches"] - before)
         return host, ev
 
     def _materialize(self, m, pm, ref, item, iss, out_slot) -> None:
@@ -349,6 +361,10 @@ class ConstrainedSpadeTorch:
         snapshot, with a ``frontier_state`` snapshot at most every
         ``checkpoint_every_s`` seconds (the in-flight batches drained
         first)."""
+        with obs.span("cspade.mine"):
+            return self._mine(resume, checkpoint_cb, checkpoint_every_s)
+
+    def _mine(self, resume, checkpoint_cb, checkpoint_every_s):
         minsup = self.minsup
         # a whole state pool for every mine (see SpadeTorch.mine)
         self._pool_alloc = SlotPool(range(self.pool_slots))
@@ -356,104 +372,119 @@ class ConstrainedSpadeTorch:
         root_items = [i for i in range(self.n_items)
                       if int(self.vdb.item_supports[i]) >= minsup]
         stack: List[_Node] = []
-        if resume is not None:
-            results, stack = decode_frontier(
-                resume, self.frontier_fingerprint(), _Node)
-            self.stats["resumed_nodes"] = len(stack)
-        else:
-            seed = set(PN.owned_roots(root_items, self.vdb.item_ids,
-                                      self._partition))
-            for i in reversed(root_items):
-                if i not in seed:
-                    continue  # another partition's class slice
-                results.append((self._pattern_of(((i, True),)),
-                                int(self.vdb.item_supports[i])))
-                stack.append(_Node(((i, True),), None, root_items,
-                                   [j for j in root_items if j > i]))
+        with obs.span("cspade.roots"):
+            if resume is not None:
+                results, stack = decode_frontier(
+                    resume, self.frontier_fingerprint(), _Node)
+                self.stats["resumed_nodes"] = len(stack)
+            else:
+                seed = set(PN.owned_roots(root_items, self.vdb.item_ids,
+                                          self._partition))
+                for i in reversed(root_items):
+                    if i not in seed:
+                        continue  # another partition's class slice
+                    results.append((self._pattern_of(((i, True),)),
+                                    int(self.vdb.item_supports[i])))
+                    stack.append(_Node(((i, True),), None, root_items,
+                                       [j for j in root_items if j > i]))
 
         # software-pipelined dispatch/resolve: one support readback per
         # node batch, pipeline_depth batches in flight
         inflight: deque = deque()
 
         def dispatch():
-            batch = [stack.pop() for _ in range(min(self.node_batch, len(stack)))]
-            self._ensure_slots(batch, stack)
-            m, pm = self._prep(batch)
+            with obs.span("cspade.dispatch") as dsp:
+                batch = [stack.pop()
+                         for _ in range(min(self.node_batch, len(stack)))]
+                dsp.set(nodes=len(batch))
+                with obs.span("cspade.slots") as sp:
+                    before = self.stats["kernel_launches"]
+                    self._ensure_slots(batch, stack)
+                    sp.set(launches=self.stats["kernel_launches"] - before)
+                m, pm = self._prep(batch)
 
-            cand_ref: List[int] = []
-            cand_item: List[int] = []
-            cand_iss: List[bool] = []
-            spans: List[Tuple[int, int, int]] = []
-            for b_idx, node in enumerate(batch):
-                n_itemsets = sum(1 for _, s in node.steps if s)
-                allow_s = (self.max_pattern_itemsets is None
-                           or n_itemsets < self.max_pattern_itemsets)
-                s_lo = len(cand_ref)
-                if allow_s:
-                    for i in node.s_list:
-                        cand_ref.append(b_idx); cand_item.append(i); cand_iss.append(True)
-                s_hi = len(cand_ref)
-                for i in node.i_list:
-                    cand_ref.append(b_idx); cand_item.append(i); cand_iss.append(False)
-                spans.append((s_lo, s_hi, len(cand_ref)))
+                with obs.span("cspade.candidates"):
+                    cand_ref: List[int] = []
+                    cand_item: List[int] = []
+                    cand_iss: List[bool] = []
+                    spans: List[Tuple[int, int, int]] = []
+                    for b_idx, node in enumerate(batch):
+                        n_itemsets = sum(1 for _, s in node.steps if s)
+                        allow_s = (self.max_pattern_itemsets is None
+                                   or n_itemsets < self.max_pattern_itemsets)
+                        s_lo = len(cand_ref)
+                        if allow_s:
+                            for i in node.s_list:
+                                cand_ref.append(b_idx); cand_item.append(i); cand_iss.append(True)
+                        s_hi = len(cand_ref)
+                        for i in node.i_list:
+                            cand_ref.append(b_idx); cand_item.append(i); cand_iss.append(False)
+                        spans.append((s_lo, s_hi, len(cand_ref)))
 
-            self.stats["candidates"] += len(cand_ref)
-            n_s = sum(1 for x in cand_iss if x)
-            self.stats["s_candidates"] += n_s
-            self.stats["i_candidates"] += len(cand_iss) - n_s
-            sup = (self._supports(m, pm, np.array(cand_ref, np.int64),
-                                  np.array(cand_item, np.int64),
-                                  np.array(cand_iss, bool))
-                   if cand_ref else None)
+                    self.stats["candidates"] += len(cand_ref)
+                    n_s = sum(1 for x in cand_iss if x)
+                    self.stats["s_candidates"] += n_s
+                    self.stats["i_candidates"] += len(cand_iss) - n_s
+                    arrays = (np.array(cand_ref, np.int64),
+                              np.array(cand_item, np.int64),
+                              np.array(cand_iss, bool))
+                sup = self._supports(m, pm, *arrays) if cand_ref else None
             return batch, (m, pm), cand_item, cand_iss, spans, sup
 
         def resolve(entry):
             batch, (m, pm), cand_item, cand_iss, spans, sup = entry
-            if sup is None:
-                sups = np.empty(0, np.int32)
-            else:
-                host, ev = sup
-                if ev is not None:
-                    ev.synchronize()
-                sups = host.numpy()
+            with obs.span("cspade.resolve", nodes=len(batch)):
+                with obs.span("cspade.wait"):
+                    if sup is None:
+                        sups = np.empty(0, np.int32)
+                    else:
+                        host, ev = sup
+                        if ev is not None:
+                            ev.synchronize()
+                        sups = host.numpy()
 
-            children: List[_Node] = []
-            mat_ref: List[int] = []; mat_item: List[int] = []
-            mat_iss: List[bool] = []; mat_child: List[int] = []
-            for b_idx, (node, (s_lo, s_hi, i_hi)) in enumerate(zip(batch, spans)):
-                n_itemsets = sum(1 for _, s in node.steps if s)
-                s_items = [cand_item[k] for k in range(s_lo, s_hi) if sups[k] >= minsup]
-                i_items = [cand_item[k] for k in range(s_hi, i_hi) if sups[k] >= minsup]
-                for k in range(s_lo, i_hi):
-                    if sups[k] < minsup:
-                        continue
-                    it, is_s = cand_item[k], cand_iss[k]
-                    steps = node.steps + ((it, is_s),)
-                    results.append((self._pattern_of(steps), int(sups[k])))
-                    src = s_items if is_s else i_items
-                    child_i = [j for j in src if j > it]
-                    child_s = s_items if self.maxgap is None else root_items
-                    child_itemsets = n_itemsets + (1 if is_s else 0)
-                    child_allow_s = (self.max_pattern_itemsets is None
-                                     or child_itemsets < self.max_pattern_itemsets)
-                    if not ((child_s and child_allow_s) or child_i):
-                        continue
-                    child = _Node(steps, None, child_s, child_i)
-                    slot = self._pool_alloc.alloc()
-                    if slot is not None:
-                        child.slot = slot
-                        mat_ref.append(b_idx); mat_item.append(it)
-                        mat_iss.append(is_s); mat_child.append(slot)
-                    children.append(child)
-            if mat_child:
-                self._materialize(m, pm, np.array(mat_ref, np.int64),
-                                  np.array(mat_item, np.int64),
-                                  np.array(mat_iss, bool),
-                                  np.array(mat_child, np.int64))
-            stack.extend(reversed(children))
-            for node in batch:
-                if len(node.steps) > 1 and node.slot is not None:
-                    self._pool_alloc.free(node.slot)
+                with obs.span("cspade.prune") as sp:
+                    children: List[_Node] = []
+                    mat_ref: List[int] = []; mat_item: List[int] = []
+                    mat_iss: List[bool] = []; mat_child: List[int] = []
+                    for b_idx, (node, (s_lo, s_hi, i_hi)) in enumerate(zip(batch, spans)):
+                        n_itemsets = sum(1 for _, s in node.steps if s)
+                        s_items = [cand_item[k] for k in range(s_lo, s_hi) if sups[k] >= minsup]
+                        i_items = [cand_item[k] for k in range(s_hi, i_hi) if sups[k] >= minsup]
+                        for k in range(s_lo, i_hi):
+                            if sups[k] < minsup:
+                                continue
+                            it, is_s = cand_item[k], cand_iss[k]
+                            steps = node.steps + ((it, is_s),)
+                            results.append((self._pattern_of(steps), int(sups[k])))
+                            src = s_items if is_s else i_items
+                            child_i = [j for j in src if j > it]
+                            child_s = s_items if self.maxgap is None else root_items
+                            child_itemsets = n_itemsets + (1 if is_s else 0)
+                            child_allow_s = (self.max_pattern_itemsets is None
+                                             or child_itemsets < self.max_pattern_itemsets)
+                            if not ((child_s and child_allow_s) or child_i):
+                                continue
+                            child = _Node(steps, None, child_s, child_i)
+                            slot = self._pool_alloc.alloc()
+                            if slot is not None:
+                                child.slot = slot
+                                mat_ref.append(b_idx); mat_item.append(it)
+                                mat_iss.append(is_s); mat_child.append(slot)
+                            children.append(child)
+                    sp.set(children=len(children))
+                with obs.span("cspade.materialize", rows=len(mat_child)) as sp:
+                    before = self.stats["kernel_launches"]
+                    if mat_child:
+                        self._materialize(m, pm, np.array(mat_ref, np.int64),
+                                          np.array(mat_item, np.int64),
+                                          np.array(mat_iss, bool),
+                                          np.array(mat_child, np.int64))
+                    sp.set(launches=self.stats["kernel_launches"] - before)
+                    stack.extend(reversed(children))
+                    for node in batch:
+                        if len(node.steps) > 1 and node.slot is not None:
+                            self._pool_alloc.free(node.slot)
 
         ckpt_done = len(results) if resume is not None else 0
         last_ckpt = time.monotonic()
@@ -472,7 +503,8 @@ class ConstrainedSpadeTorch:
                 last_ckpt = time.monotonic()
 
         self.stats["patterns"] = len(results)
-        return sort_patterns(results)
+        with obs.span("mine.sort", patterns=len(results)):
+            return sort_patterns(results)
 
 
 def mine_cspade_torch(
@@ -502,24 +534,27 @@ def mine_cspade_torch(
     dtype, chunk, node batch, pool slots, recompute chunk and pipeline
     depth the mine ran with."""
     dev = engine_device(device, mesh)
-    vdb = build_vertical(db, min_item_support=minsup_abs)
-    if vdb.n_items == 0:
-        return []
-    if partition_parts and int(partition_parts) > 1:
-        return _mine_cspade_partitioned(
-            vdb, minsup_abs, maxgap=maxgap, maxwindow=maxwindow, device=dev,
-            mesh=mesh, parts=int(partition_parts),
-            classes=int(partition_classes),
-            max_pattern_itemsets=max_pattern_itemsets, stats_out=stats_out,
-            checkpoint=checkpoint, **kwargs)
-    eng = ConstrainedSpadeTorch(vdb, minsup_abs, maxgap=maxgap,
-                                maxwindow=maxwindow, device=dev, mesh=mesh,
-                                max_pattern_itemsets=max_pattern_itemsets,
-                                **kwargs)
-    resume, save_cb, every_s = load_checkpoint(
-        checkpoint, eng.frontier_fingerprint())
-    results = eng.mine(resume=resume, checkpoint_cb=save_cb,
-                       checkpoint_every_s=every_s)
+    with obs.mine_trace("mine.cspade", minsup=int(minsup_abs), maxgap=maxgap,
+                        maxwindow=maxwindow):
+        vdb = build_vertical(db, min_item_support=minsup_abs)
+        if vdb.n_items == 0:
+            return []
+        if partition_parts and int(partition_parts) > 1:
+            return _mine_cspade_partitioned(
+                vdb, minsup_abs, maxgap=maxgap, maxwindow=maxwindow,
+                device=dev, mesh=mesh, parts=int(partition_parts),
+                classes=int(partition_classes),
+                max_pattern_itemsets=max_pattern_itemsets,
+                stats_out=stats_out, checkpoint=checkpoint, **kwargs)
+        eng = ConstrainedSpadeTorch(vdb, minsup_abs, maxgap=maxgap,
+                                    maxwindow=maxwindow, device=dev,
+                                    mesh=mesh,
+                                    max_pattern_itemsets=max_pattern_itemsets,
+                                    **kwargs)
+        resume, save_cb, every_s = load_checkpoint(
+            checkpoint, eng.frontier_fingerprint())
+        results = eng.mine(resume=resume, checkpoint_cb=save_cb,
+                           checkpoint_every_s=every_s)
     if stats_out is not None:
         stats_out.update(eng.stats)
         # the geometry the mine ran with (the port's addition)

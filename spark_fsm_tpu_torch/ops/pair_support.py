@@ -21,6 +21,10 @@ Two versions of the same function live here:
 
 :func:`batch_supports` extracts ``out[pref, item]`` per candidate on the
 device, so the host reads back 4 bytes per candidate.
+
+Traced (``utils/obs``), each launch is one ``b1.launch`` span carrying its
+geometry (``P``, ``NI``, ``n_live``, ``S``, ``W``) and ``point`` (``kernel``
+or ``plain``): the program's own launch record.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import functools
 import torch
 
 from spark_fsm_tpu_torch.ops import _build
+from spark_fsm_tpu_torch.utils import obs
 
 # The engines pad their sequence axis to SEQ_TILE, so rows are 16-byte
 # aligned and the kernel (csrc/pair_support.cu, which picks its own tiles
@@ -121,20 +126,24 @@ def pair_supports(pt: torch.Tensor, items: torch.Tensor, n_item_rows: int,
     check_operands(pt, items, n_item_rows, n_words)
     n_live = live_rows(n_item_rows, n_live)
     dev = pt.device
+    P, SW = pt.shape
+    S = SW // n_words
+    geometry = dict(P=P, NI=n_item_rows, n_live=n_live, S=S, W=n_words)
     if dev.type == "cpu":
-        return pair_supports_plain(pt, items, n_item_rows, n_words, n_live)
+        with obs.span("b1.launch", point="plain", **geometry):
+            return pair_supports_plain(pt, items, n_item_rows, n_words,
+                                       n_live)
     if dev.type != "cuda":
         raise ValueError(f"pair_supports runs on cuda (kernel) or cpu "
                          f"(plain version), got {dev}")
-    P, SW = pt.shape
-    S = SW // n_words
     out = torch.zeros(P, n_item_rows, dtype=torch.int32, device=dev)
     if P == 0 or S == 0 or n_live == 0:
         return out
     fn = _kernel()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(pt.data_ptr(), items.data_ptr(), out.data_ptr(), P, n_item_rows,
-            n_live, S, n_words, stream)
+    with obs.span("b1.launch", point="kernel", **geometry):
+        rc = fn(pt.data_ptr(), items.data_ptr(), out.data_ptr(), P,
+                n_item_rows, n_live, S, n_words, stream)
     if rc != 0:
         raise RuntimeError(f"pair_support kernel launch failed: CUDA error {rc}")
     pair_supports.launches += 1

@@ -111,6 +111,25 @@ def _median(runs):
     return {k: statistics.median(r[k] for r in runs) for k in runs[0]}
 
 
+def _device_busy_s(prof) -> float:
+    """Seconds the device was busy under ``prof``: the union of its
+    kernel, copy and set intervals, so that work overlapping on several
+    streams counts once (a sum of per-op times counts it twice)."""
+    from torch.autograd import DeviceType
+
+    busy, end = 0, None
+    for s, e in sorted(
+            (e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA):
+        if end is not None and s < end:
+            s = end
+        if e > s:
+            busy += e - s
+            end = e
+    return busy / 1e9
+
+
 def _vertical_profile(db, min_item_support: int) -> dict:
     """One ``build_vertical`` under ``cProfile``: its wall and the ten
     functions with the most own time."""
@@ -143,7 +162,6 @@ def _profiled(one_mine):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = []
-    busy_us = 0.0
     for e in prof.key_averages():
         # device-side events only (kernels, copies): their launching CPU
         # ops report the same time again
@@ -151,16 +169,16 @@ def _profiled(one_mine):
             continue
         dev_us = e.self_device_time_total
         if dev_us > 0:
-            busy_us += dev_us
             kernels.append((dev_us, e.key, e.count))
     kernels.sort(reverse=True)
+    busy = _device_busy_s(prof)
     # the port's own kernels, however small: a path's kernel time is their sum
     port = [{"name": k[:80], "ms": us / 1e3, "count": c} for us, k, c in kernels
             if any(f"::{n}<" in k for n in PORT_KERNELS)]
     return res, eng, {
         "profiled_wall_s": wall, "profiled_stages_s": stages,
-        "device_busy_s": busy_us / 1e6,
-        "device_idle_share": (1 - busy_us / 1e6 / wall) if busy_us else None,
+        "device_busy_s": busy,
+        "device_idle_share": (1 - busy / wall) if busy else None,
         "top_device_ops": [{"name": k[:80], "ms": us / 1e3, "count": c}
                            for us, k, c in kernels[:10]],
         "port_kernels": port,
@@ -533,17 +551,17 @@ def _traced_call(fn):
         res = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy_us = b1_us = 0.0
+    b1_us = 0.0
     b1_n = 0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             continue
-        busy_us += e.self_device_time_total
         if "::pair_support_kernel<" in e.key:
             b1_us += e.self_device_time_total
             b1_n += e.count
-    return res, {"wall_s": wall, "device_busy_s": busy_us / 1e6,
-                 "device_idle_share": 1 - busy_us / 1e6 / wall,
+    busy = _device_busy_s(prof)
+    return res, {"wall_s": wall, "device_busy_s": busy,
+                 "device_idle_share": 1 - busy / wall,
                  "pair_support_ms": b1_us / 1e3,
                  "pair_support_launches": b1_n}
 
@@ -746,19 +764,19 @@ def predict(dev, card: str) -> dict:
                     RT.score_wave(trie, w, PREDICT_M)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-            ops, busy_us = [], 0.0
+            ops = []
             for e in prof.key_averages():
                 if e.device_type != DeviceType.CUDA:
                     continue
-                busy_us += e.self_device_time_total
                 if e.self_device_time_total > 0:
                     ops.append((e.self_device_time_total, e.key, e.count))
             ops.sort(reverse=True)
+            busy = _device_busy_s(prof)
             rec["waves"][W] = {
                 "count": len(waves), "stages": wave_summary(recs),
-                "traced_wall_s": wall, "device_busy_s": busy_us / 1e6,
-                "device_busy_share": busy_us / 1e6 / wall,
-                "device_idle_share": 1 - busy_us / 1e6 / wall,
+                "traced_wall_s": wall, "device_busy_s": busy,
+                "device_busy_share": busy / wall,
+                "device_idle_share": 1 - busy / wall,
                 "device_ops": [{"name": k[:80], "ms": us / 1e3, "count": c}
                                for us, k, c in ops[:12]]}
         out.append(rec)

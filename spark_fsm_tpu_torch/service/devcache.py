@@ -47,7 +47,10 @@ TSR cache keeps ``TsrTorch``.  Every cache takes the service's
 the bytes of the tensors it holds.  The breaker's fallback is the
 uncached route on the same device, never the CPU.  A TSR engine keeps no
 tensor on the device between rounds (each round's prep store is local
-to the round), so there is nothing to scrub after a mine.
+to the round), so there is nothing to scrub after a mine.  Traced, a
+SPADE or cSPADE cache mine is a ``devcache.mine`` span (a trace of its
+own outside a job) with ``devcache.fingerprint``, ``devcache.checkout``
+(attr ``outcome``) and, on a miss, ``devcache.build`` inside it.
 """
 
 from __future__ import annotations
@@ -174,19 +177,26 @@ class _EngineCacheBase:
         return res
 
     def _checkout(self, key) -> Optional[_Entry]:
-        with self._lock:
-            e = self._entries.get(key)
-            if e is not None and not e.busy:
-                e.busy = True
-                self._entries.move_to_end(key)
-                self.stats["hits"] += 1
-                kind = "hit"
-            else:
-                kind = "busy_miss" if e is not None else "miss"
-                self.stats["busy_misses" if e is not None else "misses"] += 1
-                e = None
+        with obs.span("devcache.checkout") as sp:
+            with self._lock:
+                e = self._entries.get(key)
+                if e is not None and not e.busy:
+                    e.busy = True
+                    self._entries.move_to_end(key)
+                    self.stats["hits"] += 1
+                    kind = "hit"
+                else:
+                    kind = "busy_miss" if e is not None else "miss"
+                    self.stats["busy_misses" if e is not None
+                               else "misses"] += 1
+                    e = None
+            sp.set(outcome=kind)
         obs.trace_event("devcache_" + kind, cache=type(self).__name__)
         return e
+
+    def _fingerprint(self, db: SequenceDB) -> str:
+        with obs.span("devcache.fingerprint", sequences=len(db)):
+            return db_fingerprint(db)
 
     def _mine_checked_out(self, entry: _Entry, runner=None):
         """Run a checked-out engine's mine: zero the accumulated numeric
@@ -322,18 +332,20 @@ class SpadeEngineCache(_HbmBudgetCache):
 
         if fused not in ("auto", "queue") or kwargs:
             return fallback()
-        return self._mine_guarded(
-            lambda: self._mine_cached(
-                db, minsup_abs, device=dev, mesh=mesh, stats_out=stats_out,
-                max_pattern_itemsets=max_pattern_itemsets,
-                shape_buckets=shape_buckets, fused=fused,
-                checkpoint=checkpoint),
-            fallback)
+        with obs.mine_trace("devcache.mine", cache=type(self).__name__):
+            return self._mine_guarded(
+                lambda: self._mine_cached(
+                    db, minsup_abs, device=dev, mesh=mesh,
+                    stats_out=stats_out,
+                    max_pattern_itemsets=max_pattern_itemsets,
+                    shape_buckets=shape_buckets, fused=fused,
+                    checkpoint=checkpoint),
+                fallback)
 
     def _mine_cached(self, db, minsup_abs, *, device, mesh, stats_out,
                      max_pattern_itemsets, shape_buckets, fused,
                      checkpoint):
-        key = (device, db_fingerprint(db), int(minsup_abs), mesh,
+        key = (device, self._fingerprint(db), int(minsup_abs), mesh,
                max_pattern_itemsets, bool(shape_buckets), fused)
         bkw = dict(device=device, mesh=mesh, stats_out=stats_out,
                    max_pattern_itemsets=max_pattern_itemsets,
@@ -367,10 +379,12 @@ class SpadeEngineCache(_HbmBudgetCache):
             # on identical inputs: the rebuild skips the queue attempt
             if stats_out is not None:
                 stats_out["fused_overflow"] = True
-            res, engine = self._build_and_mine(db, minsup_abs,
-                                               skip_queue=True, **bkw)
+            with obs.span("devcache.build"):
+                res, engine = self._build_and_mine(db, minsup_abs,
+                                                   skip_queue=True, **bkw)
         else:
-            res, engine = self._build_and_mine(db, minsup_abs, **bkw)
+            with obs.span("devcache.build"):
+                res, engine = self._build_and_mine(db, minsup_abs, **bkw)
         if stats_out is not None:
             stats_out["store_cache_hit"] = False
         if engine is not None:
@@ -493,17 +507,18 @@ class CSpadeEngineCache(_HbmBudgetCache):
             # explicit engine knobs the cache does not key, or a
             # checkpointed job: uncached wrapper
             return fallback()
-        return self._mine_guarded(
-            lambda: self._mine_cached(
-                db, minsup_abs, maxgap=maxgap, maxwindow=maxwindow,
-                device=dev, mesh=mesh, stats_out=stats_out,
-                max_pattern_itemsets=max_pattern_itemsets,
-                shape_buckets=shape_buckets),
-            fallback)
+        with obs.mine_trace("devcache.mine", cache=type(self).__name__):
+            return self._mine_guarded(
+                lambda: self._mine_cached(
+                    db, minsup_abs, maxgap=maxgap, maxwindow=maxwindow,
+                    device=dev, mesh=mesh, stats_out=stats_out,
+                    max_pattern_itemsets=max_pattern_itemsets,
+                    shape_buckets=shape_buckets),
+                fallback)
 
     def _mine_cached(self, db, minsup_abs, *, maxgap, maxwindow, device,
                      mesh, stats_out, max_pattern_itemsets, shape_buckets):
-        key = (device, db_fingerprint(db), int(minsup_abs), maxgap,
+        key = (device, self._fingerprint(db), int(minsup_abs), maxgap,
                maxwindow, mesh, max_pattern_itemsets, bool(shape_buckets))
         entry = self._checkout(key)
         if entry is not None:
@@ -517,17 +532,18 @@ class CSpadeEngineCache(_HbmBudgetCache):
         from spark_fsm_tpu_torch.models.spade_constrained import (
             ConstrainedSpadeTorch)
 
-        vdb = build_vertical(db, min_item_support=minsup_abs)
-        if vdb.n_items == 0:
-            if stats_out is not None:
-                stats_out["store_cache_hit"] = False
-            return []
-        eng = ConstrainedSpadeTorch(
-            vdb, minsup_abs, maxgap=maxgap, maxwindow=maxwindow,
-            device=device, mesh=mesh,
-            max_pattern_itemsets=max_pattern_itemsets,
-            shape_buckets=shape_buckets)
-        res = eng.mine()
+        with obs.span("devcache.build"):
+            vdb = build_vertical(db, min_item_support=minsup_abs)
+            if vdb.n_items == 0:
+                if stats_out is not None:
+                    stats_out["store_cache_hit"] = False
+                return []
+            eng = ConstrainedSpadeTorch(
+                vdb, minsup_abs, maxgap=maxgap, maxwindow=maxwindow,
+                device=device, mesh=mesh,
+                max_pattern_itemsets=max_pattern_itemsets,
+                shape_buckets=shape_buckets)
+            res = eng.mine()
         if stats_out is not None:
             stats_out.update(eng.stats)
             stats_out["store_cache_hit"] = False
@@ -574,8 +590,8 @@ class TsrEngineCache(_EngineCacheBase):
         from spark_fsm_tpu_torch.data.vertical import build_vertical
         from spark_fsm_tpu_torch.models.tsr import TsrTorch
 
-        key = (device, db_fingerprint(db), int(k), float(minconf), max_side,
-               mesh, tuple(sorted(kwargs.items())))
+        key = (device, self._fingerprint(db), int(k), float(minconf),
+               max_side, mesh, tuple(sorted(kwargs.items())))
         entry = self._checkout(key)
         if entry is not None:
             res, snap = self._mine_checked_out(entry)

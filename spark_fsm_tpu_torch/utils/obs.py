@@ -27,10 +27,13 @@ zero-dependency substrate for all of it:
   (``trace_id`` = job uid, site, monotonic t_start/t_end, a wall-clock
   ``ts`` for cross-process merging, attrs, and point-in-time EVENTS for
   fault trips, retry waits, watchdog timeouts, OOM downgrades, breaker
-  transitions).  A trace opens at mine submit (service/actors.Miner)
+  transitions).  A trace opens at mine submit (service/actors.Miner),
+  or at a library mine's entry when none is active (:func:`mine_trace`),
   and threads through engine dispatch, ragged-planner launches, device
   readback, and store/checkpoint/Kafka I/O via a contextvar — no
-  constructor plumbing.  Each launch span carries the planner's
+  constructor plumbing.  An open span is also a ``torch.profiler``
+  range, so a profiled mine's trace names the host work between the
+  kernels.  Each launch span carries the planner's
   PREDICTED seconds next to the measured wall, so cost-model residuals
   become a first-class gauge (``fsm_costmodel_drift_ratio``) that
   calibrates the watchdog slack.  ``GET /admin/trace/<job_id>`` dumps a
@@ -521,6 +524,12 @@ def costmodel_family_drift() -> Dict[str, float]:
 # counters).
 _trace_on = False
 
+# the torch.profiler range an open span holds (see Span), bound by the
+# first configure_tracing(True): a process that never traces never
+# imports the profiler.  torch's own fast range where it has one (under
+# 1 us a span), else the public record_function (about 10 us)
+_profiler_range: Optional[Callable] = None
+
 _cfg_lock = threading.Lock()
 _max_spans = 512   # per-job completed-span ring bound
 _max_jobs = 16     # job traces kept (oldest evicted)
@@ -541,10 +550,13 @@ class Span:
     point-in-time marker (fault trip, retry wait, OOM downgrade,
     breaker transition); ``set`` attaches/overrides attrs (e.g. the
     measured wall next to the predicted one).  Close via the context
-    manager — the span enters its trace's ring only on exit."""
+    manager — the span enters its trace's ring only on exit.  While it
+    is open it is also a ``torch.profiler`` range named ``site``, so
+    under any profiler session the span is a host event on the same
+    clock as the kernels it launched."""
 
     __slots__ = ("trace_id", "span_id", "parent_id", "site", "t0", "t0w",
-                 "t1", "attrs", "events", "error", "_token")
+                 "t1", "attrs", "events", "error", "_token", "_range")
 
     def __init__(self, trace_id: str, parent_id: Optional[int], site: str,
                  attrs: dict):
@@ -562,6 +574,7 @@ class Span:
         self.events: List[dict] = []
         self.error: Optional[str] = None
         self._token = None
+        self._range = None
 
     def set(self, **attrs) -> None:
         self.attrs.update(attrs)
@@ -578,12 +591,17 @@ class Span:
 
     def __enter__(self) -> "Span":
         self._token = _cur_span.set(self)
+        self._range = _profiler_range(self.site)
+        self._range.__enter__()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
         if self._token is not None:
             _cur_span.reset(self._token)
             self._token = None
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
         self.t1 = time.monotonic()
         if exc is not None:
             self.error = f"{type(exc).__name__}: {exc}"
@@ -746,10 +764,6 @@ class FlightRecorder:
                     fn(span)
                 except Exception:
                     pass  # a reporting sink must never fail the work
-        if logger.isEnabledFor(logging.INFO):  # skip the dumps when quiet
-            log_event("span", trace=span.trace_id, site=span.site,
-                      duration_s=round(span.duration_s or 0.0, 6),
-                      **({"error": span.error} if span.error else {}))
 
     def take_pending(self, trace_id: str) -> List[dict]:
         """Pop the trace's un-flushed spine batch (empty when no spine
@@ -810,7 +824,13 @@ def configure_tracing(enabled: bool, max_spans: Optional[int] = None,
     """Set the process-wide tracing policy (the boot config's
     ``[observability]`` block owns it via config.set_config; tests may
     call directly).  Ring bounds apply to traces begun AFTER the call."""
-    global _trace_on, _max_spans, _max_jobs
+    global _trace_on, _max_spans, _max_jobs, _profiler_range
+    if enabled and _profiler_range is None:
+        try:
+            from torch._C._profiler import _RecordFunctionFast as rng
+        except ImportError:
+            from torch.profiler import record_function as rng
+        _profiler_range = rng
     with _cfg_lock:
         if max_spans is not None:
             if max_spans < 1:
@@ -841,6 +861,22 @@ def trace(trace_id: str, site: str = "job", **attrs):
             yield sp
     finally:
         _cur_trace.reset(token)
+
+
+_entry_ids = itertools.count(1)
+
+
+def mine_trace(site: str, **attrs):
+    """The span of one library mine entry (``mine_spade_torch``,
+    ``mine_cspade_torch``, the engine caches' ``mine``): inside an active
+    trace (a service job's) a span of it; with tracing on and no trace
+    active, the root span of a trace of the mine's own, ``{site}-{n}``.
+    The no-op singleton (one global read) when tracing is off."""
+    if not _trace_on:
+        return _NOOP
+    if _cur_trace.get() is not None:
+        return span(site, **attrs)
+    return trace(f"{site}-{next(_entry_ids)}", site=site, **attrs)
 
 
 def trace_begin(trace_id: str, **attrs) -> None:

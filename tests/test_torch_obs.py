@@ -14,7 +14,9 @@ mine through the fusion broker, and on the port the ``tsr.prep`` and
 
 Named exceptions (ROADMAP "Known differences"): the queue route's
 ``kernel_launches`` (one B1 launch a wave on the port, one dispatch a
-mine in the reference) is left out of the census record; the port has no
+mine in the reference) is left out of the census record, and so are the
+port's ``b1.launch`` spans, one a launch, which the census holds to
+``kernel_launches`` on the port instead; the port has no
 ``fsm_tsr_resident_fallbacks_total`` family (no resident-round
 fallback, ``ops/resident_frontier.py``).
 """
@@ -466,6 +468,8 @@ def _queue_census(P, which):
     eng = _queue(P, db, minsup)
     got, sites, spans = _census(P, f"census-queue-{which}", eng.mine)
     assert got is not None
+    if P.name == "port":
+        assert sites.pop("b1.launch") == eng.stats["kernel_launches"]
     fetch = [s["attrs"] for s in spans if s["site"] == "queue.readback"]
     return {"sites": sites, "patterns": P.canonical.patterns_text(got),
             "n_patterns": len(got), "waves": eng.stats["waves"],
@@ -481,7 +485,8 @@ def test_queue_route_span_census(pkg, which):
     ``queue.readback`` (with ``bound_s``) a mine, and a second
     ``queue.readback`` (``point="big_fetch"``) when the records pass the
     one-shot prefix.  ``kernel_launches`` differs by design (one B1
-    launch a wave on the port) and is left out of the record."""
+    launch a wave on the port) and is left out of the record, with the
+    port's ``b1.launch`` spans, which equal it."""
     rec = T.held(pkg, _queue_census, which)
     big = which == "big_fetch"
     assert (rec["n_patterns"] > 4096) == big
