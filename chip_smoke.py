@@ -87,11 +87,18 @@ Phases, one printed line each (any failure raises and exits non-zero):
      it, ``mine_tsr_torch``'s ``auto`` takes the resident route,
      byte-identical to ``mine_tsr_cpu``, and ``auto`` and the host loop
      are timed warm in turns;
- 16. constrained SPADE (cSPADE): ``mine_cspade_torch`` on a Gazelle-shaped
-     database (59,000 sequences) with maxgap 2, maxwindow 5 and minsup
-     0.5 %, and at 10 % of that size, each byte-identical to the copied
-     CPU oracle ``mine_cspade``.  The oracles run in two child processes
-     started at the top, so they overlap the card phases;
+ 16. constrained SPADE (cSPADE).  First the window-mask kernel
+     (``csrc/maxstart_masks.cu``) against its plain version, bit for bit,
+     on ragged shapes and at the Gazelle node batch (nb = 32, S = 59,601,
+     W = 3 and 9), int8 and int16 states, windows None, 0, 3, 5 and past
+     n_pos; then kernel and plain version timed at that batch (int16,
+     maxwindow 5) beside its bytes bound.  Then ``mine_cspade_torch`` on a
+     Gazelle-shaped database (59,000 sequences) with maxgap 2, maxwindow 5
+     and minsup 0.5 %, and at 10 % of that size, each byte-identical to
+     the copied CPU oracle ``mine_cspade``, with one mask launch and one
+     B1 launch for each node batch with candidates.  The oracles run in
+     two child processes started at the top, so they overlap the card
+     phases;
  17. streaming windows at full size: the MSNBC-shaped database cut into
      ten micro-batches of 99,000 sequences, a window of five, minsup
      0.5 %, pushed through ``IncrementalWindowMiner`` (the pair-support
@@ -147,8 +154,10 @@ Phases, one printed line each (any failure raises and exits non-zero):
      held against a one-device mine of that tenth, to keep the smoke
      inside its time limit.  ``[mesh]`` lines print per world and mine
      the
-     route, each rank's B1/B2 launches and kernel time (CUDA events
-     around each launch), the all-reduces' count and time, each rank's
+     route, each rank's B1/B2/B3 and window-mask launches and kernel time
+     (CUDA events around each launch; the cSPADE shard launches the mask
+     kernel and B1 once each a node batch with candidates, no other mine
+     the mask kernel), the all-reduces' count and time, each rank's
      wall beside the one-device wall of the earlier phase, and each
      rank's peak memory, with the card's name and power limit.  The
      2-rank world also mines in two class partitions
@@ -172,7 +181,8 @@ Phases, one printed line each (any failure raises and exits non-zero):
      composite checkpoint of the BMS mine (a snapshot at every chance)
      resumed from a snapshot taken mid-slice.  ``[part]`` lines print the
      plan's imbalance, per partition the wall, the candidates evaluated
-     and the B1/B2/B3 launches and kernel time (CUDA events), the
+     and the B1/B2/B3 and window-mask launches and kernel time (CUDA
+     events; cSPADE one mask and one B1 launch a node batch), the
      exchanges (one a deepening round on TSR, one a mine otherwise), the
      peak and the unpartitioned wall of the same run; B1, B2 and B3 must
      each launch on the partitioned path;
@@ -187,7 +197,9 @@ Phases, one printed line each (any failure raises and exits non-zero):
      cache answers (``store_cache_hit``).  Every ``/get/*`` body equals
      ``model.serialize_*`` of the earlier phase's library result by
      SHA-256; B2, B3 and B1 launch during the TSR, SPAM and SPADE
-     requests (the cSPADE engine runs torch ops only); ``/predict`` against the TSR and SPADE results equals
+     requests, and the window-mask kernel and B1 once each a node batch
+     during the cSPADE request; ``/predict`` against the TSR and SPADE
+     results equals
      ``predict_host`` on 16 prefixes each; ``/admin/stats`` reports
      ``backend: "cuda"``.  ``[service]`` lines print each job's
      submit-to-finished wall beside the library walls of the same call,
@@ -449,6 +461,9 @@ STREAM_SWEEP = (2048, 128, 131072, 1)
 PAIR_LIVE = {HEADLINE: 360, WIDE_WAVE: 360, LATE_WAVE: 360,
              CLASSIC_LAUNCH: 360, STREAM_SWEEP: 17}
 SPAM_MESH_LIVE = 17
+# (nb, S, W) of the Gazelle cSPADE node batch whose window masks phase 16
+# times: 32 nodes, 59,601 sequences, 9 words (288 int16 state positions)
+MASK_BATCH = (32, 59601, 9)
 # (C, km, M, S, W) of the timed rule-support launches: the TSR path's
 # headline launch (8192 candidates at km = 2 over the top 256 items of the
 # Kosarak-shaped database) and the same launch at km = 1
@@ -597,6 +612,7 @@ def mesh_rank(mesh, plan: dict) -> dict:
     from spark_fsm_tpu_torch.models.spam_bitmap import mine_spam_torch
     from spark_fsm_tpu_torch.models.tsr import mine_tsr_torch
     from spark_fsm_tpu_torch.ops import extend_prune as EP
+    from spark_fsm_tpu_torch.ops import maxstart_masks as MM
     from spark_fsm_tpu_torch.ops import pair_support as PS
     from spark_fsm_tpu_torch.ops import rule_support as RS
     from spark_fsm_tpu_torch.parallel.mesh import all_reduce_sum
@@ -604,11 +620,13 @@ def mesh_rank(mesh, plan: dict) -> dict:
     from spark_fsm_tpu_torch.utils.canonical import patterns_text, rules_text
 
     kernels = (("b1", PS, "pair_supports"), ("b2", RS, "rule_supports"),
-               ("b3", EP, "extend_count_prune"))
+               ("b3", EP, "extend_count_prune"),
+               ("masks", MM, "window_masks"))
     sinks = {key: [] for key, _, _ in kernels}
     for key, mod, name in kernels:
         setattr(mod, name, _timed_kernel(torch, getattr(mod, name),
                                          sinks[key]))
+    batches = support_batches()
     # co-located ranks split the one-device pool budget
     pool = auto_pool_bytes(mesh.device) // plan["ranks_on_card"]
     out = {"rank": mesh.rank, "gen_s": {}, "mines": {}}
@@ -620,6 +638,7 @@ def mesh_rank(mesh, plan: dict) -> dict:
         for key, mod, name in kernels:
             sinks[key].clear()
             getattr(mod, name).launches = 0
+        batches.calls = 0
         mesh.reset_counters()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(mesh.device)
@@ -636,6 +655,7 @@ def mesh_rank(mesh, plan: dict) -> dict:
                       if label == "tsr" else stats.get("route", "-")),
             "launches": {key: getattr(mod, name).launches
                          for key, mod, name in kernels},
+            "batches": batches.calls,
             "kernel_ms": {key: sum(a.elapsed_time(b) for a, b in sinks[key])
                           for key in sinks},
             "all_reduces": red["all_reduces"],
@@ -847,6 +867,16 @@ def mesh_phase(torch, want: dict, single_walls: dict, card: str,
             check(m["tsr"]["launches"]["b2"] > 0 and not m["tsr"]["resident"],
                   f"{backend} x{ranks}: TSR launches {m['tsr']['launches']}, "
                   f"resident {m['tsr']['resident']}")
+            # each node batch of the cSPADE shard: one mask launch, one B1
+            cs = m["cspade"]
+            check(cs["launches"]["masks"] == cs["launches"]["b1"]
+                  == cs["batches"] > 0,
+                  f"{backend} x{ranks}: cSPADE launches {cs['launches']} "
+                  f"over {cs['batches']} node batches with candidates")
+            check(all(rec["launches"]["masks"] == 0
+                      for label, rec in m.items() if label != "cspade"),
+                  f"{backend} x{ranks}: the mask kernel launched outside "
+                  f"cSPADE")
         peaks = [r["peak"] for r in res]
         check(sum(peaks) <= total, f"{backend} x{ranks}: the ranks' peaks "
               f"{peaks} exceed the card's {total} B")
@@ -854,12 +884,15 @@ def mesh_phase(torch, want: dict, single_walls: dict, card: str,
             recs = [r["mines"][label] for r in res]
             one = single_walls.get(label.removeprefix("part "))
             launches = [(rec["launches"]["b1"], rec["launches"]["b2"],
-                         rec["launches"]["b3"]) for rec in recs]
+                         rec["launches"]["b3"], rec["launches"]["masks"])
+                        for rec in recs]
             print(f"[mesh] {backend} x{ranks} {label}: byte-identical to the "
                   f"one-device text on every rank; route {recs[0]['route']}; "
-                  f"per rank (B1, B2, B3) launches {launches}, B1 ms "
+                  f"per rank (B1, B2, B3, masks) launches {launches}, B1 ms "
                   f"{[round(rec['kernel_ms']['b1'], 3) for rec in recs]}, "
                   f"B2 ms {[round(rec['kernel_ms']['b2'], 3) for rec in recs]}, "
+                  f"masks ms "
+                  f"{[round(rec['kernel_ms']['masks'], 3) for rec in recs]}, "
                   f"all-reduces {[rec['all_reduces'] for rec in recs]} taking "
                   f"{[round(rec['all_reduce_ms'], 3) for rec in recs]} ms; "
                   f"wall {[round(rec['wall_s'], 3) for rec in recs]} s "
@@ -950,7 +983,7 @@ class PartMeter:
             ms = {key: round(sum(a.elapsed_time(b) for a, b in ev), 3)
                   for key, ev in rec["events"].items()}
             out.append(f"part {p}: {rec['wall_s']:.3f} s, evaluated "
-                       f"{rec['work']}, (B1, B2, B3) launches "
+                       f"{rec['work']}, ({', '.join(self.sinks)}) launches "
                        f"{tuple(rec['launches'].values())} taking "
                        f"{tuple(ms.values())} ms")
         return "; ".join(out)
@@ -981,6 +1014,7 @@ def partition_phase(torch, inputs: dict, want: dict, single_walls: dict,
     from spark_fsm_tpu_torch.models.spade_constrained import mine_cspade_torch
     from spark_fsm_tpu_torch.models.spam_bitmap import mine_spam_torch
     from spark_fsm_tpu_torch.ops import extend_prune as EP
+    from spark_fsm_tpu_torch.ops import maxstart_masks as MM
     from spark_fsm_tpu_torch.ops import pair_support as PS
     from spark_fsm_tpu_torch.ops import rule_support as RS
     from spark_fsm_tpu_torch.parallel import partition as PN
@@ -989,7 +1023,9 @@ def partition_phase(torch, inputs: dict, want: dict, single_walls: dict,
     t_phase = time.perf_counter()
     meter = PartMeter(torch, (("b1", PS, "pair_supports"),
                               ("b2", RS, "rule_supports"),
-                              ("b3", EP, "extend_count_prune")))
+                              ("b3", EP, "extend_count_prune"),
+                              ("masks", MM, "window_masks")))
+    batches = support_batches()
     launched = {key: 0 for key in meter.sinks}
     orig_round = TT.TsrTorch._mine_restricted
     orig_slices = PN.mine_partitioned_slices
@@ -1112,9 +1148,10 @@ def partition_phase(torch, inputs: dict, want: dict, single_walls: dict,
                 return res, st
             measured("msnbc_like SPAM", spam, want["spam"], patterns_text,
                      single_walls["spam"], "b3")
-            # Gazelle cSPADE: no hand kernel on this route
+            # Gazelle cSPADE: its supports launch the mask kernel and B1
             gz, gz_minsup = inputs["gazelle"]
             meter.reset()
+            batches.calls = 0
             t0 = time.perf_counter()
             cs: dict = {}
             got = mine_cspade_torch(gz, gz_minsup, maxgap=2, maxwindow=5,
@@ -1125,6 +1162,10 @@ def partition_phase(torch, inputs: dict, want: dict, single_walls: dict,
             check(digest(patterns_text(got)) == want["cspade"],
                   "the partitioned cSPADE mine differs from phase 16's")
             check(cs["partition_exchanges"] == 1, "cSPADE exchanges")
+            n = meter.launches()
+            check(n["masks"] == n["b1"] == batches.calls > 0,
+                  f"the partitioned cSPADE mine: launches {n} over "
+                  f"{batches.calls} node batches with candidates")
             print(f"[part] gazelle_like cSPADE: {len(got)} patterns "
                   f"byte-identical to phase 16's text; imbalance "
                   f"{cs['partition_imbalance']}; {meter.summary()}; wall "
@@ -1338,6 +1379,104 @@ def extend_bound_ms(P: int, NI: int, S: int, W: int, n_live: int = None):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def mask_bound_ms(nb: int, S: int, W: int, elem_bytes: int):
+    """Least time for one window-mask launch over a batch of ``nb`` nodes:
+    both states read once (2 nb S 32 W elements of ``elem_bytes``) and
+    both masks written once (2 nb S W words), against one compare, one
+    shift and one OR a position."""
+    nbytes = 2 * nb * S * 32 * W * elem_bytes + 2 * nb * S * W * 4
+    ops = 3 * 2 * nb * S * 32 * W
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_start_states(gen, nb: int, S: int, n_pos: int, dtype):
+    """``[nb, S, n_pos]`` max-start states made where the torch generator
+    ``gen`` lives: a start 0..8 positions back where a pattern ends (one
+    position in 4), else -1; int8 starts stay at or under 127."""
+    import torch
+
+    pos = torch.arange(n_pos, dtype=torch.int16, device=gen.device)
+    back = torch.randint(0, 9, (nb, S, n_pos), dtype=torch.int16,
+                         device=gen.device, generator=gen)
+    start = (pos - back).clamp_(0, 127 if dtype == torch.int8 else n_pos)
+    ends = torch.rand((nb, S, n_pos), device=gen.device, generator=gen) < 0.25
+    return torch.where(ends, start, -1).to(dtype)
+
+
+def support_batches():
+    """The cSPADE engine's ``_supports`` wrapped, once a process, to count
+    its calls (one a node batch with candidates, each launching the window
+    -mask kernel once and B1 once); returns the wrapper, whose ``calls``
+    the caller resets and reads."""
+    from spark_fsm_tpu_torch.models.spade_constrained import (
+        ConstrainedSpadeTorch as engine)
+
+    fn = engine._supports
+    if hasattr(fn, "calls"):
+        return fn
+
+    def counted(self, *args, **kwargs):
+        counted.calls += 1
+        return fn(self, *args, **kwargs)
+    counted.calls = 0
+    engine._supports = counted
+    return counted
+
+
+def mask_kernel_step(torch, gen) -> dict:
+    """Phase 16's first part: the window-mask kernel bit-equal to its plain
+    version on the card, on ragged shapes and at the Gazelle node batch
+    (``MASK_BATCH``) for int8 and int16 states and windows None, 0, 3, 5
+    and past n_pos; then kernel and plain version timed at that batch
+    (int16, maxwindow 5) against the bytes bound.  Returns the kernels
+    line's record, ``launches`` left for the mine to fill in."""
+    from spark_fsm_tpu_torch.ops import maxstart_masks as MM
+    from spark_fsm_tpu_torch.ops import maxstart_torch as MS
+
+    nb, S, W = MASK_BATCH
+    worst = 0
+    for (n, s, w) in ((5, 1, 1), (5, 1001, 1), (3, 517, 3), (nb, S, 3),
+                      (nb, S, W)):
+        for dtype in (torch.int8, torch.int16):
+            m = max_start_states(gen, n, s, 32 * w, dtype)
+            pm = MS.prev_max(m, 2)
+            for win in (None, 0, 3, 5, 32 * w + 4):
+                got = MM.window_masks(m, pm, win, w)
+                want = MM.window_masks_plain(m, pm, win, w)
+                bad = int((got != want).sum())
+                check(bad == 0, f"window_masks != plain at nb={n} S={s} "
+                      f"W={w} {dtype} maxwindow={win}: {bad} words differ")
+                worst = max(worst, bad)
+            del m, pm, got, want
+        print(f"[check] window_masks nb={n} S={s} W={w}, int8 and int16, "
+              f"maxwindow None/0/3/5/{32 * w + 4}: equal to plain, bit for "
+              f"bit", flush=True)
+    m = max_start_states(gen, nb, S, 32 * W, torch.int16)
+    pm = MS.prev_max(m, 2)
+    ms = launch_ms(lambda: MM.window_masks(m, pm, 5, W), 3, 20)
+    plain_ms = time_ms(lambda: MM.window_masks_plain(m, pm, 5, W), 1, 3)
+    bound_ms, bound_by = mask_bound_ms(nb, S, W, m.element_size())
+    clocks = smi("clocks.sm,power.draw,temperature.gpu")
+    print(f"[time] window_masks nb={nb} S={S} W={W} int16 maxwindow 5: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f} % of it "
+          f"reached), library: none (no single PyTorch call packs a "
+          f"compare into words); after timing nvidia-smi sm clock, power, "
+          f"temp: {clocks}", flush=True)
+    del m, pm
+    torch.cuda.empty_cache()
+    return {"name": "maxstart_masks", "route": "cuda",
+            "source": "spark_fsm_tpu_torch/csrc/maxstart_masks.cu",
+            "replaces": "spark_fsm_tpu/models/spade_constrained.py:141 "
+                        "(a child state and its windowed support a candidate, "
+                        "torch ops; no Pallas kernel)",
+            "launches": None, "max_abs_err": worst,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def rule_ops_per_seq(km: int, W: int) -> int:
@@ -1703,11 +1842,13 @@ def _http(port: int, endpoint: str, **params) -> dict:
 def service_phase(torch, card: str, jobs: list, predict_sets: dict) -> None:
     """Phase 23: the port's service on the card, over HTTP.  ``jobs``:
     ``(name, db, params, get kind, the library result's serialization,
-    the library walls (cold, warm), the kernel whose launches must rise or
-    None for cSPADE, whose engine runs torch ops only)`` in the order they
-    are sent; a ``None`` serialization repeats the previous job, which the
-    engine cache must answer."""
+    the library walls (cold, warm), the kernel whose launches must rise:
+    ``"masks"`` for cSPADE, whose supports launch the window-mask kernel
+    and B1 once each a node batch)`` in the order they are sent; a
+    ``None`` serialization repeats the previous job, which the engine cache
+    must answer."""
     from spark_fsm_tpu_torch.ops import extend_prune as EP
+    from spark_fsm_tpu_torch.ops import maxstart_masks as MM
     from spark_fsm_tpu_torch.ops import pair_support as PS
     from spark_fsm_tpu_torch.ops import rule_support as RS
     from spark_fsm_tpu_torch.ops.rule_trie import (predict_host,
@@ -1717,7 +1858,8 @@ def service_phase(torch, card: str, jobs: list, predict_sets: dict) -> None:
     from spark_fsm_tpu_torch.service.app import serve_background
 
     counters = {"b1": PS.pair_supports, "b2": RS.rule_supports,
-                "b3": EP.extend_count_prune}
+                "b3": EP.extend_count_prune, "masks": MM.window_masks}
+    batches = support_batches()
     dbs = {name: db for name, db, *_ in jobs}
     sources.register("SMOKE", lambda req, store: dbs[req.param("db")])
     t_phase = time.perf_counter()
@@ -1733,6 +1875,7 @@ def service_phase(torch, card: str, jobs: list, predict_sets: dict) -> None:
             uid = f"smoke-{i}-{name}"
             for fn in counters.values():
                 fn.launches = 0
+            batches.calls = 0
             t0 = time.perf_counter()
             r = _http(port, "/train", uid=uid, source="SMOKE", db=name,
                       **params)
@@ -1759,6 +1902,13 @@ def service_phase(torch, card: str, jobs: list, predict_sets: dict) -> None:
             payloads[name] = body
             check(kernel is None or launches[kernel] > 0,
                   f"the {name} job launched {kernel} 0 times: {launches}")
+            check(launches["masks"] == (batches.calls if kernel == "masks"
+                                        else 0),
+                  f"the {name} job launched the mask kernel "
+                  f"{launches['masks']} times over {batches.calls} cSPADE "
+                  f"node batches")
+            check(kernel != "masks" or launches["b1"] == launches["masks"],
+                  f"the {name} job's B1 and mask launches differ: {launches}")
             print(f"[service] {name} {params}: status finished, {get} body "
                   f"SHA-256 {digest(body)[:16]} == library result's; "
                   f"submit-to-finished {wall_s:.3f} s (job mine_s "
@@ -4881,6 +5031,7 @@ def run(torch, oracles) -> int:
         TsrTorch, mine_tsr_cpu, mine_tsr_torch)
     from spark_fsm_tpu_torch.ops import _build
     from spark_fsm_tpu_torch.ops import extend_prune as EP
+    from spark_fsm_tpu_torch.ops import maxstart_masks as MM
     from spark_fsm_tpu_torch.ops import pair_support as PS
     from spark_fsm_tpu_torch.ops import ragged_batch as RB
     from spark_fsm_tpu_torch.ops import resident_frontier as RF
@@ -4908,7 +5059,8 @@ def run(torch, oracles) -> int:
     clock(2)
     # 2. build: one nvcc per source and the tokenizer's gcc, all started
     # together
-    sources = ("pair_support", "rule_support", "extend_prune")
+    sources = ("pair_support", "rule_support", "extend_prune",
+               "maxstart_masks")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         tok_build = pool.submit(fasttok.build)
@@ -4917,6 +5069,7 @@ def run(torch, oracles) -> int:
     PS._kernel()
     RS._kernel()
     EP._kernel()
+    MM._kernel()
     build_s = time.perf_counter() - t0
     for name, lib_path in zip(sources, libs):
         usage = ptxas_usage(_build.build_log(name))
@@ -5677,7 +5830,11 @@ def run(torch, oracles) -> int:
     del db, got_t
 
     clock(16)
-    # 16. constrained SPADE against the copied oracle, full size and 10 %
+    # 16. the window-mask kernel against its plain version and timed; then
+    # constrained SPADE against the copied oracle, full size and 10 %, its
+    # supports one mask launch and one B1 launch a node batch
+    mask_record = mask_kernel_step(torch, gen)
+    batches = support_batches()
     for scale in GAZELLE_SCALES:
         db = gazelle_like(scale=scale, fast=True)
         minsup = abs_minsup(0.005, len(db))
@@ -5685,12 +5842,21 @@ def run(torch, oracles) -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         cs: dict = {}
+        MM.window_masks.launches = PS.pair_supports.launches = 0
+        batches.calls = 0
         t0 = time.perf_counter()
         got = mine_cspade_torch(db, minsup, maxgap=2, maxwindow=5,
                                 stats_out=cs)
         torch.cuda.synchronize()
         ccold_s = time.perf_counter() - t0
         cpeak = torch.cuda.max_memory_allocated()
+        mask_launches = MM.window_masks.launches
+        check(mask_launches == PS.pair_supports.launches == batches.calls > 0,
+              f"the cSPADE mine at scale {scale}: {mask_launches} mask "
+              f"launches, {PS.pair_supports.launches} B1 launches, "
+              f"{batches.calls} node batches with candidates")
+        if scale == 1.0:
+            mask_record["launches"] = mask_launches
         geo = cs["geometry"]
         t0 = time.perf_counter()
         got_warm = mine_cspade_torch(db, minsup, maxgap=2, maxwindow=5)
@@ -5717,7 +5883,9 @@ def run(torch, oracles) -> int:
               f"node_batch {geo['node_batch']}, pool_slots "
               f"{geo['pool_slots']}; candidates {cs['candidates']} "
               f"({cs['s_candidates']} s, {cs['i_candidates']} i), engine "
-              f"launches {cs['kernel_launches']}, recomputed_nodes "
+              f"launches {cs['kernel_launches']}, window-mask and B1 "
+              f"launches {mask_launches} each, one a node batch with "
+              f"candidates, recomputed_nodes "
               f"{cs['recomputed_nodes']}; max_memory_allocated {cpeak} B",
               flush=True)
         del db, got, got_warm, vdb
@@ -5963,7 +6131,7 @@ def run(torch, oracles) -> int:
          "patterns", predict_sets["spam"][2], single_walls["spam"], "b3"),
         ("gazelle", gz_db, dict(algorithm="SPADE_TPU", support=str(gz_minsup),
                                 maxgap="2", maxwindow="5"),
-         "patterns", gazelle_payload, single_walls["cspade"], None),
+         "patterns", gazelle_payload, single_walls["cspade"], "masks"),
         ("bms", bms_db, dict(algorithm="SPADE_TPU", support=str(bms_minsup)),
          "patterns", predict_sets["spade"][2], single_walls["spade auto"],
          "b1"),
@@ -6072,7 +6240,7 @@ def run(torch, oracles) -> int:
         "launches": elaunches, "max_abs_err": eworst,
         "ms": ems, "plain_ms": eplain_ms, "bound_ms": ebound_ms,
         "bound_by": ebound_by, "library_ms": None,
-    }]}))
+    }, mask_record]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

@@ -19,12 +19,18 @@ Enumeration, as the oracle ``models/oracle.mine_cspade``:
 - pruning on the windowed support is exact: it is anti-monotone under
   prefix growth.
 
-No Pallas kernel backs the reference engine, so no hand kernel backs
-this one: its device steps are torch ops (gathers, the position-axis
-running or shifted max, masks and a count).  The reference's
-``lax.scan`` recompute fold is a loop over the steps.  Every step counts
-one ``kernel_launches`` as the reference counts its dispatches, so with a
-pinned geometry the stats equal the reference's.  The slot reclaim works
+No Pallas kernel backs the reference engine.  Here the supports run on
+hand kernels: a candidate's windowed support is the count of sequences
+where its item meets a window mask of its parent node alone, so each
+batch launches the mask kernel (``ops/maxstart_masks``,
+``csrc/maxstart_masks.cu``) once and kernel B1 (``ops/pair_support``)
+once over (mask row, item) pairs, and builds no child state to count
+it.  The other device steps (prep, materialise, recompute) are torch ops
+(gathers, the position-axis running or shifted max, masks).  The
+reference's ``lax.scan`` recompute fold is a loop over the steps.  Every
+step counts ``kernel_launches`` as the reference counts its dispatches
+(the supports one a ``chunk`` of candidates), so with a pinned geometry
+the stats equal the reference's.  The slot reclaim works
 on max-start states, not on bitmap joins, so the engine keeps its own
 ``_ensure_slots`` over ``_common.SlotPool``.
 
@@ -60,7 +66,9 @@ from spark_fsm_tpu_torch.models._common import (
     decode_frontier, encode_frontier, engine_device, launch_width_cap,
     load_checkpoint, scatter_build_store, shard_width, to_host, to_index)
 from spark_fsm_tpu_torch.ops.ragged_batch import next_pow2
+from spark_fsm_tpu_torch.ops import maxstart_masks as MM
 from spark_fsm_tpu_torch.ops import maxstart_torch as MS
+from spark_fsm_tpu_torch.ops import pair_support as PS
 from spark_fsm_tpu_torch.parallel import partition as PN
 from spark_fsm_tpu_torch.parallel.mesh import (
     all_reduce_sum, mesh_size, pad_to_multiple)
@@ -243,33 +251,42 @@ class ConstrainedSpadeTorch:
             self.stats["kernel_launches"] += 1
             return m, MS.prev_max(m, self.maxgap)
 
-    def _children(self, m, pm, ref: np.ndarray, item: np.ndarray,
-                  iss: np.ndarray):
-        """The candidates' child states, ``chunk`` a launch:
-        ``(lo, hi, states)`` for each chunk."""
+    def _supports(self, m, pm, ref, item, iss):
+        """Windowed supports of the candidates (all-reduced on a mesh) with
+        the host copy started; returns ``(supports, event_or_None)``.
+        B1 counts each candidate's (window mask row, item) pair: row
+        ``2 ref`` for an s-extension, ``2 ref + 1`` for an i-extension.
+        ``kernel_launches`` counts the reference's dispatches, one a
+        ``chunk`` of candidates; the span's ``masks`` and ``b1`` attrs
+        count the kernels' own launches."""
+        with obs.span("cspade.supports", candidates=len(ref)) as sp:
+            masks0 = MM.window_masks.launches
+            b1_0 = PS.pair_supports.launches
+            dev = self.device
+            masks = MM.window_masks(m, pm, self.maxwindow, self.n_words)
+            pref = 2 * ref + np.where(iss, 0, 1)
+            sup = PS.batch_supports(
+                masks, self._words.view(self.item_rows, -1), self.item_rows,
+                to_index(pref, dev), to_index(item, dev), self.n_words,
+                n_live=self.n_items)
+            launches = -(-len(ref) // self.chunk)
+            self.stats["kernel_launches"] += launches
+            (host,), ev = to_host([all_reduce_sum(sup, self.mesh)])
+            sp.set(launches=launches,
+                   masks=MM.window_masks.launches - masks0,
+                   b1=PS.pair_supports.launches - b1_0)
+        return host, ev
+
+    def _materialize(self, m, pm, ref, item, iss, out_slot) -> None:
+        """The children's states into their slots, ``chunk`` a launch."""
         dev = self.device
         for lo in range(0, len(ref), self.chunk):
             hi = lo + self.chunk
             self.stats["kernel_launches"] += 1
-            yield lo, hi, self._child(m, pm, to_index(ref[lo:hi], dev),
-                                      to_index(item[lo:hi], dev),
-                                      torch.from_numpy(iss[lo:hi]).to(dev))
-
-    def _supports(self, m, pm, ref, item, iss):
-        """Windowed supports of the candidates (all-reduced on a mesh) with
-        the host copy started; returns ``(supports, event_or_None)``."""
-        with obs.span("cspade.supports", candidates=len(ref)) as sp:
-            before = self.stats["kernel_launches"]
-            (host,), ev = to_host([all_reduce_sum(torch.cat([
-                MS.support(c, self.maxwindow)
-                for _, _, c in self._children(m, pm, ref, item, iss)]),
-                self.mesh)])
-            sp.set(launches=self.stats["kernel_launches"] - before)
-        return host, ev
-
-    def _materialize(self, m, pm, ref, item, iss, out_slot) -> None:
-        for lo, hi, c in self._children(m, pm, ref, item, iss):
-            self.pool.index_copy_(0, to_index(out_slot[lo:hi], self.device), c)
+            c = self._child(m, pm, to_index(ref[lo:hi], dev),
+                            to_index(item[lo:hi], dev),
+                            torch.from_numpy(iss[lo:hi]).to(dev))
+            self.pool.index_copy_(0, to_index(out_slot[lo:hi], dev), c)
 
     def _recompute(self, items: np.ndarray, iss: np.ndarray,
                    valid: np.ndarray, slots: List[int]) -> None:

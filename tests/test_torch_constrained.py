@@ -9,6 +9,7 @@ planner's constrained branch."""
 
 import dataclasses
 import json
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,8 +30,10 @@ from spark_fsm_tpu_torch.data import synth as TS
 from spark_fsm_tpu_torch.data import vertical as TV
 from spark_fsm_tpu_torch.models import oracle as TO
 from spark_fsm_tpu_torch.models import spade_constrained as TC
+from spark_fsm_tpu_torch.ops import maxstart_masks as MM
 from spark_fsm_tpu_torch.ops import maxstart_np as TMS
 from spark_fsm_tpu_torch.ops import maxstart_torch as MT
+from spark_fsm_tpu_torch.ops import pair_support as PS
 from spark_fsm_tpu_torch.service import planner as TP
 from spark_fsm_tpu_torch.utils.canonical import diff_patterns, patterns_text
 from tests.test_constrained import CONFIGS
@@ -127,6 +130,48 @@ def test_copied_numpy_ops_equal_reference():
                                       JMS.support(m, win))
     np.testing.assert_array_equal(TMS.root_state(w), JMS.root_state(w))
     np.testing.assert_array_equal(TMS.i_extend(m, w), JMS.i_extend(m, w))
+
+
+@pytest.mark.parametrize("maxwindow", [None, 0, 3, "past"])
+@pytest.mark.parametrize("maxgap", [None, 1, 2, "past"])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16])
+def test_window_masks_through_b1_equal_child_supports(dtype, maxgap,
+                                                      maxwindow):
+    """A candidate's windowed support from its parent's window mask and
+    B1 (both plain) equals ``MS.support`` of the engine's child state,
+    for every (node, item, s/i) candidate, over a ragged sequence axis."""
+    n_words = 3 if dtype == torch.int8 else 5
+    n_pos, nb, S, n_items = 32 * n_words, 3, 37, 6
+    maxgap = n_pos + 4 if maxgap == "past" else maxgap
+    maxwindow = n_pos + 4 if maxwindow == "past" else maxwindow
+    rng = np.random.default_rng(41)
+    # sparse items (a bit in 16) and states that start 0..8 positions back
+    # where a pattern ends (one position in 5)
+    words = _t(np.bitwise_and.reduce(
+        rng.integers(0, 2**32, (4, n_items, S, n_words), dtype=np.uint32)))
+    pos = np.arange(n_pos)
+    starts = np.maximum(pos - rng.integers(0, 9, (nb, S, n_pos)), 0)
+    m = torch.from_numpy(np.where(rng.random((nb, S, n_pos)) < 0.2, starts,
+                                  -1)).to(dtype)
+    pm = MT.prev_max(m, maxgap)
+    ref = np.repeat(np.arange(nb), 2 * n_items)
+    item = np.tile(np.arange(n_items), 2 * nb)
+    iss = np.tile(np.repeat([True, False], n_items), nb)
+    engine = types.SimpleNamespace(_words=words)
+    child = TC.ConstrainedSpadeTorch._child(
+        engine, m, pm, torch.from_numpy(ref), torch.from_numpy(item),
+        torch.from_numpy(iss))
+    want = MT.support(child, maxwindow)
+    assert want.max() > 0 and want.min() < S   # the cases are not trivial
+    masks = MM.window_masks_plain(m, pm, maxwindow, n_words)
+    assert masks.shape == (2 * nb, S * n_words)
+    got = PS.batch_supports_plain(
+        masks, words.view(n_items, -1), n_items,
+        torch.from_numpy(2 * ref + np.where(iss, 0, 1)),
+        torch.from_numpy(item), n_words)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    torch.testing.assert_close(MM.window_masks(m, pm, maxwindow, n_words),
+                               masks, rtol=0, atol=0)
 
 
 def test_state_dtype_and_gazelle_like_equal_reference():

@@ -13,7 +13,9 @@ CPU oracles, with the kernels' launches counted.  One queue wave, one
 dense level and TSR's resident waves (wide and narrow) run under
 ``torch.cuda.set_sync_debug_mode("error")``: their bodies never wait on the
 host.  TSR's resident-frontier route launches B2 once a wave and equals
-the CPU mine; the constrained SPADE engine on the card equals its CPU run.
+the CPU mine; the constrained SPADE engine on the card equals its CPU run,
+and launches its window-mask kernel (held against its plain version) and
+B1 once each a node batch.
 The incremental window miner launches B1 once a swept level and equals
 the same stream on the CPU, the oracle and the re-mine miner after every
 push; its sweep's dispatch runs under sync-debug "error" too.  The rule
@@ -50,6 +52,8 @@ from spark_fsm_tpu_torch.models.spam_bitmap import mine_spam_torch
 from spark_fsm_tpu_torch.models.tsr import (
     TsrTorch, mine_tsr_cpu, mine_tsr_torch, resident_counters)
 from spark_fsm_tpu_torch.ops import extend_prune as EP
+from spark_fsm_tpu_torch.ops import maxstart_masks as MM
+from spark_fsm_tpu_torch.ops import maxstart_torch as MT
 from spark_fsm_tpu_torch.ops import pair_support as PS
 from spark_fsm_tpu_torch.ops import ragged_batch as RB
 from spark_fsm_tpu_torch.ops import resident_frontier as RF
@@ -385,6 +389,70 @@ def test_cspade_on_card_equals_cpu(card, kw, minsup_rel, gap, win, cap):
                              pool_bytes=1 << 26, stats_out=want_s)
     assert patterns_text(got) == patterns_text(want), diff_patterns(want, got)
     assert got_s == want_s and got_s["patterns"] > 0
+
+
+def _max_starts(rng, nb, S, n_pos, dtype):
+    """States that start 0..8 positions back where a pattern ends (one
+    position in 4), else -1; int8 values stay at or under 127."""
+    pos = np.arange(n_pos)
+    starts = np.minimum(np.maximum(pos - rng.integers(0, 9, (nb, S, n_pos)),
+                                   0), 127 if dtype == torch.int8 else n_pos)
+    return torch.from_numpy(np.where(rng.random((nb, S, n_pos)) < 0.25,
+                                     starts, -1)).to(dtype)
+
+
+@pytest.mark.parametrize("W,S", [(1, 1), (1, 1001), (3, 517), (9, 59_601)])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16])
+def test_window_mask_kernel_equals_plain(card, dtype, W, S):
+    rng = np.random.default_rng(W * 7 + S)
+    nb = 2 if S > 10_000 else 5
+    m = _max_starts(rng, nb, S, 32 * W, dtype).to(card)
+    pm = MT.prev_max(m, 2)
+    for win in (None, 0, 3, 5, 32 * W + 4):
+        want = MM.window_masks_plain(m, pm, win, W)
+        before = MM.window_masks.launches
+        got = MM.window_masks(m, pm, win, W)
+        torch.cuda.synchronize()
+        assert MM.window_masks.launches == before + 1
+        assert torch.equal(got, want), win
+    # states whose data is not 16-byte aligned are refused, not launched
+    flat = torch.empty(m.numel() + 1, dtype=dtype, device=card)
+    m_off = flat[1:].view(m.shape)
+    assert m_off.data_ptr() % 16 != 0
+    before = MM.window_masks.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        MM.window_masks(m_off, pm, 5, W)
+    assert MM.window_masks.launches == before
+
+
+def test_cspade_supports_launch_masks_and_b1_once_a_batch(card):
+    """Every batch with candidates launches the mask kernel once and B1
+    once, and the ``cspade.supports`` span says so."""
+    from spark_fsm_tpu_torch.utils import obs
+
+    db = synthetic_db(seed=30, n_sequences=3000, n_items=40,
+                      mean_itemsets=5.0, mean_itemset_size=1.3)
+    minsup = abs_minsup(0.03, len(db))
+    was = obs.tracing_enabled()
+    obs.configure_tracing(True, max_spans=1 << 15, max_jobs=8)
+    try:
+        masks0, b1_0 = MM.window_masks.launches, PS.pair_supports.launches
+        stats: dict = {}
+        got = mine_cspade_torch(db, minsup, maxgap=2, maxwindow=5,
+                                device=card, pool_bytes=1 << 26,
+                                stats_out=stats)
+        torch.cuda.synchronize()
+        spans = obs.trace_dump(obs.last_trace_id())["spans"]
+    finally:
+        obs.configure_tracing(was)
+    sup = [s["attrs"] for s in spans if s["site"] == "cspade.supports"]
+    assert len(sup) > 1 and all(a["masks"] == a["b1"] == 1 for a in sup)
+    assert MM.window_masks.launches - masks0 == len(sup)
+    assert PS.pair_supports.launches - b1_0 == len(sup)
+    assert sum(a["launches"] for a in sup) == sum(
+        -(-a["candidates"] // stats["geometry"]["chunk"]) for a in sup)
+    assert patterns_text(got) == patterns_text(mine_cspade_torch(
+        db, minsup, maxgap=2, maxwindow=5, device="cpu", pool_bytes=1 << 26))
 
 
 @pytest.mark.parametrize("P,NI,n_items,S,W", [

@@ -44,7 +44,7 @@ CSPADE_TREE = {
     "cspade.roots": "cspade.mine", "cspade.dispatch": "cspade.mine",
     "cspade.slots": "cspade.dispatch", "cspade.prep": "cspade.dispatch",
     "cspade.candidates": "cspade.dispatch",
-    "cspade.supports": "cspade.dispatch",
+    "cspade.supports": "cspade.dispatch", "b1.launch": "cspade.supports",
     "cspade.resolve": "cspade.mine", "cspade.wait": "cspade.resolve",
     "cspade.prune": "cspade.resolve",
     "cspade.materialize": "cspade.resolve", "mine.sort": "cspade.mine",
@@ -149,16 +149,23 @@ def test_library_mine_span_census(engine):
                 "mine.sort", "vertical.build", "store.build"):
         assert sites[one] == 1, one
     assert stats["recomputed_nodes"] > 0
-    assert _launches(spans) == stats["kernel_launches"]
+    # one B1 launch a batch, with its geometry (cSPADE: over each node's
+    # two window masks)
+    launch = [s["attrs"] for s in spans if s["site"] == "b1.launch"]
+    assert len(launch) == batches
+    assert all(set(a) == {"point", "P", "NI", "n_live", "S", "W"}
+               and a["point"] == "plain" for a in launch)
+    assert [a["P"] for a in launch] == [
+        2 * s["attrs"]["nodes"] for s in spans
+        if s["site"] == f"{engine}.dispatch"]
     if engine == "spade":
-        # one B1 launch a batch, with its geometry
-        launch = [s["attrs"] for s in spans if s["site"] == "b1.launch"]
-        assert len(launch) == batches
-        assert all(set(a) == {"point", "P", "NI", "n_live", "S", "W"}
-                   and a["point"] == "plain" for a in launch)
-        assert [a["P"] for a in launch] == [
-            2 * s["attrs"]["nodes"] for s in spans
-            if s["site"] == "spade.dispatch"]
+        assert _launches(spans) == stats["kernel_launches"]
+    else:
+        # the supports' ``launches`` count the reference's dispatches, and
+        # B1 runs beside them; the kernels' own counters stay at 0 here
+        assert _launches(spans) == stats["kernel_launches"] + batches
+        sup = [s["attrs"] for s in spans if s["site"] == "cspade.supports"]
+        assert all(a["masks"] == a["b1"] == 0 for a in sup)
 
 
 def test_cached_repeat_mine_span_census(classic_cache):
